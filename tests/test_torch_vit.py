@@ -1,0 +1,104 @@
+"""tpuwsi_torch's ViT held against the flax VisionTransformer.
+
+Geometry: 64 px, patch 8 (65 tokens), dim 64, depth 2, 2 heads, fp32. The
+flax model runs its Pallas attention in interpret mode; its parameters reach
+the port through ``params_from_flax``. Tolerance 1e-4 on features and
+logits: fp32 with LayerNorm and GEMM sums in another order.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpuwsi.models import convert as jconvert
+from tpuwsi.models import registry as jregistry
+from tpuwsi.models import vit as jvit
+from tpuwsi_torch.models import registry as tregistry
+from tpuwsi_torch.models import vit as tvit
+from tpuwsi_torch.models.convert import params_from_flax
+
+GEOM = dict(img_size=64, patch_size=8, embed_dim=64, depth=2, num_heads=2)
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _flax(num_classes=0, gelu_approx=False, scan_blocks=False):
+    cfg = jvit.ViTConfig(
+        **GEOM, num_classes=num_classes, dtype=jnp.float32,
+        use_pallas_attention=True, pallas_interpret=True,
+        gelu_approx=gelu_approx, scan_blocks=scan_blocks)
+    model = jvit.VisionTransformer(cfg)
+    x0 = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    variables = jax.device_get(model.init(jax.random.PRNGKey(0), x0))
+    # non-trivial LayerNorm affine and biases (init leaves them 1 and 0)
+    rng = np.random.default_rng(1)
+    variables = jax.tree_util.tree_map(
+        lambda v: v + 0.1 * rng.standard_normal(v.shape).astype(np.float32), variables)
+    return model, variables
+
+
+def _port(variables, num_classes=0, gelu_approx=False):
+    cfg = tvit.ViTConfig(**GEOM, num_classes=num_classes, dtype=torch.float32,
+                         gelu_approx=gelu_approx)
+    model = tvit.VisionTransformer(cfg).eval()
+    model.load_state_dict(params_from_flax(variables))
+    return model
+
+
+@pytest.mark.parametrize(
+    "num_classes,gelu_approx,scan_blocks,img",
+    [
+        (0, False, False, 64),   # features, erf GELU, unrolled tree
+        (2, True, False, 64),    # logits, tanh GELU
+        (2, False, True, 64),    # scanned (stacked-depth) tree
+        (0, False, False, 80),   # built at 64, fed 80: bicubic pos-embed resize
+    ],
+)
+def test_vit_matches_flax(num_classes, gelu_approx, scan_blocks, img):
+    model, variables = _flax(num_classes, gelu_approx, scan_blocks)
+    x = np.random.default_rng(img).standard_normal((3, img, img, 3)).astype(np.float32)
+    ref = jax.jit(model.apply)(variables, jnp.asarray(x))
+    port = _port(variables, num_classes, gelu_approx)
+    with torch.inference_mode():
+        out = port(torch.from_numpy(x))
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("scan_blocks", [False, True])
+def test_params_from_flax_matches_jax_converter(scan_blocks):
+    _, variables = _flax(num_classes=2, scan_blocks=scan_blocks)
+    ref = jconvert.flax_vit_to_torch(variables)
+    sd = params_from_flax(variables)
+    assert sorted(sd) == sorted(ref)
+    for k, v in sd.items():
+        np.testing.assert_array_equal(v.numpy(), ref[k], err_msg=k)
+
+
+@pytest.mark.parametrize("grid", [10, 5])  # up- and downsampling an 8x8 grid
+def test_interpolate_pos_encoding_matches_jax_resize(grid):
+    pos = np.random.default_rng(grid).standard_normal((1, 65, 64)).astype(np.float32)
+    ref = jvit.interpolate_pos_encoding(jnp.asarray(pos), grid * grid, grid, grid)
+    out = tvit.interpolate_pos_encoding(torch.from_numpy(pos), grid * grid, grid, grid)
+    assert out.shape == (1, 1 + grid * grid, 64)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["vit_tiny_patch16_224", "vit_small_patch8_224_dino",
+                                  "vit_base_patch16_384", "vit_large_patch14_224"])
+def test_registry_geometry_matches_jax(name):
+    j, t = jregistry.parse_model_name(name), tregistry.parse_model_name(name)
+    for field in ("img_size", "patch_size", "embed_dim", "depth", "num_heads",
+                  "mlp_ratio", "qkv_bias", "num_classes", "gelu_approx"):
+        assert getattr(t, field) == getattr(j, field), field
+
+
+@pytest.mark.parametrize("name,err", [("resnet50", NotImplementedError),
+                                      ("efficientnet_b0", NotImplementedError),
+                                      ("vit_huge_patch14_224", ValueError)])
+def test_create_model_rejects_unported_and_unknown(name, err):
+    with pytest.raises(err):
+        tregistry.create_model(name)

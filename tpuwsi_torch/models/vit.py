@@ -1,0 +1,232 @@
+"""Vision Transformer for inference, held against ``tpuwsi/models/vit.py``.
+
+Parameters keep timm/DINO names and torch layouts (Linear ``(out, in)``,
+``patch_embed.proj.weight`` as a conv ``(D, C, p, p)``) and stay fp32; each
+GEMM casts them to ``cfg.dtype`` per call. The precision policy is the JAX
+package's:
+
+- patch, qkv, proj, fc1 and fc2 GEMMs run in ``cfg.dtype`` (bf16);
+- the residual stream stays in ``cfg.dtype``;
+- LayerNorm computes in fp32 (epsilon 1e-6, flax's) and casts its output to
+  ``cfg.ln_dtype``;
+- the head is an fp32 Linear on the fp32 cls token.
+
+Input is NHWC ``(B, H, W, 3)`` as in JAX. The JAX package packs short
+sequences several to a row block on the TPU; packing is exact, so the port
+does not pack.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tpuwsi_torch.ops.attention import _mha_reference, mha_from_qkv
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    img_size: int = 224
+    patch_size: int = 16
+    in_chans: int = 3
+    embed_dim: int = 384
+    depth: int = 12
+    num_heads: int = 6
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    num_classes: int = 0  # 0 → no head (feature extractor)
+    dtype: torch.dtype = torch.bfloat16
+    ln_dtype: torch.dtype = torch.float32
+    gelu_approx: bool = False  # tanh GELU; erf when False
+    # mha_from_qkv (the Hopper kernel on a CUDA tensor) when True, the
+    # plain version everywhere when False
+    use_kernel_attention: bool = True
+
+    @property
+    def num_patches_side(self) -> int:
+        return self.img_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.num_patches_side ** 2
+
+
+def _linear(x, layer: nn.Linear, dtype):
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(dtype=out_dtype)``: fp32 statistics, epsilon 1e-6."""
+
+    def __init__(self, dim: int, out_dtype: torch.dtype):
+        super().__init__(dim, eps=1e-6)
+        self.out_dtype = out_dtype
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y.to(self.out_dtype)
+
+
+class PatchEmbed(nn.Module):
+    """Space-to-depth + one GEMM; rows are flattened in (p, p, c) order."""
+
+    def __init__(self, patch_size: int, in_chans: int, embed_dim: int, dtype):
+        super().__init__()
+        self.patch_size = patch_size
+        self.dtype = dtype
+        # holds the conv-layout parameters; forward runs them as a GEMM
+        self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, x):  # (B, H, W, C)
+        b, h, w, c = x.shape
+        p = self.patch_size
+        if h % p or w % p:
+            raise ValueError(f"image {h}x{w} is not a multiple of patch {p}")
+        gh, gw = h // p, w // p
+        x = x.to(self.dtype).reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(b, gh * gw, p * p * c)
+        weight = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.out_channels, -1)
+        y = F.linear(x, weight.to(self.dtype), self.proj.bias.to(self.dtype))
+        return y, (gh, gw)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ViTConfig):
+        super().__init__()
+        d = cfg.embed_dim
+        self.num_heads = cfg.num_heads
+        self.dtype = cfg.dtype
+        self.use_kernel = cfg.use_kernel_attention
+        self.qkv = nn.Linear(d, 3 * d, bias=cfg.qkv_bias)
+        self.proj = nn.Linear(d, d)
+
+    def forward(self, x):
+        qkv = _linear(x, self.qkv, self.dtype)
+        if self.use_kernel:
+            out = mha_from_qkv(qkv, self.num_heads)
+        else:
+            hd = qkv.shape[-1] // 3 // self.num_heads
+            out = _mha_reference(qkv, self.num_heads, hd ** -0.5)
+        return _linear(out, self.proj, self.dtype)
+
+
+class Mlp(nn.Module):
+    def __init__(self, cfg: ViTConfig):
+        super().__init__()
+        d = cfg.embed_dim
+        hidden = int(d * cfg.mlp_ratio)
+        self.dtype = cfg.dtype
+        self.approximate = "tanh" if cfg.gelu_approx else "none"
+        self.fc1 = nn.Linear(d, hidden)
+        self.fc2 = nn.Linear(hidden, d)
+
+    def forward(self, x):
+        x = F.gelu(_linear(x, self.fc1, self.dtype), approximate=self.approximate)
+        return _linear(x, self.fc2, self.dtype)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ViTConfig):
+        super().__init__()
+        self.dtype = cfg.dtype
+        self.norm1 = LayerNorm(cfg.embed_dim, cfg.ln_dtype)
+        self.attn = Attention(cfg)
+        self.norm2 = LayerNorm(cfg.embed_dim, cfg.ln_dtype)
+        self.mlp = Mlp(cfg)
+
+    def forward(self, x):
+        x = x + self.attn(self.norm1(x).to(self.dtype))
+        return x + self.mlp(self.norm2(x).to(self.dtype))
+
+
+def _keys_cubic(x):
+    """Keys cubic kernel with a = -0.5 (jax.image.resize's "bicubic")."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
+    """(in_size, out_size) resampling matrix of ``jax.image.resize(...,
+    "bicubic")`` along one axis, antialiased when downscaling."""
+    f32 = torch.float32
+    inv_scale = 1.0 / torch.tensor(out_size / in_size, dtype=f32)
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample = (torch.arange(out_size, dtype=f32) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(in_size, dtype=f32)[:, None]).abs() / kernel_scale
+    w = _keys_cubic(x)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
+
+
+def interpolate_pos_encoding(pos_embed: torch.Tensor, npatch: int, gh: int, gw: int):
+    """Bicubic-resample the (1, 1+N, D) position table to a gh x gw grid,
+    exactly as ``jax.image.resize(..., method="bicubic")`` does."""
+    n = pos_embed.shape[1] - 1
+    if npatch == n:
+        return pos_embed
+    side = int(math.sqrt(n))
+    grid = pos_embed[0, 1:].float().reshape(side, side, -1)
+    wh = _resize_weights(side, gh, pos_embed.device)
+    ww = _resize_weights(side, gw, pos_embed.device)
+    patch = torch.einsum("ih,jw,ijd->hwd", wh, ww, grid).reshape(1, gh * gw, -1)
+    return torch.cat([pos_embed[:, :1], patch.to(pos_embed.dtype)], dim=1)
+
+
+class VisionTransformer(nn.Module):
+    """DINO/timm-geometry ViT with cls token and learned position embedding."""
+
+    def __init__(self, config: ViTConfig):
+        super().__init__()
+        cfg = self.config = config
+        d = cfg.embed_dim
+        self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, d, cfg.dtype)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
+        self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, d))
+        nn.init.trunc_normal_(self.cls_token, std=0.02)
+        nn.init.trunc_normal_(self.pos_embed, std=0.02)
+        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        self.norm = LayerNorm(d, cfg.ln_dtype)
+        self.head = nn.Linear(d, cfg.num_classes) if cfg.num_classes > 0 else None
+
+    def forward_features(self, x):
+        """(B, H, W, 3) normalised images → fp32 cls features (B, D)."""
+        cfg = self.config
+        x, (gh, gw) = self.patch_embed(x)
+        cls = self.cls_token.expand(x.shape[0], -1, -1).to(cfg.dtype)
+        x = torch.cat([cls, x], dim=1)
+        pos = interpolate_pos_encoding(self.pos_embed, gh * gw, gh, gw)
+        x = x + pos.to(cfg.dtype)
+        for blk in self.blocks:
+            x = blk(x)
+        return self.norm(x)[:, 0].float()
+
+    def forward(self, x):
+        """Logits (B, num_classes) fp32, or the cls features when there is no head."""
+        feats = self.forward_features(x)
+        return feats if self.head is None else self.head(feats)
+
+
+def vit_tiny(patch_size: int = 16, **kw) -> ViTConfig:
+    return ViTConfig(patch_size=patch_size, embed_dim=192, depth=12, num_heads=3, **kw)
+
+
+def vit_small(patch_size: int = 16, **kw) -> ViTConfig:
+    return ViTConfig(patch_size=patch_size, embed_dim=384, depth=12, num_heads=6, **kw)
+
+
+def vit_base(patch_size: int = 16, **kw) -> ViTConfig:
+    return ViTConfig(patch_size=patch_size, embed_dim=768, depth=12, num_heads=12, **kw)
+
+
+def vit_large(patch_size: int = 16, **kw) -> ViTConfig:
+    return ViTConfig(patch_size=patch_size, embed_dim=1024, depth=24, num_heads=16, **kw)

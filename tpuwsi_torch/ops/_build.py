@@ -1,0 +1,104 @@
+"""Build the port's CUDA kernels with nvcc on first use and load them with ctypes.
+
+Every ``tpuwsi_torch/ops/csrc/*.cu`` source is compiled for Hopper
+(``sm_90a``) into one shared library with a plain C interface, so no
+PyTorch header is compiled. The library goes to ``build/tpuwsi_torch/`` at
+the repository root, keyed by a hash of the sources and flags: a changed
+source builds anew, an unchanged one loads the library already there.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuwsi_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+    # per-kernel registers, shared memory and spills into the build log
+    "-Xptxas", "-v",
+)
+
+_lib = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    """nvcc of $CUDA_HOME or $CUDA_PATH, else on $PATH, else the toolkit's
+    default install prefix."""
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            return os.path.join(os.environ[var], "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libtpuwsi_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the library for them exists; return its path.
+
+    Raises RuntimeError with nvcc's output when the compiler fails. The
+    compiler's report (``-Xptxas -v``) is kept beside the library as
+    ``<library>.log``.
+    """
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
+        )
+    out.with_suffix(".log").write_text(proc.stderr + proc.stdout)
+    os.replace(tmp, out)  # atomic: a process loading concurrently sees a whole file
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, load the library once, and declare its C functions."""
+    global _lib
+    if _lib is None:
+        path = build()
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise RuntimeError(f"cannot load {path}: {e}") from e
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.tpuwsi_mha_qkv_fwd.argtypes = [
+            ptr, ptr, i32, i32, i32, ctypes.c_float, i32, ptr]
+        lib.tpuwsi_mha_qkv_fwd.restype = i32
+        lib.tpuwsi_cuda_error_string.argtypes = [i32]
+        lib.tpuwsi_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        msg = lib.tpuwsi_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")

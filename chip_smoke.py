@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,13 +7,26 @@ Phases, each printing its own lines:
   1. the card's name and power limit (nvidia-smi);
   2. build the Hopper kernels from tpuwsi_torch/ops/csrc with nvcc;
   3. each kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it, plus median times (CUDA events);
-  4. the slice: full-width ViT-S/16 at 256 px (seeded random weights in the
-     JAX package's layout, through params_from_flax) runs 8 slides x 500
-     uint8 tiles through extract_features; the kernel's launch count, the
-     outputs and the files are checked, and the same model with plain
-     attention must agree.
-The line before the last is a JSON summary of the kernels, the last line
+     shapes the two paths give it, plus median times (CUDA events) beside
+     the plain version's and one PyTorch library call's
+     (scaled_dot_product_attention, forward or its autograd backward), which
+     the port itself never calls, and the least time the card could take;
+  4. the serving slice: full-width ViT-S/16 at 256 px (seeded random weights
+     in the JAX package's layout, through params_from_flax) runs 4 slides x
+     500 uint8 tiles through extract_features; the kernel's launch count,
+     the outputs and the files are checked, and the same model with plain
+     attention must agree;
+  5. the training slice: the DINO SSL step that ssl_step_bundle assembles
+     from the benchmark's arguments (ViT-S/16, depth 12, 65,536-wide head,
+     96 uint8 tiles of 256 px per step, tuned configuration) takes 2 + 6
+     steps; losses, the teacher's EMA, the centre, the gradient norm and the
+     per-kernel launch counts are checked, the same seeds with plain
+     attention must give the same losses, and so must a depth-4 run with
+     attn_save_probs off, which takes the recomputing backward kernel (timed
+     at full depth too); two more steps run under torch.profiler for a
+     breakdown by kernel kind.
+The line before the last but one is a JSON summary of the kernels, then the
+card's name and power limit once more, and the last line
 {"ok": true, "device": {...}}. Any failure raises: the script then exits
 non-zero without that line. Without a CUDA device it fails at once.
 Outputs go to build/chip_smoke/.
@@ -32,7 +45,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpuwsi_torch.cli.train import extract_features
+from tpuwsi_torch.cli.args import parse_args
+from tpuwsi_torch.cli.train import extract_features, ssl_step_bundle
 from tpuwsi_torch.core.device import require_cuda
 from tpuwsi_torch.infer.slide_walker import InferChunk
 from tpuwsi_torch.models.convert import params_from_flax
@@ -42,6 +56,9 @@ from tpuwsi_torch.ops import _build, attention
 SEED = 0
 OUT = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
+# the card's data-sheet peaks (NVIDIA H100 SXM): device memory and dense bf16
+PEAK_BYTES_PER_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
+
 # (B, N, D, H, block_len): bf16 qkv ~ N(0, 1)
 K2_SHAPES = [
     (500, 257, 384, 6, 0),   # serving: ViT-S/16 at 256 px, -tpi 500
@@ -49,12 +66,27 @@ K2_SHAPES = [
     (64, 257, 768, 12, 0),   # ViT-B/16 at 256 px
     (64, 111, 384, 6, 37),   # packed: three 37-token sequences per row
 ]
-# bf16 rounding of q*scale and of p, fp32 accumulation
-K2_MAX_ABS, K2_MEAN_ABS = 2e-2, 2e-3
+# the DINO step at 96 tiles: 2 global views of 197 tokens, 6 local of 37
+TRAIN_SHAPES = [
+    (192, 197, 384, 6, 0),   # student and teacher, global views (timed)
+    (576, 37, 384, 6, 0),    # student, local views as the step launches them
+    (192, 111, 384, 6, 37),  # the same sequences packed three to a row
+    (32, 197, 768, 12, 0),   # ViT-B/16
+]
+# bf16 rounding of q*scale, of p and of dS, fp32 accumulation
+K_MAX_ABS, K_MEAN_ABS = 2e-2, 2e-3
 
-MODEL, TILE, TILES_PER_ITER, N_SLIDES = "vit_small_patch16_224", 256, 500, 8
-VALID = [500, 500, 500, 437, 500, 500, 500, 311]  # two slides end in a padded chunk
+MODEL, TILE, TILES_PER_ITER, N_SLIDES = "vit_small_patch16_224", 256, 500, 4
+VALID = [500, 500, 437, 311]  # two slides end in a padded chunk
 FEAT_COSINE_MIN, PROBS_MAX_DIFF = 0.999, 1e-2
+
+TRAIN_ARGV = ["--ssl", "--model", "vit_small_patch16_224_dino", "--epochs", "300",
+              "--warmup-epochs", "10", "--opt", "adamw", "--lr-base", "0.0005",
+              "--weight-decay", "0.04"]
+TRAIN_BATCH, STEPS_PER_EPOCH, WARMUP_STEPS, TIMED_STEPS = 96, 1000, 2, 6
+# kernel path against plain-attention path, same seeds: the two differ in the
+# summation order inside attention only, then in what bf16 makes of that
+LOSS_MAX_DIFF = 2e-2
 
 
 def cuda_median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -97,34 +129,155 @@ def phase_build() -> None:
             print(f"[build] ptxas: {line.strip()}")
 
 
+def heads_view(qkv, h):
+    """Fused qkv (B, N, 3D) → strided q, k, v views (B, H, N, hd), no copy."""
+    b, n, d3 = qkv.shape
+    return qkv.view(b, n, 3, h, d3 // 3 // h).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def sdpa_forward(qkv, h):
+    """The library yardstick of the forward kernels; used nowhere in the port."""
+    q, k, v = heads_view(qkv, h)
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v)
+
+
+def sdpa_backward_fn(qkv, g, h):
+    """→ a function that runs the autograd backward of the library forward."""
+    q, k, v = (x.detach().requires_grad_() for x in heads_view(qkv, h))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    go = g.view(g.shape[0], g.shape[1], h, -1).permute(0, 2, 1, 3)
+    return lambda: torch.autograd.grad(out, (q, k, v), go, retain_graph=True)
+
+
+def attention_bound(kind: str, b, n, d, h) -> dict:
+    """The least time the card could take: every input read once and every
+    output written once at the memory peak, or the products that are needed
+    at the dense bf16 peak, whichever is longer."""
+    hd = d // h
+    qkv, o = b * n * 3 * d * 2, b * n * d * 2
+    p = b * h * n * attention.probs_stride(n) * 2
+    product = b * h * 2 * n * n * hd
+    nbytes, flops = {
+        "fwd": (qkv + o, 2 * product),
+        "fwd_saved": (qkv + o + p, 2 * product),
+        "bwd_saved": (qkv + o + p + qkv, 4 * product),
+        "bwd": (qkv + o + qkv, 5 * product),
+    }[kind]
+    t_bytes, t_flops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations"}
+
+
+def check_close(name, shape, got, want):
+    diff = (got.float() - want.float()).abs()
+    mx, mean = diff.max().item(), diff.mean().item()
+    finite = bool(torch.isfinite(got.float()).all())
+    print(f"[{name}] B={shape[0]} N={shape[1]} D={shape[2]} H={shape[3]} block_len={shape[4]}: "
+          f"max_abs={mx:.3e} mean_abs={mean:.3e} (bounds {K_MAX_ABS}, {K_MEAN_ABS})")
+    if not finite or mx > K_MAX_ABS or mean > K_MEAN_ABS:
+        raise RuntimeError(f"{name} disagrees with its plain version at {shape}")
+    return mx
+
+
+def timed_ab(kernel_fn, library_fn, plain_fn) -> dict:
+    """Medians in the order kernel, library, library, kernel, then plain."""
+    k1 = cuda_median_ms(kernel_fn)
+    l1 = cuda_median_ms(library_fn)
+    l2 = cuda_median_ms(library_fn)
+    k2 = cuda_median_ms(kernel_fn)
+    return {"ms": min(k1, k2), "ms_runs": [k1, k2], "library_ms": min(l1, l2),
+            "library_ms_runs": [l1, l2], "plain_ms": cuda_median_ms(plain_fn, reps=10)}
+
+
 def phase_k2(smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_err, timing = 0.0, {}
-    for b, n, d, h, block_len in K2_SHAPES:
+    for shape in K2_SHAPES:
+        b, n, d, h, block_len = shape
+        scale = (d // h) ** -0.5
         qkv = torch.randn((b, n, 3 * d), generator=gen, device="cuda").to(torch.bfloat16)
         out = attention.mha_from_qkv(qkv, h, block_len=block_len)
-        ref = attention._mha_reference(qkv, h, (d // h) ** -0.5, block_len)
+        ref = attention._mha_reference(qkv, h, scale, block_len)
         torch.cuda.synchronize()
-        diff = (out.float() - ref.float()).abs()
-        mx, mean = diff.max().item(), diff.mean().item()
-        finite = bool(torch.isfinite(out.float()).all())
-        print(f"[k2] B={b} N={n} D={d} H={h} block_len={block_len}: "
-              f"max_abs={mx:.3e} mean_abs={mean:.3e} (bounds {K2_MAX_ABS}, {K2_MEAN_ABS})")
-        if not finite or mx > K2_MAX_ABS or mean > K2_MEAN_ABS:
-            raise RuntimeError(f"mha_qkv_fwd disagrees with its plain version at {(b, n, d, h)}")
-        max_err = max(max_err, mx)
+        max_err = max(max_err, check_close("mha_qkv_fwd", shape, out, ref))
         if not timing:  # the serving shape comes first
-            timing["plain_ms"] = cuda_median_ms(
-                lambda: attention._mha_reference(qkv, h, (d // h) ** -0.5, block_len))
-            timing["ms"] = cuda_median_ms(
-                lambda: attention.mha_from_qkv(qkv, h, block_len=block_len))
-            timing["plain_ms_2"] = cuda_median_ms(
-                lambda: attention._mha_reference(qkv, h, (d // h) ** -0.5, block_len))
-            print(f"[k2] serving shape median of 20: kernel {timing['ms']:.4f} ms, "
-                  f"plain {timing['plain_ms']:.4f} / {timing['plain_ms_2']:.4f} ms "
-                  f"(plain, kernel, plain) on {smi}")
-        del qkv, out, ref, diff
-    return {"max_abs_err": max_err, "ms": timing["ms"], "plain_ms": timing["plain_ms"]}
+            timing = timed_ab(
+                lambda: attention.mha_from_qkv(qkv, h, block_len=block_len),
+                lambda: sdpa_forward(qkv, h),
+                lambda: attention._mha_reference(qkv, h, scale, block_len))
+            timing.update(attention_bound("fwd", b, n, d, h))
+            print(f"[mha_qkv_fwd] serving shape, medians of 20 in the order kernel, library, "
+                  f"library, kernel: kernel {timing['ms_runs']} ms, library (SDPA) "
+                  f"{timing['library_ms_runs']} ms, plain {timing['plain_ms']:.4f} ms, bound "
+                  f"{timing['bound_ms']:.4f} ms by {timing['bound_by']}; on {smi}")
+        del qkv, out, ref
+    return {"max_abs_err": max_err, **timing}
+
+
+def phase_train_kernels(smi: str) -> dict:
+    """K1a, K1b and K3 against their plain versions at the DINO step's shapes;
+    the backward from saved probabilities is fed the p that the saving forward
+    produced. Times at the student-global shape, and of the local views packed
+    and as they are."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    names = ("mha_qkv_fwd_saved", "mha_qkv_bwd_saved", "mha_qkv_bwd")
+    res = {name: {"max_abs_err": 0.0} for name in names}
+    local_ms = {}
+    for shape in TRAIN_SHAPES:
+        b, n, d, h, block_len = shape
+        scale = (d // h) ** -0.5
+        qkv = torch.randn((b, n, 3 * d), generator=gen, device="cuda").to(torch.bfloat16)
+        g = torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+        out, p = attention._launch_fwd_saved(qkv, h, scale, block_len)
+        out_ref, p_ref = attention._mha_saved_reference(qkv, h, scale, block_len)
+        fns = {
+            "mha_qkv_fwd_saved": (
+                lambda: attention._launch_fwd_saved(qkv, h, scale, block_len),
+                lambda: sdpa_forward(qkv, h),
+                lambda: attention._mha_saved_reference(qkv, h, scale, block_len)),
+            "mha_qkv_bwd_saved": (
+                lambda: attention._launch_bwd_saved(qkv, g, p, h, scale),
+                sdpa_backward_fn(qkv, g, h),
+                lambda: attention._mha_bwd_saved_reference(qkv, g, p, h, scale)),
+            "mha_qkv_bwd": (
+                lambda: attention._launch_bwd(qkv, g, h, scale, block_len),
+                sdpa_backward_fn(qkv, g, h),
+                lambda: attention._mha_bwd_reference(qkv, g, h, scale, block_len)),
+        }
+        torch.cuda.synchronize()
+        errs = {
+            "mha_qkv_fwd_saved": max(check_close("mha_qkv_fwd_saved out", shape, out, out_ref),
+                                     check_close("mha_qkv_fwd_saved p", shape, p, p_ref)),
+            "mha_qkv_bwd_saved": check_close("mha_qkv_bwd_saved", shape,
+                                             fns["mha_qkv_bwd_saved"][0](),
+                                             fns["mha_qkv_bwd_saved"][2]()),
+            "mha_qkv_bwd": check_close("mha_qkv_bwd", shape, fns["mha_qkv_bwd"][0](),
+                                       fns["mha_qkv_bwd"][2]()),
+        }
+        if (p[..., n:] != 0).any():
+            raise RuntimeError("mha_qkv_fwd_saved left pad columns of p non-zero")
+        kinds = {"mha_qkv_fwd_saved": "fwd_saved", "mha_qkv_bwd_saved": "bwd_saved",
+                 "mha_qkv_bwd": "bwd"}
+        for name in names:
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], errs[name])
+            if shape == TRAIN_SHAPES[0]:
+                res[name].update(timed_ab(*fns[name]))
+                res[name].update(attention_bound(kinds[name], b, n, d, h))
+                r = res[name]
+                print(f"[{name}] student-global shape, medians of 20 in the order kernel, "
+                      f"library, library, kernel: kernel {r['ms_runs']} ms, library (SDPA"
+                      f"{'' if name == 'mha_qkv_fwd_saved' else ' backward'}) "
+                      f"{r['library_ms_runs']} ms, plain {r['plain_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms by {r['bound_by']}; on {smi}")
+            elif n in (37, 111):
+                local_ms.setdefault(name, []).append(cuda_median_ms(fns[name][0]))
+        del qkv, g, out, p, out_ref, p_ref, fns
+    for name in names:
+        as_is, packed = local_ms[name]
+        print(f"[{name}] 576 local sequences of 37 tokens: as they are {as_is:.4f} ms, packed "
+              f"three to a row (block_len 37) {packed:.4f} ms; the step launches them as "
+              f"they are; on {smi}")
+    return res
 
 
 def flax_vit_tree(cfg, seed: int) -> dict:
@@ -185,7 +338,7 @@ def timed_extract(chunks, model, params, out_dir, dev):
     return agg, time.perf_counter() - t0
 
 
-def phase_slice(smi: str) -> int:
+def phase_slice(smi: str) -> dict:
     dev = torch.device("cuda")
     model = create_model(MODEL, num_classes=2, img_size=TILE)
     plain = create_model(MODEL, num_classes=2, img_size=TILE, use_kernel_attention=False)
@@ -201,13 +354,13 @@ def phase_slice(smi: str) -> int:
         extract_features(chunks[:1], m, params, str(OUT / "warmup"), dev)
     torch.cuda.reset_peak_memory_stats()
 
-    attention.LAUNCHES = 0
+    attention.reset_launches()
     agg, t_kernel = timed_extract(chunks, model, params, OUT / "kernel", dev)
-    launches = attention.LAUNCHES
+    launches = dict(attention.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    expected = cfg.depth * len(chunks)
-    print(f"[slice] mha_qkv_fwd launches {launches} (expected depth {cfg.depth} x "
-          f"{len(chunks)} forwards = {expected})")
+    expected = {**dict.fromkeys(launches, 0), "mha_qkv_fwd": cfg.depth * len(chunks)}
+    print(f"[slice] launches {launches} (expected mha_qkv_fwd depth {cfg.depth} x "
+          f"{len(chunks)} forwards, no other kernel)")
     if launches != expected:
         raise RuntimeError("the serving path did not run the attention kernel once per layer")
 
@@ -246,18 +399,218 @@ def phase_slice(smi: str) -> int:
     return launches
 
 
+def train_bundle(vit_overrides=None):
+    args = parse_args(TRAIN_ARGV)
+    return ssl_step_bundle(args, STEPS_PER_EPOCH, TRAIN_BATCH, torch.device("cuda"),
+                           vit_overrides=vit_overrides)
+
+
+def run_steps(bundle, batch, n_steps: int):
+    """→ per step: loss, gradient norm, launches, milliseconds (CUDA events)."""
+    rows = []
+    for _ in range(n_steps):
+        attention.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, metrics = bundle.raw_step(bundle.state, batch, bundle.generator)
+        end.record()
+        end.synchronize()
+        rows.append({"loss": metrics["loss"].item(), "grad_norm": metrics["grad_norm"].item(),
+                     "launches": dict(attention.LAUNCHES), "ms": start.elapsed_time(end)})
+    return rows
+
+
+def check_losses(tag, rows, plain_rows):
+    for i, (a, b) in enumerate(zip(rows, plain_rows)):
+        print(f"[train] {tag} step {i}: loss kernel path {a['loss']:.6f}, plain attention "
+              f"{b['loss']:.6f} (|diff| <= {LOSS_MAX_DIFF})")
+        if not abs(a["loss"] - b["loss"]) <= LOSS_MAX_DIFF:
+            raise RuntimeError(f"{tag}: kernel and plain attention paths disagree at step {i}")
+
+
+# kernel-name fragments → kind, first match wins
+PROFILE_KINDS = [
+    ("attention kernels (hand-written)", ("mha_qkv",)),
+    ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "cublas", "gemv")),
+    ("LayerNorm, forward and backward", ("layer_norm", "LayerNorm", "GammaBeta")),
+    ("GELU, forward and backward", ("Gelu", "gelu")),
+    ("softmax and log-softmax", ("softmax", "Softmax")),
+    ("foreach kernels (AdamW, EMA, clip)", ("multi_tensor",)),
+    ("copies and casts", ("copy", "Copy", "Memcpy", "memcpy", "Memset")),
+    ("reductions (sums, means, norms)", ("reduce", "Reduce")),
+    ("random numbers", ("distribution", "philox")),
+    ("gather, index, cat", ("gather", "index", "Cat", "cat_")),
+]
+
+
+def profile_step(bundle, batch, step_ms: float, smi: str) -> None:
+    """Two steps under torch.profiler, the second reported (the first pays
+    for the profiler's start): device time by kernel kind, from the kernels'
+    own trace events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            bundle.raw_step(bundle.state, batch, bundle.generator)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not kernels:
+        print("[profile] torch.profiler recorded no device time")
+        return
+    totals, counts = {}, {}
+    for evt in kernels:
+        kind = next((k for k, pats in PROFILE_KINDS if any(p in evt.key for p in pats)),
+                    "other elementwise (mul, add, where, clamp, ...)")
+        totals[kind] = totals.get(kind, 0.0) + evt.self_device_time_total / 1e3
+        counts[kind] = counts.get(kind, 0) + evt.count
+    device_ms = sum(totals.values())
+    print(f"[profile] one step under torch.profiler ({wall_ms:.1f} ms of wall with the "
+          f"profiler on): kernel time {device_ms:.1f} ms in {sum(counts.values())} kernels and "
+          f"copies = {100 * min(device_ms / step_ms, 1):.0f}% of the {step_ms:.1f} ms a step "
+          f"takes without the profiler, the rest being device idle time; on {smi}")
+    for kind, ms in sorted(totals.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {kind}: {ms:.2f} ms ({100 * ms / device_ms:.1f}%), "
+              f"{counts[kind]} launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[profile]   top: {e.self_device_time_total / 1e3:.2f} ms x{e.count} {e.key[:100]}")
+
+
+def phase_train(smi: str) -> dict:
+    """The DINO step on the tuned path, against plain attention, and on the
+    recomputing-backward path; → launches per kernel over the kernel-path runs."""
+    rng = np.random.default_rng(SEED)
+    batch = {"images": torch.from_numpy(
+        rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3), dtype=np.uint8)).cuda()}
+    total = dict.fromkeys(attention.LAUNCHES, 0)
+
+    def count(rows):
+        for r in rows:
+            for name, n in r["launches"].items():
+                total[name] += n
+
+    # -- tuned path: saved probabilities --
+    bundle = train_bundle()
+    cfg = bundle.model.backbone.config
+    depth = cfg.depth
+    n_views = bundle.dcfg.n_global + bundle.dcfg.n_local
+    print(f"[train] {TRAIN_ARGV[2]} depth {depth} dim {cfg.embed_dim} head "
+          f"{bundle.dcfg.out_dim} {cfg.dtype} ln {cfg.ln_dtype} drop_path {cfg.drop_path_rate} "
+          f"save_probs {cfg.attn_save_probs}; batch {TRAIN_BATCH} tiles of {TILE} px = "
+          f"{TRAIN_BATCH * n_views} views per step; peak lr "
+          f"{bundle.ocfg.resolved_lr(TRAIN_BATCH):.3e}")
+    name = "backbone.blocks.0.attn.qkv.weight"
+    teacher_before = bundle.state.teacher.state_dict()[name].clone()
+    torch.cuda.reset_peak_memory_stats()
+    rows = run_steps(bundle, batch, 1)
+    student, teacher = bundle.model.state_dict()[name], bundle.state.teacher.state_dict()[name]
+    momentum = bundle.dcfg.ema_base  # the cosine schedule's value at step 0
+    want = momentum * teacher_before + (1.0 - momentum) * student
+    ema_err = (teacher - want).abs().max().item()
+    moved = (teacher - teacher_before).abs().max().item()
+    apart = (teacher - student).abs().max().item()
+    center = bundle.state.center.abs().max().item()
+    print(f"[train] after step 0: teacher moved {moved:.3e}, differs from student by "
+          f"{apart:.3e}, from the EMA of the two by {ema_err:.3e} (<= 1e-6); centre max-abs "
+          f"{center:.3e}")
+    if not (moved > 0 and apart > 0 and ema_err <= 1e-6 and center > 0):
+        raise RuntimeError("teacher EMA or centre update is wrong")
+    rows += run_steps(bundle, batch, WARMUP_STEPS - 1 + TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    count(rows)
+    want_launches = {"mha_qkv_fwd": depth, "mha_qkv_fwd_saved": 2 * depth,
+                     "mha_qkv_bwd_saved": 2 * depth, "mha_qkv_bwd": 0}
+    for i, r in enumerate(rows):
+        print(f"[train] step {i}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.4f} "
+              f"{r['ms']:.2f} ms launches {r['launches']}")
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            raise RuntimeError(f"step {i}: loss or gradient norm is not finite")
+        if r["launches"] != want_launches:
+            raise RuntimeError(f"step {i}: launches {r['launches']}, expected {want_launches}")
+    if len({r["loss"] for r in rows}) < 2:
+        raise RuntimeError("the loss is constant")
+    ms = statistics.median(r["ms"] for r in rows[WARMUP_STEPS:])
+    views = TRAIN_BATCH * n_views
+    print(f"[train] tuned path: median of {TIMED_STEPS} steps after {WARMUP_STEPS} warm-up "
+          f"{ms:.2f} ms per step = {views / ms * 1e3:.1f} views/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; on {smi}")
+    crop_ms = cuda_median_ms(lambda: bundle.multicrop(bundle.generator, batch["images"]),
+                             reps=5, warmup=1)
+    print(f"[train] multi-crop alone (8 views of {TRAIN_BATCH} tiles): {crop_ms:.2f} ms; on {smi}")
+    profile_step(bundle, batch, ms, smi)
+    del bundle
+    torch.cuda.empty_cache()
+
+    # -- the same seeds with every attention call on the plain versions --
+    plain = train_bundle({"use_kernel_attention": False})
+    plain_rows = run_steps(plain, batch, 2)
+    if any(sum(r["launches"].values()) for r in plain_rows):
+        raise RuntimeError("the plain-attention path launched a kernel")
+    check_losses("tuned", rows, plain_rows)
+    ms_plain = plain_rows[1]["ms"]
+    print(f"[train] plain attention: step 1 took {ms_plain:.2f} ms = "
+          f"{views / ms_plain * 1e3:.1f} views/s; on {smi}")
+    del plain
+    torch.cuda.empty_cache()
+
+    # -- depth 4 without saved probabilities: the recomputing backward --
+    over = {"attn_save_probs": False, "depth": 4}
+    recompute = train_bundle(over)
+    rc_rows = run_steps(recompute, batch, 2)
+    count(rc_rows)
+    want_rc = {"mha_qkv_fwd": 4 + 2 * 4, "mha_qkv_fwd_saved": 0, "mha_qkv_bwd_saved": 0,
+               "mha_qkv_bwd": 2 * 4}  # teacher + the student's two forwards; two backwards
+    for i, r in enumerate(rc_rows):
+        print(f"[train] depth 4, attn_save_probs off, step {i}: loss {r['loss']:.6f} "
+              f"{r['ms']:.2f} ms launches {r['launches']}")
+        if r["launches"] != want_rc:
+            raise RuntimeError(f"recompute step {i}: launches {r['launches']}, expected {want_rc}")
+    del recompute
+    torch.cuda.empty_cache()
+    rc_plain = train_bundle({**over, "use_kernel_attention": False})
+    check_losses("depth 4, attn_save_probs off", rc_rows, run_steps(rc_plain, batch, 2))
+    del rc_plain
+    torch.cuda.empty_cache()
+
+    # -- the recomputing path at full depth, for its time beside the tuned path's --
+    full = train_bundle({"attn_save_probs": False})
+    full_rows = run_steps(full, batch, WARMUP_STEPS + TIMED_STEPS)
+    count(full_rows)
+    ms_full = statistics.median(r["ms"] for r in full_rows[WARMUP_STEPS:])
+    print(f"[train] attn_save_probs off at depth {depth}: median of {TIMED_STEPS} steps after "
+          f"{WARMUP_STEPS} warm-up {ms_full:.2f} ms per step = {views / ms_full * 1e3:.1f} "
+          f"views/s (tuned path above: {ms:.2f} ms); on {smi}")
+    return total
+
+
 def main() -> None:
     torch.manual_seed(SEED)
     shutil.rmtree(OUT, ignore_errors=True)
     smi = phase_device()
     phase_build()
-    k2 = phase_k2(smi)
-    launches = phase_slice(smi)
-    print(json.dumps({"kernels": [{
-        "name": "mha_qkv_fwd", "route": "cuda",
-        "source": "tpuwsi_torch/ops/csrc/mha_qkv_fwd.cu",
-        "replaces": "tpuwsi/ops/attention.py:633",
-        "launches": launches, **k2}]}))
+    kernels = {"mha_qkv_fwd": phase_k2(smi), **phase_train_kernels(smi)}
+    paths = {"serving": phase_slice(smi), "training": phase_train(smi)}
+    meta = {
+        "mha_qkv_fwd": ("mha_qkv_fwd.cu", "tpuwsi/ops/attention.py:633"),
+        "mha_qkv_fwd_saved": ("mha_qkv_fwd.cu", "tpuwsi/ops/attention.py:852"),
+        "mha_qkv_bwd_saved": ("mha_qkv_bwd.cu", "tpuwsi/ops/attention.py:935"),
+        "mha_qkv_bwd": ("mha_qkv_bwd.cu", "tpuwsi/ops/attention.py:732"),
+    }
+    lines = []
+    for name, (source, replaces) in meta.items():
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        if sum(by_path.values()) < 1:
+            raise RuntimeError(f"{name} was launched on no main path")
+        lines.append({"name": name, "route": "cuda",
+                      "source": f"tpuwsi_torch/ops/csrc/{source}", "replaces": replaces,
+                      "launches": sum(by_path.values()), "launches_by_path": by_path,
+                      **kernels[name]})
+    print(json.dumps({"kernels": lines}))
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -175,3 +175,32 @@ def test_port_runs_without_importing_jax():
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+_NO_JAX_TRAINING = """
+import sys
+import numpy as np, torch
+from tpuwsi_torch.cli.args import parse_args
+from tpuwsi_torch.cli.train import ssl_step_bundle
+args = parse_args(["--ssl", "--model", "vit_small_patch16_224_dino", "--epochs", "300",
+                   "--warmup-epochs", "10", "--opt", "adamw", "--lr-base", "0.0005",
+                   "--weight-decay", "0.04", "--dino-out-dim", "64", "--dino-global-size", "32",
+                   "--dino-local-size", "16"])
+b = ssl_step_bundle(args, 1000, 4, torch.device("cpu"),
+                    vit_overrides=dict(patch_size=8, embed_dim=64, depth=2, num_heads=2,
+                                       attn_save_probs=True))
+images = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 40, 40, 3),
+                                                            dtype=np.uint8))
+for _ in range(2):
+    state, metrics = b.raw_step(b.state, {"images": images}, b.generator)
+assert state.step == 2 and np.isfinite(metrics["loss"].item())
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "tpuwsi"))
+assert not bad, bad
+"""
+
+
+def test_training_slice_runs_without_importing_jax():
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_TRAINING], cwd=REPO,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stderr

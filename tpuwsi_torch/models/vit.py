@@ -1,4 +1,4 @@
-"""Vision Transformer for inference, held against ``tpuwsi/models/vit.py``.
+"""Vision Transformer, held against ``tpuwsi/models/vit.py``.
 
 Parameters keep timm/DINO names and torch layouts (Linear ``(out, in)``,
 ``patch_embed.proj.weight`` as a conv ``(D, C, p, p)``) and stay fp32; each
@@ -14,6 +14,14 @@ package's:
 Input is NHWC ``(B, H, W, 3)`` as in JAX. The JAX package packs short
 sequences several to a row block on the TPU; packing is exact, so the port
 does not pack.
+
+Training (``deterministic=False``) draws its randomness from the
+``torch.Generator`` the caller passes, in this order: the embedding dropout
+mask (only when ``drop_rate`` > 0), ONE uniform tensor ``(depth, 2, B)`` for
+all stochastic-depth masks, thresholded per layer at ``1 - dpr_i`` as the
+reference does, then per block the projection and MLP dropout masks (only
+when ``drop_rate`` > 0). ``remat_blocks``, ``scan_blocks``,
+``return_last_attention`` and ``intermediate_layers`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpuwsi_torch.ops.attention import _mha_reference, mha_from_qkv
+from tpuwsi_torch.ops.attention import mha_from_qkv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,13 +46,20 @@ class ViTConfig:
     num_heads: int = 6
     mlp_ratio: float = 4.0
     qkv_bias: bool = True
+    drop_rate: float = 0.0
+    drop_path_rate: float = 0.0
     num_classes: int = 0  # 0 → no head (feature extractor)
     dtype: torch.dtype = torch.bfloat16
     ln_dtype: torch.dtype = torch.float32
+    # activation recomputation per block; not ported yet (ROADMAP.md, M2b)
+    remat_blocks: bool = False
     gelu_approx: bool = False  # tanh GELU; erf when False
-    # mha_from_qkv (the Hopper kernel on a CUDA tensor) when True, the
-    # plain version everywhere when False
+    # the Hopper kernels on a CUDA tensor when True, the plain versions
+    # everywhere when False
     use_kernel_attention: bool = True
+    # training forwards save the bf16 softmax probabilities for the backward
+    # instead of rebuilding them from qkv
+    attn_save_probs: bool = False
 
     @property
     def num_patches_side(self) -> int:
@@ -95,24 +110,42 @@ class PatchEmbed(nn.Module):
         return y, (gh, gw)
 
 
+def _dropout(x, rate: float, deterministic: bool, generator):
+    """Inverted dropout with the mask drawn from ``generator``."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _drop_path(y, rate: float, mask):
+    """Per-sample stochastic depth: rows of ``y`` where ``mask`` (B,) holds
+    are scaled by ``1 / keep``, the others zeroed; ``mask`` None or rate 0
+    passes ``y`` through (``tpuwsi/models/vit.py:155 DropPath``)."""
+    if mask is None or rate == 0.0:
+        return y
+    mask = mask.reshape((y.shape[0],) + (1,) * (y.dim() - 1))
+    return torch.where(mask, y / (1.0 - rate), torch.zeros_like(y))
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
         d = cfg.embed_dim
         self.num_heads = cfg.num_heads
         self.dtype = cfg.dtype
-        self.use_kernel = cfg.use_kernel_attention
+        self.plain = not cfg.use_kernel_attention
+        self.save_probs = cfg.attn_save_probs
+        self.proj_drop = cfg.drop_rate
         self.qkv = nn.Linear(d, 3 * d, bias=cfg.qkv_bias)
         self.proj = nn.Linear(d, d)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator=None):
         qkv = _linear(x, self.qkv, self.dtype)
-        if self.use_kernel:
-            out = mha_from_qkv(qkv, self.num_heads)
-        else:
-            hd = qkv.shape[-1] // 3 // self.num_heads
-            out = _mha_reference(qkv, self.num_heads, hd ** -0.5)
-        return _linear(out, self.proj, self.dtype)
+        out = mha_from_qkv(qkv, self.num_heads, training=not deterministic,
+                           save_probs=self.save_probs, plain=self.plain)
+        out = _linear(out, self.proj, self.dtype)
+        return _dropout(out, self.proj_drop, deterministic, generator)
 
 
 class Mlp(nn.Module):
@@ -122,26 +155,35 @@ class Mlp(nn.Module):
         hidden = int(d * cfg.mlp_ratio)
         self.dtype = cfg.dtype
         self.approximate = "tanh" if cfg.gelu_approx else "none"
+        self.drop = cfg.drop_rate
         self.fc1 = nn.Linear(d, hidden)
         self.fc2 = nn.Linear(hidden, d)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator=None):
         x = F.gelu(_linear(x, self.fc1, self.dtype), approximate=self.approximate)
-        return _linear(x, self.fc2, self.dtype)
+        x = _dropout(x, self.drop, deterministic, generator)
+        x = _linear(x, self.fc2, self.dtype)
+        return _dropout(x, self.drop, deterministic, generator)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ViTConfig):
+    def __init__(self, cfg: ViTConfig, drop_path: float = 0.0):
         super().__init__()
         self.dtype = cfg.dtype
+        self.drop_path = drop_path
         self.norm1 = LayerNorm(cfg.embed_dim, cfg.ln_dtype)
         self.attn = Attention(cfg)
         self.norm2 = LayerNorm(cfg.embed_dim, cfg.ln_dtype)
         self.mlp = Mlp(cfg)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x).to(self.dtype))
-        return x + self.mlp(self.norm2(x).to(self.dtype))
+    def forward(self, x, deterministic: bool = True, generator=None, drop_path_mask=None):
+        """``drop_path_mask``: (2, B) bool keep masks of the two sub-blocks,
+        or None for no stochastic depth."""
+        m1, m2 = (None, None) if drop_path_mask is None else drop_path_mask
+        y = self.attn(self.norm1(x).to(self.dtype), deterministic, generator)
+        x = x + _drop_path(y, self.drop_path, m1)
+        y = self.mlp(self.norm2(x).to(self.dtype), deterministic, generator)
+        return x + _drop_path(y, self.drop_path, m2)
 
 
 def _keys_cubic(x):
@@ -188,17 +230,30 @@ class VisionTransformer(nn.Module):
     def __init__(self, config: ViTConfig):
         super().__init__()
         cfg = self.config = config
+        if cfg.remat_blocks:
+            raise NotImplementedError(
+                "remat_blocks (activation recomputation) is not ported yet "
+                "(ROADMAP.md, Queue 1, M2b)")
         d = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, d, cfg.dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, d))
         nn.init.trunc_normal_(self.cls_token, std=0.02)
         nn.init.trunc_normal_(self.pos_embed, std=0.02)
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        self.drop_path_rates = [
+            cfg.drop_path_rate * i / max(cfg.depth - 1, 1) for i in range(cfg.depth)]
+        self.blocks = nn.ModuleList(Block(cfg, dpr) for dpr in self.drop_path_rates)
         self.norm = LayerNorm(d, cfg.ln_dtype)
         self.head = nn.Linear(d, cfg.num_classes) if cfg.num_classes > 0 else None
 
-    def forward_features(self, x):
+    def drop_path_masks(self, batch: int, device, generator):
+        """(depth, 2, B) bool keep masks from ONE uniform draw, thresholded
+        per layer at that layer's keep rate (``tpuwsi/models/vit.py:793-811``)."""
+        keep = 1.0 - torch.tensor(self.drop_path_rates, dtype=torch.float32, device=device)
+        u = torch.rand((len(self.blocks), 2, batch), generator=generator, device=device)
+        return u < keep[:, None, None]
+
+    def forward_features(self, x, deterministic: bool = True, generator=None):
         """(B, H, W, 3) normalised images → fp32 cls features (B, D)."""
         cfg = self.config
         x, (gh, gw) = self.patch_embed(x)
@@ -206,13 +261,17 @@ class VisionTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1)
         pos = interpolate_pos_encoding(self.pos_embed, gh * gw, gh, gw)
         x = x + pos.to(cfg.dtype)
-        for blk in self.blocks:
-            x = blk(x)
+        x = _dropout(x, cfg.drop_rate, deterministic, generator)
+        masks = None
+        if not deterministic and cfg.drop_path_rate > 0.0:
+            masks = self.drop_path_masks(x.shape[0], x.device, generator)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, deterministic, generator, None if masks is None else masks[i])
         return self.norm(x)[:, 0].float()
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator=None):
         """Logits (B, num_classes) fp32, or the cls features when there is no head."""
-        feats = self.forward_features(x)
+        feats = self.forward_features(x, deterministic, generator)
         return feats if self.head is None else self.head(feats)
 
 

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc on first use and load them with ctypes.
 
 Every ``tpuwsi_torch/ops/csrc/*.cu`` source is compiled for Hopper
-(``sm_90a``) into one shared library with a plain C interface, so no
-PyTorch header is compiled. The library goes to ``build/tpuwsi_torch/`` at
-the repository root, keyed by a hash of the sources and flags: a changed
-source builds anew, an unchanged one loads the library already there.
+(``sm_90a``), one nvcc process per source and all at once, and the objects
+are linked into one shared library with a plain C interface, so no PyTorch
+header is compiled. The library goes to ``build/tpuwsi_torch/`` at the
+repository root, keyed by a hash of the sources and flags: a changed source
+builds anew, an unchanged one loads the library already there.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuwsi_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     # per-kernel registers, shared memory and spills into the build log
     "-Xptxas", "-v",
 )
@@ -66,15 +67,36 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
-        )
-    out.with_suffix(".log").write_text(proc.stderr + proc.stdout)
-    os.replace(tmp, out)  # atomic: a process loading concurrently sees a whole file
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    cmds.append([_nvcc(), "-shared", "-o", str(tmp), *map(str, objects)])
+    log = []
+    try:
+        for i, cmd in enumerate(cmds):
+            if i < len(procs):
+                stdout, stderr = procs[i].communicate()
+                code = procs[i].returncode
+            else:
+                link = subprocess.run(cmd, capture_output=True, text=True)
+                stdout, stderr, code = link.stdout, link.stderr, link.returncode
+            if code != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({code}): {' '.join(cmd)}\n{stderr}{stdout}")
+            log.append(stderr + stdout)
+        out.with_suffix(".log").write_text("".join(log))
+        os.replace(tmp, out)  # atomic: a process loading concurrently sees a whole file
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 
@@ -87,10 +109,18 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
         except OSError as e:
             raise RuntimeError(f"cannot load {path}: {e}") from e
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.tpuwsi_mha_qkv_fwd.argtypes = [
-            ptr, ptr, i32, i32, i32, ctypes.c_float, i32, ptr]
-        lib.tpuwsi_mha_qkv_fwd.restype = i32
+            ptr, ptr, i32, i32, i32, f32, i32, ptr]
+        lib.tpuwsi_mha_qkv_fwd_saved.argtypes = [
+            ptr, ptr, ptr, i32, i32, i32, i32, f32, i32, ptr]
+        lib.tpuwsi_mha_qkv_bwd_saved.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, ptr]
+        lib.tpuwsi_mha_qkv_bwd.argtypes = [
+            ptr, ptr, ptr, i32, i32, i32, f32, i32, ptr]
+        for fn in (lib.tpuwsi_mha_qkv_fwd, lib.tpuwsi_mha_qkv_fwd_saved,
+                   lib.tpuwsi_mha_qkv_bwd_saved, lib.tpuwsi_mha_qkv_bwd):
+            fn.restype = i32
         lib.tpuwsi_cuda_error_string.argtypes = [i32]
         lib.tpuwsi_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -42,6 +42,17 @@
 //   - rows past N are neither read nor written: loads are guarded instead of
 //     zeroing an out-of-bounds block as the TPU kernel does.
 //
+// The same kernel with kSaveP also replaces tpuwsi/ops/attention.py:852
+// `_mha_qkv_kernel_saved` (the training forward under attn_save_probs): it
+// writes the normalised bf16 p, the very registers that multiply V, to
+// probs (B, H, N, p_stride), queries on rows, so forward and backward see
+// one p. Masked entries and the pad columns [N, p_stride) come out as exact
+// zeros (exp of the finite NEG_INF underflows). The TPU kernel's layout
+// (keys on rows, 128-padded) is a TPU tiling choice and is not carried over.
+// p adds B*H*N*p_stride*2 bytes of writes (94 MB at the DINO student-global
+// shape B=192, N=197, H=6, against 87 MB read and 29 MB written otherwise),
+// so the saved forward is bounded by device memory even more than the plain one.
+//
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
 // allocates nothing and returns cudaGetLastError().
 
@@ -95,10 +106,12 @@ __device__ __forceinline__ float quad_sum(float x) {
 // Fragment ownership (PTX ISA, mma.m16n8k16): lane = 4*g + t. A thread holds
 // rows g and g+8 of the 16-row tile; of an 8-column accumulator tile it holds
 // columns 2t and 2t+1 (regs 0,1 for row g; regs 2,3 for row g+8).
+template <bool kSaveP>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 mha_qkv_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                   __nv_bfloat16* __restrict__ out, int n, int d, int n_pad,
-                   float scale, int block_len) {
+                   __nv_bfloat16* __restrict__ out,
+                   __nv_bfloat16* __restrict__ probs, int p_stride, int n, int d,
+                   int n_pad, float scale, int block_len) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [n_pad][kStride]
   __nv_bfloat16* vs = ks + n_pad * kStride;                     // [n_pad][kStride]
@@ -153,6 +166,14 @@ mha_qkv_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
     }
     const int blk_a = packed ? row_a / block_len : 0;
     const int blk_b = packed ? row_b / block_len : 0;
+    // rows of this (batch, head) in probs; dereferenced only for rows < n
+    __nv_bfloat16* prow_a = nullptr;
+    __nv_bfloat16* prow_b = nullptr;
+    if constexpr (kSaveP) {
+      const size_t head_row0 = (static_cast<size_t>(blockIdx.y) * gridDim.x + h) * n;
+      prow_a = probs + (head_row0 + row_a) * p_stride;
+      prow_b = probs + (head_row0 + row_b) * p_stride;
+    }
 
     // Masked fp32 scores of the 16 rows against keys [c0, c0 + kKeyChunk).
     auto scores = [&](int c0, float (&s)[kKeyChunk / 8][4]) {
@@ -222,6 +243,20 @@ mha_qkv_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
             pack_bf16(__expf(lo[2] - m_b) * inv_b, __expf(lo[3] - m_b) * inv_b),
             pack_bf16(__expf(hi[0] - m_a) * inv_a, __expf(hi[1] - m_a) * inv_a),
             pack_bf16(__expf(hi[2] - m_b) * inv_b, __expf(hi[3] - m_b) * inv_b)};
+        if constexpr (kSaveP) {
+          // p_stride is a multiple of 16 and n_pad >= p_stride, so every
+          // column below p_stride is written once, in pairs that never
+          // straddle it.
+          const int j_lo = c0 + kk * 16 + 2 * t, j_hi = j_lo + 8;
+          if (row_a < n) {
+            if (j_lo < p_stride) *reinterpret_cast<uint32_t*>(prow_a + j_lo) = pa[0];
+            if (j_hi < p_stride) *reinterpret_cast<uint32_t*>(prow_a + j_hi) = pa[2];
+          }
+          if (row_b < n) {
+            if (j_lo < p_stride) *reinterpret_cast<uint32_t*>(prow_b + j_lo) = pa[1];
+            if (j_hi < p_stride) *reinterpret_cast<uint32_t*>(prow_b + j_hi) = pa[3];
+          }
+        }
         const __nv_bfloat16* vrow = vs + (c0 + kk * 16 + v_key) * kStride + v_col;
 #pragma unroll
         for (int nd = 0; nd < kHeadDim / 8; nd += 2) {
@@ -246,6 +281,29 @@ mha_qkv_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
+template <bool kSaveP>
+int launch_fwd(const void* qkv, void* out, void* probs, int p_stride, int batch, int n,
+               int num_heads, float scale, int block_len, void* stream) {
+  if (batch < 1 || batch > 65535 || n < 1 || n > kMaxSeq || num_heads < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kSaveP && (p_stride < n || p_stride % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int d = num_heads * kHeadDim;
+  const int n_pad = (n + kKeyChunk - 1) / kKeyChunk * kKeyChunk;
+  const int smem_bytes =
+      static_cast<int>(2 * static_cast<size_t>(n_pad) * kStride * sizeof(__nv_bfloat16));
+  cudaError_t err = cudaFuncSetAttribute(
+      mha_qkv_fwd_kernel<kSaveP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int groups = (n + 15) / 16;
+  const int warps = (groups + 1) / 2;  // <= kMaxWarps for n <= kMaxSeq
+  mha_qkv_fwd_kernel<kSaveP><<<dim3(num_heads, batch), warps * 32, smem_bytes,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
+      static_cast<__nv_bfloat16*>(probs), p_stride, n, d, n_pad, scale, block_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -254,22 +312,17 @@ extern "C" {
 // out: (batch, n, num_heads * 64) bf16, contiguous. 1 <= n <= 511.
 int tpuwsi_mha_qkv_fwd(const void* qkv, void* out, int batch, int n, int num_heads,
                        float scale, int block_len, void* stream) {
-  if (batch < 1 || batch > 65535 || n < 1 || n > kMaxSeq || num_heads < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int d = num_heads * kHeadDim;
-  const int n_pad = (n + kKeyChunk - 1) / kKeyChunk * kKeyChunk;
-  const int smem_bytes =
-      static_cast<int>(2 * static_cast<size_t>(n_pad) * kStride * sizeof(__nv_bfloat16));
-  cudaError_t err = cudaFuncSetAttribute(
-      mha_qkv_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int groups = (n + 15) / 16;
-  const int warps = (groups + 1) / 2;  // <= kMaxWarps for n <= kMaxSeq
-  mha_qkv_fwd_kernel<<<dim3(num_heads, batch), warps * 32, smem_bytes,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), n, d, n_pad,
-      scale, block_len);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<false>(qkv, out, nullptr, 0, batch, n, num_heads, scale, block_len,
+                           stream);
+}
+
+// As above, and probs: (batch, num_heads, n, p_stride) bf16, contiguous,
+// p_stride >= n a multiple of 16; every element of probs is written.
+int tpuwsi_mha_qkv_fwd_saved(const void* qkv, void* out, void* probs, int p_stride,
+                             int batch, int n, int num_heads, float scale, int block_len,
+                             void* stream) {
+  return launch_fwd<true>(qkv, out, probs, p_stride, batch, n, num_heads, scale, block_len,
+                          stream);
 }
 
 const char* tpuwsi_cuda_error_string(int code) {

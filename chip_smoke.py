@@ -6,11 +6,14 @@
 Phases, each printing its own lines:
   1. the card's name and power limit (nvidia-smi);
   2. build the Hopper kernels from tpuwsi_torch/ops/csrc with nvcc;
-  3. each kernel against its plain PyTorch version on the card, at the
-     shapes the two paths give it, plus median times (CUDA events) beside
-     the plain version's and one PyTorch library call's
-     (scaled_dot_product_attention, forward or its autograd backward), which
-     the port itself never calls, and the least time the card could take;
+  3. each of the eight kernels against its plain PyTorch version on the
+     card, at the shapes the paths give it (the four whole-sequence kernels
+     at 37-257 tokens, the four tiled flash kernels at 512-1,024 tokens,
+     through strided views of a fused qkv and contiguous, and with key
+     lengths), plus median times (CUDA events) beside the plain version's and
+     one PyTorch library call's (scaled_dot_product_attention, forward or
+     its autograd backward), which the port itself never calls, and the
+     least time the card could take;
   4. the serving slice: full-width ViT-S/16 at 256 px (seeded random weights
      in the JAX package's layout, through params_from_flax) runs 4 slides x
      500 uint8 tiles through extract_features; the kernel's launch count,
@@ -24,7 +27,12 @@ Phases, each printing its own lines:
      attention must give the same losses, and so must a depth-4 run with
      attn_save_probs off, which takes the recomputing backward kernel (timed
      at full depth too); two more steps run under torch.profiler for a
-     breakdown by kernel kind.
+     breakdown by kernel kind;
+  6. the long-sequence slices, ViT-S/16 at 448 px (785 tokens), full width
+     and depth: 2 chunks of 128 tiles through extract_features, and the same
+     DINO step with --dino-global-size 448 for 2 + 4 steps, each with its
+     launch counts asserted and held against plain attention, and one step
+     under torch.profiler.
 The line before the last but one is a JSON summary of the kernels, then the
 card's name and power limit once more, and the last line
 {"ok": true, "device": {...}}. Any failure raises: the script then exits
@@ -76,14 +84,29 @@ TRAIN_SHAPES = [
 # bf16 rounding of q*scale, of p and of dS, fp32 accumulation
 K_MAX_ABS, K_MEAN_ABS = 2e-2, 2e-3
 
+# flash family: (B, H, S, strided): strided = q, k, v are views of a fused
+# (B, S, 3 * H * 64) qkv and o, dO of (B, S, H * 64); else contiguous (B, H, S, 64)
+FLASH_SHAPES = [
+    (192, 6, 785, True),    # the 448-px DINO step's global views (timed)
+    (4, 6, 1024, False),
+    (8, 6, 512, True),      # the first length that takes the flash family
+    (2, 6, 513, False),     # one key into the ninth tile
+]
+FLASH_LENGTHS = [512, 300, 37, 1, 0]  # masked forward at S = 512, one element each
+# outputs: one bf16 ulp of a value below 4 where a rounding falls the other
+# way (p, dS, o), else fp32 accumulation order; lse is fp32 throughout
+FLASH_MAX_ABS, FLASH_MEAN_ABS, FLASH_LSE_MAX_ABS = 2e-2, 1e-5, 1e-4
+
 MODEL, TILE, TILES_PER_ITER, N_SLIDES = "vit_small_patch16_224", 256, 500, 4
 VALID = [500, 500, 437, 311]  # two slides end in a padded chunk
+MODEL_448, TILE_448, TILES_PER_ITER_448, VALID_448 = "vit_small_patch16_448", 448, 128, [128, 77]
 FEAT_COSINE_MIN, PROBS_MAX_DIFF = 0.999, 1e-2
 
 TRAIN_ARGV = ["--ssl", "--model", "vit_small_patch16_224_dino", "--epochs", "300",
               "--warmup-epochs", "10", "--opt", "adamw", "--lr-base", "0.0005",
               "--weight-decay", "0.04"]
 TRAIN_BATCH, STEPS_PER_EPOCH, WARMUP_STEPS, TIMED_STEPS = 96, 1000, 2, 6
+TRAIN_ARGV_448, TIMED_STEPS_448 = TRAIN_ARGV + ["--dino-global-size", "448"], 4
 # kernel path against plain-attention path, same seeds: the two differ in the
 # summation order inside attention only, then in what bf16 makes of that
 LOSS_MAX_DIFF = 2e-2
@@ -280,6 +303,163 @@ def phase_train_kernels(smi: str) -> dict:
     return res
 
 
+def flash_bound(kind: str, b, h, sq, sk) -> dict:
+    """As ``attention_bound`` for the flash family: q, k, v (and dO, lse,
+    delta) read once, the outputs written once; 2 * B * H * Sq * Sk * 64
+    operations per product, of which the forward needs 2, dQ 3 and dK/dV 4."""
+    hd = attention.KERNEL_HEAD_DIM
+    rows_q, rows_k, stat = b * h * sq * hd * 2, b * h * sk * hd * 2, b * h * sq * 4
+    product = 2 * b * h * sq * sk * hd
+    nbytes, flops = {
+        "flash_fwd": (rows_q + 2 * rows_k + rows_q, 2 * product),
+        "flash_fwd_stats": (rows_q + 2 * rows_k + rows_q + stat, 2 * product),
+        "flash_bwd_dq": (2 * rows_q + 2 * rows_k + 2 * stat + rows_q, 3 * product),
+        "flash_bwd_dkv": (2 * rows_q + 2 * rows_k + 2 * stat + 2 * rows_k, 4 * product),
+    }[kind]
+    t_bytes, t_flops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bound_bytes": nbytes, "bound_flops": flops}
+
+
+def check_flash(name, case, got, want, max_abs=FLASH_MAX_ABS, mean_abs=FLASH_MEAN_ABS):
+    diff = (got.float() - want.float()).abs()
+    mx, mean = diff.max().item(), diff.mean().item()
+    print(f"[{name}] {case}: max_abs={mx:.3e} mean_abs={mean:.3e} "
+          f"(bounds {max_abs}, {mean_abs})")
+    if not bool(torch.isfinite(got.float()).all()) or mx > max_abs or mean > mean_abs:
+        raise RuntimeError(f"{name} disagrees with its plain version at {case}")
+    return mx
+
+
+def flash_operands(gen, b, h, s, strided):
+    """bf16 ~ N(0, 1): q, k, v, dO as (B, H, S, 64), and views to write o and
+    (dq, dk, dv) into: column blocks of (B, S, D) and (B, S, 3D) buffers when
+    ``strided``, as mha_from_qkv passes them, else None (the wrappers then
+    allocate contiguous tensors)."""
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    if not strided:
+        q, k, v, do = (randn((b, h, s, 64)) for _ in range(4))
+        return q, k, v, do, None, None
+    qkv, g = randn((b, s, 3 * h * 64)), randn((b, s, h * 64))
+    out = attention._heads(torch.empty_like(g), h, 1)[0]
+    grads = attention._heads(torch.empty_like(qkv), h, 3)
+    return (*attention._heads(qkv, h, 3), attention._heads(g, h, 1)[0], out, grads)
+
+
+def phase_flash_kernels(smi: str) -> dict:
+    """K4a, K4a', K4b, K4b' against their plain versions. The backward
+    kernels and their plain version get the same lse and delta, those of the
+    forward kernel's own output."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    names = ("flash_fwd", "flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")
+    res = {name: {"max_abs_err": 0.0} for name in names}
+
+    def worse(name, err):
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+
+    for shape in FLASH_SHAPES:
+        b, h, s, strided = shape
+        scale = 64 ** -0.5
+        case = f"B={b} H={h} S={s} {'strided qkv views' if strided else 'contiguous'}"
+        q, k, v, do, out, grads = flash_operands(gen, b, h, s, strided)
+        o_plain, lse_plain = attention._flash_reference(q, k, v, None, scale)
+        o, lse = attention._launch_flash_fwd(q, k, v, None, scale, True, out)
+        torch.cuda.synchronize()
+        worse("flash_fwd_stats", check_flash("flash_fwd_stats o", case, o, o_plain))
+        check_flash("flash_fwd_stats lse", case, lse, lse_plain, FLASH_LSE_MAX_ABS)
+        o = o.clone()  # the no-statistics launch below writes the same view
+        o_only, none = attention._launch_flash_fwd(q, k, v, None, scale, False, out)
+        torch.cuda.synchronize()
+        if none is not None or not torch.equal(o_only, o):
+            raise RuntimeError("flash_fwd and flash_fwd_stats differ in o")
+        worse("flash_fwd", check_flash("flash_fwd o", case, o_only, o_plain))
+        delta = attention._flash_delta(o, do)
+        dq, dk, dv = attention._launch_flash_bwd(q, k, v, do, lse, delta, scale, grads)
+        torch.cuda.synchronize()
+        dq_p, dk_p, dv_p = attention._flash_bwd_reference(q, k, v, do, lse, delta, scale)
+        worse("flash_bwd_dq", check_flash("flash_bwd_dq", case, dq, dq_p))
+        worse("flash_bwd_dkv", max(check_flash("flash_bwd_dkv dk", case, dk, dk_p),
+                                   check_flash("flash_bwd_dkv dv", case, dv, dv_p)))
+        del o_plain, lse_plain, dq_p, dk_p, dv_p
+        if shape == FLASH_SHAPES[0]:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+            lib_out = sdpa(ql, kl, vl)
+
+            def lib_bwd():
+                return torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
+
+            def dq_only():  # the wrapper launches both; time each C function alone
+                attention._call("flash_bwd_dq", q, dq_args)
+
+            def dkv_only():
+                attention._call("flash_bwd_dkv", q, dkv_args)
+
+            dims = (b, h, s, s)
+            stats = (lse.data_ptr(), delta.data_ptr())
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *stats)
+            dq_args = (*ptrs, dq.data_ptr(), *dims, attention._strides(q, k, do, dq), scale)
+            dkv_args = (*ptrs, dk.data_ptr(), dv.data_ptr(), *dims,
+                        attention._strides(q, k, do, dk), scale)
+            fns = {
+                "flash_fwd": (lambda: attention._launch_flash_fwd(q, k, v, None, scale, False, out),
+                              lambda: sdpa(q, k, v),
+                              lambda: attention._flash_reference(q, k, v, None, scale)),
+                "flash_fwd_stats": (
+                    lambda: attention._launch_flash_fwd(q, k, v, None, scale, True, out),
+                    lambda: sdpa(q, k, v),
+                    lambda: attention._flash_reference(q, k, v, None, scale)),
+                "flash_bwd_dq": (dq_only, lib_bwd, lambda: attention._flash_bwd_reference(
+                    q, k, v, do, lse, delta, scale)),
+                "flash_bwd_dkv": (dkv_only, lib_bwd, lambda: attention._flash_bwd_reference(
+                    q, k, v, do, lse, delta, scale)),
+            }
+            for name in names:
+                res[name].update(timed_ab(*fns[name]))
+                res[name].update(flash_bound(name, b, h, s, s))
+                r = res[name]
+                lib = ("SDPA" if name.startswith("flash_fwd")
+                       else "SDPA backward, which computes dq, dk and dv")
+                print(f"[{name}] {case}, medians of 20 in the order kernel, library, library, "
+                      f"kernel: kernel {r['ms_runs']} ms, library ({lib}) "
+                      f"{r['library_ms_runs']} ms, plain {r['plain_ms']:.4f} ms (the plain "
+                      f"backward computes dq, dk and dv), bound {r['bound_ms']:.4f} ms by "
+                      f"{r['bound_by']} ({r['bound_bytes'] / 1e6:.1f} MB, "
+                      f"{r['bound_flops'] / 1e9:.1f} GFLOP); on {smi}")
+            del lib_out, ql, kl, vl, fns
+        del q, k, v, do, out, grads, o, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+
+    # the masked forward: keys at or past an element's length count for nothing
+    b, h, s = len(FLASH_LENGTHS), 6, 512
+    q, k, v, _, _, _ = flash_operands(gen, b, h, s, False)
+    lengths = torch.tensor(FLASH_LENGTHS, dtype=torch.int32, device="cuda")
+    case = f"B={b} H={h} S={s} kv_lengths={FLASH_LENGTHS}"
+    o_plain, lse_plain = attention._flash_reference(q, k, v, lengths, 0.125)
+    o, lse = attention._launch_flash_fwd(q, k, v, lengths, 0.125, True)
+    o_only, _ = attention._launch_flash_fwd(q, k, v, lengths, 0.125, False)
+    via_api = attention.fused_attention(q, k, v, kv_lengths=lengths)
+    torch.cuda.synchronize()
+    worse("flash_fwd_stats", check_flash("flash_fwd_stats o", case, o, o_plain))
+    check_flash("flash_fwd_stats lse", case, lse, lse_plain, FLASH_LSE_MAX_ABS)
+    worse("flash_fwd", check_flash("flash_fwd o", case, o_only, o_plain))
+    empty = FLASH_LENGTHS.index(0)
+    if o[empty].any() or lse[empty].any() or o_only[empty].any():
+        raise RuntimeError("an element with no valid key must give o = 0 and lse = 0")
+    if not torch.equal(via_api, o_only):
+        raise RuntimeError("fused_attention(kv_lengths=...) did not take the forward kernel")
+    whole = attention.attention_reference(q[:1], k[:1], v[:1], lengths[:1])
+    # another order of roundings (p normalised before it is rounded): the
+    # whole-sequence kernels' bounds
+    check_flash("flash_fwd o vs plain softmax attention", "the full-length element", o[:1],
+                whole, K_MAX_ABS, K_MEAN_ABS)
+    print("[flash_fwd] the element of length 0 gives o = 0 and lse = 0")
+    return res
+
+
 def flax_vit_tree(cfg, seed: int) -> dict:
     """Seeded random ViT parameters in the JAX package's flax layout.
 
@@ -317,17 +497,20 @@ def flax_vit_tree(cfg, seed: int) -> dict:
     return {"params": params}
 
 
-def make_chunks(seed: int) -> list[InferChunk]:
+def make_chunks(seed: int, valid=VALID, tiles_per_iter=TILES_PER_ITER,
+                tile=TILE) -> list[InferChunk]:
+    """One padded chunk of ``tiles_per_iter`` uint8 tiles per slide, the
+    first ``valid[s]`` of them real."""
     rng = np.random.default_rng(seed)
     chunks = []
-    for s, k in enumerate(VALID):
-        images = rng.integers(0, 256, (TILES_PER_ITER, TILE, TILE, 3), dtype=np.uint8)
+    for s, k in enumerate(valid):
+        images = rng.integers(0, 256, (tiles_per_iter, tile, tile, 3), dtype=np.uint8)
         chunks.append(InferChunk(
-            images=images, mask=np.arange(TILES_PER_ITER) < k,
+            images=images, mask=np.arange(tiles_per_iter) < k,
             label=np.array([s % 2]), slide_index=s, slide_name=f"slide_{s}.svs",
             patient_barcode=f"patient_{s}", slide_dataset="synthetic",
             initial_num_tiles=k, is_last_batch=True,
-            locations=[(TILE * (j // 32), TILE * (j % 32)) for j in range(k)]))
+            locations=[(tile * (j // 32), tile * (j % 32)) for j in range(k)]))
     return chunks
 
 
@@ -338,28 +521,32 @@ def timed_extract(chunks, model, params, out_dir, dev):
     return agg, time.perf_counter() - t0
 
 
-def phase_slice(smi: str) -> dict:
+def phase_slice(smi: str, name=MODEL, tile=TILE, tiles_per_iter=TILES_PER_ITER, valid=VALID,
+                kernel="mha_qkv_fwd", tag="slice") -> dict:
+    """The serving slice → launches per kernel; ``kernel`` is the one kernel
+    that every layer of every chunk's forward must launch once."""
     dev = torch.device("cuda")
-    model = create_model(MODEL, num_classes=2, img_size=TILE)
-    plain = create_model(MODEL, num_classes=2, img_size=TILE, use_kernel_attention=False)
+    model = create_model(name, num_classes=2, img_size=tile)
+    plain = create_model(name, num_classes=2, img_size=tile, use_kernel_attention=False)
     cfg = model.config
     params = params_from_flax(flax_vit_tree(cfg, SEED))
     t0 = time.perf_counter()
-    chunks = make_chunks(SEED)
-    n_valid = sum(VALID)
-    print(f"[slice] {MODEL} img {TILE} depth {cfg.depth} dim {cfg.embed_dim} "
-          f"{cfg.dtype}; {N_SLIDES} slides x {TILES_PER_ITER} tiles, {n_valid} valid; "
-          f"chunks made in {time.perf_counter() - t0:.1f} s")
+    chunks = make_chunks(SEED, valid, tiles_per_iter, tile)
+    n_valid, n_slides = sum(valid), len(valid)
+    out_dir = OUT / tag
+    print(f"[{tag}] {name} img {tile} ({cfg.num_patches + 1} tokens) depth {cfg.depth} dim "
+          f"{cfg.embed_dim} {cfg.dtype}; {n_slides} slides x {tiles_per_iter} tiles, {n_valid} "
+          f"valid; chunks made in {time.perf_counter() - t0:.1f} s")
     for m in (model, plain):  # warm-up: cuBLAS handles, allocator, kernel load
-        extract_features(chunks[:1], m, params, str(OUT / "warmup"), dev)
+        extract_features(chunks[:1], m, params, str(out_dir / "warmup"), dev)
     torch.cuda.reset_peak_memory_stats()
 
     attention.reset_launches()
-    agg, t_kernel = timed_extract(chunks, model, params, OUT / "kernel", dev)
+    agg, t_kernel = timed_extract(chunks, model, params, out_dir / "kernel", dev)
     launches = dict(attention.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    expected = {**dict.fromkeys(launches, 0), "mha_qkv_fwd": cfg.depth * len(chunks)}
-    print(f"[slice] launches {launches} (expected mha_qkv_fwd depth {cfg.depth} x "
+    expected = {**dict.fromkeys(launches, 0), kernel: cfg.depth * len(chunks)}
+    print(f"[{tag}] launches {launches} (expected {kernel} depth {cfg.depth} x "
           f"{len(chunks)} forwards, no other kernel)")
     if launches != expected:
         raise RuntimeError("the serving path did not run the attention kernel once per layer")
@@ -370,26 +557,26 @@ def phase_slice(smi: str) -> dict:
         raise RuntimeError(f"features: shape {feats.shape}, finite {np.isfinite(feats).all()}")
     if not (np.isfinite(probs).all() and probs.min() >= 0.0 and probs.max() <= 1.0):
         raise RuntimeError("tile probabilities outside [0, 1]")
-    written = sorted(os.listdir(OUT / "kernel" / "features"))
-    want = sorted([f"slide_{s}_features.pt" for s in range(N_SLIDES)] + ["inference.data"])
+    written = sorted(os.listdir(out_dir / "kernel" / "features"))
+    want = sorted([f"slide_{s}_features.pt" for s in range(n_slides)] + ["inference.data"])
     if written != want:
         raise RuntimeError(f"feature files: {written}")
 
-    agg_plain, t_plain = timed_extract(chunks, plain, params, OUT / "plain", dev)
-    _, t_plain_2 = timed_extract(chunks, plain, params, OUT / "plain", dev)
-    _, t_kernel_2 = timed_extract(chunks, model, params, OUT / "kernel_2", dev)
+    agg_plain, t_plain = timed_extract(chunks, plain, params, out_dir / "plain", dev)
+    _, t_plain_2 = timed_extract(chunks, plain, params, out_dir / "plain", dev)
+    _, t_kernel_2 = timed_extract(chunks, model, params, out_dir / "kernel_2", dev)
     feats_p = np.concatenate([r.features for r in agg_plain.results])
     probs_p = np.concatenate([r.tile_probs for r in agg_plain.results])
     cos = (feats * feats_p).sum(1) / (
         np.linalg.norm(feats, axis=1) * np.linalg.norm(feats_p, axis=1))
     dprob = float(np.abs(probs - probs_p).max())
-    print(f"[slice] kernel vs plain attention: min per-tile feature cosine "
+    print(f"[{tag}] kernel vs plain attention: min per-tile feature cosine "
           f"{cos.min():.6f} (>= {FEAT_COSINE_MIN}), max probs diff {dprob:.3e} "
           f"(<= {PROBS_MAX_DIFF}); slide AUC {agg.slide_auc():.4f} / "
           f"{agg_plain.slide_auc():.4f}")
     if cos.min() < FEAT_COSINE_MIN or dprob > PROBS_MAX_DIFF:
         raise RuntimeError("kernel and plain attention paths disagree")
-    print(f"[slice] extract_features wall time (normalize + forward + fetch + "
+    print(f"[{tag}] extract_features wall time (normalize + forward + fetch + "
           f"aggregation + files), {n_valid} valid tiles, run order kernel, plain, "
           f"plain, kernel: kernel {t_kernel:.4f} / {t_kernel_2:.4f} s = "
           f"{n_valid / t_kernel:.1f} / {n_valid / t_kernel_2:.1f} tiles/s; plain "
@@ -399,8 +586,8 @@ def phase_slice(smi: str) -> dict:
     return launches
 
 
-def train_bundle(vit_overrides=None):
-    args = parse_args(TRAIN_ARGV)
+def train_bundle(vit_overrides=None, argv=TRAIN_ARGV):
+    args = parse_args(argv)
     return ssl_step_bundle(args, STEPS_PER_EPOCH, TRAIN_BATCH, torch.device("cuda"),
                            vit_overrides=vit_overrides)
 
@@ -430,7 +617,7 @@ def check_losses(tag, rows, plain_rows):
 
 # kernel-name fragments → kind, first match wins
 PROFILE_KINDS = [
-    ("attention kernels (hand-written)", ("mha_qkv",)),
+    ("attention kernels (hand-written)", ("mha_qkv", "flash_fwd_kernel", "flash_bwd_d")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "cublas", "gemv")),
     ("LayerNorm, forward and backward", ("layer_norm", "LayerNorm", "GammaBeta")),
     ("GELU, forward and backward", ("Gelu", "gelu")),
@@ -522,8 +709,9 @@ def phase_train(smi: str) -> dict:
     rows += run_steps(bundle, batch, WARMUP_STEPS - 1 + TIMED_STEPS)
     peak = torch.cuda.max_memory_allocated()
     count(rows)
-    want_launches = {"mha_qkv_fwd": depth, "mha_qkv_fwd_saved": 2 * depth,
-                     "mha_qkv_bwd_saved": 2 * depth, "mha_qkv_bwd": 0}
+    none = dict.fromkeys(attention.LAUNCHES, 0)
+    want_launches = {**none, "mha_qkv_fwd": depth, "mha_qkv_fwd_saved": 2 * depth,
+                     "mha_qkv_bwd_saved": 2 * depth}
     for i, r in enumerate(rows):
         print(f"[train] step {i}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.4f} "
               f"{r['ms']:.2f} ms launches {r['launches']}")
@@ -562,8 +750,8 @@ def phase_train(smi: str) -> dict:
     recompute = train_bundle(over)
     rc_rows = run_steps(recompute, batch, 2)
     count(rc_rows)
-    want_rc = {"mha_qkv_fwd": 4 + 2 * 4, "mha_qkv_fwd_saved": 0, "mha_qkv_bwd_saved": 0,
-               "mha_qkv_bwd": 2 * 4}  # teacher + the student's two forwards; two backwards
+    # teacher + the student's two forwards; two backwards
+    want_rc = {**none, "mha_qkv_fwd": 4 + 2 * 4, "mha_qkv_bwd": 2 * 4}
     for i, r in enumerate(rc_rows):
         print(f"[train] depth 4, attn_save_probs off, step {i}: loss {r['loss']:.6f} "
               f"{r['ms']:.2f} ms launches {r['launches']}")
@@ -587,18 +775,87 @@ def phase_train(smi: str) -> dict:
     return total
 
 
+def phase_train_448(smi: str) -> dict:
+    """The same DINO step with 448-px global views: 192 sequences of 785
+    tokens through the flash family (the teacher without statistics, the
+    student with, then dQ and dK/dV), 576 local sequences of 37 tokens
+    through the saving pair as before; → launches per kernel."""
+    rng = np.random.default_rng(SEED)
+    batch = {"images": torch.from_numpy(
+        rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3), dtype=np.uint8)).cuda()}
+    bundle = train_bundle(argv=TRAIN_ARGV_448)
+    cfg = bundle.model.backbone.config
+    depth = cfg.depth
+    views = TRAIN_BATCH * (bundle.dcfg.n_global + bundle.dcfg.n_local)
+    print(f"[train448] {TRAIN_ARGV_448[2]} img {cfg.img_size} ({cfg.num_patches + 1} tokens a "
+          f"global view) depth {depth} dim {cfg.embed_dim} head {bundle.dcfg.out_dim} "
+          f"{cfg.dtype}; batch {TRAIN_BATCH} tiles of {TILE} px = {views} views per step")
+    torch.cuda.reset_peak_memory_stats()
+    rows = run_steps(bundle, batch, WARMUP_STEPS + TIMED_STEPS_448)
+    peak = torch.cuda.max_memory_allocated()
+    total = dict.fromkeys(attention.LAUNCHES, 0)
+    want = {**total, "mha_qkv_fwd_saved": depth, "mha_qkv_bwd_saved": depth, "flash_fwd": depth,
+            "flash_fwd_stats": depth, "flash_bwd_dq": depth, "flash_bwd_dkv": depth}
+    for i, r in enumerate(rows):
+        print(f"[train448] step {i}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.4f} "
+              f"{r['ms']:.2f} ms launches {r['launches']}")
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            raise RuntimeError(f"448 px step {i}: loss or gradient norm is not finite")
+        if r["launches"] != want:
+            raise RuntimeError(f"448 px step {i}: launches {r['launches']}, expected {want}")
+        for name, n in r["launches"].items():
+            total[name] += n
+    if len({r["loss"] for r in rows}) < 2:
+        raise RuntimeError("the loss is constant")
+    ms = statistics.median(r["ms"] for r in rows[WARMUP_STEPS:])
+    print(f"[train448] median of {TIMED_STEPS_448} steps after {WARMUP_STEPS} warm-up "
+          f"{ms:.2f} ms per step = {views / ms * 1e3:.1f} views/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; on {smi}")
+    crop_ms = cuda_median_ms(lambda: bundle.multicrop(bundle.generator, batch["images"]),
+                             reps=5, warmup=1)
+    print(f"[train448] multi-crop alone: {crop_ms:.2f} ms; on {smi}")
+    profile_step(bundle, batch, ms, smi)
+    del bundle
+    torch.cuda.empty_cache()
+
+    plain = train_bundle({"use_kernel_attention": False}, argv=TRAIN_ARGV_448)
+    torch.cuda.reset_peak_memory_stats()
+    plain_rows = run_steps(plain, batch, 2)
+    if any(sum(r["launches"].values()) for r in plain_rows):
+        raise RuntimeError("the plain-attention path launched a kernel")
+    check_losses("448 px", rows, plain_rows)
+    ms_plain = plain_rows[1]["ms"]
+    print(f"[train448] plain attention: step 1 took {ms_plain:.2f} ms = "
+          f"{views / ms_plain * 1e3:.1f} views/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {smi}")
+    del plain
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> None:
     torch.manual_seed(SEED)
     shutil.rmtree(OUT, ignore_errors=True)
     smi = phase_device()
     phase_build()
-    kernels = {"mha_qkv_fwd": phase_k2(smi), **phase_train_kernels(smi)}
-    paths = {"serving": phase_slice(smi), "training": phase_train(smi)}
+    kernels = {"mha_qkv_fwd": phase_k2(smi), **phase_train_kernels(smi),
+               **phase_flash_kernels(smi)}
+    paths = {
+        "serving": phase_slice(smi),
+        "training": phase_train(smi),
+        "serving_448": phase_slice(smi, MODEL_448, TILE_448, TILES_PER_ITER_448, VALID_448,
+                                   kernel="flash_fwd", tag="slice448"),
+        "training_448": phase_train_448(smi),
+    }
     meta = {
         "mha_qkv_fwd": ("mha_qkv_fwd.cu", "tpuwsi/ops/attention.py:633"),
         "mha_qkv_fwd_saved": ("mha_qkv_fwd.cu", "tpuwsi/ops/attention.py:852"),
         "mha_qkv_bwd_saved": ("mha_qkv_bwd.cu", "tpuwsi/ops/attention.py:935"),
         "mha_qkv_bwd": ("mha_qkv_bwd.cu", "tpuwsi/ops/attention.py:732"),
+        "flash_fwd": ("flash_fwd.cu", "tpuwsi/ops/attention.py:80"),
+        "flash_fwd_stats": ("flash_fwd.cu", "tpuwsi/ops/attention.py:148"),
+        "flash_bwd_dq": ("flash_bwd.cu", "tpuwsi/ops/attention.py:261"),
+        "flash_bwd_dkv": ("flash_bwd.cu", "tpuwsi/ops/attention.py:303"),
     }
     lines = []
     for name, (source, replaces) in meta.items():

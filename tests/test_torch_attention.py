@@ -55,7 +55,9 @@ def test_attention_reference_kv_lengths_matches_jax():
     [
         ((2, 65, 3 * 128), 2, torch.float32, ValueError),    # not bf16
         ((2, 65, 3 * 96), 2, torch.bfloat16, ValueError),    # head_dim 48
-        ((2, 512, 3 * 128), 2, torch.bfloat16, NotImplementedError),  # flash range
+        # 512+ tokens belong to the flash kernels: mha_from_qkv never hands
+        # them to the whole-sequence kernels, which refuse them
+        ((2, 512, 3 * 128), 2, torch.bfloat16, ValueError),
     ],
 )
 def test_kernel_rejects_what_it_does_not_take(shape, heads, dtype, err):

@@ -268,3 +268,74 @@ def test_ssl_step_bundle_on_cpu():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ssl_step_bundle(parse_args(BENCH_ARGV + ["--grad-checkpointing"]), 1000, 96,
                         torch.device("cpu"), vit_overrides=tiny)
+
+
+def test_long_sequence_step_bundle_trajectory_matches_jax():
+    """Three steps of the step that ``ssl_step_bundle`` assembles with a
+    global size past 512 tokens (92 px at patch 4: 530 tokens a global view,
+    17 a local one), on given views: the student's global views go through
+    the flash pair's autograd.Function, the teacher's through its forward
+    alone. Same tolerances and the same exclusion as the 12-step test."""
+    from tpuwsi_torch.cli.args import parse_args
+    from tpuwsi_torch.cli.train import ssl_step_bundle
+    from tpuwsi_torch.ops import attention as tattn
+
+    n_steps, batch = 3, 2
+    geom = dict(patch_size=4, embed_dim=64, depth=2, num_heads=2)
+    args = parse_args(BENCH_ARGV + ["--dino-out-dim", "96", "--dino-global-size", "92",
+                                    "--dino-local-size", "16", "--dino-local-crops", "2",
+                                    "--drop-path", "0", "--lr", "0.002", "--epochs", "2",
+                                    "--warmup-epochs", "1"])
+    b = ssl_step_bundle(args, 6, batch, torch.device("cpu"), vit_overrides=geom)
+    cfg = b.model.backbone.config
+    assert cfg.img_size == 92 and cfg.num_patches + 1 == 530 and cfg.dtype == torch.bfloat16
+    # fp32 on both sides: the comparison is of the algorithm, not of bf16 roundings
+    b = ssl_step_bundle(args, 6, batch, torch.device("cpu"),
+                        vit_overrides=dict(geom, dtype=torch.float32))
+    cfg = b.model.backbone.config
+
+    rng = np.random.default_rng(21)
+    g_views = rng.standard_normal((batch, 2, 92, 92, 3), dtype=np.float32)
+    l_views = rng.standard_normal((batch, 2, 16, 16, 3), dtype=np.float32)
+    jmodel = jdino.DINOModel(
+        backbone=JViT(JViTConfig(dtype=jnp.float32, img_size=92, gelu_approx=True,
+                                 use_pallas_attention=True, **geom)),
+        head=JDINOHead(out_dim=96, gelu_approx=True))
+    jparams = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 92, 92, 3)))
+    jcfg = jdino.DINOConfig(**dataclasses.asdict(b.dcfg))
+    tx, _ = jmake_optimizer(JOptimConfig(**dataclasses.asdict(b.ocfg)), jparams, batch)
+    jstate = jdino.create_dino_state(jparams, tx, jcfg)
+    jstep = jax.jit(jdino.make_dino_train_step(jmodel.apply, tx, jcfg))
+    jbatch = {"globals": jnp.asarray(g_views), "locals": jnp.asarray(l_views)}
+
+    b.model.load_state_dict(params_from_flax(_np_tree(jparams)))
+    state = tdino.create_dino_state(b.model, b.optimizer, b.dcfg)
+    step = tdino.make_dino_train_step(b.model, b.optimizer, b.dcfg)  # given views
+    tbatch = {"globals": torch.from_numpy(g_views), "locals": torch.from_numpy(l_views)}
+
+    functions = []
+    real_apply = tattn._MhaQkvFlash.apply
+    tattn._MhaQkvFlash.apply = lambda *a: functions.append(a[0].shape[1]) or real_apply(*a)
+    try:
+        for i in range(n_steps):
+            jstate, jmetrics = jstep(jstate, jbatch, jax.random.PRNGKey(3))
+            state, metrics = step(state, tbatch, b.generator)
+            np.testing.assert_allclose(metrics["loss"].item(), float(jmetrics["loss"]),
+                                       rtol=1e-4, err_msg=f"step {i}")
+            np.testing.assert_allclose(state.center.numpy(), np.asarray(jstate.center),
+                                       atol=1e-5)
+    finally:
+        tattn._MhaQkvFlash.apply = real_apply
+    # the student's global forwards alone take the Function: depth per step
+    assert functions == [530] * (cfg.depth * n_steps)
+
+    for name, tree, module in (("student", jstate.student_params, state.student),
+                               ("teacher", jstate.teacher_params, state.teacher)):
+        want = dict(_flat(_np_tree(tree)["params"]))
+        got = dict(_flat(params_to_flax(module.state_dict())["params"]))
+        assert got.keys() == want.keys()
+        for key in want:
+            a, c = got[key], want[key]
+            if key.endswith("attn/qkv/bias"):  # the key bias: see the 12-step test
+                a, c = np.delete(a, np.s_[64:128]), np.delete(c, np.s_[64:128])
+            np.testing.assert_allclose(a, c, atol=1e-4, rtol=1e-4, err_msg=f"{name} {key}")

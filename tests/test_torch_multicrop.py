@@ -110,9 +110,8 @@ def _reference_coords(area_u, log_ratio, u_top, u_left, h, w, out):
 
 
 @pytest.mark.parametrize("method", ["bicubic", "bilinear"])
-def test_crop_and_resample_match_jax(images, method):
+def test_crop_and_resample_match_jax(images, method, out=16):
     rng = np.random.default_rng(2)
-    out = 16
     params = tmc.CropParams(
         area=torch.from_numpy(rng.uniform(0.05, 1.0, B).astype(np.float32)),
         log_ratio=torch.from_numpy(rng.uniform(np.log(3 / 4), np.log(4 / 3), B
@@ -143,6 +142,19 @@ def test_crop_and_resample_match_jax(images, method):
     np.testing.assert_allclose(
         TA.interp_matrix(torch.from_numpy(ys[0]), S).numpy(),
         np.asarray(JA.interp_matrix(jnp.asarray(ys[0]), S)), **TOL)
+
+
+def test_upscaling_crop_matches_jax(images):
+    """A global view larger than the tile (448 px from 256-px tiles is 1.75x;
+    here 42 from 24): the crop box is sampled more finely than the pixels,
+    as in the JAX package, whatever the box's size."""
+    test_crop_and_resample_match_jax(images, "bicubic", out=42)
+    fn = tmc.make_multicrop(tmc.MultiCropConfig(global_size=112, local_size=24, n_local=2))
+    tiles = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 64, 64, 3),
+                                                               dtype=np.uint8))
+    g, loc = fn(torch.Generator().manual_seed(1), tiles)
+    assert g.shape == (2, 2, 112, 112, 3) and loc.shape == (2, 2, 24, 24, 3)
+    assert torch.isfinite(g).all() and g.std() > 0.1
 
 
 @pytest.mark.parametrize("p", [0.0, 1.0])

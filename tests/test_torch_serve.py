@@ -166,6 +166,12 @@ chunk = InferChunk(images, np.array([True, False]), np.array([1]), 0, "s.svs", "
 with tempfile.TemporaryDirectory() as out:
     agg = extract_features([chunk], model, model.state_dict(), out, torch.device("cpu"))
 assert agg.results[0].features.shape == (1, 192)
+from tpuwsi_torch.ops.attention import fused_attention, mha_from_qkv
+x = torch.ones(1, 512, 96, requires_grad=True)  # 512 tokens: the tiled flash pair
+mha_from_qkv(x, 2).sum().backward()
+assert x.grad.shape == x.shape
+q = torch.ones(1, 2, 512, 16)
+assert fused_attention(q, q, q, kv_lengths=torch.tensor([7])).shape == q.shape
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpuwsi"))
 assert not bad, bad
 """

@@ -25,13 +25,18 @@ GEOM = dict(img_size=64, patch_size=8, embed_dim=64, depth=2, num_heads=2)
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def _flax(num_classes=0, gelu_approx=False, scan_blocks=False):
+# 92 px at patch 4: 23 x 23 + 1 = 530 tokens, past the 512 from which the port
+# takes the tiled flash pair; the flax model takes its plain attention there
+LONG_GEOM = dict(GEOM, img_size=92, patch_size=4)
+
+
+def _flax(num_classes=0, gelu_approx=False, scan_blocks=False, geom=GEOM, interpret=True):
     cfg = jvit.ViTConfig(
-        **GEOM, num_classes=num_classes, dtype=jnp.float32,
-        use_pallas_attention=True, pallas_interpret=True,
+        **geom, num_classes=num_classes, dtype=jnp.float32,
+        use_pallas_attention=True, pallas_interpret=interpret,
         gelu_approx=gelu_approx, scan_blocks=scan_blocks)
     model = jvit.VisionTransformer(cfg)
-    x0 = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    x0 = jnp.zeros((1, geom["img_size"], geom["img_size"], 3), jnp.float32)
     variables = jax.device_get(model.init(jax.random.PRNGKey(0), x0))
     # non-trivial LayerNorm affine and biases (init leaves them 1 and 0)
     rng = np.random.default_rng(1)
@@ -40,8 +45,8 @@ def _flax(num_classes=0, gelu_approx=False, scan_blocks=False):
     return model, variables
 
 
-def _port(variables, num_classes=0, gelu_approx=False):
-    cfg = tvit.ViTConfig(**GEOM, num_classes=num_classes, dtype=torch.float32,
+def _port(variables, num_classes=0, gelu_approx=False, geom=GEOM):
+    cfg = tvit.ViTConfig(**geom, num_classes=num_classes, dtype=torch.float32,
                          gelu_approx=gelu_approx)
     model = tvit.VisionTransformer(cfg).eval()
     model.load_state_dict(params_from_flax(variables))
@@ -66,6 +71,54 @@ def test_vit_matches_flax(num_classes, gelu_approx, scan_blocks, img):
         out = port(torch.from_numpy(x))
     assert out.shape == ref.shape and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("num_classes", [0, 2])
+def test_long_sequence_vit_matches_flax(num_classes, monkeypatch):
+    """530 tokens: features and logits through the port's flash pair."""
+    from tpuwsi_torch.ops import attention as tattn
+
+    model, variables = _flax(num_classes, geom=LONG_GEOM, interpret=False)
+    x = np.random.default_rng(92).standard_normal((2, 92, 92, 3)).astype(np.float32)
+    ref = jax.jit(model.apply)(variables, jnp.asarray(x))
+    port = _port(variables, num_classes, geom=LONG_GEOM)
+    assert port.pos_embed.shape == (1, 530, 64)
+    calls = []
+    real = tattn._flash_reference
+    monkeypatch.setattr(tattn, "_flash_reference",
+                        lambda *a, **kw: calls.append(a[0].shape) or real(*a, **kw))
+    with torch.inference_mode():
+        out = port(torch.from_numpy(x))
+    assert calls == [(2, 2, 530, 32)] * LONG_GEOM["depth"]
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_converters_carry_a_long_sequence_tree():
+    """The position table of a 530-token model crosses over and back whole."""
+    from tpuwsi_torch.models.convert import params_to_flax
+
+    _, variables = _flax(num_classes=2, geom=LONG_GEOM, interpret=False)
+    sd = params_from_flax(variables)
+    assert sd["pos_embed"].shape == (1, 530, 64)
+    assert sd["patch_embed.proj.weight"].shape == (64, 3, 4, 4)
+    back = params_to_flax(sd)["params"]
+    np.testing.assert_array_equal(back["pos_embed"], variables["params"]["pos_embed"])
+    np.testing.assert_array_equal(back["patch_embed"]["proj"]["kernel"],
+                                  variables["params"]["patch_embed"]["proj"]["kernel"])
+    ref = jconvert.flax_vit_to_torch(variables)
+    assert sorted(sd) == sorted(ref)
+    for k, v in sd.items():
+        np.testing.assert_array_equal(v.numpy(), ref[k], err_msg=k)
+
+
+def test_registry_parses_the_448_px_model():
+    model = tregistry.create_model("vit_small_patch16_448", num_classes=2)
+    cfg = model.config
+    assert (cfg.img_size, cfg.num_patches + 1, cfg.embed_dim, cfg.depth) == (448, 785, 384, 12)
+    assert model.pos_embed.shape == (1, 785, 384)
+    j = jregistry.parse_model_name("vit_small_patch16_448")
+    assert (j.img_size, j.embed_dim, j.depth, j.num_heads) == (448, 384, 12, 6)
 
 
 @pytest.mark.parametrize("scan_blocks", [False, True])

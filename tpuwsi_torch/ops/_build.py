@@ -118,8 +118,17 @@ def load() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, ptr]
         lib.tpuwsi_mha_qkv_bwd.argtypes = [
             ptr, ptr, ptr, i32, i32, i32, f32, i32, ptr]
+        # flash family: tensors, then batch, heads, sq, sk, a host array of
+        # element strides, the scale and the stream
+        tail = [i32, i32, i32, i32, ctypes.POINTER(ctypes.c_longlong), f32, ptr]
+        lib.tpuwsi_flash_fwd.argtypes = [ptr] * 5 + tail
+        lib.tpuwsi_flash_fwd_stats.argtypes = [ptr] * 6 + tail
+        lib.tpuwsi_flash_bwd_dq.argtypes = [ptr] * 7 + tail
+        lib.tpuwsi_flash_bwd_dkv.argtypes = [ptr] * 8 + tail
         for fn in (lib.tpuwsi_mha_qkv_fwd, lib.tpuwsi_mha_qkv_fwd_saved,
-                   lib.tpuwsi_mha_qkv_bwd_saved, lib.tpuwsi_mha_qkv_bwd):
+                   lib.tpuwsi_mha_qkv_bwd_saved, lib.tpuwsi_mha_qkv_bwd,
+                   lib.tpuwsi_flash_fwd, lib.tpuwsi_flash_fwd_stats,
+                   lib.tpuwsi_flash_bwd_dq, lib.tpuwsi_flash_bwd_dkv):
             fn.restype = i32
         lib.tpuwsi_cuda_error_string.argtypes = [i32]
         lib.tpuwsi_cuda_error_string.restype = ctypes.c_char_p

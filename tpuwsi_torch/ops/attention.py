@@ -2,9 +2,9 @@
 
 Counterpart of ``tpuwsi/ops/attention.py``. ``mha_from_qkv`` takes the qkv
 GEMM output ``(B, N, 3D)`` with columns laid out ``[which(3), head, hd]``
-and returns ``(B, N, D)``. Four hand-written Hopper kernels carry it on a
-CUDA tensor, each with its plain PyTorch version beside it, which runs on a
-CPU tensor:
+and returns ``(B, N, D)``; ``fused_attention`` takes ``(B, H, S, hd)`` q, k
+and v. Eight hand-written Hopper kernels carry them on a CUDA tensor, each
+with its plain PyTorch version beside it, which runs on a CPU tensor:
 
 ===================  ===========================  =========================
 kernel               replaces (tpuwsi/ops/        plain version
@@ -14,12 +14,25 @@ kernel               replaces (tpuwsi/ops/        plain version
 ``mha_qkv_fwd_saved``  ``_mha_qkv_kernel_saved``      ``_mha_saved_reference``
 ``mha_qkv_bwd_saved``  ``_mha_qkv_bwd_kernel_saved``  ``_mha_bwd_saved_reference``
 ``mha_qkv_bwd``        ``_mha_qkv_bwd_kernel``        ``_mha_bwd_reference``
+``flash_fwd``          ``_flash_kernel``              ``_flash_reference`` (o)
+``flash_fwd_stats``    ``_flash_kernel_stats``        ``_flash_reference`` (o, lse)
+``flash_bwd_dq``       ``_flash_bwd_dq_kernel``       ``_flash_bwd_reference`` (dq)
+``flash_bwd_dkv``      ``_flash_bwd_dkv_kernel``      ``_flash_bwd_reference`` (dk, dv)
 ===================  ===========================  =========================
 
-Two ``torch.autograd.Function``s pair them as the reference's custom VJPs do:
-``_MhaQkvSaved`` (forward saves ``(qkv, p)``) and ``_MhaQkv`` (forward saves
-``qkv``, backward rebuilds p). On a CUDA tensor a wrapper launches its kernel
-or raises; it never gives way to the plain version.
+The first four hold a whole sequence of at most 511 tokens per block; the
+flash family tiles the sequence and takes any length. ``mha_from_qkv`` sends
+512+ tokens to the flash family, which reads q, k and v as strided views of
+qkv and writes ``(B, N, D)`` and ``(B, N, 3D)`` directly: nothing is
+transposed in device memory.
+
+``torch.autograd.Function``s pair them as the reference's custom VJPs do:
+``_MhaQkvSaved`` (forward saves ``(qkv, p)``), ``_MhaQkv`` (forward saves
+``qkv``, backward rebuilds p), and ``_MhaQkvFlash`` / ``_FusedAttention``
+(forward with statistics saves ``(q, k, v, o, lse)``; backward is
+``delta = sum(dO * O)`` in plain PyTorch, then the two backward kernels). On
+a CUDA tensor a wrapper launches its kernel or raises; it never gives way to
+the plain version.
 
 ``LAUNCHES`` counts each kernel's launches by name, so a run can show which
 kernels its path went through.
@@ -31,10 +44,13 @@ import torch
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 64
-KERNEL_MAX_SEQ = 511  # 512+ tokens go to the flash kernel, not yet ported
+KERNEL_MAX_SEQ = 511  # the whole-sequence kernels; 512+ tokens go to the flash family
+MIN_FLASH_SEQ = KERNEL_MAX_SEQ + 1
+FLASH_TILE_K = 64     # keys per step of the online softmax, in kernel and plain version
 
 LAUNCHES = {"mha_qkv_fwd": 0, "mha_qkv_fwd_saved": 0, "mha_qkv_bwd_saved": 0,
-            "mha_qkv_bwd": 0}
+            "mha_qkv_bwd": 0, "flash_fwd": 0, "flash_fwd_stats": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
 
 
 def reset_launches() -> None:
@@ -131,7 +147,7 @@ def _mha_bwd_reference(qkv, g, num_heads, scale, block_len=0):
 
 
 def check_kernel_input(qkv: torch.Tensor, num_heads: int) -> None:
-    """Raise unless the Hopper kernel takes ``qkv`` as it is."""
+    """Raise unless the whole-sequence Hopper kernels take ``qkv`` as it is."""
     if qkv.dtype != torch.bfloat16:
         raise ValueError(f"mha_from_qkv kernel takes bf16, got {qkv.dtype}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
@@ -142,9 +158,9 @@ def check_kernel_input(qkv: torch.Tensor, num_heads: int) -> None:
             f"mha_from_qkv kernel takes head_dim {KERNEL_HEAD_DIM}: "
             f"got 3D = {d3} for {num_heads} heads")
     if n > KERNEL_MAX_SEQ:
-        raise NotImplementedError(
-            f"{n} tokens: sequences of 512+ tokens need the flash attention "
-            "kernel, which is not ported yet (ROADMAP.md, Queue 2)")
+        raise ValueError(
+            f"{n} tokens: the whole-sequence kernels hold at most {KERNEL_MAX_SEQ} "
+            "per block; mha_from_qkv sends longer sequences to the flash kernels")
     if b > 65535:
         raise NotImplementedError(f"batch {b} exceeds the launch grid (65535)")
 
@@ -161,8 +177,8 @@ def _check_grad_input(qkv: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def _call(name: str, qkv: torch.Tensor, args):
-    """Launch C function ``tpuwsi_<name>`` on qkv's device and current
-    stream, raise on a CUDA error, count the launch."""
+    """Launch C function ``tpuwsi_<name>`` on the device of ``qkv`` (any
+    operand) and its current stream, raise on a CUDA error, count the launch."""
     from tpuwsi_torch.ops import _build
 
     lib = _build.load()
@@ -265,6 +281,259 @@ class _MhaQkv(torch.autograd.Function):
         return bwd(qkv, g, ctx.num_heads, ctx.scale, ctx.block_len), None, None, None, None
 
 
+def _flash_reference(q, k, v, kv_lengths=None, scale=None):
+    """Plain version of the tiled forward → ``(o, lse)``. q: (B, H, Sq, hd);
+    k, v: (B, H, Sk, hd); kv_lengths: (B,) or None; lse: (B, H, Sq) fp32.
+
+    The kernel's arithmetic, ``FLASH_TILE_K`` keys at a time: the scale
+    multiplies the fp32 score; p = exp(s - running max) stays unnormalised, is
+    exactly 0 for a key at or past the length, is summed in fp32 and rounded
+    to v's dtype for p.V; o = acc / l is rounded once at the end. A row with
+    no valid key gives o = 0 and lse = 0."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, h, sq, hd = q.shape
+    sk = k.shape[2]
+    dev = q.device
+    if kv_lengths is None:
+        lens = torch.full((b,), sk, device=dev)
+    else:
+        lens = kv_lengths.to(dev)
+    qf = q.float()
+    m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, h, sq, hd), dtype=torch.float32, device=dev)
+    for c0 in range(0, sk, FLASH_TILE_K):
+        kt, vt = k[:, :, c0:c0 + FLASH_TILE_K], v[:, :, c0:c0 + FLASH_TILE_K]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kt.float()) * scale
+        kidx = torch.arange(c0, c0 + kt.shape[2], device=dev)
+        valid = kidx[None, None, None, :] < lens[:, None, None, None]
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(valid, torch.exp(s - m_new), torch.zeros_like(s))
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vt.float())
+        m = m_new
+    empty = l == 0.0
+    o = (acc / torch.where(empty, torch.ones_like(l), l)).to(q.dtype)
+    lse = torch.where(empty, torch.zeros_like(l), m + torch.log(l.clamp(min=1e-30)))
+    return o, lse[..., 0]
+
+
+def _flash_delta(o, do):
+    """delta = sum(dO * O) over the head dimension, fp32 (B, H, Sq), contiguous:
+    the row term of the softmax gradient, outside any kernel as in the reference."""
+    return (do.float() * o.float()).sum(dim=-1).contiguous()
+
+
+def _flash_bwd_reference(q, k, v, do, lse, delta, scale):
+    """Plain version of the two backward kernels → ``(dq, dk, dv)``: p is
+    rebuilt in fp32 from lse; dS is rounded to the inputs' dtype before
+    dQ = dS.K and dK = dS^T.Q, p before dV = p^T.dO."""
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(), gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_flash_operands(like: torch.Tensor, **tensors) -> None:
+    """Raise unless the flash kernels take these (B, H, S, hd) operands as
+    they are: bf16 on one CUDA device, head_dim 64 with unit stride, every
+    other stride a multiple of 8 elements and the base 16-byte aligned, so
+    that each row of 128 bytes is read in aligned 16-byte copies."""
+    for name, x in tensors.items():
+        if x.dim() != 4 or x.shape[-1] != KERNEL_HEAD_DIM:
+            raise ValueError(f"flash kernels take (B, H, S, {KERNEL_HEAD_DIM}): {name} is "
+                             f"{tuple(x.shape)}")
+        if x.dtype != torch.bfloat16 or x.device != like.device or x.device.type != "cuda":
+            raise ValueError(f"flash kernels take bf16 tensors on one CUDA device: {name} is "
+                             f"{x.dtype} on {x.device}")
+        if x.shape[:2] != like.shape[:2]:
+            raise ValueError(f"{name} {tuple(x.shape)} does not share batch and heads with "
+                             f"{tuple(like.shape)}")
+        if x.stride(3) != 1 or any(st % 8 for st in x.stride()[:3]) or x.data_ptr() % 16:
+            raise ValueError(f"flash kernels take rows of 64 contiguous values, 16-byte aligned: "
+                             f"{name} has strides {x.stride()}")
+
+
+def _strides(*tensors):
+    """Batch, head and row strides of each tensor, in elements, as a C array."""
+    import ctypes
+
+    vals = [st for x in tensors for st in x.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _row_stats(name, x, like):
+    if (x.shape != like.shape[:3] or x.dtype != torch.float32 or x.device != like.device
+            or not x.is_contiguous()):
+        raise ValueError(f"{name} must be fp32 {tuple(like.shape[:3])}, contiguous, beside q: "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    return x.data_ptr()
+
+
+def _launch_flash_fwd(q, k, v, kv_lengths, scale, stats, out=None):
+    """The tiled forward kernel → ``(o, lse)``; lse is None without ``stats``.
+    ``out``: a (B, H, Sq, hd) view to write o into, else o is allocated."""
+    b, h, sq, hd = q.shape
+    if out is None:
+        out = torch.empty((b, h, sq, hd), dtype=q.dtype, device=q.device)
+    _check_flash_operands(q, q=q, k=k, v=v, o=out)
+    if k.shape != v.shape or k.stride() != v.stride() or out.shape != q.shape:
+        raise ValueError("flash forward: k and v must share shape and strides, o q's shape")
+    lens = None
+    if kv_lengths is not None:
+        if kv_lengths.shape != (b,):
+            raise ValueError(f"kv_lengths must be ({b},), got {tuple(kv_lengths.shape)}")
+        lens = kv_lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    lse = None
+    if stats:
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        ptrs.append(lse.data_ptr())
+    ptrs.append(None if lens is None else lens.data_ptr())
+    _call("flash_fwd_stats" if stats else "flash_fwd", q,
+          (*ptrs, b, h, sq, k.shape[2], _strides(q, k, out), float(scale)))
+    return out, lse
+
+
+def _launch_flash_bwd(q, k, v, do, lse, delta, scale, grads=None):
+    """The two backward kernels → ``(dq, dk, dv)``, written into the views
+    ``grads`` where given (dk and dv must share their strides)."""
+    if grads is None:
+        grads = (torch.empty(q.shape, dtype=q.dtype, device=q.device),
+                 torch.empty(k.shape, dtype=k.dtype, device=k.device),
+                 torch.empty(v.shape, dtype=v.dtype, device=v.device))
+    dq, dk, dv = grads
+    _check_flash_operands(q, q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv)
+    if (k.shape != v.shape or k.stride() != v.stride() or do.shape != q.shape
+            or dq.shape != q.shape or dk.shape != k.shape or dv.shape != k.shape
+            or dk.stride() != dv.stride()):
+        raise ValueError("flash backward: k, v and dk, dv must share shape and strides; "
+                         "dO and dq take q's shape")
+    b, h, sq, _ = q.shape
+    stats = (_row_stats("lse", lse, q), _row_stats("delta", delta, q))
+    dims = (b, h, sq, k.shape[2])
+    _call("flash_bwd_dq", q,
+          (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *stats, dq.data_ptr(),
+           *dims, _strides(q, k, do, dq), float(scale)))
+    _call("flash_bwd_dkv", q,
+          (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *stats, dk.data_ptr(),
+           dv.data_ptr(), *dims, _strides(q, k, do, dk), float(scale)))
+    return dq, dk, dv
+
+
+def _flash_forward(q, k, v, kv_lengths, scale, stats, plain, out=None):
+    """Kernel or plain version of the tiled forward, by ``_use_plain``."""
+    if not _use_plain(q, plain):
+        return _launch_flash_fwd(q, k, v, kv_lengths, scale, stats, out)
+    o, lse = _flash_reference(q, k, v, kv_lengths, scale)
+    if out is not None:
+        o = out.copy_(o)
+    return o, (lse if stats else None)
+
+
+def _flash_backward(q, k, v, o, do, lse, scale, plain, grads=None):
+    """delta in plain PyTorch, then kernel or plain version of dQ and dK/dV."""
+    delta = _flash_delta(o, do)
+    if not _use_plain(q, plain):
+        return _launch_flash_bwd(q, k, v, do, lse, delta, scale, grads)
+    out = _flash_bwd_reference(q, k, v, do, lse, delta, scale)
+    if grads is not None:
+        out = tuple(dst.copy_(src) for dst, src in zip(grads, out))
+    return out
+
+
+def _heads(x: torch.Tensor, num_heads: int, parts: int):
+    """(B, N, parts * D) → ``parts`` strided views (B, H, N, hd), no copy."""
+    b, n, width = x.shape
+    return x.view(b, n, parts, num_heads, width // parts // num_heads).permute(
+        2, 0, 3, 1, 4).unbind(0)
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Tiled attention on (B, H, S, hd) tensors: forward with statistics
+    saves ``(q, k, v, o, lse)``, backward rebuilds p tile by tile
+    (``tpuwsi/ops/attention.py:506 _fused_attention``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, plain):
+        o, lse = _flash_forward(q, k, v, None, scale, True, plain)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.plain = scale, plain
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        grads = _flash_backward(q, k, v, o, g.contiguous(), lse, ctx.scale, ctx.plain)
+        return (*grads, None, None)
+
+
+class _MhaQkvFlash(torch.autograd.Function):
+    """The same pair on the fused qkv projection: q, k, v are strided views
+    of qkv, o is written as (B, N, D) and dQ, dK, dV into one (B, N, 3D)."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale, plain):
+        out, lse = _mha_flash_forward(qkv, num_heads, scale, True, plain)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.num_heads, ctx.scale, ctx.plain = num_heads, scale, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, out, lse = ctx.saved_tensors
+        h = ctx.num_heads
+        q, k, v = _heads(qkv, h, 3)
+        (o,), (do,) = _heads(out, h, 1), _heads(g.contiguous(), h, 1)
+        dqkv = torch.empty_like(qkv)
+        _flash_backward(q, k, v, o, do, lse, ctx.scale, ctx.plain, grads=_heads(dqkv, h, 3))
+        return dqkv, None, None, None
+
+
+def _mha_flash_forward(qkv, num_heads, scale, stats, plain):
+    """qkv (B, N, 3D) → ``(out (B, N, D), lse)`` through the tiled forward."""
+    if not _use_plain(qkv, plain) and not qkv.is_contiguous():
+        raise ValueError("mha_from_qkv kernels take a contiguous qkv")
+    b, n, d3 = qkv.shape
+    q, k, v = _heads(qkv, num_heads, 3)
+    out = torch.empty((b, n, d3 // 3), dtype=qkv.dtype, device=qkv.device)
+    _, lse = _flash_forward(q, k, v, None, scale, stats, plain, out=_heads(out, num_heads, 1)[0])
+    return out, lse
+
+
+def fused_attention(q, k, v, kv_lengths=None, scale=None, force_kernel: bool = False,
+                    plain: bool = False) -> torch.Tensor:
+    """Attention on (B, H, S, hd) tensors (``tpuwsi/ops/attention.py:1307``).
+
+    ``MIN_FLASH_SEQ`` keys or more, or ``force_kernel``, take the tiled pair:
+    the flash kernels on a CUDA tensor, their plain versions on a CPU tensor
+    or with ``plain``. Shorter sequences take ``attention_reference``, the
+    product that the reference leaves to its compiler. ``kv_lengths`` (B,)
+    masks keys at or past each element's length; that path has no gradient,
+    as in the reference, and raises if one is asked for.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    need_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    if kv_lengths is not None and need_grad:
+        raise ValueError("fused_attention with kv_lengths has no backward: "
+                         "detach the inputs or run under torch.no_grad()")
+    _use_plain(q, plain)  # raises for a device that is neither cuda nor cpu
+    if k.shape[2] < MIN_FLASH_SEQ and not force_kernel:
+        return attention_reference(q, k, v, kv_lengths, scale)
+    if need_grad:
+        return _FusedAttention.apply(q, k, v, float(scale), bool(plain))
+    return _flash_forward(q, k, v, kv_lengths, float(scale), False, plain)[0]
+
+
 def mha_from_qkv(qkv: torch.Tensor, num_heads: int, scale: float | None = None,
                  block_len: int = 0, training: bool = False,
                  save_probs: bool = False, plain: bool = False) -> torch.Tensor:
@@ -275,12 +544,24 @@ def mha_from_qkv(qkv: torch.Tensor, num_heads: int, scale: float | None = None,
     attention to blocks of ``block_len`` consecutive tokens. The reference's
     dispatch rule: ``save_probs and training`` takes the pair that saves the
     probabilities for its backward, anything else the pair that rebuilds them.
-    ``plain`` routes a CUDA tensor to the plain versions too (comparison runs).
+    ``MIN_FLASH_SEQ`` tokens or more take the tiled flash pair, whatever
+    ``training`` and ``save_probs`` say (it never saves p), and ``block_len``
+    raises there. ``plain`` routes a CUDA tensor to the plain versions too
+    (comparison runs).
     """
     d = qkv.shape[-1] // 3
     if qkv.shape[-1] != 3 * d or d % num_heads:
         raise ValueError(f"qkv width {qkv.shape[-1]} is not 3 x {num_heads} heads")
     if scale is None:
         scale = (d // num_heads) ** -0.5
+    n = qkv.shape[1]
+    if n >= MIN_FLASH_SEQ:
+        if 0 < block_len < n:
+            raise ValueError(f"block_len {block_len} with {n} tokens: the tiled kernels "
+                             "take no block mask; pack sequences below 512 tokens only")
+        _use_plain(qkv, plain)  # raises for a device that is neither cuda nor cpu
+        if torch.is_grad_enabled() and qkv.requires_grad:
+            return _MhaQkvFlash.apply(qkv, num_heads, float(scale), bool(plain))
+        return _mha_flash_forward(qkv, num_heads, float(scale), False, plain)[0]
     op = _MhaQkvSaved if (save_probs and training) else _MhaQkv
     return op.apply(qkv, num_heads, float(scale), int(block_len), bool(plain))

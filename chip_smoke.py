@@ -6,14 +6,17 @@
 Phases, each printing its own lines:
   1. the card's name and power limit (nvidia-smi);
   2. build the Hopper kernels from tpuwsi_torch/ops/csrc with nvcc;
-  3. each of the eight kernels against its plain PyTorch version on the
+  3. each of the twelve kernels against its plain PyTorch version on the
      card, at the shapes the paths give it (the four whole-sequence kernels
      at 37-257 tokens, the four tiled flash kernels at 512-1,024 tokens,
      through strided views of a fused qkv and contiguous, and with key
-     lengths), plus median times (CUDA events) beside the plain version's and
-     one PyTorch library call's (scaled_dot_product_attention, forward or
-     its autograd backward), which the port itself never calls, and the
-     least time the card could take;
+     lengths; the four fused-MLP kernels at the step's and the serving
+     chunk's row counts, at ViT-B width and at 7 rows, both GELU forms),
+     plus median times (CUDA events) beside the plain version's and one
+     PyTorch library call's (scaled_dot_product_attention, forward or its
+     autograd backward; for the MLP kernels the unfused route of several
+     library calls), which the port itself never calls, and the least time
+     the card could take;
   4. the serving slice: full-width ViT-S/16 at 256 px (seeded random weights
      in the JAX package's layout, through params_from_flax) runs 4 slides x
      500 uint8 tiles through extract_features; the kernel's launch count,
@@ -26,13 +29,20 @@ Phases, each printing its own lines:
      per-kernel launch counts are checked, the same seeds with plain
      attention must give the same losses, and so must a depth-4 run with
      attn_save_probs off, which takes the recomputing backward kernel (timed
-     at full depth too); two more steps run under torch.profiler for a
-     breakdown by kernel kind;
-  6. the long-sequence slices, ViT-S/16 at 448 px (785 tokens), full width
+     at full depth too);
+  6. the fused-MLP route (use_fused_mlp), full width and depth: the serving
+     slice again (12 sub-block forwards per chunk) and the DINO step for
+     2 + 6 steps (per step 14 sub-block forwards, 2 sub-block backwards, 22
+     MLP forwards and 22 MLP backwards), each held against the default route
+     from the same seeds and timed beside it; then the hybrid route (mlp_pallas_bwd) at depth 4 (8 MLP backwards per
+     step, no forward kernel);
+  7. the long-sequence slices, ViT-S/16 at 448 px (785 tokens), full width
      and depth: 2 chunks of 128 tiles through extract_features, and the same
      DINO step with --dino-global-size 448 for 2 + 4 steps, each with its
-     launch counts asserted and held against plain attention, and one step
-     under torch.profiler.
+     launch counts asserted and held against plain attention;
+  8. one step each of the tuned step, the fused-MLP step and the 448-px step
+     under torch.profiler, for a breakdown by kernel kind. They come last:
+     once the profiler has run, the process launches kernels more slowly.
 The line before the last but one is a JSON summary of the kernels, then the
 card's name and power limit once more, and the last line
 {"ok": true, "device": {...}}. Any failure raises: the script then exits
@@ -59,7 +69,7 @@ from tpuwsi_torch.core.device import require_cuda
 from tpuwsi_torch.infer.slide_walker import InferChunk
 from tpuwsi_torch.models.convert import params_from_flax
 from tpuwsi_torch.models.registry import create_model
-from tpuwsi_torch.ops import _build, attention
+from tpuwsi_torch.ops import _build, attention, mlp
 
 SEED = 0
 OUT = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -97,6 +107,22 @@ FLASH_LENGTHS = [512, 300, 37, 1, 0]  # masked forward at S = 512, one element e
 # way (p, dS, o), else fp32 accumulation order; lse is fp32 throughout
 FLASH_MAX_ABS, FLASH_MEAN_ABS, FLASH_LSE_MAX_ABS = 2e-2, 1e-5, 1e-4
 
+# fused MLP: (rows, D, F): bf16 x, dy ~ N(0, 1), weights ~ N(0, 1 / fan_in)
+MLP_SHAPES = [
+    (37824, 384, 1536),   # the DINO step's student global views, 192 x 197 (timed)
+    (21312, 384, 1536),   # its local views, 576 x 37 (also with the erf GELU)
+    (128500, 384, 1536),  # one serving chunk, 500 x 257 (the sub-block forward timed)
+    (6304, 768, 3072),    # ViT-B/16, 32 x 197
+    (7, 384, 1536),       # less than one row tile
+]
+# bf16 outputs (y, dx): one bf16 ulp of a value below 8, where the rounding of
+# the result, or of h, du or LN(x) before a product, falls the other way
+MLP_MAX_ABS, MLP_MEAN_ABS = 4e-2, 2e-3
+# fp32 parameter gradients, relative to the gradient's largest element: sums
+# over the rows of products of bf16 operands, a few of which differ by one ulp
+# (2^-8 of the operand: all of it shows where a sum has as few as 7 rows)
+MLP_GRAD_REL = 4e-3
+
 MODEL, TILE, TILES_PER_ITER, N_SLIDES = "vit_small_patch16_224", 256, 500, 4
 VALID = [500, 500, 437, 311]  # two slides end in a padded chunk
 MODEL_448, TILE_448, TILES_PER_ITER_448, VALID_448 = "vit_small_patch16_448", 448, 128, [128, 77]
@@ -110,6 +136,16 @@ TRAIN_ARGV_448, TIMED_STEPS_448 = TRAIN_ARGV + ["--dino-global-size", "448"], 4
 # kernel path against plain-attention path, same seeds: the two differ in the
 # summation order inside attention only, then in what bf16 makes of that
 LOSS_MAX_DIFF = 2e-2
+
+
+def all_launches() -> dict:
+    """Launches per kernel since the last reset, attention and MLP kernels alike."""
+    return {**attention.LAUNCHES, **mlp.LAUNCHES}
+
+
+def reset_launches() -> None:
+    attention.reset_launches()
+    mlp.reset_launches()
 
 
 def cuda_median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -460,6 +496,146 @@ def phase_flash_kernels(smi: str) -> dict:
     return res
 
 
+def mlp_bound(backward: bool, block: bool, rows, d, f) -> dict:
+    """As ``attention_bound``: x (and dy) and the parameters read once, y (or
+    dx and the fp32 parameter gradients) written once; two products forward,
+    five backward, of 2 * rows * D * F operations each."""
+    act, weights = rows * d * 2, (2 * d * f + d + f) * 2 + (2 * d * 4 if block else 0)
+    if backward:
+        nbytes = 3 * act + weights + (2 * d * f + d + f + (2 * d if block else 0)) * 4
+        flops = 10 * rows * d * f
+    else:
+        nbytes, flops = 2 * act + weights, 4 * rows * d * f
+    t_bytes, t_flops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bound_bytes": nbytes, "bound_flops": flops}
+
+
+def check_mlp(name, case, got, want) -> float:
+    """bf16 tensors against the absolute bounds, fp32 gradients against the
+    relative one → the largest absolute error of the bf16 tensors."""
+    worst = 0.0
+    for label, a, b in zip(("out", "g1", "g2", "g3", "g4", "g5", "g6"), got, want):
+        diff = (a.float() - b.float()).abs()
+        mx, mean = diff.max().item(), diff.mean().item()
+        ok = bool(torch.isfinite(a.float()).all()) and a.shape == b.shape and a.dtype == b.dtype
+        if a.dtype == torch.bfloat16:
+            worst = max(worst, mx)
+            ok = ok and mx <= MLP_MAX_ABS and mean <= MLP_MEAN_ABS
+            print(f"[{name}] {case} {label}: max_abs={mx:.3e} mean_abs={mean:.3e} "
+                  f"(bounds {MLP_MAX_ABS}, {MLP_MEAN_ABS})")
+        else:
+            rel = mx / max(b.abs().max().item(), 1e-30)
+            ok = ok and rel <= MLP_GRAD_REL
+            print(f"[{name}] {case} {label} {tuple(a.shape)} fp32: max_abs={mx:.3e} = {rel:.3e} "
+                  f"of the largest element (bound {MLP_GRAD_REL})")
+        if not ok:
+            raise RuntimeError(f"{name} disagrees with its plain version at {case} ({label})")
+    return worst
+
+
+def unfused_mlp(x, g, be, w1t, b1, w2t, b2, approx, block):
+    """The route the port takes without the flag, on the same operands: library
+    GEMMs with GELU (and fp32 LayerNorm and the residual sum) between them."""
+    a = x
+    if block:
+        a = torch.nn.functional.layer_norm(x.float(), x.shape[-1:], g, be, 1e-6).to(x.dtype)
+    h = torch.nn.functional.gelu(torch.nn.functional.linear(a, w1t, b1),
+                                 approximate="tanh" if approx else "none")
+    y = torch.nn.functional.linear(h, w2t, b2)
+    return x + y if block else y
+
+
+def phase_mlp_kernels(smi: str) -> dict:
+    """K5f, K5b, K6f, K6b against their plain versions; times at the student's
+    global views (the sub-block forward at the serving chunk), beside the
+    plain version's, the unfused route's and the bound. The backward kernels
+    run twice on the same inputs and must give the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    names = ("mlp_fwd", "mlp_bwd", "mlp_block_fwd", "mlp_block_bwd")
+    res = {name: {"max_abs_err": 0.0, "library_ms": None} for name in names}
+
+    def randn(shape, std=1.0, dtype=torch.bfloat16):
+        return (std * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+    for shape in MLP_SHAPES:
+        rows, d, f = shape
+        x, dy = randn((rows, d)), randn((rows, d))
+        g, be = 1.0 + randn((d,), 0.1, torch.float32), randn((d,), 0.1, torch.float32)
+        w1, b1 = randn((d, f), d ** -0.5), randn((f,), 0.1)
+        w2, b2 = randn((f, d), f ** -0.5), randn((d,), 0.1)
+        for approx in ((True, False) if shape == MLP_SHAPES[1] else (True,)):
+            case = f"rows={rows} D={d} F={f} {'tanh' if approx else 'erf'}"
+            fns = {
+                "mlp_fwd": (lambda: mlp._launch_mlp_fwd(x, w1, b1, w2, b2, approx),
+                            lambda: mlp._mlp_fwd_reference(x, w1, b1, w2, b2, approx)),
+                "mlp_bwd": (lambda: mlp._launch_mlp_bwd(x, dy, w1, b1, w2, approx),
+                            lambda: mlp._mlp_bwd_reference(x, dy, w1, b1, w2, approx)),
+                "mlp_block_fwd": (
+                    lambda: mlp._launch_mlp_block_fwd(x, g, be, w1, b1, w2, b2, approx, 1e-6),
+                    lambda: mlp._mlp_block_fwd_reference(x, g, be, w1, b1, w2, b2, approx, 1e-6)),
+                "mlp_block_bwd": (
+                    lambda: mlp._launch_mlp_block_bwd(x, dy, g, be, w1, b1, w2, approx, 1e-6),
+                    lambda: mlp._mlp_block_bwd_reference(x, dy, g, be, w1, b1, w2, approx, 1e-6)),
+            }
+            for name in names:
+                got, want = fns[name][0](), fns[name][1]()
+                torch.cuda.synchronize()
+                if torch.is_tensor(got):
+                    got, want = (got,), (want,)
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                               check_mlp(name, case, got, want))
+                if name.endswith("bwd"):
+                    again = fns[name][0]()
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise RuntimeError(f"{name}: two runs on the same inputs differ")
+                del got, want
+            timed = {MLP_SHAPES[0]: ("mlp_fwd", "mlp_bwd", "mlp_block_bwd"),
+                     MLP_SHAPES[2]: ("mlp_block_fwd",)}.get(shape, ())
+            if not approx or not timed:
+                continue
+            # the unfused route on nn.Linear's (out, in) weights
+            leaves = [t.detach().requires_grad_() for t in
+                      (x, g, be, w1.t().contiguous(), b1, w2.t().contiguous(), b2)]
+            for name in timed:
+                block = "block" in name
+                if name.endswith("bwd"):
+                    y_unfused = unfused_mlp(*leaves, approx, block)
+                    wrt = leaves if block else [leaves[0], *leaves[3:]]
+
+                    def unfused(y_unfused=y_unfused, wrt=wrt):
+                        return torch.autograd.grad(y_unfused, wrt, dy, retain_graph=True)
+                else:
+                    def unfused(block=block):
+                        with torch.no_grad():
+                            return unfused_mlp(*leaves, approx, block)
+                r = res[name]
+                k1 = cuda_median_ms(fns[name][0])
+                u1 = cuda_median_ms(unfused)
+                u2 = cuda_median_ms(unfused)
+                k2 = cuda_median_ms(fns[name][0])
+                r.update(ms=min(k1, k2), ms_runs=[k1, k2], unfused_ms=min(u1, u2),
+                         unfused_ms_runs=[u1, u2],
+                         plain_ms=cuda_median_ms(fns[name][1], reps=5, warmup=1),
+                         **mlp_bound(name.endswith("bwd"), block, rows, d, f))
+                print(f"[{name}] {case}, medians of 20 in the order kernel, unfused, unfused, "
+                      f"kernel: kernel {r['ms_runs']} ms, unfused route (library GEMMs, GELU"
+                      f"{', LayerNorm, residual sum' if block else ''}"
+                      f"{', their autograd backward' if name.endswith('bwd') else ''}: several "
+                      f"library calls) {r['unfused_ms_runs']} ms, plain {r['plain_ms']:.4f} ms, "
+                      f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+                      f"({r['bound_bytes'] / 1e6:.1f} MB, {r['bound_flops'] / 1e9:.1f} GFLOP); "
+                      f"no single library call computes it; on {smi}")
+                del unfused
+            del leaves
+        del x, dy, g, be, w1, b1, w2, b2, fns
+        torch.cuda.empty_cache()
+    print("[mlp_bwd, mlp_block_bwd] two runs on the same inputs gave the same bits at every shape")
+    return res
+
+
 def flax_vit_tree(cfg, seed: int) -> dict:
     """Seeded random ViT parameters in the JAX package's flax layout.
 
@@ -522,12 +698,17 @@ def timed_extract(chunks, model, params, out_dir, dev):
 
 
 def phase_slice(smi: str, name=MODEL, tile=TILE, tiles_per_iter=TILES_PER_ITER, valid=VALID,
-                kernel="mha_qkv_fwd", tag="slice") -> dict:
-    """The serving slice → launches per kernel; ``kernel`` is the one kernel
-    that every layer of every chunk's forward must launch once."""
+                kernels=("mha_qkv_fwd",), tag="slice", model_kw=None, other_kw=None,
+                other="plain attention") -> dict:
+    """The serving slice → launches per kernel; ``kernels`` are those that
+    every layer of every chunk's forward must launch once, and no other may
+    be launched. The model built with ``model_kw`` is held against the one
+    built with ``other_kw`` (by default: every attention call on the plain
+    version), called ``other`` in the lines printed."""
     dev = torch.device("cuda")
-    model = create_model(name, num_classes=2, img_size=tile)
-    plain = create_model(name, num_classes=2, img_size=tile, use_kernel_attention=False)
+    model = create_model(name, num_classes=2, img_size=tile, **(model_kw or {}))
+    plain = create_model(name, num_classes=2, img_size=tile,
+                         **({"use_kernel_attention": False} if other_kw is None else other_kw))
     cfg = model.config
     params = params_from_flax(flax_vit_tree(cfg, SEED))
     t0 = time.perf_counter()
@@ -541,15 +722,16 @@ def phase_slice(smi: str, name=MODEL, tile=TILE, tiles_per_iter=TILES_PER_ITER, 
         extract_features(chunks[:1], m, params, str(out_dir / "warmup"), dev)
     torch.cuda.reset_peak_memory_stats()
 
-    attention.reset_launches()
+    reset_launches()
     agg, t_kernel = timed_extract(chunks, model, params, out_dir / "kernel", dev)
-    launches = dict(attention.LAUNCHES)
+    launches = all_launches()
     peak = torch.cuda.max_memory_allocated()
-    expected = {**dict.fromkeys(launches, 0), kernel: cfg.depth * len(chunks)}
-    print(f"[{tag}] launches {launches} (expected {kernel} depth {cfg.depth} x "
-          f"{len(chunks)} forwards, no other kernel)")
+    expected = {**dict.fromkeys(launches, 0),
+                **dict.fromkeys(kernels, cfg.depth * len(chunks))}
+    print(f"[{tag}] launches {launches} (expected {', '.join(kernels)}: depth {cfg.depth} x "
+          f"{len(chunks)} forwards each, no other kernel)")
     if launches != expected:
-        raise RuntimeError("the serving path did not run the attention kernel once per layer")
+        raise RuntimeError("the serving path did not run its kernels once per layer")
 
     feats = np.concatenate([r.features for r in agg.results])
     probs = np.concatenate([r.tile_probs for r in agg.results])
@@ -570,16 +752,16 @@ def phase_slice(smi: str, name=MODEL, tile=TILE, tiles_per_iter=TILES_PER_ITER, 
     cos = (feats * feats_p).sum(1) / (
         np.linalg.norm(feats, axis=1) * np.linalg.norm(feats_p, axis=1))
     dprob = float(np.abs(probs - probs_p).max())
-    print(f"[{tag}] kernel vs plain attention: min per-tile feature cosine "
+    print(f"[{tag}] kernel path vs {other}: min per-tile feature cosine "
           f"{cos.min():.6f} (>= {FEAT_COSINE_MIN}), max probs diff {dprob:.3e} "
           f"(<= {PROBS_MAX_DIFF}); slide AUC {agg.slide_auc():.4f} / "
           f"{agg_plain.slide_auc():.4f}")
     if cos.min() < FEAT_COSINE_MIN or dprob > PROBS_MAX_DIFF:
-        raise RuntimeError("kernel and plain attention paths disagree")
+        raise RuntimeError(f"the kernel path and {other} disagree")
     print(f"[{tag}] extract_features wall time (normalize + forward + fetch + "
-          f"aggregation + files), {n_valid} valid tiles, run order kernel, plain, "
-          f"plain, kernel: kernel {t_kernel:.4f} / {t_kernel_2:.4f} s = "
-          f"{n_valid / t_kernel:.1f} / {n_valid / t_kernel_2:.1f} tiles/s; plain "
+          f"aggregation + files), {n_valid} valid tiles, run order kernel path, {other}, "
+          f"{other}, kernel path: kernel path {t_kernel:.4f} / {t_kernel_2:.4f} s = "
+          f"{n_valid / t_kernel:.1f} / {n_valid / t_kernel_2:.1f} tiles/s; {other} "
           f"{t_plain:.4f} / {t_plain_2:.4f} s = {n_valid / t_plain:.1f} / "
           f"{n_valid / t_plain_2:.1f} tiles/s; peak device memory (kernel run) "
           f"{peak / 2**30:.2f} GiB; on {smi}")
@@ -596,28 +778,29 @@ def run_steps(bundle, batch, n_steps: int):
     """→ per step: loss, gradient norm, launches, milliseconds (CUDA events)."""
     rows = []
     for _ in range(n_steps):
-        attention.reset_launches()
+        reset_launches()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         _, metrics = bundle.raw_step(bundle.state, batch, bundle.generator)
         end.record()
         end.synchronize()
         rows.append({"loss": metrics["loss"].item(), "grad_norm": metrics["grad_norm"].item(),
-                     "launches": dict(attention.LAUNCHES), "ms": start.elapsed_time(end)})
+                     "launches": all_launches(), "ms": start.elapsed_time(end)})
     return rows
 
 
-def check_losses(tag, rows, plain_rows):
+def check_losses(tag, rows, plain_rows, other="plain attention"):
     for i, (a, b) in enumerate(zip(rows, plain_rows)):
-        print(f"[train] {tag} step {i}: loss kernel path {a['loss']:.6f}, plain attention "
+        print(f"[train] {tag} step {i}: loss kernel path {a['loss']:.6f}, {other} "
               f"{b['loss']:.6f} (|diff| <= {LOSS_MAX_DIFF})")
         if not abs(a["loss"] - b["loss"]) <= LOSS_MAX_DIFF:
-            raise RuntimeError(f"{tag}: kernel and plain attention paths disagree at step {i}")
+            raise RuntimeError(f"{tag}: the kernel path and {other} disagree at step {i}")
 
 
 # kernel-name fragments → kind, first match wins
 PROFILE_KINDS = [
     ("attention kernels (hand-written)", ("mha_qkv", "flash_fwd_kernel", "flash_bwd_d")),
+    ("fused MLP kernels (hand-written)", ("mlp_fwd_kernel", "mlp_bwd_d", "sum_partials")),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "cublas", "gemv")),
     ("LayerNorm, forward and backward", ("layer_norm", "LayerNorm", "GammaBeta")),
     ("GELU, forward and backward", ("Gelu", "gelu")),
@@ -630,7 +813,25 @@ PROFILE_KINDS = [
 ]
 
 
-def profile_step(bundle, batch, step_ms: float, smi: str) -> None:
+# (tag, vit_overrides, argv, ms per step): steps to profile once every time
+# has been taken. A process that has run torch.profiler once launches kernels
+# more slowly from then on, so no timed phase may come after a profile.
+PROFILES = []
+
+
+def phase_profiles(smi: str) -> None:
+    rng = np.random.default_rng(SEED)
+    batch = {"images": torch.from_numpy(
+        rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3), dtype=np.uint8)).cuda()}
+    for tag, overrides, argv, ms in PROFILES:
+        bundle = train_bundle(overrides, argv)
+        run_steps(bundle, batch, WARMUP_STEPS)
+        profile_step(tag, bundle, batch, ms, smi)
+        del bundle
+        torch.cuda.empty_cache()
+
+
+def profile_step(tag: str, bundle, batch, step_ms: float, smi: str) -> None:
     """Two steps under torch.profiler, the second reported (the first pays
     for the profiler's start): device time by kernel kind, from the kernels'
     own trace events."""
@@ -656,7 +857,7 @@ def profile_step(bundle, batch, step_ms: float, smi: str) -> None:
         totals[kind] = totals.get(kind, 0.0) + evt.self_device_time_total / 1e3
         counts[kind] = counts.get(kind, 0) + evt.count
     device_ms = sum(totals.values())
-    print(f"[profile] one step under torch.profiler ({wall_ms:.1f} ms of wall with the "
+    print(f"[profile] {tag}: one step under torch.profiler ({wall_ms:.1f} ms of wall with the "
           f"profiler on): kernel time {device_ms:.1f} ms in {sum(counts.values())} kernels and "
           f"copies = {100 * min(device_ms / step_ms, 1):.0f}% of the {step_ms:.1f} ms a step "
           f"takes without the profiler, the rest being device idle time; on {smi}")
@@ -673,7 +874,7 @@ def phase_train(smi: str) -> dict:
     rng = np.random.default_rng(SEED)
     batch = {"images": torch.from_numpy(
         rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3), dtype=np.uint8)).cuda()}
-    total = dict.fromkeys(attention.LAUNCHES, 0)
+    total = dict.fromkeys(all_launches(), 0)
 
     def count(rows):
         for r in rows:
@@ -709,7 +910,7 @@ def phase_train(smi: str) -> dict:
     rows += run_steps(bundle, batch, WARMUP_STEPS - 1 + TIMED_STEPS)
     peak = torch.cuda.max_memory_allocated()
     count(rows)
-    none = dict.fromkeys(attention.LAUNCHES, 0)
+    none = dict.fromkeys(all_launches(), 0)
     want_launches = {**none, "mha_qkv_fwd": depth, "mha_qkv_fwd_saved": 2 * depth,
                      "mha_qkv_bwd_saved": 2 * depth}
     for i, r in enumerate(rows):
@@ -729,7 +930,7 @@ def phase_train(smi: str) -> dict:
     crop_ms = cuda_median_ms(lambda: bundle.multicrop(bundle.generator, batch["images"]),
                              reps=5, warmup=1)
     print(f"[train] multi-crop alone (8 views of {TRAIN_BATCH} tiles): {crop_ms:.2f} ms; on {smi}")
-    profile_step(bundle, batch, ms, smi)
+    PROFILES.append(("the tuned step", None, TRAIN_ARGV, ms))
     del bundle
     torch.cuda.empty_cache()
 
@@ -775,6 +976,87 @@ def phase_train(smi: str) -> dict:
     return total
 
 
+def phase_train_fused_mlp(smi: str) -> tuple[dict, dict]:
+    """The DINO step with the fused-MLP route, full width and depth, against
+    the default route from the same seeds; then the hybrid route
+    (``mlp_pallas_bwd``) at depth 4. → launches per kernel of the two paths.
+
+    With ``use_fused_mlp`` the teacher's 12 blocks and the student's block 0
+    (stochastic-depth rate 0) run the sub-block op, the student's blocks 1-11
+    the MLP op; the student makes two passes (global and local views)."""
+    rng = np.random.default_rng(SEED)
+    batch = {"images": torch.from_numpy(
+        rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3), dtype=np.uint8)).cuda()}
+    none = dict.fromkeys(all_launches(), 0)
+
+    def summed(rows):
+        return {name: sum(r["launches"][name] for r in rows) for name in none}
+
+    def timed_run(overrides):
+        bundle = train_bundle(overrides)
+        torch.cuda.reset_peak_memory_stats()
+        rows = run_steps(bundle, batch, WARMUP_STEPS + TIMED_STEPS)
+        return bundle, rows, torch.cuda.max_memory_allocated()
+
+    def median_ms(rows):
+        return statistics.median(r["ms"] for r in rows[-TIMED_STEPS:])
+
+    bundle, rows, peak = timed_run({"use_fused_mlp": True})
+    depth = bundle.model.backbone.config.depth
+    views = TRAIN_BATCH * (bundle.dcfg.n_global + bundle.dcfg.n_local)
+    attn = {"mha_qkv_fwd": depth, "mha_qkv_fwd_saved": 2 * depth, "mha_qkv_bwd_saved": 2 * depth}
+    want = {**none, **attn, "mlp_block_fwd": depth + 2, "mlp_block_bwd": 2,
+            "mlp_fwd": 2 * (depth - 1), "mlp_bwd": 2 * (depth - 1)}
+    for i, r in enumerate(rows):
+        print(f"[train_fused_mlp] step {i}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.4f} "
+              f"{r['ms']:.2f} ms launches {r['launches']}")
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            raise RuntimeError(f"fused-MLP step {i}: loss or gradient norm is not finite")
+        if r["launches"] != want:
+            raise RuntimeError(f"fused-MLP step {i}: launches {r['launches']}, expected {want}")
+    del bundle  # the peak of the default route is taken with this one gone
+    torch.cuda.empty_cache()
+    default, d_rows, d_peak = timed_run(None)
+    if any(r["launches"] != {**none, **attn} for r in d_rows):
+        raise RuntimeError("the default route launched an MLP kernel")
+    check_losses("use_fused_mlp", rows, d_rows[:2], other="default route")
+    # once more in the other order: fused, default, default, fused
+    d_rows_2 = run_steps(default, batch, TIMED_STEPS)
+    del default
+    torch.cuda.empty_cache()
+    rows_2 = timed_run({"use_fused_mlp": True})[1]
+    ms = min(median_ms(rows), median_ms(rows_2))
+    print(f"[train_fused_mlp] medians of {TIMED_STEPS} steps after {WARMUP_STEPS} warm-up, in the "
+          f"order fused, default, default, fused: use_fused_mlp {median_ms(rows):.2f} / "
+          f"{median_ms(rows_2):.2f} ms per step = {views / median_ms(rows) * 1e3:.1f} / "
+          f"{views / median_ms(rows_2) * 1e3:.1f} views/s, peak device memory "
+          f"{peak / 2**30:.2f} GiB; default route {median_ms(d_rows):.2f} / "
+          f"{median_ms(d_rows_2):.2f} ms per step = {views / median_ms(d_rows) * 1e3:.1f} / "
+          f"{views / median_ms(d_rows_2) * 1e3:.1f} views/s, peak {d_peak / 2**30:.2f} GiB; "
+          f"on {smi}")
+    PROFILES.append(("the step with use_fused_mlp", {"use_fused_mlp": True}, TRAIN_ARGV, ms))
+
+    # -- the hybrid route at depth 4: ordinary forward, kernel backward --
+    over = {"mlp_pallas_bwd": True, "depth": 4}
+    hybrid = train_bundle(over)
+    h_rows = run_steps(hybrid, batch, 2)
+    del hybrid
+    torch.cuda.empty_cache()
+    want_h = {**none, "mha_qkv_fwd": 4, "mha_qkv_fwd_saved": 8, "mha_qkv_bwd_saved": 8,
+              "mlp_bwd": 2 * 4}
+    for i, r in enumerate(h_rows):
+        print(f"[train_fused_mlp] depth 4, mlp_pallas_bwd, step {i}: loss {r['loss']:.6f} "
+              f"{r['ms']:.2f} ms launches {r['launches']}")
+        if r["launches"] != want_h:
+            raise RuntimeError(f"hybrid step {i}: launches {r['launches']}, expected {want_h}")
+    h_default = train_bundle({"depth": 4})
+    check_losses("depth 4, mlp_pallas_bwd", h_rows, run_steps(h_default, batch, 2),
+                 other="default route")
+    del h_default
+    torch.cuda.empty_cache()
+    return summed(rows), summed(h_rows)
+
+
 def phase_train_448(smi: str) -> dict:
     """The same DINO step with 448-px global views: 192 sequences of 785
     tokens through the flash family (the teacher without statistics, the
@@ -793,7 +1075,7 @@ def phase_train_448(smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     rows = run_steps(bundle, batch, WARMUP_STEPS + TIMED_STEPS_448)
     peak = torch.cuda.max_memory_allocated()
-    total = dict.fromkeys(attention.LAUNCHES, 0)
+    total = dict.fromkeys(all_launches(), 0)
     want = {**total, "mha_qkv_fwd_saved": depth, "mha_qkv_bwd_saved": depth, "flash_fwd": depth,
             "flash_fwd_stats": depth, "flash_bwd_dq": depth, "flash_bwd_dkv": depth}
     for i, r in enumerate(rows):
@@ -814,7 +1096,7 @@ def phase_train_448(smi: str) -> dict:
     crop_ms = cuda_median_ms(lambda: bundle.multicrop(bundle.generator, batch["images"]),
                              reps=5, warmup=1)
     print(f"[train448] multi-crop alone: {crop_ms:.2f} ms; on {smi}")
-    profile_step(bundle, batch, ms, smi)
+    PROFILES.append(("the step with 448-px globals", None, TRAIN_ARGV_448, ms))
     del bundle
     torch.cuda.empty_cache()
 
@@ -839,14 +1121,16 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     kernels = {"mha_qkv_fwd": phase_k2(smi), **phase_train_kernels(smi),
-               **phase_flash_kernels(smi)}
-    paths = {
-        "serving": phase_slice(smi),
-        "training": phase_train(smi),
-        "serving_448": phase_slice(smi, MODEL_448, TILE_448, TILES_PER_ITER_448, VALID_448,
-                                   kernel="flash_fwd", tag="slice448"),
-        "training_448": phase_train_448(smi),
-    }
+               **phase_flash_kernels(smi), **phase_mlp_kernels(smi)}
+    paths = {"serving": phase_slice(smi), "training": phase_train(smi)}
+    paths["serving_fused_mlp"] = phase_slice(
+        smi, kernels=("mha_qkv_fwd", "mlp_block_fwd"), tag="slice_fused_mlp",
+        model_kw={"use_fused_mlp": True}, other_kw={}, other="default route")
+    paths["training_fused_mlp"], paths["training_mlp_pallas_bwd"] = phase_train_fused_mlp(smi)
+    paths["serving_448"] = phase_slice(smi, MODEL_448, TILE_448, TILES_PER_ITER_448, VALID_448,
+                                       kernels=("flash_fwd",), tag="slice448")
+    paths["training_448"] = phase_train_448(smi)
+    phase_profiles(smi)
     meta = {
         "mha_qkv_fwd": ("mha_qkv_fwd.cu", "tpuwsi/ops/attention.py:633"),
         "mha_qkv_fwd_saved": ("mha_qkv_fwd.cu", "tpuwsi/ops/attention.py:852"),
@@ -856,6 +1140,10 @@ def main() -> None:
         "flash_fwd_stats": ("flash_fwd.cu", "tpuwsi/ops/attention.py:148"),
         "flash_bwd_dq": ("flash_bwd.cu", "tpuwsi/ops/attention.py:261"),
         "flash_bwd_dkv": ("flash_bwd.cu", "tpuwsi/ops/attention.py:303"),
+        "mlp_fwd": ("mlp_fwd.cu", "tpuwsi/ops/mlp.py:83"),
+        "mlp_bwd": ("mlp_bwd.cu", "tpuwsi/ops/mlp.py:100"),
+        "mlp_block_fwd": ("mlp_fwd.cu", "tpuwsi/ops/mlp.py:485"),
+        "mlp_block_bwd": ("mlp_bwd.cu", "tpuwsi/ops/mlp.py:508"),
     }
     lines = []
     for name, (source, replaces) in meta.items():

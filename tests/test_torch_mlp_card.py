@@ -1,0 +1,58 @@
+"""The four fused-MLP kernels against their plain PyTorch versions on the card.
+
+Marked ``cuda``: each case skips where there is no NVIDIA GPU. This file
+imports nothing of the JAX package, so it runs where only PyTorch is installed:
+
+    python -m pytest tests/test_torch_mlp_card.py -q -m cuda
+"""
+
+import pytest
+import torch
+
+from tpuwsi_torch.ops import mlp as tmlp
+
+CARD_SHAPES = [(300, 384, 1536), (77, 768, 3072)]
+# outputs and dx: one bf16 ulp of a value below 4 where a rounding of h, du or
+# LN(x) falls the other way; weight gradients are fp32 sums over the rows of
+# bf16 operands that differ by such ulps
+CARD_MAX_ABS = 3e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=["vit_s", "vit_b"])
+@pytest.mark.parametrize("kernel", list(tmlp.LAUNCHES))
+def test_kernel_matches_plain_version_on_the_card(kernel, shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rows, d, f = shape
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+
+    def randn(shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+
+    x, dy = randn((rows, d)), randn((rows, d))
+    g = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    be = 0.1 * torch.randn(d, generator=gen, device="cuda")
+    w1, b1 = randn((d, f), d ** -0.5), randn((f,), 0.1)
+    w2, b2 = randn((f, d), f ** -0.5), randn((d,), 0.1)
+    before = tmlp.LAUNCHES[kernel]
+    got, want = {
+        "mlp_fwd": lambda: (tmlp._launch_mlp_fwd(x, w1, b1, w2, b2, True),
+                            tmlp._mlp_fwd_reference(x, w1, b1, w2, b2, True)),
+        "mlp_bwd": lambda: (tmlp._launch_mlp_bwd(x, dy, w1, b1, w2, True),
+                            tmlp._mlp_bwd_reference(x, dy, w1, b1, w2, True)),
+        "mlp_block_fwd": lambda: (
+            tmlp._launch_mlp_block_fwd(x, g, be, w1, b1, w2, b2, False, 1e-6),
+            tmlp._mlp_block_fwd_reference(x, g, be, w1, b1, w2, b2, False, 1e-6)),
+        "mlp_block_bwd": lambda: (
+            tmlp._launch_mlp_block_bwd(x, dy, g, be, w1, b1, w2, False, 1e-6),
+            tmlp._mlp_block_bwd_reference(x, dy, g, be, w1, b1, w2, False, 1e-6)),
+    }[kernel]()
+    torch.cuda.synchronize()
+    assert tmlp.LAUNCHES[kernel] == before + 1
+    if torch.is_tensor(got):
+        got, want = (got,), (want,)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.isfinite(a.float()).all()
+        scale = max(1.0, b.float().abs().max().item() / 4)
+        assert (a.float() - b.float()).abs().max().item() <= CARD_MAX_ABS * scale

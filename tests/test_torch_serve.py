@@ -94,8 +94,8 @@ def jax_slice(tmp_path_factory):
     return variables, feat_agg, eval_agg, data
 
 
-def _port_model(variables):
-    model = create_model(NAME, num_classes=2, img_size=TILE, dtype=torch.float32)
+def _port_model(variables, **kw):
+    model = create_model(NAME, num_classes=2, img_size=TILE, dtype=torch.float32, **kw)
     cfg = dataclasses.replace(model.config, depth=DEPTH)
     return type(model)(cfg), params_from_flax(variables)
 
@@ -127,6 +127,43 @@ def test_extract_features_matches_jax(jax_slice, tmp_path):
             np.testing.assert_allclose(g, w, equal_nan=True, **TOL)
         else:
             assert g == w
+
+
+def test_extract_features_with_fused_mlp_matches_jax(jax_slice, tmp_path, monkeypatch):
+    """The same slice with ``use_fused_mlp``: every block's MLP sub-block goes
+    through ``fused_mlp_block`` (its plain version here) and the features
+    still agree with the JAX package's."""
+    from tpuwsi_torch.models import vit as tvit
+
+    variables, ref, _, _ = jax_slice
+    model, params = _port_model(variables, use_fused_mlp=True)
+    assert model.config.use_fused_mlp
+    calls = []
+    real = tvit.fused_mlp_block
+    monkeypatch.setattr(tvit, "fused_mlp_block",
+                        lambda *a, **kw: calls.append(a[0].shape) or real(*a, **kw))
+    agg = extract_features(_chunks(), model, params, str(tmp_path), torch.device("cpu"))
+    assert calls == [(TPI, 17, 384)] * (DEPTH * len(_chunks()))
+    for got, want in zip(agg.results, ref.results):
+        np.testing.assert_allclose(got.features, want.features, **TOL)
+        np.testing.assert_allclose(got.tile_probs, want.tile_probs, **TOL)
+
+
+def test_fused_mlp_model_round_trips_through_the_converters(jax_slice):
+    """``params_from_flax`` → a model with the fused route → ``params_to_flax``
+    gives back the tree it was given: the route adds and renames nothing."""
+    from tpuwsi_torch.models.convert import params_to_flax
+
+    variables = jax_slice[0]
+    model, params = _port_model(variables, use_fused_mlp=True)
+    model.load_state_dict(params)
+    back = params_to_flax(model.state_dict())["params"]
+    want = jax.tree_util.tree_map(np.asarray, variables["params"])
+    flat_b, tree_b = jax.tree_util.tree_flatten(back)
+    flat_w, tree_w = jax.tree_util.tree_flatten(want)
+    assert tree_b == tree_w
+    for a, b in zip(flat_b, flat_w):
+        np.testing.assert_array_equal(np.asarray(a), b)
 
 
 def test_evaluate_slides_matches_jax(jax_slice):
@@ -166,6 +203,11 @@ chunk = InferChunk(images, np.array([True, False]), np.array([1]), 0, "s.svs", "
 with tempfile.TemporaryDirectory() as out:
     agg = extract_features([chunk], model, model.state_dict(), out, torch.device("cpu"))
 assert agg.results[0].features.shape == (1, 192)
+fused = create_model("vit_tiny_patch8_224", num_classes=2, img_size=16, dtype=torch.float32,
+                     use_fused_mlp=True)
+with tempfile.TemporaryDirectory() as out:
+    agg_f = extract_features([chunk], fused, model.state_dict(), out, torch.device("cpu"))
+assert np.allclose(agg_f.results[0].features, agg.results[0].features, atol=1e-4)
 from tpuwsi_torch.ops.attention import fused_attention, mha_from_qkv
 x = torch.ones(1, 512, 96, requires_grad=True)  # 512 tokens: the tiled flash pair
 mha_from_qkv(x, 2).sum().backward()
@@ -200,6 +242,12 @@ images = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 40, 40, 
 for _ in range(2):
     state, metrics = b.raw_step(b.state, {"images": images}, b.generator)
 assert state.step == 2 and np.isfinite(metrics["loss"].item())
+for flags in (dict(use_fused_mlp=True), dict(mlp_pallas_bwd=True)):
+    f = ssl_step_bundle(args, 1000, 4, torch.device("cpu"),
+                        vit_overrides=dict(patch_size=8, embed_dim=64, depth=2, num_heads=2,
+                                           use_kernel_attention=True, **flags))
+    state, metrics = f.raw_step(f.state, {"images": images}, f.generator)
+    assert state.step == 1 and np.isfinite(metrics["loss"].item())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "tpuwsi"))
 assert not bad, bad

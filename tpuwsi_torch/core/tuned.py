@@ -18,6 +18,9 @@ def tuned_vit_kwargs(on_cuda: bool) -> Dict[str, Any]:
     checkpoint-parity concern, so callers choose it per use case."""
     return dict(
         use_kernel_attention=on_cuda,
+        # the JAX package's choice on its TPU; on an H100 the fused-MLP route
+        # has kernel and step timings (PERF.md) but no benchmark cell yet
+        use_fused_mlp=False,
         ln_dtype=torch.bfloat16 if on_cuda else torch.float32,
         attn_save_probs=on_cuda,
     )

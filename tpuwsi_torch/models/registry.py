@@ -54,6 +54,7 @@ def create_model(
     img_size: Optional[int] = None,
     dtype: torch.dtype = torch.bfloat16,
     use_kernel_attention: bool = True,
+    use_fused_mlp: bool = False,
 ) -> VisionTransformer:
     """Build a ViT by timm-style name, on the CPU, in eval mode."""
     if name.startswith(_CNN_PREFIXES):
@@ -66,5 +67,6 @@ def create_model(
         img_size=img_size or cfg.img_size,
         dtype=dtype,
         use_kernel_attention=use_kernel_attention,
+        use_fused_mlp=use_fused_mlp,
     )
     return VisionTransformer(cfg).eval()

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuwsi_torch.ops.attention import mha_from_qkv
+from tpuwsi_torch.ops.mlp import fused_mlp, fused_mlp_block, hybrid_mlp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +61,13 @@ class ViTConfig:
     # training forwards save the bf16 softmax probabilities for the backward
     # instead of rebuilding them from qkv
     attn_save_probs: bool = False
+    # with use_kernel_attention: the MLP keeps its hidden activation on chip
+    # (ops/mlp.fused_mlp), and a sub-block that no dropout or stochastic depth
+    # touches runs LayerNorm, MLP and residual sum as one op (fused_mlp_block)
+    use_fused_mlp: bool = False
+    # ordinary MLP forward that saves only its input, fused kernel backward
+    # (ops/mlp.hybrid_mlp); use_fused_mlp comes first where both are set
+    mlp_pallas_bwd: bool = False
 
     @property
     def num_patches_side(self) -> int:
@@ -154,13 +162,24 @@ class Mlp(nn.Module):
         d = cfg.embed_dim
         hidden = int(d * cfg.mlp_ratio)
         self.dtype = cfg.dtype
-        self.approximate = "tanh" if cfg.gelu_approx else "none"
+        self.gelu_approx = cfg.gelu_approx
         self.drop = cfg.drop_rate
+        self.fused = cfg.use_kernel_attention and cfg.use_fused_mlp
+        self.hybrid = cfg.mlp_pallas_bwd
         self.fc1 = nn.Linear(d, hidden)
         self.fc2 = nn.Linear(hidden, d)
 
+    def kernel_params(self):
+        """``(w1 (D, F), b1, w2 (F, D), b2)`` as the fused ops take them: views
+        of the fp32 parameters, which the ops cast to the compute type per call."""
+        return self.fc1.weight.t(), self.fc1.bias, self.fc2.weight.t(), self.fc2.bias
+
     def forward(self, x, deterministic: bool = True, generator=None):
-        x = F.gelu(_linear(x, self.fc1, self.dtype), approximate=self.approximate)
+        if (self.fused or self.hybrid) and (self.drop == 0.0 or deterministic):
+            op = fused_mlp if self.fused else hybrid_mlp
+            return op(x.to(self.dtype), *self.kernel_params(), approx=self.gelu_approx)
+        x = F.gelu(_linear(x, self.fc1, self.dtype),
+                   approximate="tanh" if self.gelu_approx else "none")
         x = _dropout(x, self.drop, deterministic, generator)
         x = _linear(x, self.fc2, self.dtype)
         return _dropout(x, self.drop, deterministic, generator)
@@ -170,7 +189,10 @@ class Block(nn.Module):
     def __init__(self, cfg: ViTConfig, drop_path: float = 0.0):
         super().__init__()
         self.dtype = cfg.dtype
+        self.drop = cfg.drop_rate
         self.drop_path = drop_path
+        self.gelu_approx = cfg.gelu_approx
+        self.fused = cfg.use_kernel_attention and cfg.use_fused_mlp
         self.norm1 = LayerNorm(cfg.embed_dim, cfg.ln_dtype)
         self.attn = Attention(cfg)
         self.norm2 = LayerNorm(cfg.embed_dim, cfg.ln_dtype)
@@ -182,6 +204,12 @@ class Block(nn.Module):
         m1, m2 = (None, None) if drop_path_mask is None else drop_path_mask
         y = self.attn(self.norm1(x).to(self.dtype), deterministic, generator)
         x = x + _drop_path(y, self.drop_path, m1)
+        # the whole MLP sub-block as one op where neither dropout nor this
+        # block's stochastic depth applies (tpuwsi/models/vit.py:563-566)
+        if self.fused and (deterministic or (self.drop == 0.0 and self.drop_path == 0.0)):
+            return fused_mlp_block(
+                x.to(self.dtype), self.norm2.weight, self.norm2.bias,
+                *self.mlp.kernel_params(), approx=self.gelu_approx, eps=self.norm2.eps)
         y = self.mlp(self.norm2(x).to(self.dtype), deterministic, generator)
         return x + _drop_path(y, self.drop_path, m2)
 

@@ -4,8 +4,9 @@ Every ``tpuwsi_torch/ops/csrc/*.cu`` source is compiled for Hopper
 (``sm_90a``), one nvcc process per source and all at once, and the objects
 are linked into one shared library with a plain C interface, so no PyTorch
 header is compiled. The library goes to ``build/tpuwsi_torch/`` at the
-repository root, keyed by a hash of the sources and flags: a changed source
-builds anew, an unchanged one loads the library already there.
+repository root, keyed by a hash of the sources, the ``*.cuh`` headers they
+share and the flags: a changed file builds anew, unchanged ones load the
+library already there.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):  # headers the sources include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtpuwsi_torch_{h.hexdigest()[:16]}.so"
@@ -125,15 +126,37 @@ def load() -> ctypes.CDLL:
         lib.tpuwsi_flash_fwd_stats.argtypes = [ptr] * 6 + tail
         lib.tpuwsi_flash_bwd_dq.argtypes = [ptr] * 7 + tail
         lib.tpuwsi_flash_bwd_dkv.argtypes = [ptr] * 8 + tail
+        # fused MLP: tensors, then rows, d, f (, row tiles, row groups) (, eps),
+        # the GELU form and the stream
+        lib.tpuwsi_mlp_fwd.argtypes = [ptr] * 6 + [i32, i32, i32, i32, ptr]
+        lib.tpuwsi_mlp_block_fwd.argtypes = [ptr] * 8 + [i32, i32, i32, f32, i32, ptr]
+        lib.tpuwsi_mlp_bwd.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
+        lib.tpuwsi_mlp_block_bwd.argtypes = [ptr] * 12 + [i32] * 5 + [f32, i32, ptr]
+        lib.tpuwsi_mlp_rows_per_tile.argtypes = [i32]
+        lib.tpuwsi_mlp_hidden_per_slice.argtypes = [i32]
         for fn in (lib.tpuwsi_mha_qkv_fwd, lib.tpuwsi_mha_qkv_fwd_saved,
                    lib.tpuwsi_mha_qkv_bwd_saved, lib.tpuwsi_mha_qkv_bwd,
                    lib.tpuwsi_flash_fwd, lib.tpuwsi_flash_fwd_stats,
-                   lib.tpuwsi_flash_bwd_dq, lib.tpuwsi_flash_bwd_dkv):
+                   lib.tpuwsi_flash_bwd_dq, lib.tpuwsi_flash_bwd_dkv,
+                   lib.tpuwsi_mlp_fwd, lib.tpuwsi_mlp_block_fwd, lib.tpuwsi_mlp_bwd,
+                   lib.tpuwsi_mlp_block_bwd, lib.tpuwsi_mlp_rows_per_tile,
+                   lib.tpuwsi_mlp_hidden_per_slice):
             fn.restype = i32
         lib.tpuwsi_cuda_error_string.argtypes = [i32]
         lib.tpuwsi_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def launch(name: str, like, args) -> None:
+    """Call C function ``tpuwsi_<name>`` with ``args`` and the current stream
+    of the CUDA device that tensor ``like`` lies on; raise on a CUDA error."""
+    import torch
+
+    lib = load()
+    with torch.cuda.device(like.device):
+        err = getattr(lib, f"tpuwsi_{name}")(*args, torch.cuda.current_stream().cuda_stream)
+    check(lib, err, f"{name} launch")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

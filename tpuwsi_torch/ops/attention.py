@@ -181,11 +181,7 @@ def _call(name: str, qkv: torch.Tensor, args):
     operand) and its current stream, raise on a CUDA error, count the launch."""
     from tpuwsi_torch.ops import _build
 
-    lib = _build.load()
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"tpuwsi_{name}")(*args, stream)
-    _build.check(lib, err, f"{name} launch")
+    _build.launch(name, qkv, args)
     LAUNCHES[name] += 1
 
 

@@ -1,0 +1,350 @@
+"""The transformer MLP with its hidden activation kept on chip, forward and
+backward.
+
+Counterpart of ``tpuwsi/ops/mlp.py`` (its first 816 lines; the row-tiled
+LN+GEMM and GEMM+residual ops of that file are not ported yet). Three public
+functions, weights in the JAX layout ``w1 (D, F)``, ``w2 (F, D)``, ``x``
+``(..., D)``:
+
+- ``fused_mlp``: ``gelu(x @ w1 + b1) @ w2 + b2``, kernel forward and backward;
+- ``hybrid_mlp``: the same function with an ordinary PyTorch forward that
+  saves only ``x, w1, b1, w2``, and the kernel backward;
+- ``fused_mlp_block``: the pre-norm sub-block
+  ``x + gelu(LN(x) @ w1 + b1) @ w2 + b2`` as one op, forward and backward.
+
+Four hand-written Hopper kernels carry them on a CUDA tensor, each with its
+plain PyTorch version beside it, which runs on a CPU tensor and repeats the
+kernel's arithmetic and roundings (fp32 accumulation; ``h``, ``du``, ``dy``
+and ``LN(x)`` rounded to ``x.dtype`` as GEMM operands; LayerNorm in fp32 with
+the fast variance ``E[x^2] - mean^2`` clamped at 0):
+
+=================  ==========================  ============================
+kernel             replaces (tpuwsi/ops/mlp.py)  plain version
+=================  ==========================  ============================
+``mlp_fwd``          ``_mlp_fwd_kernel``           ``_mlp_fwd_reference``
+``mlp_bwd``          ``_mlp_bwd_kernel``           ``_mlp_bwd_reference``
+``mlp_block_fwd``    ``_mlp_block_fwd_kernel``     ``_mlp_block_fwd_reference``
+``mlp_block_bwd``    ``_mlp_block_bwd_kernel``     ``_mlp_block_bwd_reference``
+=================  ==========================  ============================
+
+On a CUDA tensor a wrapper launches its kernel or raises; it never gives way
+to the plain version. The kernels take bf16, an embedding width of 384 or 768
+and a hidden width that is a multiple of 64; both GELU forms run in-kernel.
+The backward kernels sum the weight gradients in a fixed order: the same
+inputs give the same bits on every run.
+
+As in the reference, the public functions cast the parameters to ``x.dtype``
+outside the differentiated op and the op returns weight and bias gradients in
+that dtype: with bf16 compute the gradients of ``w1, b1, w2, b2`` are rounded
+to bf16 on their way to the fp32 parameters, while the LayerNorm gradients
+stay fp32.
+
+``LAUNCHES`` counts each kernel's launches by name.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+KERNEL_WIDTHS = (384, 768)   # embedding widths the kernels are built for
+KERNEL_HIDDEN_MULTIPLE = 64
+DW_WAVES = 4                 # weight-gradient blocks per SM that the row groups aim at
+
+_C = 0.7978845608028654  # sqrt(2 / pi)
+_A = 0.044715
+_INV_SQRT2 = 0.7071067811865476
+_INV_SQRT2PI = 0.3989422804014327
+
+LAUNCHES = {"mlp_fwd": 0, "mlp_bwd": 0, "mlp_block_fwd": 0, "mlp_block_bwd": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _gelu(u, approx: bool):
+    if approx:
+        return 0.5 * u * (1.0 + torch.tanh(_C * (u + _A * u * u * u)))
+    return u * 0.5 * (1.0 + torch.erf(u * _INV_SQRT2))
+
+
+def _gelu_and_grad(u, approx: bool):
+    """``(gelu(u), gelu'(u))`` in closed form."""
+    if approx:
+        t = torch.tanh(_C * (u + _A * u * u * u))
+        dg = 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * _C * (1.0 + 3.0 * _A * u * u)
+        return 0.5 * u * (1.0 + t), dg
+    phi = 0.5 * (1.0 + torch.erf(u * _INV_SQRT2))
+    pdf = torch.exp(-0.5 * u * u) * _INV_SQRT2PI
+    return u * phi, phi + u * pdf
+
+
+def _ln_fwd(xf, g, be, eps: float):
+    """flax ``nn.LayerNorm`` in fp32 (fast variance) → ``(ln, xhat, inv)``."""
+    mu = xf.mean(dim=1, keepdim=True)
+    var = (xf * xf).mean(dim=1, keepdim=True) - mu * mu
+    inv = torch.rsqrt(var.clamp(min=0.0) + eps)
+    xhat = (xf - mu) * inv
+    return xhat * g + be, xhat, inv
+
+
+def _mm(a, b):
+    """A product of operands in the compute type, accumulated in fp32."""
+    return a.float() @ b.float()
+
+
+def _mlp_fwd_reference(x2, w1, b1, w2, b2, approx):
+    """Plain version of the forward kernel. x2: (rows, D) → (rows, D)."""
+    u = _mm(x2, w1) + b1.float()
+    h = _gelu(u, approx).to(x2.dtype)
+    return (_mm(h, w2) + b2.float()).to(x2.dtype)
+
+
+def _mlp_grads(a, dy2, w1, b1, w2, approx):
+    """The part the two backward kernels share, for fc1 input ``a``:
+    → ``(da fp32, dw1, db1, dw2, db2)``."""
+    dt = a.dtype
+    dy = dy2.float()
+    h, dgelu = _gelu_and_grad(_mm(a, w1) + b1.float(), approx)
+    h, dy_c = h.to(dt), dy.to(dt)
+    du = _mm(dy_c, w2.t()) * dgelu
+    du_c = du.to(dt)
+    return (_mm(du_c, w1.t()), _mm(a.t(), du_c), du.sum(dim=0), _mm(h.t(), dy_c),
+            dy.sum(dim=0))
+
+
+def _mlp_bwd_reference(x2, dy2, w1, b1, w2, approx):
+    """Plain version of the backward kernel → ``(dx, dw1, db1, dw2, db2)``;
+    dx in x2's dtype, the others fp32."""
+    dx, *grads = _mlp_grads(x2, dy2, w1, b1, w2, approx)
+    return (dx.to(x2.dtype), *grads)
+
+
+def _mlp_block_fwd_reference(x2, g, be, w1, b1, w2, b2, approx, eps):
+    """Plain version of the sub-block forward kernel: LayerNorm's output is
+    rounded to x2's dtype before fc1, the residual sum is taken in x2's dtype."""
+    ln, _, _ = _ln_fwd(x2.float(), g.float(), be.float(), eps)
+    return x2 + _mlp_fwd_reference(ln.to(x2.dtype), w1, b1, w2, b2, approx)
+
+
+def _mlp_block_bwd_reference(x2, dy2, g, be, w1, b1, w2, approx, eps):
+    """Plain version of the sub-block backward kernel →
+    ``(dx, dg, dbe, dw1, db1, dw2, db2)``; dx in x2's dtype, the others fp32."""
+    gam = g.float()
+    ln, xhat, inv = _ln_fwd(x2.float(), gam, be.float(), eps)
+    dln, *grads = _mlp_grads(ln.to(x2.dtype), dy2, w1, b1, w2, approx)
+    dxhat = dln * gam
+    m1 = dxhat.mean(dim=1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=1, keepdim=True)
+    dx = dy2.float() + inv * (dxhat - m1 - xhat * m2)
+    return (dx.to(x2.dtype), (dln * xhat).sum(dim=0), dln.sum(dim=0), *grads)
+
+
+def _use_plain(x: torch.Tensor) -> bool:
+    """The plain version runs where the tensor lies on the CPU, and nowhere else."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"the fused MLP runs on cuda or cpu, not {x.device}")
+    return x.device.type == "cpu"
+
+
+def _check_operands(x2, w1, b1, w2, b2=None, dy2=None, ln=None) -> None:
+    """Raise unless the kernels take these operands as they are."""
+    rows, d = x2.shape
+    f = w1.shape[1]
+    if d not in KERNEL_WIDTHS or f % KERNEL_HIDDEN_MULTIPLE or f < KERNEL_HIDDEN_MULTIPLE:
+        raise ValueError(
+            f"fused MLP kernels are built for embedding widths {KERNEL_WIDTHS} and a hidden "
+            f"width that is a multiple of {KERNEL_HIDDEN_MULTIPLE}: got D = {d}, F = {f}")
+    if rows < 1 or rows * max(d, f) >= 2 ** 31:
+        raise ValueError(f"fused MLP kernels take 1 <= rows and rows * width < 2^31: {rows} rows")
+    shapes = {"x": (x2, (rows, d)), "w1": (w1, (d, f)), "b1": (b1, (f,)), "w2": (w2, (f, d))}
+    if b2 is not None:
+        shapes["b2"] = (b2, (d,))
+    if dy2 is not None:
+        shapes["dy"] = (dy2, (rows, d))
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape or t.dtype != torch.bfloat16 or t.device != x2.device:
+            raise ValueError(f"fused MLP kernels take bf16 on one CUDA device: {name} is "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}, expected {shape}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"fused MLP kernels take contiguous, 16-byte aligned tensors: "
+                             f"{name} has strides {t.stride()}")
+    for name, t in zip(("ln_scale", "ln_bias"), ln or ()):
+        if (tuple(t.shape) != (d,) or t.dtype != torch.float32 or t.device != x2.device
+                or not t.is_contiguous() or t.data_ptr() % 8):
+            raise ValueError(f"fused MLP block kernels take fp32 ({d},) {name} beside x: got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _call(name: str, like: torch.Tensor, args) -> None:
+    from tpuwsi_torch.ops import _build
+
+    _build.launch(name, like, args)
+    LAUNCHES[name] += 1
+
+
+def _launch_mlp_fwd(x2, w1, b1, w2, b2, approx):
+    _check_operands(x2, w1, b1, w2, b2)
+    y = torch.empty_like(x2)
+    _call("mlp_fwd", x2, (x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                          b2.data_ptr(), y.data_ptr(), *x2.shape, w1.shape[1], int(approx)))
+    return y
+
+
+def _launch_mlp_block_fwd(x2, g, be, w1, b1, w2, b2, approx, eps):
+    _check_operands(x2, w1, b1, w2, b2, ln=(g, be))
+    y = torch.empty_like(x2)
+    _call("mlp_block_fwd", x2,
+          (x2.data_ptr(), g.data_ptr(), be.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+           w2.data_ptr(), b2.data_ptr(), y.data_ptr(), *x2.shape, w1.shape[1], float(eps),
+           int(approx)))
+    return y
+
+
+def _bwd_buffers(x2, f: int, row_sums: int):
+    """Outputs and workspaces of a backward launch: dx, the fp32 gradients in
+    one buffer ``dW1 | dW2 | db1 | db2 [| dgamma | dbeta]``, the per-row-group
+    and per-row-tile partial sums, and the two counts. The number of row
+    groups follows from the shapes and the card alone, so the order of every
+    sum is the same on every run."""
+    from tpuwsi_torch.ops import _build
+
+    rows, d = x2.shape
+    dev = x2.device
+    lib = _build.load()
+    n_tiles = -(-rows // lib.tpuwsi_mlp_rows_per_tile(d))
+    slices = f // lib.tpuwsi_mlp_hidden_per_slice(d)  # the weight-gradient grid's other axis
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = max(1, min(n_tiles, DW_WAVES * sms // slices))
+    n_w = 2 * d * f + f
+    grads = torch.empty(n_w + row_sums * d, dtype=torch.float32, device=dev)
+    w_part = torch.empty((groups, n_w), dtype=torch.float32, device=dev)
+    row_part = torch.empty((n_tiles, row_sums * d), dtype=torch.float32, device=dev)
+    return torch.empty_like(x2), grads, w_part, row_part, n_tiles, groups
+
+
+def _split_grads(grads, d: int, f: int):
+    """The gradient buffer → ``(dw1 (D, F), dw2 (F, D), db1, db2, *row sums)``."""
+    dw1, dw2, db1, rest = grads.split([d * f, d * f, f, grads.numel() - 2 * d * f - f])
+    return (dw1.view(d, f), dw2.view(f, d), db1, *rest.split(d))
+
+
+def _launch_mlp_bwd(x2, dy2, w1, b1, w2, approx):
+    _check_operands(x2, w1, b1, w2, dy2=dy2)
+    d, f = w1.shape
+    dx, grads, w_part, row_part, n_tiles, groups = _bwd_buffers(x2, f, 1)
+    _call("mlp_bwd", x2,
+          (x2.data_ptr(), dy2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+           dx.data_ptr(), grads.data_ptr(), w_part.data_ptr(), row_part.data_ptr(),
+           x2.shape[0], d, f, n_tiles, groups, int(approx)))
+    dw1, dw2, db1, db2 = _split_grads(grads, d, f)
+    return dx, dw1, db1, dw2, db2
+
+
+def _launch_mlp_block_bwd(x2, dy2, g, be, w1, b1, w2, approx, eps):
+    _check_operands(x2, w1, b1, w2, dy2=dy2, ln=(g, be))
+    d, f = w1.shape
+    dx, grads, w_part, row_part, n_tiles, groups = _bwd_buffers(x2, f, 3)
+    ln_work = torch.empty_like(x2)  # LN(x), from the launch's first kernel to its second
+    _call("mlp_block_bwd", x2,
+          (x2.data_ptr(), dy2.data_ptr(), g.data_ptr(), be.data_ptr(), w1.data_ptr(),
+           b1.data_ptr(), w2.data_ptr(), dx.data_ptr(), grads.data_ptr(), w_part.data_ptr(),
+           row_part.data_ptr(), ln_work.data_ptr(), x2.shape[0], d, f, n_tiles, groups,
+           float(eps), int(approx)))
+    dw1, dw2, db1, db2, dg, dbe = _split_grads(grads, d, f)
+    return dx, dg, dbe, dw1, db1, dw2, db2
+
+
+def _mlp_backward(ctx, dy):
+    """Backward of ``_FusedMlp`` and ``_HybridMlp`` from ``(x2, w1, b1, w2)``."""
+    x2, w1, b1, w2 = ctx.saved_tensors
+    bwd = _mlp_bwd_reference if _use_plain(x2) else _launch_mlp_bwd
+    dx, dw1, db1, dw2, db2 = bwd(x2, dy.to(x2.dtype).contiguous(), w1, b1, w2, ctx.approx)
+    # the reference's vjp returns parameter gradients in the operands' dtype
+    return dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(w2.dtype), None
+
+
+class _FusedMlp(torch.autograd.Function):
+    """Kernel forward, kernel backward that rebuilds the hidden activation
+    (``tpuwsi/ops/mlp.py:312 _fused_mlp``)."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, approx):
+        fwd = _mlp_fwd_reference if _use_plain(x2) else _launch_mlp_fwd
+        ctx.save_for_backward(x2, w1, b1, w2)
+        ctx.approx = approx
+        return fwd(x2, w1, b1, w2, b2, approx)
+
+    backward = staticmethod(_mlp_backward)
+
+
+class _HybridMlp(torch.autograd.Function):
+    """Ordinary PyTorch forward that keeps neither ``u`` nor ``h``, kernel
+    backward (``tpuwsi/ops/mlp.py:399 _hybrid_mlp``)."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, approx):
+        _use_plain(x2)  # raises for a device that is neither cuda nor cpu
+        ctx.save_for_backward(x2, w1, b1, w2)
+        ctx.approx = approx
+        h = F.gelu(x2 @ w1 + b1, approximate="tanh" if approx else "none")
+        return h @ w2 + b2
+
+    backward = staticmethod(_mlp_backward)
+
+
+class _FusedMlpBlock(torch.autograd.Function):
+    """The pre-norm sub-block as one op (``tpuwsi/ops/mlp.py:742 _fused_mlp_block``)."""
+
+    @staticmethod
+    def forward(ctx, x2, g, be, w1, b1, w2, b2, approx, eps):
+        fwd = _mlp_block_fwd_reference if _use_plain(x2) else _launch_mlp_block_fwd
+        ctx.save_for_backward(x2, g, be, w1, b1, w2)
+        ctx.approx, ctx.eps = approx, eps
+        return fwd(x2, g, be, w1, b1, w2, b2, approx, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, g, be, w1, b1, w2 = ctx.saved_tensors
+        bwd = _mlp_block_bwd_reference if _use_plain(x2) else _launch_mlp_block_bwd
+        dx, dg, dbe, dw1, db1, dw2, db2 = bwd(
+            x2, dy.to(x2.dtype).contiguous(), g, be, w1, b1, w2, ctx.approx, ctx.eps)
+        return (dx, dg.to(g.dtype), dbe.to(be.dtype), dw1.to(w1.dtype), db1.to(b1.dtype),
+                dw2.to(w2.dtype), db2.to(w2.dtype), None, None)
+
+
+def _apply_rows(op, x, ln, params, *static):
+    """Flatten x to rows, cast ``params`` to its dtype (``ln`` to fp32), apply
+    the op and restore x's shape. The casts stand outside the op, so their
+    backward carries the op's gradients to the parameters' own dtype."""
+    dt = x.dtype
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    y = op.apply(x2, *(p.float().contiguous() for p in ln),
+                 *(p.to(dt).contiguous() for p in params), *static)
+    return y.reshape(x.shape)
+
+
+def fused_mlp(x, w1, b1, w2, b2, *, approx: bool = False) -> torch.Tensor:
+    """``gelu(x @ w1 + b1) @ w2 + b2`` with the hidden activation on chip in
+    both directions (``tpuwsi/ops/mlp.py:339``). x: (..., D); w1: (D, F);
+    w2: (F, D). ``approx`` takes the tanh GELU, else erf."""
+    return _apply_rows(_FusedMlp, x, (), (w1, b1, w2, b2), bool(approx))
+
+
+def hybrid_mlp(x, w1, b1, w2, b2, *, approx: bool = False) -> torch.Tensor:
+    """The same function with an ordinary forward and the fused backward: one
+    pass over ``dy`` gives dx and all four parameter gradients, and neither
+    ``u`` nor ``h`` is kept for it (``tpuwsi/ops/mlp.py:432``)."""
+    return _apply_rows(_HybridMlp, x, (), (w1, b1, w2, b2), bool(approx))
+
+
+def fused_mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2, *, approx: bool = False,
+                    eps: float = 1e-6) -> torch.Tensor:
+    """The pre-norm MLP sub-block ``x + gelu(LN(x) @ w1 + b1) @ w2 + b2`` as
+    one op (``tpuwsi/ops/mlp.py:773``). x: (..., D), the residual stream.
+    LayerNorm runs in fp32 on fp32 ``ln_scale``, ``ln_bias``; its output is
+    rounded to x's dtype before fc1, and the sum with x is taken in x's dtype."""
+    return _apply_rows(_FusedMlpBlock, x, (ln_scale, ln_bias), (w1, b1, w2, b2),
+                       bool(approx), float(eps))

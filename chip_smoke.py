@@ -6,17 +6,19 @@
 Phases, each printing its own lines:
   1. the card's name and power limit (nvidia-smi);
   2. build the Hopper kernels from tpuwsi_torch/ops/csrc with nvcc;
-  3. each of the twelve kernels against its plain PyTorch version on the
+  3. each of the seventeen kernels against its plain PyTorch version on the
      card, at the shapes the paths give it (the four whole-sequence kernels
      at 37-257 tokens, the four tiled flash kernels at 512-1,024 tokens,
      through strided views of a fused qkv and contiguous, and with key
      lengths; the four fused-MLP kernels at the step's and the serving
-     chunk's row counts, at ViT-B width and at 7 rows, both GELU forms),
-     plus median times (CUDA events) beside the plain version's and one
-     PyTorch library call's (scaled_dot_product_attention, forward or its
-     autograd backward; for the MLP kernels the unfused route of several
-     library calls), which the port itself never calls, and the least time
-     the card could take;
+     chunk's row counts, at ViT-B width and at 7 rows, both GELU forms; the
+     five dense-layer kernels at the qkv and proj layers of the same row
+     counts), plus median times (CUDA events) beside the plain version's and
+     one PyTorch library call's (scaled_dot_product_attention, forward or
+     its autograd backward; F.linear or its autograd backward, with
+     F.layer_norm or the residual sum where the kernel holds them; for the
+     MLP kernels the unfused route of several library calls), which the port
+     itself never calls, and the least time the card could take;
   4. the serving slice: full-width ViT-S/16 at 256 px (seeded random weights
      in the JAX package's layout, through params_from_flax) runs 4 slides x
      500 uint8 tiles through extract_features; the kernel's launch count,
@@ -34,15 +36,26 @@ Phases, each printing its own lines:
      slice again (12 sub-block forwards per chunk) and the DINO step for
      2 + 6 steps (per step 14 sub-block forwards, 2 sub-block backwards, 22
      MLP forwards and 22 MLP backwards), each held against the default route
-     from the same seeds and timed beside it; then the hybrid route (mlp_pallas_bwd) at depth 4 (8 MLP backwards per
-     step, no forward kernel);
-  7. the long-sequence slices, ViT-S/16 at 448 px (785 tokens), full width
+     from the same seeds and timed beside it; then the hybrid route
+     (mlp_pallas_bwd) at depth 4 (8 MLP backwards per step, no forward
+     kernel);
+  7. the hybrid-dense route (dense_pallas_bwd), full width and depth: the
+     DINO step for 2 + 6 steps (48 dense backwards per step: qkv and proj of
+     12 blocks in the student's two passes), held against the default route
+     from the same seeds and timed beside it;
+  8. the attention sub-block composed from the LN+GEMM and GEMM+residual
+     ops around mha_from_qkv, with block 0's weights of the seeded full-width
+     model: forward and backward at the step's global views (192 x 197
+     tokens) and forward at one serving chunk (500 x 257), held against the
+     model's own norm1, attention and residual sum and timed beside them;
+  9. the long-sequence slices, ViT-S/16 at 448 px (785 tokens), full width
      and depth: 2 chunks of 128 tiles through extract_features, and the same
      DINO step with --dino-global-size 448 for 2 + 4 steps, each with its
      launch counts asserted and held against plain attention;
-  8. one step each of the tuned step, the fused-MLP step and the 448-px step
-     under torch.profiler, for a breakdown by kernel kind. They come last:
-     once the profiler has run, the process launches kernels more slowly.
+  10. one step each of the tuned step, the fused-MLP step, the hybrid-dense
+     step and the 448-px step under torch.profiler, for a breakdown by kernel
+     kind. They come last: once the profiler has run, the process launches
+     kernels more slowly.
 The line before the last but one is a JSON summary of the kernels, then the
 card's name and power limit once more, and the last line
 {"ok": true, "device": {...}}. Any failure raises: the script then exits
@@ -52,6 +65,7 @@ Outputs go to build/chip_smoke/.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -66,10 +80,12 @@ import torch
 from tpuwsi_torch.cli.args import parse_args
 from tpuwsi_torch.cli.train import extract_features, ssl_step_bundle
 from tpuwsi_torch.core.device import require_cuda
+from tpuwsi_torch.core.tuned import tuned_vit_kwargs
 from tpuwsi_torch.infer.slide_walker import InferChunk
 from tpuwsi_torch.models.convert import params_from_flax
 from tpuwsi_torch.models.registry import create_model
-from tpuwsi_torch.ops import _build, attention, mlp
+from tpuwsi_torch.models.vit import VisionTransformer
+from tpuwsi_torch.ops import _build, attention, dense, mlp
 
 SEED = 0
 OUT = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -123,6 +139,21 @@ MLP_MAX_ABS, MLP_MEAN_ABS = 4e-2, 2e-3
 # (2^-8 of the operand: all of it shows where a sum has as few as 7 rows)
 MLP_GRAD_REL = 4e-3
 
+# dense layers: (rows, K, N) with K the input and N the output width: bf16 x,
+# dy ~ N(0, 1), w ~ N(0, 1 / K)
+DENSE_SHAPES = [
+    (37824, 384, 1152),   # the student's global views, qkv layer (timed)
+    (37824, 384, 384),    # the same rows, proj layer (timed)
+    (21312, 384, 1152),   # the student's local views, qkv layer
+    (128500, 384, 1152),  # one serving chunk, qkv layer: the forward kernels only
+    (6304, 768, 2304),    # ViT-B/16, qkv layer
+    (6304, 768, 768),     # ViT-B/16, proj layer
+    (7, 384, 384),        # less than one row tile
+]
+# parameter gradients that both routes round to bf16 on their way to the fp32
+# parameters: one bf16 ulp of the largest element, 2^-7 of it
+ROUNDED_GRAD_REL = 8e-3
+
 MODEL, TILE, TILES_PER_ITER, N_SLIDES = "vit_small_patch16_224", 256, 500, 4
 VALID = [500, 500, 437, 311]  # two slides end in a padded chunk
 MODEL_448, TILE_448, TILES_PER_ITER_448, VALID_448 = "vit_small_patch16_448", 448, 128, [128, 77]
@@ -139,13 +170,14 @@ LOSS_MAX_DIFF = 2e-2
 
 
 def all_launches() -> dict:
-    """Launches per kernel since the last reset, attention and MLP kernels alike."""
-    return {**attention.LAUNCHES, **mlp.LAUNCHES}
+    """Launches per kernel since the last reset, of every module's kernels."""
+    return {**attention.LAUNCHES, **mlp.LAUNCHES, **dense.LAUNCHES}
 
 
 def reset_launches() -> None:
     attention.reset_launches()
     mlp.reset_launches()
+    dense.reset_launches()
 
 
 def cuda_median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -535,6 +567,22 @@ def check_mlp(name, case, got, want) -> float:
     return worst
 
 
+def check_kernel(name, case, kernel_fn, plain_fn) -> float:
+    """One launch against the plain version (``check_mlp``'s bounds); a
+    backward kernel runs twice and must give the same bits."""
+    got, want = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    if torch.is_tensor(got):
+        got, want = (got,), (want,)
+    worst = check_mlp(name, case, got, want)
+    if name.endswith("bwd"):
+        again = kernel_fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"{name}: two runs on the same inputs differ")
+    return worst
+
+
 def unfused_mlp(x, g, be, w1t, b1, w2t, b2, approx, block):
     """The route the port takes without the flag, on the same operands: library
     GEMMs with GELU (and fp32 LayerNorm and the residual sum) between them."""
@@ -580,18 +628,8 @@ def phase_mlp_kernels(smi: str) -> dict:
                     lambda: mlp._mlp_block_bwd_reference(x, dy, g, be, w1, b1, w2, approx, 1e-6)),
             }
             for name in names:
-                got, want = fns[name][0](), fns[name][1]()
-                torch.cuda.synchronize()
-                if torch.is_tensor(got):
-                    got, want = (got,), (want,)
                 res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
-                                               check_mlp(name, case, got, want))
-                if name.endswith("bwd"):
-                    again = fns[name][0]()
-                    torch.cuda.synchronize()
-                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                        raise RuntimeError(f"{name}: two runs on the same inputs differ")
-                del got, want
+                                               check_kernel(name, case, *fns[name]))
             timed = {MLP_SHAPES[0]: ("mlp_fwd", "mlp_bwd", "mlp_block_bwd"),
                      MLP_SHAPES[2]: ("mlp_block_fwd",)}.get(shape, ())
             if not approx or not timed:
@@ -633,6 +671,120 @@ def phase_mlp_kernels(smi: str) -> dict:
         del x, dy, g, be, w1, b1, w2, b2, fns
         torch.cuda.empty_cache()
     print("[mlp_bwd, mlp_block_bwd] two runs on the same inputs gave the same bits at every shape")
+    return res
+
+
+def dense_bound(name: str, rows, k, n) -> dict:
+    """As ``attention_bound`` for one dense layer (rows, K) x (K, N): the
+    activations, the weight (and the fp32 LayerNorm vectors) read once, the
+    outputs (backward: dx and the fp32 parameter gradients) written once; one
+    product forward, two backward, of 2 * rows * K * N operations each."""
+    a, y, w, ln = rows * k * 2, rows * n * 2, k * n * 2, 2 * k * 4
+    bwd = a + y + w + a + (k * n + n) * 4  # x, dy, W in; dx, dW, db out
+    nbytes, flops = {
+        "dense_bwd": (bwd, 4 * rows * k * n),
+        "gemm_res_bwd": (bwd, 4 * rows * k * n),
+        "ln_gemm_bwd": (bwd + 2 * ln, 4 * rows * k * n),
+        "ln_gemm_fwd": (a + ln + w + n * 2 + y, 2 * rows * k * n),
+        "gemm_res_fwd": (y + a + w + n * 2 + y, 2 * rows * k * n),
+    }[name]
+    t_bytes, t_flops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bound_bytes": nbytes, "bound_flops": flops}
+
+
+def phase_dense_kernels(smi: str) -> dict:
+    """K7 and K9a-d against their plain versions; times at the student's
+    global views with the qkv layer (K7, K9a, K9b; K7 with the proj layer
+    too) and the proj layer (K9c, K9d), beside one library route for the same
+    function, the plain version's and the bound. The three backward kernels
+    run twice on the same inputs and must give the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    F = torch.nn.functional
+    names = ("dense_bwd", "ln_gemm_fwd", "ln_gemm_bwd", "gemm_res_fwd", "gemm_res_bwd")
+    res = {name: {"max_abs_err": 0.0} for name in names}
+    library = {
+        "dense_bwd": "autograd backward of F.linear",
+        "gemm_res_bwd": "autograd backward of F.linear",
+        "ln_gemm_fwd": "F.layer_norm in fp32, cast, F.linear",
+        "ln_gemm_bwd": "autograd backward of F.layer_norm in fp32, cast, F.linear",
+        "gemm_res_fwd": "F.linear, add",
+    }
+
+    def randn(shape, std=1.0, dtype=torch.bfloat16):
+        return (std * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+    for shape in DENSE_SHAPES:
+        rows, k, n = shape
+        case = f"rows={rows} K={k} N={n}"
+        forward_only = rows > 100000
+        x, resid = randn((rows, k)), randn((rows, n))
+        dy = None if forward_only else randn((rows, n))
+        g, be = 1.0 + randn((k,), 0.1, torch.float32), randn((k,), 0.1, torch.float32)
+        w, b = randn((k, n), k ** -0.5), randn((n,), 0.1)
+        fns = {
+            "dense_bwd": (lambda: dense._launch_dense_bwd(x, dy, w),
+                          lambda: dense._dense_bwd_reference(x, dy, w)),
+            "ln_gemm_fwd": (lambda: mlp._launch_ln_gemm_fwd(x, g, be, w, b, 1e-6),
+                            lambda: mlp._ln_gemm_fwd_reference(x, g, be, w, b, 1e-6)),
+            "ln_gemm_bwd": (lambda: mlp._launch_ln_gemm_bwd(x, dy, g, be, w, 1e-6),
+                            lambda: mlp._ln_gemm_bwd_reference(x, dy, g, be, w, 1e-6)),
+            "gemm_res_fwd": (lambda: mlp._launch_gemm_res_fwd(resid, x, w, b),
+                             lambda: mlp._gemm_res_fwd_reference(resid, x, w, b)),
+            "gemm_res_bwd": (lambda: mlp._launch_gemm_res_bwd(x, dy, w),
+                             lambda: mlp._gemm_res_bwd_reference(x, dy, w)),
+        }
+        here = [name for name in names
+                if (n in mlp.KERNEL_WIDTHS or not name.startswith("gemm_res"))
+                and not (forward_only and name.endswith("bwd"))]
+        for name in here:
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                           check_kernel(name, case, *fns[name]))
+        timed = {DENSE_SHAPES[0]: ("dense_bwd", "ln_gemm_fwd", "ln_gemm_bwd"),
+                 DENSE_SHAPES[1]: ("dense_bwd", "gemm_res_fwd", "gemm_res_bwd")}.get(shape, ())
+        if timed:
+            # the library routes on nn.Linear's (out, in) weight
+            xl, gl, bel, wl, bl = (t.detach().requires_grad_() for t in
+                                   (x, g, be, w.t().contiguous(), b))
+            y_linear = F.linear(xl, wl, bl)
+            y_ln = F.linear(F.layer_norm(xl.float(), (k,), gl, bel, 1e-6).to(x.dtype), wl, bl)
+
+            def ln_linear():
+                with torch.no_grad():
+                    return F.linear(F.layer_norm(x.float(), (k,), g, be, 1e-6).to(x.dtype), wl, bl)
+
+            def linear_add():
+                with torch.no_grad():
+                    return resid + F.linear(x, wl, bl)
+
+            def linear_bwd():
+                return torch.autograd.grad(y_linear, (xl, wl, bl), dy, retain_graph=True)
+
+            lib_fns = {
+                "dense_bwd": linear_bwd, "gemm_res_bwd": linear_bwd, "ln_gemm_fwd": ln_linear,
+                "gemm_res_fwd": linear_add,
+                "ln_gemm_bwd": lambda: torch.autograd.grad(y_ln, (xl, gl, bel, wl, bl), dy,
+                                                           retain_graph=True),
+            }
+            for name in timed:
+                t = timed_ab(fns[name][0], lib_fns[name], fns[name][1])
+                t.update(dense_bound(name, rows, k, n), shape=list(shape), library=library[name])
+                print(f"[{name}] {case}, medians of 20 in the order kernel, library, library, "
+                      f"kernel: kernel {t['ms_runs']} ms, library ({library[name]}) "
+                      f"{t['library_ms_runs']} ms, plain {t['plain_ms']:.4f} ms, bound "
+                      f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
+                      f"({t['bound_bytes'] / 1e6:.1f} MB, {t['bound_flops'] / 1e9:.1f} GFLOP); "
+                      f"on {smi}")
+                if "ms" in res[name]:  # K7's second shape, the proj layer
+                    res[name]["proj_layer"] = t
+                else:
+                    res[name].update(t)
+            del xl, gl, bel, wl, bl, y_linear, y_ln, lib_fns
+        del x, resid, dy, g, be, w, b, fns
+        torch.cuda.empty_cache()
+    print("[dense_bwd, ln_gemm_bwd, gemm_res_bwd] two runs on the same inputs gave the same "
+          "bits at every shape")
     return res
 
 
@@ -774,6 +926,12 @@ def train_bundle(vit_overrides=None, argv=TRAIN_ARGV):
                            vit_overrides=vit_overrides)
 
 
+def train_batch() -> dict:
+    rng = np.random.default_rng(SEED)
+    return {"images": torch.from_numpy(
+        rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3), dtype=np.uint8)).cuda()}
+
+
 def run_steps(bundle, batch, n_steps: int):
     """→ per step: loss, gradient norm, launches, milliseconds (CUDA events)."""
     rows = []
@@ -800,7 +958,9 @@ def check_losses(tag, rows, plain_rows, other="plain attention"):
 # kernel-name fragments → kind, first match wins
 PROFILE_KINDS = [
     ("attention kernels (hand-written)", ("mha_qkv", "flash_fwd_kernel", "flash_bwd_d")),
-    ("fused MLP kernels (hand-written)", ("mlp_fwd_kernel", "mlp_bwd_d", "sum_partials")),
+    ("fused MLP kernels (hand-written)", ("mlp_fwd_kernel", "mlp_bwd_d")),
+    ("dense-layer kernels (hand-written)", ("dense_bwd_d", "row_gemm_fwd")),
+    ("fixed-order sums of partial gradients (hand-written)", ("sum_partials",)),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "cublas", "gemv")),
     ("LayerNorm, forward and backward", ("layer_norm", "LayerNorm", "GammaBeta")),
     ("GELU, forward and backward", ("Gelu", "gelu")),
@@ -820,9 +980,7 @@ PROFILES = []
 
 
 def phase_profiles(smi: str) -> None:
-    rng = np.random.default_rng(SEED)
-    batch = {"images": torch.from_numpy(
-        rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3), dtype=np.uint8)).cuda()}
+    batch = train_batch()
     for tag, overrides, argv, ms in PROFILES:
         bundle = train_bundle(overrides, argv)
         run_steps(bundle, batch, WARMUP_STEPS)
@@ -871,9 +1029,7 @@ def profile_step(tag: str, bundle, batch, step_ms: float, smi: str) -> None:
 def phase_train(smi: str) -> dict:
     """The DINO step on the tuned path, against plain attention, and on the
     recomputing-backward path; → launches per kernel over the kernel-path runs."""
-    rng = np.random.default_rng(SEED)
-    batch = {"images": torch.from_numpy(
-        rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3), dtype=np.uint8)).cuda()}
+    batch = train_batch()
     total = dict.fromkeys(all_launches(), 0)
 
     def count(rows):
@@ -976,21 +1132,19 @@ def phase_train(smi: str) -> dict:
     return total
 
 
-def phase_train_fused_mlp(smi: str) -> tuple[dict, dict]:
-    """The DINO step with the fused-MLP route, full width and depth, against
-    the default route from the same seeds; then the hybrid route
-    (``mlp_pallas_bwd``) at depth 4. → launches per kernel of the two paths.
+def summed_launches(rows) -> dict:
+    return {name: sum(r["launches"][name] for r in rows) for name in all_launches()}
 
-    With ``use_fused_mlp`` the teacher's 12 blocks and the student's block 0
-    (stochastic-depth rate 0) run the sub-block op, the student's blocks 1-11
-    the MLP op; the student makes two passes (global and local views)."""
-    rng = np.random.default_rng(SEED)
-    batch = {"images": torch.from_numpy(
-        rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3), dtype=np.uint8)).cuda()}
+
+def phase_train_route(tag: str, flag: str, per_step: dict, smi: str) -> dict:
+    """The DINO step with ViTConfig flag ``flag`` on, full width and depth,
+    for 2 + 6 steps, against the default route from the same seeds: launches
+    per step (``per_step`` beside the tuned step's attention kernels, every
+    other kernel 0), the first two losses, and the time and peak memory of
+    both in the order route, default, default, route. → launches per kernel
+    over the route's first run."""
+    batch = train_batch()
     none = dict.fromkeys(all_launches(), 0)
-
-    def summed(rows):
-        return {name: sum(r["launches"][name] for r in rows) for name in none}
 
     def timed_run(overrides):
         bundle = train_bundle(overrides)
@@ -1001,40 +1155,55 @@ def phase_train_fused_mlp(smi: str) -> tuple[dict, dict]:
     def median_ms(rows):
         return statistics.median(r["ms"] for r in rows[-TIMED_STEPS:])
 
-    bundle, rows, peak = timed_run({"use_fused_mlp": True})
+    bundle, rows, peak = timed_run({flag: True})
     depth = bundle.model.backbone.config.depth
     views = TRAIN_BATCH * (bundle.dcfg.n_global + bundle.dcfg.n_local)
     attn = {"mha_qkv_fwd": depth, "mha_qkv_fwd_saved": 2 * depth, "mha_qkv_bwd_saved": 2 * depth}
-    want = {**none, **attn, "mlp_block_fwd": depth + 2, "mlp_block_bwd": 2,
-            "mlp_fwd": 2 * (depth - 1), "mlp_bwd": 2 * (depth - 1)}
+    want = {**none, **attn, **{name: n(depth) for name, n in per_step.items()}}
     for i, r in enumerate(rows):
-        print(f"[train_fused_mlp] step {i}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.4f} "
+        print(f"[{tag}] step {i}: loss {r['loss']:.6f} grad_norm {r['grad_norm']:.4f} "
               f"{r['ms']:.2f} ms launches {r['launches']}")
         if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
-            raise RuntimeError(f"fused-MLP step {i}: loss or gradient norm is not finite")
+            raise RuntimeError(f"{flag} step {i}: loss or gradient norm is not finite")
         if r["launches"] != want:
-            raise RuntimeError(f"fused-MLP step {i}: launches {r['launches']}, expected {want}")
+            raise RuntimeError(f"{flag} step {i}: launches {r['launches']}, expected {want}")
     del bundle  # the peak of the default route is taken with this one gone
     torch.cuda.empty_cache()
     default, d_rows, d_peak = timed_run(None)
     if any(r["launches"] != {**none, **attn} for r in d_rows):
-        raise RuntimeError("the default route launched an MLP kernel")
-    check_losses("use_fused_mlp", rows, d_rows[:2], other="default route")
-    # once more in the other order: fused, default, default, fused
+        raise RuntimeError("the default route launched a kernel of another route")
+    check_losses(flag, rows, d_rows[:2], other="default route")
+    # once more in the other order: route, default, default, route
     d_rows_2 = run_steps(default, batch, TIMED_STEPS)
     del default
     torch.cuda.empty_cache()
-    rows_2 = timed_run({"use_fused_mlp": True})[1]
+    rows_2 = timed_run({flag: True})[1]
     ms = min(median_ms(rows), median_ms(rows_2))
-    print(f"[train_fused_mlp] medians of {TIMED_STEPS} steps after {WARMUP_STEPS} warm-up, in the "
-          f"order fused, default, default, fused: use_fused_mlp {median_ms(rows):.2f} / "
+    print(f"[{tag}] medians of {TIMED_STEPS} steps after {WARMUP_STEPS} warm-up, in the "
+          f"order {flag}, default, default, {flag}: {flag} {median_ms(rows):.2f} / "
           f"{median_ms(rows_2):.2f} ms per step = {views / median_ms(rows) * 1e3:.1f} / "
           f"{views / median_ms(rows_2) * 1e3:.1f} views/s, peak device memory "
           f"{peak / 2**30:.2f} GiB; default route {median_ms(d_rows):.2f} / "
           f"{median_ms(d_rows_2):.2f} ms per step = {views / median_ms(d_rows) * 1e3:.1f} / "
           f"{views / median_ms(d_rows_2) * 1e3:.1f} views/s, peak {d_peak / 2**30:.2f} GiB; "
           f"on {smi}")
-    PROFILES.append(("the step with use_fused_mlp", {"use_fused_mlp": True}, TRAIN_ARGV, ms))
+    PROFILES.append((f"the step with {flag}", {flag: True}, TRAIN_ARGV, ms))
+    return summed_launches(rows)
+
+
+def phase_train_fused_mlp(smi: str) -> tuple[dict, dict]:
+    """The DINO step with the fused-MLP route against the default route; then
+    the hybrid route (``mlp_pallas_bwd``) at depth 4. → launches per kernel
+    of the two paths.
+
+    With ``use_fused_mlp`` the teacher's 12 blocks and the student's block 0
+    (stochastic-depth rate 0) run the sub-block op, the student's blocks 1-11
+    the MLP op; the student makes two passes (global and local views)."""
+    fused = phase_train_route("train_fused_mlp", "use_fused_mlp", {
+        "mlp_block_fwd": lambda depth: depth + 2, "mlp_block_bwd": lambda depth: 2,
+        "mlp_fwd": lambda depth: 2 * (depth - 1), "mlp_bwd": lambda depth: 2 * (depth - 1)}, smi)
+    batch = train_batch()
+    none = dict.fromkeys(all_launches(), 0)
 
     # -- the hybrid route at depth 4: ordinary forward, kernel backward --
     over = {"mlp_pallas_bwd": True, "depth": 4}
@@ -1054,7 +1223,120 @@ def phase_train_fused_mlp(smi: str) -> tuple[dict, dict]:
                  other="default route")
     del h_default
     torch.cuda.empty_cache()
-    return summed(rows), summed(h_rows)
+    return fused, summed_launches(h_rows)
+
+
+def phase_train_dense(smi: str) -> dict:
+    """The DINO step with the hybrid dense layers against the default route:
+    the qkv and proj layers of the student's 12 blocks take the fused backward
+    in both of its passes (global and local views), 48 launches per step; the
+    teacher runs no backward and the forward is a library GEMM in both routes."""
+    return phase_train_route("train_dense", "dense_pallas_bwd",
+                             {"dense_bwd": lambda depth: 4 * depth}, smi)
+
+
+def phase_ln_gemm_path(smi: str) -> dict:
+    """The attention sub-block composed from the row-tiled ops,
+    ``fused_gemm_residual(x, mha_from_qkv(fused_ln_gemm(x, ...)), ...)``, with
+    block 0's weights of the seeded full-width model in the tuned
+    configuration, against the same block's ``x + attn(norm1(x))`` from the
+    model's own modules: forward and backward at the step's global views,
+    forward at one serving chunk. → launches per kernel."""
+    base = create_model(MODEL, num_classes=2, img_size=TILE).config
+    cfg = dataclasses.replace(base, **tuned_vit_kwargs(True))
+    model = VisionTransformer(cfg)
+    model.load_state_dict(params_from_flax(flax_vit_tree(cfg, SEED)))
+    blk = model.cuda().blocks[0]
+    norm1, attn = blk.norm1, blk.attn
+    params = [norm1.weight, norm1.bias, attn.qkv.weight, attn.qkv.bias, attn.proj.weight,
+              attn.proj.bias]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(cfg.dtype)
+
+    def composed(x, training):
+        qkv = mlp.fused_ln_gemm(x, norm1.weight, norm1.bias, attn.qkv.weight.t(), attn.qkv.bias,
+                                eps=norm1.eps)
+        out = attention.mha_from_qkv(qkv, attn.num_heads, training=training,
+                                     save_probs=cfg.attn_save_probs)
+        return mlp.fused_gemm_residual(x, out, attn.proj.weight.t(), attn.proj.bias)
+
+    def unfused(x, training):
+        return x + attn(norm1(x).to(cfg.dtype), deterministic=not training)
+
+    total = dict.fromkeys(all_launches(), 0)
+
+    # -- forward and backward at the student's global views --
+    b, n, d = TRAIN_SHAPES[0][:3]
+    x, dy = randn((b, n, d)).requires_grad_(), randn((b, n, d))
+
+    def both_ways(fn):
+        return lambda: torch.autograd.grad(fn(x, True), [x, *params], dy)
+
+    reset_launches()
+    y = composed(x, True)
+    grads = torch.autograd.grad(y, [x, *params], dy)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    want = {**total, "ln_gemm_fwd": 1, "gemm_res_fwd": 1, "ln_gemm_bwd": 1, "gemm_res_bwd": 1,
+            "mha_qkv_fwd_saved": 1, "mha_qkv_bwd_saved": 1}
+    print(f"[ln_gemm_path] ({b}, {n}, {d}) forward and backward: launches {launches}")
+    if launches != want:
+        raise RuntimeError(f"composed sub-block: launches {launches}, expected {want}")
+    for name, count in launches.items():
+        total[name] += count
+    y_ref = unfused(x, True)
+    grads_ref = torch.autograd.grad(y_ref, [x, *params], dy)
+    labels = ("y", "dx", "dgamma", "dbeta", "dW_qkv", "db_qkv", "dW_proj", "db_proj")
+    for label, got, ref in zip(labels, (y, *grads), (y_ref, *grads_ref)):
+        diff = (got.float() - ref.float()).abs()
+        mx = diff.max().item()
+        ok = bool(torch.isfinite(got.float()).all()) and got.shape == ref.shape
+        if got.dtype == torch.bfloat16:
+            bound, shown, unit = MLP_MAX_ABS, mx, "max_abs"
+        else:  # dgamma, dbeta are fp32 sums; the others were rounded to bf16 on both routes
+            bound = MLP_GRAD_REL if label in ("dgamma", "dbeta") else ROUNDED_GRAD_REL
+            shown, unit = mx / max(ref.abs().max().item(), 1e-30), "of the largest element"
+        print(f"[ln_gemm_path] {label} {tuple(got.shape)} {got.dtype}: composed vs the model's "
+              f"own modules {shown:.3e} {unit} (bound {bound})")
+        if not ok or shown > bound:
+            raise RuntimeError(f"composed sub-block and the model's modules disagree in {label}")
+    c1 = cuda_median_ms(both_ways(composed), reps=10)
+    u1 = cuda_median_ms(both_ways(unfused), reps=10)
+    u2 = cuda_median_ms(both_ways(unfused), reps=10)
+    c2 = cuda_median_ms(both_ways(composed), reps=10)
+    print(f"[ln_gemm_path] ({b}, {n}, {d}) forward and backward, medians of 10 in the order "
+          f"composed, unfused, unfused, composed: composed {c1:.4f} / {c2:.4f} ms, the model's "
+          f"norm1 + attention + residual sum {u1:.4f} / {u2:.4f} ms; on {smi}")
+    del x, dy, y, grads, y_ref, grads_ref
+
+    # -- forward at one serving chunk --
+    b, n, d = K2_SHAPES[0][:3]
+    x = randn((b, n, d))
+    with torch.no_grad():
+        reset_launches()
+        y = composed(x, False)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        want = {**dict.fromkeys(total, 0), "ln_gemm_fwd": 1, "gemm_res_fwd": 1, "mha_qkv_fwd": 1}
+        if launches != want:
+            raise RuntimeError(f"composed sub-block, eval: launches {launches}, expected {want}")
+        for name, count in launches.items():
+            total[name] += count
+        mx = (y.float() - unfused(x, False).float()).abs().max().item()
+        print(f"[ln_gemm_path] ({b}, {n}, {d}) forward: launches {launches}; composed vs the "
+              f"model's own modules max_abs {mx:.3e} (bound {MLP_MAX_ABS})")
+        if not mx <= MLP_MAX_ABS:
+            raise RuntimeError("the composed sub-block and the model's modules disagree in eval")
+        c1 = cuda_median_ms(lambda: composed(x, False), reps=10)
+        u1 = cuda_median_ms(lambda: unfused(x, False), reps=10)
+        u2 = cuda_median_ms(lambda: unfused(x, False), reps=10)
+        c2 = cuda_median_ms(lambda: composed(x, False), reps=10)
+    print(f"[ln_gemm_path] ({b}, {n}, {d}) forward, medians of 10 in the order composed, "
+          f"unfused, unfused, composed: composed {c1:.4f} / {c2:.4f} ms, the model's norm1 + "
+          f"attention + residual sum {u1:.4f} / {u2:.4f} ms; on {smi}")
+    return total
 
 
 def phase_train_448(smi: str) -> dict:
@@ -1062,9 +1344,7 @@ def phase_train_448(smi: str) -> dict:
     tokens through the flash family (the teacher without statistics, the
     student with, then dQ and dK/dV), 576 local sequences of 37 tokens
     through the saving pair as before; → launches per kernel."""
-    rng = np.random.default_rng(SEED)
-    batch = {"images": torch.from_numpy(
-        rng.integers(0, 256, (TRAIN_BATCH, TILE, TILE, 3), dtype=np.uint8)).cuda()}
+    batch = train_batch()
     bundle = train_bundle(argv=TRAIN_ARGV_448)
     cfg = bundle.model.backbone.config
     depth = cfg.depth
@@ -1121,12 +1401,15 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     kernels = {"mha_qkv_fwd": phase_k2(smi), **phase_train_kernels(smi),
-               **phase_flash_kernels(smi), **phase_mlp_kernels(smi)}
+               **phase_flash_kernels(smi), **phase_mlp_kernels(smi),
+               **phase_dense_kernels(smi)}
     paths = {"serving": phase_slice(smi), "training": phase_train(smi)}
     paths["serving_fused_mlp"] = phase_slice(
         smi, kernels=("mha_qkv_fwd", "mlp_block_fwd"), tag="slice_fused_mlp",
         model_kw={"use_fused_mlp": True}, other_kw={}, other="default route")
     paths["training_fused_mlp"], paths["training_mlp_pallas_bwd"] = phase_train_fused_mlp(smi)
+    paths["training_dense"] = phase_train_dense(smi)
+    paths["ln_gemm_path"] = phase_ln_gemm_path(smi)
     paths["serving_448"] = phase_slice(smi, MODEL_448, TILE_448, TILES_PER_ITER_448, VALID_448,
                                        kernels=("flash_fwd",), tag="slice448")
     paths["training_448"] = phase_train_448(smi)
@@ -1144,6 +1427,11 @@ def main() -> None:
         "mlp_bwd": ("mlp_bwd.cu", "tpuwsi/ops/mlp.py:100"),
         "mlp_block_fwd": ("mlp_fwd.cu", "tpuwsi/ops/mlp.py:485"),
         "mlp_block_bwd": ("mlp_bwd.cu", "tpuwsi/ops/mlp.py:508"),
+        "dense_bwd": ("dense.cu", "tpuwsi/ops/dense.py:51"),
+        "ln_gemm_fwd": ("dense.cu", "tpuwsi/ops/mlp.py:832"),
+        "ln_gemm_bwd": ("dense.cu", "tpuwsi/ops/mlp.py:850"),
+        "gemm_res_fwd": ("dense.cu", "tpuwsi/ops/mlp.py:1079"),
+        "gemm_res_bwd": ("dense.cu", "tpuwsi/ops/mlp.py:1092"),
     }
     lines = []
     for name, (source, replaces) in meta.items():

@@ -1,4 +1,5 @@
-"""The four fused-MLP kernels against their plain PyTorch versions on the card.
+"""The fused-MLP, LN+GEMM, GEMM+residual and hybrid-dense kernels against their
+plain PyTorch versions on the card.
 
 Marked ``cuda``: each case skips where there is no NVIDIA GPU. This file
 imports nothing of the JAX package, so it runs where only PyTorch is installed:
@@ -9,7 +10,7 @@ imports nothing of the JAX package, so it runs where only PyTorch is installed:
 import pytest
 import torch
 
-from tpuwsi_torch.ops import mlp as tmlp
+from tpuwsi_torch.ops import dense as tdense, mlp as tmlp
 
 CARD_SHAPES = [(300, 384, 1536), (77, 768, 3072)]
 # outputs and dx: one bf16 ulp of a value below 4 where a rounding of h, du or
@@ -35,6 +36,7 @@ def test_kernel_matches_plain_version_on_the_card(kernel, shape):
     be = 0.1 * torch.randn(d, generator=gen, device="cuda")
     w1, b1 = randn((d, f), d ** -0.5), randn((f,), 0.1)
     w2, b2 = randn((f, d), f ** -0.5), randn((d,), 0.1)
+    dy_f, wp = randn((rows, f)), randn((d, d), d ** -0.5)  # the LN+GEMM's cotangent; a proj layer
     before = tmlp.LAUNCHES[kernel]
     got, want = {
         "mlp_fwd": lambda: (tmlp._launch_mlp_fwd(x, w1, b1, w2, b2, True),
@@ -47,6 +49,14 @@ def test_kernel_matches_plain_version_on_the_card(kernel, shape):
         "mlp_block_bwd": lambda: (
             tmlp._launch_mlp_block_bwd(x, dy, g, be, w1, b1, w2, False, 1e-6),
             tmlp._mlp_block_bwd_reference(x, dy, g, be, w1, b1, w2, False, 1e-6)),
+        "ln_gemm_fwd": lambda: (tmlp._launch_ln_gemm_fwd(x, g, be, w1, b1, 1e-6),
+                                tmlp._ln_gemm_fwd_reference(x, g, be, w1, b1, 1e-6)),
+        "ln_gemm_bwd": lambda: (tmlp._launch_ln_gemm_bwd(x, dy_f, g, be, w1, 1e-6),
+                                tmlp._ln_gemm_bwd_reference(x, dy_f, g, be, w1, 1e-6)),
+        "gemm_res_fwd": lambda: (tmlp._launch_gemm_res_fwd(dy, x, wp, b2),
+                                 tmlp._gemm_res_fwd_reference(dy, x, wp, b2)),
+        "gemm_res_bwd": lambda: (tmlp._launch_gemm_res_bwd(x, dy, wp),
+                                 tmlp._gemm_res_bwd_reference(x, dy, wp)),
     }[kernel]()
     torch.cuda.synchronize()
     assert tmlp.LAUNCHES[kernel] == before + 1
@@ -56,3 +66,25 @@ def test_kernel_matches_plain_version_on_the_card(kernel, shape):
         assert a.shape == b.shape and a.dtype == b.dtype and torch.isfinite(a.float()).all()
         scale = max(1.0, b.float().abs().max().item() / 4)
         assert (a.float() - b.float()).abs().max().item() <= CARD_MAX_ABS * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300, 384, 1152), (300, 384, 384), (77, 768, 2304)],
+                         ids=["vit_s_qkv", "vit_s_proj", "vit_b_qkv"])
+def test_dense_bwd_matches_plain_version_on_the_card(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rows, d, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    x, dy, w = ((std * torch.randn(s, generator=gen, device="cuda")).bfloat16()
+                for s, std in (((rows, d), 1.0), ((rows, n), 1.0), ((d, n), d ** -0.5)))
+    before = tdense.LAUNCHES["dense_bwd"]
+    got, want = tdense._launch_dense_bwd(x, dy, w), tdense._dense_bwd_reference(x, dy, w)
+    again = tdense._launch_dense_bwd(x, dy, w)
+    torch.cuda.synchronize()
+    assert tdense.LAUNCHES["dense_bwd"] == before + 2
+    for a, b, c in zip(got, want, again):
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.isfinite(a.float()).all()
+        scale = max(1.0, b.float().abs().max().item() / 4)
+        assert (a.float() - b.float()).abs().max().item() <= CARD_MAX_ABS * scale
+        assert torch.equal(a, c)  # a fixed order of sums: the same bits twice

@@ -55,6 +55,7 @@ def create_model(
     dtype: torch.dtype = torch.bfloat16,
     use_kernel_attention: bool = True,
     use_fused_mlp: bool = False,
+    dense_pallas_bwd: bool = False,
 ) -> VisionTransformer:
     """Build a ViT by timm-style name, on the CPU, in eval mode."""
     if name.startswith(_CNN_PREFIXES):
@@ -68,5 +69,6 @@ def create_model(
         dtype=dtype,
         use_kernel_attention=use_kernel_attention,
         use_fused_mlp=use_fused_mlp,
+        dense_pallas_bwd=dense_pallas_bwd,
     )
     return VisionTransformer(cfg).eval()

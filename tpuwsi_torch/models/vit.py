@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpuwsi_torch.ops.attention import mha_from_qkv
+from tpuwsi_torch.ops.dense import hybrid_dense
 from tpuwsi_torch.ops.mlp import fused_mlp, fused_mlp_block, hybrid_mlp
 
 
@@ -68,6 +69,9 @@ class ViTConfig:
     # ordinary MLP forward that saves only its input, fused kernel backward
     # (ops/mlp.hybrid_mlp); use_fused_mlp comes first where both are set
     mlp_pallas_bwd: bool = False
+    # the qkv and proj layers of every attention: ordinary forward, one fused
+    # kernel for dx, dW and db backward (ops/dense.hybrid_dense)
+    dense_pallas_bwd: bool = False
 
     @property
     def num_patches_side(self) -> int:
@@ -143,16 +147,22 @@ class Attention(nn.Module):
         self.num_heads = cfg.num_heads
         self.dtype = cfg.dtype
         self.plain = not cfg.use_kernel_attention
+        self.hybrid = cfg.dense_pallas_bwd
         self.save_probs = cfg.attn_save_probs
         self.proj_drop = cfg.drop_rate
         self.qkv = nn.Linear(d, 3 * d, bias=cfg.qkv_bias)
         self.proj = nn.Linear(d, d)
 
+    def _dense(self, x, layer: nn.Linear):
+        if self.hybrid:  # the same parameters, in the op's (in, out) layout
+            return hybrid_dense(x.to(self.dtype), layer.weight.t(), layer.bias)
+        return _linear(x, layer, self.dtype)
+
     def forward(self, x, deterministic: bool = True, generator=None):
-        qkv = _linear(x, self.qkv, self.dtype)
+        qkv = self._dense(x, self.qkv)
         out = mha_from_qkv(qkv, self.num_heads, training=not deterministic,
                            save_probs=self.save_probs, plain=self.plain)
-        out = _linear(out, self.proj, self.dtype)
+        out = self._dense(out, self.proj)
         return _dropout(out, self.proj_drop, deterministic, generator)
 
 

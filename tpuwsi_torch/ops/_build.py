@@ -134,13 +134,25 @@ def load() -> ctypes.CDLL:
         lib.tpuwsi_mlp_block_bwd.argtypes = [ptr] * 12 + [i32] * 5 + [f32, i32, ptr]
         lib.tpuwsi_mlp_rows_per_tile.argtypes = [i32]
         lib.tpuwsi_mlp_hidden_per_slice.argtypes = [i32]
+        # dense layers: tensors, then rows and the two widths (, row groups)
+        # (, eps) and the stream
+        lib.tpuwsi_dense_bwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        lib.tpuwsi_gemm_res_bwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        lib.tpuwsi_ln_gemm_fwd.argtypes = [ptr] * 6 + [i32, i32, i32, f32, ptr]
+        lib.tpuwsi_ln_gemm_bwd.argtypes = [ptr] * 10 + [i32] * 4 + [f32, ptr]
+        lib.tpuwsi_gemm_res_fwd.argtypes = [ptr] * 5 + [i32, i32, i32, ptr]
+        lib.tpuwsi_dense_rows_per_step.argtypes = [i32]
+        lib.tpuwsi_dense_cols_per_slice.argtypes = [i32]
         for fn in (lib.tpuwsi_mha_qkv_fwd, lib.tpuwsi_mha_qkv_fwd_saved,
                    lib.tpuwsi_mha_qkv_bwd_saved, lib.tpuwsi_mha_qkv_bwd,
                    lib.tpuwsi_flash_fwd, lib.tpuwsi_flash_fwd_stats,
                    lib.tpuwsi_flash_bwd_dq, lib.tpuwsi_flash_bwd_dkv,
                    lib.tpuwsi_mlp_fwd, lib.tpuwsi_mlp_block_fwd, lib.tpuwsi_mlp_bwd,
                    lib.tpuwsi_mlp_block_bwd, lib.tpuwsi_mlp_rows_per_tile,
-                   lib.tpuwsi_mlp_hidden_per_slice):
+                   lib.tpuwsi_mlp_hidden_per_slice, lib.tpuwsi_dense_bwd,
+                   lib.tpuwsi_gemm_res_bwd, lib.tpuwsi_ln_gemm_fwd, lib.tpuwsi_ln_gemm_bwd,
+                   lib.tpuwsi_gemm_res_fwd, lib.tpuwsi_dense_rows_per_step,
+                   lib.tpuwsi_dense_cols_per_slice):
             fn.restype = i32
         lib.tpuwsi_cuda_error_string.argtypes = [i32]
         lib.tpuwsi_cuda_error_string.restype = ctypes.c_char_p

@@ -222,12 +222,11 @@ mlp_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     }
   }
 
-  const int ra = rg * 16 + g, rb = ra + 8;  // this thread's rows within the tile
-  const int row_a = row0 + ra, row_b = row0 + rb;
   constexpr int kParts = kBlock ? 3 : 1;
   float* part = row_part + static_cast<size_t>(blockIdx.x) * kParts * D;
 
   if constexpr (!kBlock) {
+    const int row_a = row0 + rg * 16 + g, row_b = row_a + 8;  // this thread's rows
 #pragma unroll
     for (int nt = 0; nt < kNOut; ++nt) {
       const int col = cg * T::kColsPerWarp + nt * 8 + 2 * t;
@@ -242,108 +241,8 @@ mlp_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     // The weight chunks and du are free now: their room takes the sums.
     float* row_red = reinterpret_cast<float*>(w1_s);          // [kRows][kColGroups][2]
     float* col_red = row_red + T::kRows * T::kColGroups * 2;  // [kRows / 16][2][D]
-    const float mean_a = mean_s[ra], inv_a = inv_s[ra];
-    const float mean_b = mean_s[rb], inv_b = inv_s[rb];
-    float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kNOut; ++nt) {
-      const int col = cg * T::kColsPerWarp + nt * 8 + 2 * t;
-      const float2 gam = *reinterpret_cast<const float2*>(gamma + col);
-      uint32_t xa_raw = 0u, xb_raw = 0u;
-      if (row_a < rows)
-        xa_raw = *reinterpret_cast<const uint32_t*>(x + static_cast<size_t>(row_a) * D + col);
-      if (row_b < rows)
-        xb_raw = *reinterpret_cast<const uint32_t*>(x + static_cast<size_t>(row_b) * D + col);
-      const float2 xa = unpack_bf16(xa_raw), xb = unpack_bf16(xb_raw);
-      const float ha0 = (xa.x - mean_a) * inv_a, ha1 = (xa.y - mean_a) * inv_a;
-      const float hb0 = (xb.x - mean_b) * inv_b, hb1 = (xb.y - mean_b) * inv_b;
-      const float da0 = acc[nt][0] * gam.x, da1 = acc[nt][1] * gam.y;
-      const float db0 = acc[nt][2] * gam.x, db1v = acc[nt][3] * gam.y;
-      s1a += da0 + da1;
-      s2a += da0 * ha0 + da1 * ha1;
-      s1b += db0 + db1v;
-      s2b += db0 * hb0 + db1v * hb1;
-      // dgamma, dbeta of this warp's 16 rows: sum over the eight g lanes
-      float pg0 = acc[nt][0] * ha0 + acc[nt][2] * hb0, pg1 = acc[nt][1] * ha1 + acc[nt][3] * hb1;
-      float pb0 = acc[nt][0] + acc[nt][2], pb1 = acc[nt][1] + acc[nt][3];
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        pg0 += __shfl_xor_sync(0xffffffffu, pg0, off);
-        pg1 += __shfl_xor_sync(0xffffffffu, pg1, off);
-        pb0 += __shfl_xor_sync(0xffffffffu, pb0, off);
-        pb1 += __shfl_xor_sync(0xffffffffu, pb1, off);
-      }
-      if (g == 0) {
-        float* dst = col_red + rg * 2 * D + col;
-        dst[0] = pg0;
-        dst[1] = pg1;
-        dst[D] = pb0;
-        dst[D + 1] = pb1;
-      }
-    }
-    // row sums over this warp's columns, then over the four column warps
-    s1a += __shfl_xor_sync(0xffffffffu, s1a, 1);
-    s1a += __shfl_xor_sync(0xffffffffu, s1a, 2);
-    s2a += __shfl_xor_sync(0xffffffffu, s2a, 1);
-    s2a += __shfl_xor_sync(0xffffffffu, s2a, 2);
-    s1b += __shfl_xor_sync(0xffffffffu, s1b, 1);
-    s1b += __shfl_xor_sync(0xffffffffu, s1b, 2);
-    s2b += __shfl_xor_sync(0xffffffffu, s2b, 1);
-    s2b += __shfl_xor_sync(0xffffffffu, s2b, 2);
-    if (t == 0) {
-      row_red[(ra * T::kColGroups + cg) * 2] = s1a;
-      row_red[(ra * T::kColGroups + cg) * 2 + 1] = s2a;
-      row_red[(rb * T::kColGroups + cg) * 2] = s1b;
-      row_red[(rb * T::kColGroups + cg) * 2 + 1] = s2b;
-    }
-    __syncthreads();
-    float m1a = 0.f, m2a = 0.f, m1b = 0.f, m2b = 0.f;
-#pragma unroll
-    for (int q = 0; q < T::kColGroups; ++q) {
-      m1a += row_red[(ra * T::kColGroups + q) * 2];
-      m2a += row_red[(ra * T::kColGroups + q) * 2 + 1];
-      m1b += row_red[(rb * T::kColGroups + q) * 2];
-      m2b += row_red[(rb * T::kColGroups + q) * 2 + 1];
-    }
-    m1a *= 1.0f / D;
-    m2a *= 1.0f / D;
-    m1b *= 1.0f / D;
-    m2b *= 1.0f / D;
-#pragma unroll
-    for (int nt = 0; nt < kNOut; ++nt) {
-      const int col = cg * T::kColsPerWarp + nt * 8 + 2 * t;
-      const float2 gam = *reinterpret_cast<const float2*>(gamma + col);
-      if (row_a < rows) {
-        const size_t at = static_cast<size_t>(row_a) * D + col;
-        const float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(x + at));
-        const float2 dyv =
-            unpack_bf16(*reinterpret_cast<const uint32_t*>(dy_s + ra * T::kXStride + col));
-        const float h0 = (xv.x - mean_a) * inv_a, h1 = (xv.y - mean_a) * inv_a;
-        *reinterpret_cast<uint32_t*>(dx + at) =
-            pack_bf16(dyv.x + inv_a * (acc[nt][0] * gam.x - m1a - h0 * m2a),
-                      dyv.y + inv_a * (acc[nt][1] * gam.y - m1a - h1 * m2a));
-      }
-      if (row_b < rows) {
-        const size_t at = static_cast<size_t>(row_b) * D + col;
-        const float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(x + at));
-        const float2 dyv =
-            unpack_bf16(*reinterpret_cast<const uint32_t*>(dy_s + rb * T::kXStride + col));
-        const float h0 = (xv.x - mean_b) * inv_b, h1 = (xv.y - mean_b) * inv_b;
-        *reinterpret_cast<uint32_t*>(dx + at) =
-            pack_bf16(dyv.x + inv_b * (acc[nt][2] * gam.x - m1b - h0 * m2b),
-                      dyv.y + inv_b * (acc[nt][3] * gam.y - m1b - h1 * m2b));
-      }
-    }
-    for (int col = threadIdx.x; col < D; col += T::kThreads) {
-      float dg = 0.f, db = 0.f;
-#pragma unroll
-      for (int q = 0; q < T::kRows / 16; ++q) {
-        dg += col_red[q * 2 * D + col];
-        db += col_red[q * 2 * D + D + col];
-      }
-      part[D + col] = dg;
-      part[2 * D + col] = db;
-    }
+    layer_norm_backward_tile<D, true>(acc, x, gamma, mean_s, inv_s, dy_s, row_red, col_red, dx,
+                                      part + D, row0, rows);
   }
   // db2 of this tile: column sums of dy (rows past the end are zero)
   for (int col = threadIdx.x; col < D; col += T::kThreads) {
@@ -598,19 +497,6 @@ mlp_bwd_dw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   }
 }
 
-// ---------------------------------------------------------------------------
-// 3. the sum of the partials, in a fixed order
-// ---------------------------------------------------------------------------
-
-__global__ void sum_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                    int n_parts, long long n) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int p = 0; p < n_parts; ++p) s += part[p * n + i];
-  out[i] = s;
-}
-
 template <int D, bool kBlock>
 int launch(const void* x, const void* dy, const void* gamma, const void* beta, const void* w1,
            const void* b1, const void* w2, void* dx, void* grads, void* w_part, void* row_part,
@@ -654,9 +540,9 @@ int launch(const void* x, const void* dy, const void* gamma, const void* beta, c
   // grads: dW1 (D, F) | dW2 (F, D) | db1 (F,) | db2 (D,) [| dgamma (D,) | dbeta (D,)]
   const long long n_w = 2LL * D * f + f, n_row = (kBlock ? 3LL : 1LL) * D;
   float* out = static_cast<float*>(grads);
-  sum_partials_kernel<<<static_cast<unsigned>((n_w + 255) / 256), 256, 0, stream>>>(
+  sum_partials_kernel<float><<<static_cast<unsigned>((n_w + 255) / 256), 256, 0, stream>>>(
       static_cast<const float*>(w_part), out, groups, n_w);
-  sum_partials_kernel<<<static_cast<unsigned>((n_row + 255) / 256), 256, 0, stream>>>(
+  sum_partials_kernel<float><<<static_cast<unsigned>((n_row + 255) / 256), 256, 0, stream>>>(
       static_cast<const float*>(row_part), out + n_w, n_row_tiles, n_row);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,8 @@
-// Shared device code of the fused-MLP kernels (mlp_fwd.cu, mlp_bwd.cu):
-// tile sizes by embedding width, mma.sync / ldmatrix / cp.async helpers, the
-// two GELU forms with their derivatives, and the LayerNorm of one row.
+// Shared device code of the row-tiled GEMM kernels (mlp_fwd.cu, mlp_bwd.cu,
+// dense.cu): tile sizes by embedding width, mma.sync / ldmatrix / cp.async
+// helpers, the two GELU forms with their derivatives, the LayerNorm of one
+// row, the LayerNorm backward of a row tile, and the fixed-order sum of
+// partial results.
 
 #pragma once
 
@@ -45,6 +47,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, fp32 accumulators.
@@ -179,7 +185,7 @@ __device__ __forceinline__ float warp_sum(float x) {
 // LayerNorm of one row by one warp, fp32, with the fast variance
 // E[x^2] - mean^2 clamped at 0: the row (zeros when `x_row` is null) is
 // normalised, scaled and shifted, rounded to bf16 and stored to `dst`
-// (shared memory) and, where `copy` is not null, there too (device memory);
+// (shared memory) and to `copy` (device memory), each where it is not null;
 // mean and 1 / sqrt(var + eps) come back for the backward.
 template <int D>
 __device__ __forceinline__ void layer_norm_row(const __nv_bfloat16* x_row,
@@ -208,11 +214,155 @@ __device__ __forceinline__ void layer_norm_row(const __nv_bfloat16* x_row,
     const float2 b = *reinterpret_cast<const float2*>(beta + col);
     const uint32_t ln =
         pack_bf16((v[j].x - mean) * inv * g.x + b.x, (v[j].y - mean) * inv * g.y + b.y);
-    *reinterpret_cast<uint32_t*>(dst + col) = ln;
+    if (dst != nullptr) *reinterpret_cast<uint32_t*>(dst + col) = ln;
     if (copy != nullptr) *reinterpret_cast<uint32_t*>(copy + col) = ln;
   }
   *mean_out = mean;
   *inv_out = inv;
+}
+
+// LayerNorm backward of one row tile, by all threads of a block in Tile<D>'s
+// warp layout (kRows / 16 row groups x 4 column groups). `acc` holds dln, the
+// gradient at LayerNorm's output, as the fp32 accumulators of the block's
+// (kRows, D) product: warp (rg, cg) owns rows rg * 16 .. + 15 and columns
+// cg * D / 4 .. of it. With xhat = (x - mean) * inv and dxhat = dln * gamma:
+//   dx = [dy +] inv * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))
+//   dgamma = sum over the tile's rows of dln * xhat, dbeta = that of dln
+// dx goes to device memory as bf16 (rows at or past `rows` are not written),
+// dgamma to part[0 .. D) and dbeta to part[D .. 2 D). With kResidual, dy is
+// added from `dy_s`, the tile's (kRows, D + kPad) copy in shared memory. x is
+// read from device memory; mean_s, inv_s: (kRows,) in shared memory. row_red
+// (kRows * 8 floats) and col_red (kRows / 16 * 2 * D floats) are scratch in
+// shared memory that nobody else touches from this call on.
+template <int D, bool kResidual>
+__device__ __forceinline__ void layer_norm_backward_tile(
+    const float (&acc)[D / 32][4], const __nv_bfloat16* __restrict__ x,
+    const float* __restrict__ gamma, const float* mean_s, const float* inv_s,
+    const __nv_bfloat16* dy_s, float* row_red, float* col_red, __nv_bfloat16* __restrict__ dx,
+    float* __restrict__ part, int row0, int rows) {
+  using T = Tile<D>;
+  constexpr int kNOut = T::kColsPerWarp / 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp / T::kColGroups, cg = warp % T::kColGroups;
+  const int ra = rg * 16 + g, rb = ra + 8;  // this thread's rows within the tile
+  const int row_a = row0 + ra, row_b = row0 + rb;
+  const float mean_a = mean_s[ra], inv_a = inv_s[ra];
+  const float mean_b = mean_s[rb], inv_b = inv_s[rb];
+  float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < kNOut; ++nt) {
+    const int col = cg * T::kColsPerWarp + nt * 8 + 2 * t;
+    const float2 gam = *reinterpret_cast<const float2*>(gamma + col);
+    uint32_t xa_raw = 0u, xb_raw = 0u;
+    if (row_a < rows)
+      xa_raw = *reinterpret_cast<const uint32_t*>(x + static_cast<size_t>(row_a) * D + col);
+    if (row_b < rows)
+      xb_raw = *reinterpret_cast<const uint32_t*>(x + static_cast<size_t>(row_b) * D + col);
+    const float2 xa = unpack_bf16(xa_raw), xb = unpack_bf16(xb_raw);
+    const float ha0 = (xa.x - mean_a) * inv_a, ha1 = (xa.y - mean_a) * inv_a;
+    const float hb0 = (xb.x - mean_b) * inv_b, hb1 = (xb.y - mean_b) * inv_b;
+    const float da0 = acc[nt][0] * gam.x, da1 = acc[nt][1] * gam.y;
+    const float db0 = acc[nt][2] * gam.x, db1v = acc[nt][3] * gam.y;
+    s1a += da0 + da1;
+    s2a += da0 * ha0 + da1 * ha1;
+    s1b += db0 + db1v;
+    s2b += db0 * hb0 + db1v * hb1;
+    // dgamma, dbeta of this warp's 16 rows: sum over the eight g lanes
+    float pg0 = acc[nt][0] * ha0 + acc[nt][2] * hb0, pg1 = acc[nt][1] * ha1 + acc[nt][3] * hb1;
+    float pb0 = acc[nt][0] + acc[nt][2], pb1 = acc[nt][1] + acc[nt][3];
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      pg0 += __shfl_xor_sync(0xffffffffu, pg0, off);
+      pg1 += __shfl_xor_sync(0xffffffffu, pg1, off);
+      pb0 += __shfl_xor_sync(0xffffffffu, pb0, off);
+      pb1 += __shfl_xor_sync(0xffffffffu, pb1, off);
+    }
+    if (g == 0) {
+      float* dst = col_red + rg * 2 * D + col;
+      dst[0] = pg0;
+      dst[1] = pg1;
+      dst[D] = pb0;
+      dst[D + 1] = pb1;
+    }
+  }
+  // row sums over this warp's columns, then over the four column warps
+  s1a += __shfl_xor_sync(0xffffffffu, s1a, 1);
+  s1a += __shfl_xor_sync(0xffffffffu, s1a, 2);
+  s2a += __shfl_xor_sync(0xffffffffu, s2a, 1);
+  s2a += __shfl_xor_sync(0xffffffffu, s2a, 2);
+  s1b += __shfl_xor_sync(0xffffffffu, s1b, 1);
+  s1b += __shfl_xor_sync(0xffffffffu, s1b, 2);
+  s2b += __shfl_xor_sync(0xffffffffu, s2b, 1);
+  s2b += __shfl_xor_sync(0xffffffffu, s2b, 2);
+  if (t == 0) {
+    row_red[(ra * T::kColGroups + cg) * 2] = s1a;
+    row_red[(ra * T::kColGroups + cg) * 2 + 1] = s2a;
+    row_red[(rb * T::kColGroups + cg) * 2] = s1b;
+    row_red[(rb * T::kColGroups + cg) * 2 + 1] = s2b;
+  }
+  __syncthreads();
+  float m1a = 0.f, m2a = 0.f, m1b = 0.f, m2b = 0.f;
+#pragma unroll
+  for (int q = 0; q < T::kColGroups; ++q) {
+    m1a += row_red[(ra * T::kColGroups + q) * 2];
+    m2a += row_red[(ra * T::kColGroups + q) * 2 + 1];
+    m1b += row_red[(rb * T::kColGroups + q) * 2];
+    m2b += row_red[(rb * T::kColGroups + q) * 2 + 1];
+  }
+  m1a *= 1.0f / D;
+  m2a *= 1.0f / D;
+  m1b *= 1.0f / D;
+  m2b *= 1.0f / D;
+#pragma unroll
+  for (int nt = 0; nt < kNOut; ++nt) {
+    const int col = cg * T::kColsPerWarp + nt * 8 + 2 * t;
+    const float2 gam = *reinterpret_cast<const float2*>(gamma + col);
+    if (row_a < rows) {
+      const size_t at = static_cast<size_t>(row_a) * D + col;
+      const float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(x + at));
+      float2 dyv = make_float2(0.f, 0.f);
+      if constexpr (kResidual)
+        dyv = unpack_bf16(*reinterpret_cast<const uint32_t*>(dy_s + ra * T::kXStride + col));
+      const float h0 = (xv.x - mean_a) * inv_a, h1 = (xv.y - mean_a) * inv_a;
+      *reinterpret_cast<uint32_t*>(dx + at) =
+          pack_bf16(dyv.x + inv_a * (acc[nt][0] * gam.x - m1a - h0 * m2a),
+                    dyv.y + inv_a * (acc[nt][1] * gam.y - m1a - h1 * m2a));
+    }
+    if (row_b < rows) {
+      const size_t at = static_cast<size_t>(row_b) * D + col;
+      const float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(x + at));
+      float2 dyv = make_float2(0.f, 0.f);
+      if constexpr (kResidual)
+        dyv = unpack_bf16(*reinterpret_cast<const uint32_t*>(dy_s + rb * T::kXStride + col));
+      const float h0 = (xv.x - mean_b) * inv_b, h1 = (xv.y - mean_b) * inv_b;
+      *reinterpret_cast<uint32_t*>(dx + at) =
+          pack_bf16(dyv.x + inv_b * (acc[nt][2] * gam.x - m1b - h0 * m2b),
+                    dyv.y + inv_b * (acc[nt][3] * gam.y - m1b - h1 * m2b));
+    }
+  }
+  for (int col = threadIdx.x; col < D; col += T::kThreads) {
+    float dg = 0.f, db = 0.f;
+#pragma unroll
+    for (int q = 0; q < T::kRows / 16; ++q) {
+      dg += col_red[q * 2 * D + col];
+      db += col_red[q * 2 * D + D + col];
+    }
+    part[col] = dg;
+    part[D + col] = db;
+  }
+}
+
+// out[i] = part[0][i] + part[1][i] + ... in that order: the sum over the
+// blocks that each wrote one partial result, the same bits on every run.
+template <typename T>
+__global__ void sum_partials_kernel(const T* __restrict__ part, T* __restrict__ out, int n_parts,
+                                    long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  T s = 0;
+  for (int p = 0; p < n_parts; ++p) s += part[p * n + i];
+  out[i] = s;
 }
 
 }  // namespace mlp

@@ -62,10 +62,6 @@ constexpr int fwd_smem_bytes() {
               T::kRows * T::kFStride);
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // Fragment ownership (PTX ISA, mma.m16n8k16): lane = 4*g + t. A thread holds
 // rows g and g+8 of the 16-row tile; of an 8-column accumulator tile it holds
 // columns 2t and 2t+1 (regs 0,1 for row g; regs 2,3 for row g+8).

@@ -1,22 +1,26 @@
 """The transformer MLP with its hidden activation kept on chip, forward and
-backward.
+backward, and the row-tiled LN+GEMM and GEMM+residual ops.
 
-Counterpart of ``tpuwsi/ops/mlp.py`` (its first 816 lines; the row-tiled
-LN+GEMM and GEMM+residual ops of that file are not ported yet). Three public
-functions, weights in the JAX layout ``w1 (D, F)``, ``w2 (F, D)``, ``x``
-``(..., D)``:
+Counterpart of ``tpuwsi/ops/mlp.py``. Five public functions, weights in the
+JAX layout ``w1 (D, F)``, ``w2 (F, D)``, ``x`` ``(..., D)``:
 
 - ``fused_mlp``: ``gelu(x @ w1 + b1) @ w2 + b2``, kernel forward and backward;
 - ``hybrid_mlp``: the same function with an ordinary PyTorch forward that
   saves only ``x, w1, b1, w2``, and the kernel backward;
 - ``fused_mlp_block``: the pre-norm sub-block
-  ``x + gelu(LN(x) @ w1 + b1) @ w2 + b2`` as one op, forward and backward.
+  ``x + gelu(LN(x) @ w1 + b1) @ w2 + b2`` as one op, forward and backward;
+- ``fused_ln_gemm``: ``LN(x) @ w + b`` (the pre-norm qkv projection), the
+  LayerNorm inside the GEMM's row tiles, forward and backward;
+- ``fused_gemm_residual``: ``res + a @ w + b`` (the output projection with its
+  residual sum), forward and backward. No model calls these two, as none does
+  in the reference; they are ops of the library.
 
-Four hand-written Hopper kernels carry them on a CUDA tensor, each with its
+Eight hand-written Hopper kernels carry them on a CUDA tensor, each with its
 plain PyTorch version beside it, which runs on a CPU tensor and repeats the
 kernel's arithmetic and roundings (fp32 accumulation; ``h``, ``du``, ``dy``
 and ``LN(x)`` rounded to ``x.dtype`` as GEMM operands; LayerNorm in fp32 with
-the fast variance ``E[x^2] - mean^2`` clamped at 0):
+the fast variance ``E[x^2] - mean^2`` clamped at 0; ``a @ w + b`` rounded to
+``res.dtype`` before the residual is added):
 
 =================  ==========================  ============================
 kernel             replaces (tpuwsi/ops/mlp.py)  plain version
@@ -25,19 +29,24 @@ kernel             replaces (tpuwsi/ops/mlp.py)  plain version
 ``mlp_bwd``          ``_mlp_bwd_kernel``           ``_mlp_bwd_reference``
 ``mlp_block_fwd``    ``_mlp_block_fwd_kernel``     ``_mlp_block_fwd_reference``
 ``mlp_block_bwd``    ``_mlp_block_bwd_kernel``     ``_mlp_block_bwd_reference``
+``ln_gemm_fwd``      ``_ln_gemm_fwd_kernel``       ``_ln_gemm_fwd_reference``
+``ln_gemm_bwd``      ``_ln_gemm_bwd_kernel``       ``_ln_gemm_bwd_reference``
+``gemm_res_fwd``     ``_gemm_res_fwd_kernel``      ``_gemm_res_fwd_reference``
+``gemm_res_bwd``     ``_gemm_res_bwd_kernel``      ``_gemm_res_bwd_reference``
 =================  ==========================  ============================
 
 On a CUDA tensor a wrapper launches its kernel or raises; it never gives way
-to the plain version. The kernels take bf16, an embedding width of 384 or 768
-and a hidden width that is a multiple of 64; both GELU forms run in-kernel.
-The backward kernels sum the weight gradients in a fixed order: the same
-inputs give the same bits on every run.
+to the plain version. The kernels take bf16 and an embedding width of 384 or
+768; the MLP's hidden width and the LN+GEMM's output width are multiples of
+64, both widths of the GEMM+residual are 384 or 768; both GELU forms run
+in-kernel. The backward kernels sum the weight gradients in a fixed order: the
+same inputs give the same bits on every run.
 
 As in the reference, the public functions cast the parameters to ``x.dtype``
 outside the differentiated op and the op returns weight and bias gradients in
-that dtype: with bf16 compute the gradients of ``w1, b1, w2, b2`` are rounded
-to bf16 on their way to the fp32 parameters, while the LayerNorm gradients
-stay fp32.
+that dtype: with bf16 compute the gradients of ``w1, b1, w2, b2, w, b`` are
+rounded to bf16 on their way to the fp32 parameters, while the LayerNorm
+gradients stay fp32.
 
 ``LAUNCHES`` counts each kernel's launches by name.
 """
@@ -50,13 +59,19 @@ import torch.nn.functional as F
 KERNEL_WIDTHS = (384, 768)   # embedding widths the kernels are built for
 KERNEL_HIDDEN_MULTIPLE = 64
 DW_WAVES = 4                 # weight-gradient blocks per SM that the row groups aim at
+# the same for one dense layer's weight gradient: its partials are written and
+# summed again, (K N + N) fp32 per row group, and with nothing to rebuild per
+# row the blocks are short, so fewer, longer row groups win (on an H100 at
+# 37,824 rows 1 and 2 read level, 4 reads 10-15% slower)
+DENSE_DW_WAVES = 2
 
 _C = 0.7978845608028654  # sqrt(2 / pi)
 _A = 0.044715
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
 
-LAUNCHES = {"mlp_fwd": 0, "mlp_bwd": 0, "mlp_block_fwd": 0, "mlp_block_bwd": 0}
+LAUNCHES = {"mlp_fwd": 0, "mlp_bwd": 0, "mlp_block_fwd": 0, "mlp_block_bwd": 0,
+            "ln_gemm_fwd": 0, "ln_gemm_bwd": 0, "gemm_res_fwd": 0, "gemm_res_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -88,6 +103,14 @@ def _ln_fwd(xf, g, be, eps: float):
     inv = torch.rsqrt(var.clamp(min=0.0) + eps)
     xhat = (xf - mu) * inv
     return xhat * g + be, xhat, inv
+
+
+def _ln_bwd(dln, gam, xhat, inv):
+    """LayerNorm backward in fp32 from the gradient at its output → dx."""
+    dxhat = dln * gam
+    m1 = dxhat.mean(dim=1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=1, keepdim=True)
+    return inv * (dxhat - m1 - xhat * m2)
 
 
 def _mm(a, b):
@@ -135,18 +158,72 @@ def _mlp_block_bwd_reference(x2, dy2, g, be, w1, b1, w2, approx, eps):
     gam = g.float()
     ln, xhat, inv = _ln_fwd(x2.float(), gam, be.float(), eps)
     dln, *grads = _mlp_grads(ln.to(x2.dtype), dy2, w1, b1, w2, approx)
-    dxhat = dln * gam
-    m1 = dxhat.mean(dim=1, keepdim=True)
-    m2 = (dxhat * xhat).mean(dim=1, keepdim=True)
-    dx = dy2.float() + inv * (dxhat - m1 - xhat * m2)
+    dx = dy2.float() + _ln_bwd(dln, gam, xhat, inv)
     return (dx.to(x2.dtype), (dln * xhat).sum(dim=0), dln.sum(dim=0), *grads)
+
+
+def _dense_grads(a, dy2, w):
+    """The part the three dense-layer backward kernels share: the gradients
+    of ``a @ w + b`` at the cotangent ``dy2`` (in a's dtype), fp32:
+    → ``(da, dw, db)``."""
+    return _mm(dy2, w.t()), _mm(a.t(), dy2), dy2.float().sum(dim=0)
+
+
+def _ln_gemm_fwd_reference(x2, g, be, w, b, eps):
+    """Plain version of the LN+GEMM forward kernel: x2 (rows, D) → (rows, F);
+    LayerNorm's output is rounded to x2's dtype before the product."""
+    ln, _, _ = _ln_fwd(x2.float(), g.float(), be.float(), eps)
+    return (_mm(ln.to(x2.dtype), w) + b.float()).to(x2.dtype)
+
+
+def _ln_gemm_bwd_reference(x2, dy2, g, be, w, eps):
+    """Plain version of the LN+GEMM backward kernel → ``(dx, dg, dbe, dw,
+    db)``; dx in x2's dtype, the others fp32."""
+    gam = g.float()
+    ln, xhat, inv = _ln_fwd(x2.float(), gam, be.float(), eps)
+    dln, dw, db = _dense_grads(ln.to(x2.dtype), dy2, w)
+    dx = _ln_bwd(dln, gam, xhat, inv)
+    return dx.to(x2.dtype), (dln * xhat).sum(dim=0), dln.sum(dim=0), dw, db
+
+
+def _gemm_res_fwd_reference(res2, a2, w, b):
+    """Plain version of the GEMM+residual forward kernel: the product with its
+    bias is rounded to res2's dtype before the residual is added."""
+    return res2 + (_mm(a2, w) + b.float()).to(res2.dtype)
+
+
+def _gemm_res_bwd_reference(a2, dy2, w):
+    """Plain version of the GEMM+residual backward kernel → ``(da, dw, db)``;
+    da in a2's dtype, the others fp32. ``d(res) = dy`` needs no kernel."""
+    da, dw, db = _dense_grads(a2, dy2, w)
+    return da.to(a2.dtype), dw, db
 
 
 def _use_plain(x: torch.Tensor) -> bool:
     """The plain version runs where the tensor lies on the CPU, and nowhere else."""
     if x.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"the fused MLP runs on cuda or cpu, not {x.device}")
+        raise ValueError(f"the fused ops run on cuda or cpu, not {x.device}")
     return x.device.type == "cpu"
+
+
+def _check_tensors(what, device, d, ln, shapes) -> None:
+    """Raise unless every tensor of ``shapes`` (name → (tensor or None, shape))
+    is bf16 of that shape, contiguous and 16-byte aligned on ``device``, and
+    ``ln`` (gamma, beta or None) fp32 ``(d,)`` beside them."""
+    for name, (t, shape) in shapes.items():
+        if t is None:
+            continue
+        if tuple(t.shape) != shape or t.dtype != torch.bfloat16 or t.device != device:
+            raise ValueError(f"{what} kernels take bf16 on one CUDA device: {name} is "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}, expected {shape}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what} kernels take contiguous, 16-byte aligned tensors: "
+                             f"{name} has strides {t.stride()}")
+    for name, t in zip(("ln_scale", "ln_bias"), ln or ()):
+        if (tuple(t.shape) != (d,) or t.dtype != torch.float32 or t.device != device
+                or not t.is_contiguous() or t.data_ptr() % 8):
+            raise ValueError(f"{what} kernels take fp32 ({d},) {name} beside x: got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def _check_operands(x2, w1, b1, w2, b2=None, dy2=None, ln=None) -> None:
@@ -159,30 +236,35 @@ def _check_operands(x2, w1, b1, w2, b2=None, dy2=None, ln=None) -> None:
             f"width that is a multiple of {KERNEL_HIDDEN_MULTIPLE}: got D = {d}, F = {f}")
     if rows < 1 or rows * max(d, f) >= 2 ** 31:
         raise ValueError(f"fused MLP kernels take 1 <= rows and rows * width < 2^31: {rows} rows")
-    shapes = {"x": (x2, (rows, d)), "w1": (w1, (d, f)), "b1": (b1, (f,)), "w2": (w2, (f, d))}
-    if b2 is not None:
-        shapes["b2"] = (b2, (d,))
-    if dy2 is not None:
-        shapes["dy"] = (dy2, (rows, d))
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape or t.dtype != torch.bfloat16 or t.device != x2.device:
-            raise ValueError(f"fused MLP kernels take bf16 on one CUDA device: {name} is "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}, expected {shape}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"fused MLP kernels take contiguous, 16-byte aligned tensors: "
-                             f"{name} has strides {t.stride()}")
-    for name, t in zip(("ln_scale", "ln_bias"), ln or ()):
-        if (tuple(t.shape) != (d,) or t.dtype != torch.float32 or t.device != x2.device
-                or not t.is_contiguous() or t.data_ptr() % 8):
-            raise ValueError(f"fused MLP block kernels take fp32 ({d},) {name} beside x: got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _check_tensors("fused MLP", x2.device, d, ln, {
+        "x": (x2, (rows, d)), "w1": (w1, (d, f)), "b1": (b1, (f,)), "w2": (w2, (f, d)),
+        "b2": (b2, (d,)), "dy": (dy2, (rows, d))})
 
 
-def _call(name: str, like: torch.Tensor, args) -> None:
+def _check_dense_operands(what, a2, w, outs=None, *, b=None, dy2=None, res2=None,
+                          ln=None) -> None:
+    """Raise unless the dense-layer kernels take these operands as they are:
+    ``a2 (rows, K) @ w (K, N)`` with K in ``KERNEL_WIDTHS`` and N in ``outs``
+    (None: any multiple of 64)."""
+    rows, k = a2.shape
+    n = w.shape[1]
+    n_ok = n % KERNEL_HIDDEN_MULTIPLE == 0 and n > 0 if outs is None else n in outs
+    if k not in KERNEL_WIDTHS or not n_ok:
+        want = f"a multiple of {KERNEL_HIDDEN_MULTIPLE}" if outs is None else f"in {tuple(outs)}"
+        raise ValueError(f"{what} kernels are built for input widths {KERNEL_WIDTHS} and an "
+                         f"output width {want}: got {k} -> {n}")
+    if rows < 1 or rows * max(k, n) >= 2 ** 31:
+        raise ValueError(f"{what} kernels take 1 <= rows and rows * width < 2^31: {rows} rows")
+    _check_tensors(what, a2.device, k, ln, {
+        "the input": (a2, (rows, k)), "w": (w, (k, n)), "b": (b, (n,)), "dy": (dy2, (rows, n)),
+        "res": (res2, (rows, n))})
+
+
+def _call(name: str, like: torch.Tensor, args, counts=LAUNCHES) -> None:
     from tpuwsi_torch.ops import _build
 
     _build.launch(name, like, args)
-    LAUNCHES[name] += 1
+    counts[name] += 1
 
 
 def _launch_mlp_fwd(x2, w1, b1, w2, b2, approx):
@@ -257,6 +339,68 @@ def _launch_mlp_block_bwd(x2, dy2, g, be, w1, b1, w2, approx, eps):
     return dx, dg, dbe, dw1, db1, dw2, db2
 
 
+def _launch_dense_grads(name, counts, a2, dy2, w, ln=None, eps=0.0):
+    """One launch of a dense-layer backward kernel (``dense_bwd``,
+    ``gemm_res_bwd``; with ``ln = (gamma, beta)``: ``ln_gemm_bwd``) →
+    ``(da, dw (K, N), db)`` or ``(dx, dgamma, dbeta, dw, db)``; the first in
+    a2's dtype, the others fp32 views of one buffer. As in ``_bwd_buffers``
+    the number of row groups follows from the shapes and the card alone."""
+    from tpuwsi_torch.ops import _build
+
+    rows, k = a2.shape
+    n = w.shape[1]
+    dev = a2.device
+    lib = _build.load()
+    steps = -(-rows // lib.tpuwsi_dense_rows_per_step(k))
+    slices = n // lib.tpuwsi_dense_cols_per_slice(k)  # the weight-gradient grid's other axis
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = max(1, min(steps, DENSE_DW_WAVES * sms // slices))
+    n_w = k * n + n
+    grads = torch.empty(n_w + (2 * k if ln else 0), dtype=torch.float32, device=dev)
+    w_part = torch.empty((groups, n_w), dtype=torch.float32, device=dev)
+    da = torch.empty_like(a2)
+    if not ln:
+        _call(name, a2, (a2.data_ptr(), dy2.data_ptr(), w.data_ptr(), da.data_ptr(),
+                         grads.data_ptr(), w_part.data_ptr(), rows, k, n, groups), counts)
+        dw, db = grads.split([k * n, n])
+        return da, dw.view(k, n), db
+    g, be = ln
+    n_tiles = -(-rows // lib.tpuwsi_mlp_rows_per_tile(k))
+    row_part = torch.empty((n_tiles, 2 * k), dtype=torch.float32, device=dev)
+    ln_work = torch.empty_like(a2)  # LN(x), from the launch's first kernel to its second
+    _call(name, a2, (a2.data_ptr(), dy2.data_ptr(), g.data_ptr(), be.data_ptr(), w.data_ptr(),
+                     da.data_ptr(), grads.data_ptr(), w_part.data_ptr(), row_part.data_ptr(),
+                     ln_work.data_ptr(), rows, k, n, groups, float(eps)), counts)
+    dw, db, dg, dbe = grads.split([k * n, n, k, k])
+    return da, dg, dbe, dw.view(k, n), db
+
+
+def _launch_ln_gemm_fwd(x2, g, be, w, b, eps):
+    _check_dense_operands("LN+GEMM", x2, w, b=b, ln=(g, be))
+    y = torch.empty((x2.shape[0], w.shape[1]), dtype=x2.dtype, device=x2.device)
+    _call("ln_gemm_fwd", x2, (x2.data_ptr(), g.data_ptr(), be.data_ptr(), w.data_ptr(),
+                              b.data_ptr(), y.data_ptr(), *x2.shape, w.shape[1], float(eps)))
+    return y
+
+
+def _launch_ln_gemm_bwd(x2, dy2, g, be, w, eps):
+    _check_dense_operands("LN+GEMM", x2, w, dy2=dy2, ln=(g, be))
+    return _launch_dense_grads("ln_gemm_bwd", LAUNCHES, x2, dy2, w, (g, be), eps)
+
+
+def _launch_gemm_res_fwd(res2, a2, w, b):
+    _check_dense_operands("GEMM+residual", a2, w, KERNEL_WIDTHS, b=b, res2=res2)
+    y = torch.empty_like(res2)
+    _call("gemm_res_fwd", a2, (res2.data_ptr(), a2.data_ptr(), w.data_ptr(), b.data_ptr(),
+                               y.data_ptr(), *a2.shape, w.shape[1]))
+    return y
+
+
+def _launch_gemm_res_bwd(a2, dy2, w):
+    _check_dense_operands("GEMM+residual", a2, w, KERNEL_WIDTHS, dy2=dy2)
+    return _launch_dense_grads("gemm_res_bwd", LAUNCHES, a2, dy2, w)
+
+
 def _mlp_backward(ctx, dy):
     """Backward of ``_FusedMlp`` and ``_HybridMlp`` from ``(x2, w1, b1, w2)``."""
     x2, w1, b1, w2 = ctx.saved_tensors
@@ -315,15 +459,52 @@ class _FusedMlpBlock(torch.autograd.Function):
                 dw2.to(w2.dtype), db2.to(w2.dtype), None, None)
 
 
+class _FusedLnGemm(torch.autograd.Function):
+    """LayerNorm inside the GEMM's row tiles (``tpuwsi/ops/mlp.py:1039
+    _fused_ln_gemm``)."""
+
+    @staticmethod
+    def forward(ctx, x2, g, be, w, b, eps):
+        fwd = _ln_gemm_fwd_reference if _use_plain(x2) else _launch_ln_gemm_fwd
+        ctx.save_for_backward(x2, g, be, w)
+        ctx.eps = eps
+        return fwd(x2, g, be, w, b, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, g, be, w = ctx.saved_tensors
+        bwd = _ln_gemm_bwd_reference if _use_plain(x2) else _launch_ln_gemm_bwd
+        dx, dg, dbe, dw, db = bwd(x2, dy.to(x2.dtype).contiguous(), g, be, w, ctx.eps)
+        return dx, dg.to(g.dtype), dbe.to(be.dtype), dw.to(w.dtype), db.to(w.dtype), None
+
+
+class _FusedGemmRes(torch.autograd.Function):
+    """Output projection and residual sum as one op (``tpuwsi/ops/mlp.py:1247
+    _fused_gemm_res``); the residual's gradient is the cotangent itself."""
+
+    @staticmethod
+    def forward(ctx, res2, a2, w, b):
+        fwd = _gemm_res_fwd_reference if _use_plain(res2) else _launch_gemm_res_fwd
+        ctx.save_for_backward(a2, w)
+        return fwd(res2, a2, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a2, w = ctx.saved_tensors
+        bwd = _gemm_res_bwd_reference if _use_plain(a2) else _launch_gemm_res_bwd
+        da, dw, db = bwd(a2, dy.to(a2.dtype).contiguous(), w)
+        return dy, da, dw.to(w.dtype), db.to(w.dtype)
+
+
 def _apply_rows(op, x, ln, params, *static):
     """Flatten x to rows, cast ``params`` to its dtype (``ln`` to fp32), apply
-    the op and restore x's shape. The casts stand outside the op, so their
-    backward carries the op's gradients to the parameters' own dtype."""
+    the op and restore x's leading shape. The casts stand outside the op, so
+    their backward carries the op's gradients to the parameters' own dtype."""
     dt = x.dtype
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     y = op.apply(x2, *(p.float().contiguous() for p in ln),
                  *(p.to(dt).contiguous() for p in params), *static)
-    return y.reshape(x.shape)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 def fused_mlp(x, w1, b1, w2, b2, *, approx: bool = False) -> torch.Tensor:
@@ -348,3 +529,22 @@ def fused_mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2, *, approx: bool = Fals
     rounded to x's dtype before fc1, and the sum with x is taken in x's dtype."""
     return _apply_rows(_FusedMlpBlock, x, (ln_scale, ln_bias), (w1, b1, w2, b2),
                        bool(approx), float(eps))
+
+
+def fused_ln_gemm(x, ln_scale, ln_bias, w, b, *, eps: float = 1e-6) -> torch.Tensor:
+    """``LN(x) @ w + b`` with the LayerNorm inside the GEMM's row tiles: its
+    fp32 output never reaches device memory (``tpuwsi/ops/mlp.py:1058``).
+    x: (..., D); w: (D, F). LayerNorm runs in fp32 on fp32 ``ln_scale``,
+    ``ln_bias``; its output is rounded to x's dtype before the product."""
+    return _apply_rows(_FusedLnGemm, x, (ln_scale, ln_bias), (w, b), float(eps))
+
+
+def fused_gemm_residual(res, a, w, b) -> torch.Tensor:
+    """``res + a @ w + b``, output projection and residual sum as one op
+    (``tpuwsi/ops/mlp.py:1265``). res: (..., D); a: (..., F) in res's dtype;
+    w: (F, D). ``a @ w + b`` is rounded to res's dtype before the sum."""
+    dt = res.dtype
+    y = _FusedGemmRes.apply(res.reshape(-1, res.shape[-1]).contiguous(),
+                            a.reshape(-1, a.shape[-1]).contiguous(),
+                            w.to(dt).contiguous(), b.to(dt).contiguous())
+    return y.reshape(res.shape)

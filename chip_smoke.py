@@ -6,18 +6,21 @@
 Phases, each printing its own lines:
   1. the card's name and power limit (nvidia-smi);
   2. build the Hopper kernels from tpuwsi_torch/ops/csrc with nvcc;
-  3. each of the seventeen kernels against its plain PyTorch version on the
+  3. each of the nineteen kernels against its plain PyTorch version on the
      card, at the shapes the paths give it (the four whole-sequence kernels
      at 37-257 tokens, the four tiled flash kernels at 512-1,024 tokens,
      through strided views of a fused qkv and contiguous, and with key
      lengths; the four fused-MLP kernels at the step's and the serving
      chunk's row counts, at ViT-B width and at 7 rows, both GELU forms; the
      five dense-layer kernels at the qkv and proj layers of the same row
-     counts), plus median times (CUDA events) beside the plain version's and
+     counts; the two attention sub-block kernels at the step's global and
+     local views, a serving chunk, a batch of 8 tiles, one token and the
+     longest sequence they take, and the refusal of ViT-B width by name),
+     plus median times (CUDA events) beside the plain version's and
      one PyTorch library call's (scaled_dot_product_attention, forward or
      its autograd backward; F.linear or its autograd backward, with
      F.layer_norm or the residual sum where the kernel holds them; for the
-     MLP kernels the unfused route of several library calls), which the port
+     MLP and sub-block kernels the unfused route of several calls), which the port
      itself never calls, and the least time the card could take;
   4. the serving slice: full-width ViT-S/16 at 256 px (seeded random weights
      in the JAX package's layout, through params_from_flax) runs 4 slides x
@@ -43,16 +46,22 @@ Phases, each printing its own lines:
      DINO step for 2 + 6 steps (48 dense backwards per step: qkv and proj of
      12 blocks in the student's two passes), held against the default route
      from the same seeds and timed beside it;
-  8. the attention sub-block composed from the LN+GEMM and GEMM+residual
-     ops around mha_from_qkv, with block 0's weights of the seeded full-width
-     model: forward and backward at the step's global views (192 x 197
-     tokens) and forward at one serving chunk (500 x 257), held against the
-     model's own norm1, attention and residual sum and timed beside them;
-  9. the long-sequence slices, ViT-S/16 at 448 px (785 tokens), full width
+  8. the attention sub-block as one op (fused_attention_block) and composed
+     from the LN+GEMM and GEMM+residual ops around mha_from_qkv, with block
+     0's weights of the seeded full-width model: forward and backward at the
+     step's global and local views (192 x 197 and 576 x 37 tokens) and
+     forward at one serving chunk (500 x 257) and a batch of 8 tiles, each
+     arm held against the model's own norm1, attention and residual sum and
+     timed beside them, launch counts asserted per arm;
+  9. small-batch serving through a full-depth ViT-S/16 at 256 px whose every
+     block takes its attention half as one fused_attention_block launch (12
+     per forward, no other kernel): batches of 8 tiles and one 500-tile
+     chunk, held against forward_features and timed beside it;
+  10. the long-sequence slices, ViT-S/16 at 448 px (785 tokens), full width
      and depth: 2 chunks of 128 tiles through extract_features, and the same
      DINO step with --dino-global-size 448 for 2 + 4 steps, each with its
      launch counts asserted and held against plain attention;
-  10. one step each of the tuned step, the fused-MLP step, the hybrid-dense
+  11. one step each of the tuned step, the fused-MLP step, the hybrid-dense
      step and the 448-px step under torch.profiler, for a breakdown by kernel
      kind. They come last: once the profiler has run, the process launches
      kernels more slowly.
@@ -84,7 +93,7 @@ from tpuwsi_torch.core.tuned import tuned_vit_kwargs
 from tpuwsi_torch.infer.slide_walker import InferChunk
 from tpuwsi_torch.models.convert import params_from_flax
 from tpuwsi_torch.models.registry import create_model
-from tpuwsi_torch.models.vit import VisionTransformer
+from tpuwsi_torch.models.vit import VisionTransformer, interpolate_pos_encoding
 from tpuwsi_torch.ops import _build, attention, dense, mlp
 
 SEED = 0
@@ -153,6 +162,22 @@ DENSE_SHAPES = [
 # parameter gradients that both routes round to bf16 on their way to the fp32
 # parameters: one bf16 ulp of the largest element, 2^-7 of it
 ROUNDED_GRAD_REL = 8e-3
+
+# attention sub-block: (B, N, D, H, what is checked): x, dy ~ N(0, 1) bf16,
+# weights ~ N(0, 1 / D); "both" = forward and backward, "fwd" = forward only
+ATTN_BLOCK_SHAPES = [
+    (192, 197, 384, 6, "both"),   # the DINO step's student global views (timed)
+    (500, 257, 384, 6, "fwd"),    # one serving chunk (timed)
+    (576, 37, 384, 6, "both"),    # the student's local views
+    (8, 257, 384, 6, "fwd"),      # small-batch serving (timed)
+    (3, 1, 384, 6, "both"),       # one token
+    (2, attention.ATTN_BLOCK_MAX_SEQ, 384, 6, "both"),
+]
+ATTN_BLOCK_TIMED = {ATTN_BLOCK_SHAPES[0][:2]: ("attn_block_fwd", "attn_block_bwd"),
+                    ATTN_BLOCK_SHAPES[1][:2]: ("attn_block_fwd",),
+                    ATTN_BLOCK_SHAPES[3][:2]: ("attn_block_fwd",)}
+ATTN_BLOCK_REFUSED = (16, 197, 768, 12)  # ViT-B/16: a cluster of 12 blocks is not built
+SMALL_BATCH = 8                          # tiles per forward of the small-batch serving walk
 
 MODEL, TILE, TILES_PER_ITER, N_SLIDES = "vit_small_patch16_224", 256, 500, 4
 VALID = [500, 500, 437, 311]  # two slides end in a padded chunk
@@ -788,6 +813,151 @@ def phase_dense_kernels(smi: str) -> dict:
     return res
 
 
+def attn_block_bound(backward: bool, b, n, d) -> dict:
+    """As ``attention_bound`` for the sub-block: x (and dy) and the parameters
+    read once, y (or dx and the fp32 parameter gradients) written once. Per
+    token the forward is the qkv product (2 D 3D), the projection (2 D D) and
+    two attention products (2 N D each); the backward needs five GEMM-sized
+    products (qkv again, dWqkv, dln: 2 D 3D each; dWproj, do: 2 D D each) and
+    six attention-sized ones (s, o, dP, dV, dQ, dK)."""
+    act, weights = b * n * d * 2, (4 * d * d + 4 * d) * 2 + 2 * d * 4
+    if backward:
+        nbytes = 3 * act + weights + (4 * d * d + 4 * d + 2 * d) * 4
+        flops = b * n * (3 * 6 * d * d + 2 * 2 * d * d + 12 * n * d)
+    else:
+        nbytes, flops = 2 * act + weights, b * n * (6 * d * d + 2 * d * d + 4 * n * d)
+    t_bytes, t_flops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bound_bytes": nbytes, "bound_flops": flops}
+
+
+def tuned_block(gamma, beta, wqkv, bqkv, wp, bp):
+    """One block of the tuned ViT-S/16 on the card, its attention half holding
+    these parameters (the ops' ``(in, out)`` weights in nn.Linear's layout)."""
+    base = create_model(MODEL, num_classes=2, img_size=TILE).config
+    blk = VisionTransformer(dataclasses.replace(base, depth=1, **tuned_vit_kwargs(True))).blocks[0]
+    with torch.no_grad():
+        for dst, src in ((blk.norm1.weight, gamma), (blk.norm1.bias, beta),
+                         (blk.attn.qkv.weight, wqkv.t()), (blk.attn.qkv.bias, bqkv),
+                         (blk.attn.proj.weight, wp.t()), (blk.attn.proj.bias, bp)):
+            dst.copy_(src.float())
+    return blk.cuda()
+
+
+def unfused_attention_half(blk, x, training: bool):
+    """The route the model takes: its own norm1, attention and residual sum."""
+    return x + blk.attn(blk.norm1(x).to(x.dtype), deterministic=not training)
+
+
+def attention_half_as_one_op(blk, x):
+    """One block's attention half, ``x + attn(norm1(x))``, as ONE launch on
+    that block's parameters (nn.Linear weights are ``(out, in)``; the op takes
+    ``(in, out)``)."""
+    return attention.fused_attention_block(
+        x, blk.norm1.weight, blk.norm1.bias, blk.attn.qkv.weight.t(), blk.attn.qkv.bias,
+        blk.attn.proj.weight.t(), blk.attn.proj.bias, blk.attn.num_heads, eps=blk.norm1.eps)
+
+
+def phase_attn_block_kernels(smi: str) -> dict:
+    """K8f and K8b against their plain versions; times at the student's global
+    views, one serving chunk and a batch of 8 tiles (forward), beside the
+    unfused route's (the model's own norm1 + attention + residual sum, and its
+    autograd backward: no single library call computes this function), the
+    plain version's and the bound. The backward runs twice on the same inputs
+    and must give the same bits in all seven outputs."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    names = ("attn_block_fwd", "attn_block_bwd")
+    res = {name: {"max_abs_err": 0.0, "library_ms": None} for name in names}
+
+    def randn(shape, std=1.0, dtype=torch.bfloat16):
+        return (std * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+    def operands(b, n, d):
+        return (randn((b, n, d)), 1.0 + randn((d,), 0.1, torch.float32),
+                randn((d,), 0.1, torch.float32), randn((d, 3 * d), d ** -0.5),
+                randn((3 * d,), 0.1), randn((d, d), d ** -0.5), randn((d,), 0.1))
+
+    for b, n, d, h, what in ATTN_BLOCK_SHAPES:
+        case = f"B={b} N={n} D={d} H={h}"
+        scale = (d // h) ** -0.5
+        x, g, be, wqkv, bqkv, wp, bp = operands(b, n, d)
+        dy = randn((b, n, d))
+        fns = {
+            "attn_block_fwd": (
+                lambda: attention._launch_attn_block_fwd(x, g, be, wqkv, bqkv, wp, bp, h, scale,
+                                                         1e-6),
+                lambda: attention._attn_block_fwd_reference(x, g, be, wqkv, bqkv, wp, bp, h,
+                                                            scale, 1e-6)),
+            "attn_block_bwd": (
+                lambda: attention._launch_attn_block_bwd(x, dy, g, be, wqkv, bqkv, wp, h, scale,
+                                                         1e-6),
+                lambda: attention._attn_block_bwd_reference(x, dy, g, be, wqkv, bqkv, wp, h,
+                                                            scale, 1e-6)),
+        }
+        for name in names if what == "both" else names[:1]:
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                           check_kernel(name, case, *fns[name]))
+        timed = ATTN_BLOCK_TIMED.get((b, n), ())
+        if timed:
+            blk = tuned_block(g, be, wqkv, bqkv, wp, bp)
+            xl = x.detach().requires_grad_()
+            leaves = [xl, blk.norm1.weight, blk.norm1.bias, blk.attn.qkv.weight,
+                      blk.attn.qkv.bias, blk.attn.proj.weight, blk.attn.proj.bias]
+        for name in timed:
+            if name.endswith("bwd"):
+                y_unfused = unfused_attention_half(blk, xl, True)
+
+                def unfused(y_unfused=y_unfused):
+                    return torch.autograd.grad(y_unfused, leaves, dy, retain_graph=True)
+            else:
+                def unfused():
+                    with torch.no_grad():
+                        return unfused_attention_half(blk, x, False)
+            k1 = cuda_median_ms(fns[name][0])
+            u1 = cuda_median_ms(unfused)
+            u2 = cuda_median_ms(unfused)
+            k2 = cuda_median_ms(fns[name][0])
+            t = dict(ms=min(k1, k2), ms_runs=[k1, k2], unfused_ms=min(u1, u2),
+                     unfused_ms_runs=[u1, u2], shape=[b, n, d, h],
+                     plain_ms=cuda_median_ms(fns[name][1], reps=5, warmup=1),
+                     **attn_block_bound(name.endswith("bwd"), b, n, d))
+            launch_note = ("; one launch from the host costs more than this bound"
+                           if t["bound_ms"] < 0.01 else "")
+            print(f"[{name}] {case}, medians of 20 in the order kernel, unfused, unfused, kernel: "
+                  f"kernel {t['ms_runs']} ms, unfused route (the model's norm1 + attention + "
+                  f"residual sum{', their autograd backward' if name.endswith('bwd') else ''}: "
+                  f"several library calls and the attention kernels) {t['unfused_ms_runs']} ms, "
+                  f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+                  f"({t['bound_bytes'] / 1e6:.1f} MB, {t['bound_flops'] / 1e9:.1f} GFLOP)"
+                  f"{launch_note}; no single library call computes it; on {smi}")
+            if "ms" in res[name]:  # the forward's later shapes
+                res[name].setdefault("other_shapes", []).append(t)
+            else:
+                res[name].update(t)
+            del unfused
+        if timed:
+            del blk, xl, leaves
+        del x, dy, g, be, wqkv, bqkv, wp, bp, fns
+        torch.cuda.empty_cache()
+    print("[attn_block_bwd] two runs on the same inputs gave the same bits in all seven outputs "
+          "at every shape")
+
+    # ViT-B/16: refused by name before any launch
+    b, n, d, h = ATTN_BLOCK_REFUSED
+    x, g, be, wqkv, bqkv, wp, bp = operands(b, n, d)
+    before = dict(attention.LAUNCHES)
+    try:
+        attention.fused_attention_block(x, g, be, wqkv, bqkv, wp, bp, h)
+    except NotImplementedError as e:
+        print(f"[attn_block_fwd] B={b} N={n} D={d} H={h}: refused before any launch: {e}")
+    else:
+        raise RuntimeError("the sub-block op took ViT-B operands its kernels are not built for")
+    if attention.LAUNCHES != before:
+        raise RuntimeError("a refused call counted a launch")
+    return res
+
+
 def flax_vit_tree(cfg, seed: int) -> dict:
     """Seeded random ViT parameters in the JAX package's flax layout.
 
@@ -1236,12 +1406,14 @@ def phase_train_dense(smi: str) -> dict:
 
 
 def phase_ln_gemm_path(smi: str) -> dict:
-    """The attention sub-block composed from the row-tiled ops,
-    ``fused_gemm_residual(x, mha_from_qkv(fused_ln_gemm(x, ...)), ...)``, with
-    block 0's weights of the seeded full-width model in the tuned
-    configuration, against the same block's ``x + attn(norm1(x))`` from the
-    model's own modules: forward and backward at the step's global views,
-    forward at one serving chunk. → launches per kernel."""
+    """The attention sub-block three ways, with block 0's weights of the
+    seeded full-width model in the tuned configuration: as ONE op
+    (``fused_attention_block``: K8), composed from the row-tiled ops
+    (``fused_gemm_residual(x, mha_from_qkv(fused_ln_gemm(x, ...)), ...)``: K9
+    around the attention kernels), and the same block's ``x + attn(norm1(x))``
+    from the model's own modules, which the other two are held against:
+    forward and backward at the step's global and local views, forward at one
+    serving chunk and at a batch of 8 tiles. → launches per kernel."""
     base = create_model(MODEL, num_classes=2, img_size=TILE).config
     cfg = dataclasses.replace(base, **tuned_vit_kwargs(True))
     model = VisionTransformer(cfg)
@@ -1255,6 +1427,9 @@ def phase_ln_gemm_path(smi: str) -> dict:
     def randn(shape):
         return torch.randn(shape, generator=gen, device="cuda").to(cfg.dtype)
 
+    def one_op(x, training):
+        return attention_half_as_one_op(blk, x)
+
     def composed(x, training):
         qkv = mlp.fused_ln_gemm(x, norm1.weight, norm1.bias, attn.qkv.weight.t(), attn.qkv.bias,
                                 eps=norm1.eps)
@@ -1263,79 +1438,160 @@ def phase_ln_gemm_path(smi: str) -> dict:
         return mlp.fused_gemm_residual(x, out, attn.proj.weight.t(), attn.proj.bias)
 
     def unfused(x, training):
-        return x + attn(norm1(x).to(cfg.dtype), deterministic=not training)
+        return unfused_attention_half(blk, x, training)
 
-    total = dict.fromkeys(all_launches(), 0)
+    zero = dict.fromkeys(all_launches(), 0)
+    total = dict(zero)
+    arms = {  # arm → (function, launches forward and backward, launches forward in eval)
+        "one op (K8)": (one_op, {"attn_block_fwd": 1, "attn_block_bwd": 1},
+                        {"attn_block_fwd": 1}),
+        "composed (K9)": (composed, {"ln_gemm_fwd": 1, "gemm_res_fwd": 1, "ln_gemm_bwd": 1,
+                                     "gemm_res_bwd": 1, "mha_qkv_fwd_saved": 1,
+                                     "mha_qkv_bwd_saved": 1},
+                          {"ln_gemm_fwd": 1, "gemm_res_fwd": 1, "mha_qkv_fwd": 1}),
+    }
+    order = "one op, composed, unfused, unfused, composed, one op"
 
-    # -- forward and backward at the student's global views --
-    b, n, d = TRAIN_SHAPES[0][:3]
-    x, dy = randn((b, n, d)).requires_grad_(), randn((b, n, d))
-
-    def both_ways(fn):
-        return lambda: torch.autograd.grad(fn(x, True), [x, *params], dy)
-
-    reset_launches()
-    y = composed(x, True)
-    grads = torch.autograd.grad(y, [x, *params], dy)
-    torch.cuda.synchronize()
-    launches = all_launches()
-    want = {**total, "ln_gemm_fwd": 1, "gemm_res_fwd": 1, "ln_gemm_bwd": 1, "gemm_res_bwd": 1,
-            "mha_qkv_fwd_saved": 1, "mha_qkv_bwd_saved": 1}
-    print(f"[ln_gemm_path] ({b}, {n}, {d}) forward and backward: launches {launches}")
-    if launches != want:
-        raise RuntimeError(f"composed sub-block: launches {launches}, expected {want}")
-    for name, count in launches.items():
-        total[name] += count
-    y_ref = unfused(x, True)
-    grads_ref = torch.autograd.grad(y_ref, [x, *params], dy)
-    labels = ("y", "dx", "dgamma", "dbeta", "dW_qkv", "db_qkv", "dW_proj", "db_proj")
-    for label, got, ref in zip(labels, (y, *grads), (y_ref, *grads_ref)):
-        diff = (got.float() - ref.float()).abs()
-        mx = diff.max().item()
-        ok = bool(torch.isfinite(got.float()).all()) and got.shape == ref.shape
-        if got.dtype == torch.bfloat16:
-            bound, shown, unit = MLP_MAX_ABS, mx, "max_abs"
-        else:  # dgamma, dbeta are fp32 sums; the others were rounded to bf16 on both routes
-            bound = MLP_GRAD_REL if label in ("dgamma", "dbeta") else ROUNDED_GRAD_REL
-            shown, unit = mx / max(ref.abs().max().item(), 1e-30), "of the largest element"
-        print(f"[ln_gemm_path] {label} {tuple(got.shape)} {got.dtype}: composed vs the model's "
-              f"own modules {shown:.3e} {unit} (bound {bound})")
-        if not ok or shown > bound:
-            raise RuntimeError(f"composed sub-block and the model's modules disagree in {label}")
-    c1 = cuda_median_ms(both_ways(composed), reps=10)
-    u1 = cuda_median_ms(both_ways(unfused), reps=10)
-    u2 = cuda_median_ms(both_ways(unfused), reps=10)
-    c2 = cuda_median_ms(both_ways(composed), reps=10)
-    print(f"[ln_gemm_path] ({b}, {n}, {d}) forward and backward, medians of 10 in the order "
-          f"composed, unfused, unfused, composed: composed {c1:.4f} / {c2:.4f} ms, the model's "
-          f"norm1 + attention + residual sum {u1:.4f} / {u2:.4f} ms; on {smi}")
-    del x, dy, y, grads, y_ref, grads_ref
-
-    # -- forward at one serving chunk --
-    b, n, d = K2_SHAPES[0][:3]
-    x = randn((b, n, d))
-    with torch.no_grad():
+    def counted(tag, fn, want):
         reset_launches()
-        y = composed(x, False)
+        out = fn()
         torch.cuda.synchronize()
         launches = all_launches()
-        want = {**dict.fromkeys(total, 0), "ln_gemm_fwd": 1, "gemm_res_fwd": 1, "mha_qkv_fwd": 1}
-        if launches != want:
-            raise RuntimeError(f"composed sub-block, eval: launches {launches}, expected {want}")
+        print(f"[ln_gemm_path] {tag}: launches {launches}")
+        if launches != {**zero, **want}:
+            raise RuntimeError(f"{tag}: launches {launches}, expected {want} and no other")
         for name, count in launches.items():
             total[name] += count
-        mx = (y.float() - unfused(x, False).float()).abs().max().item()
-        print(f"[ln_gemm_path] ({b}, {n}, {d}) forward: launches {launches}; composed vs the "
-              f"model's own modules max_abs {mx:.3e} (bound {MLP_MAX_ABS})")
-        if not mx <= MLP_MAX_ABS:
-            raise RuntimeError("the composed sub-block and the model's modules disagree in eval")
-        c1 = cuda_median_ms(lambda: composed(x, False), reps=10)
-        u1 = cuda_median_ms(lambda: unfused(x, False), reps=10)
-        u2 = cuda_median_ms(lambda: unfused(x, False), reps=10)
-        c2 = cuda_median_ms(lambda: composed(x, False), reps=10)
-    print(f"[ln_gemm_path] ({b}, {n}, {d}) forward, medians of 10 in the order composed, "
-          f"unfused, unfused, composed: composed {c1:.4f} / {c2:.4f} ms, the model's norm1 + "
-          f"attention + residual sum {u1:.4f} / {u2:.4f} ms; on {smi}")
+        return out
+
+    def timed(fn_of):
+        k1, c1, u1 = (cuda_median_ms(fn_of(f), reps=10) for f in (one_op, composed, unfused))
+        u2, c2, k2 = (cuda_median_ms(fn_of(f), reps=10) for f in (unfused, composed, one_op))
+        return (f"one op {k1:.4f} / {k2:.4f} ms, composed {c1:.4f} / {c2:.4f} ms, the model's "
+                f"norm1 + attention + residual sum {u1:.4f} / {u2:.4f} ms")
+
+    # -- forward and backward at the student's global and local views --
+    labels = ("y", "dx", "dgamma", "dbeta", "dW_qkv", "db_qkv", "dW_proj", "db_proj")
+    for b, n, d in (TRAIN_SHAPES[0][:3], TRAIN_SHAPES[1][:3]):
+        x, dy = randn((b, n, d)).requires_grad_(), randn((b, n, d))
+
+        def both_ways(fn):
+            return lambda: torch.autograd.grad(fn(x, True), [x, *params], dy)
+
+        y_ref = unfused(x, True)
+        ref = (y_ref, *torch.autograd.grad(y_ref, [x, *params], dy))
+        for arm, (fn, want, _) in arms.items():
+            def run(fn=fn):
+                y = fn(x, True)
+                return (y, *torch.autograd.grad(y, [x, *params], dy))
+
+            got = counted(f"{arm} ({b}, {n}, {d}) forward and backward", run, want)
+            for label, a, r in zip(labels, got, ref):
+                mx = (a.float() - r.float()).abs().max().item()
+                ok = bool(torch.isfinite(a.float()).all()) and a.shape == r.shape
+                if a.dtype == torch.bfloat16:
+                    bound, shown, unit = MLP_MAX_ABS, mx, "max_abs"
+                else:  # dgamma, dbeta are fp32 sums; the others were rounded to bf16 on all routes
+                    bound = MLP_GRAD_REL if label in ("dgamma", "dbeta") else ROUNDED_GRAD_REL
+                    shown, unit = mx / max(r.abs().max().item(), 1e-30), "of the largest element"
+                print(f"[ln_gemm_path] {arm} ({b}, {n}, {d}) {label} {tuple(a.shape)} {a.dtype}: "
+                      f"vs the model's own modules {shown:.3e} {unit} (bound {bound})")
+                if not ok or shown > bound:
+                    raise RuntimeError(f"{arm} and the model's modules disagree in {label}")
+            del got
+        print(f"[ln_gemm_path] ({b}, {n}, {d}) forward and backward, medians of 10 in the order "
+              f"{order}: {timed(both_ways)}; on {smi}")
+        del x, dy, y_ref, ref
+
+    # -- forward at one serving chunk and at a batch of 8 tiles --
+    for b, n, d in (K2_SHAPES[0][:3], (SMALL_BATCH, *K2_SHAPES[0][1:3])):
+        x = randn((b, n, d))
+        with torch.no_grad():
+            y_ref = unfused(x, False)
+            for arm, (fn, _, want) in arms.items():
+                y = counted(f"{arm} ({b}, {n}, {d}) forward", lambda fn=fn: fn(x, False), want)
+                mx = (y.float() - y_ref.float()).abs().max().item()
+                print(f"[ln_gemm_path] {arm} ({b}, {n}, {d}) forward: vs the model's own modules "
+                      f"max_abs {mx:.3e} (bound {MLP_MAX_ABS})")
+                if not mx <= MLP_MAX_ABS:
+                    raise RuntimeError(f"{arm} and the model's modules disagree in eval")
+            line = timed(lambda fn: (lambda: fn(x, False)))
+        print(f"[ln_gemm_path] ({b}, {n}, {d}) forward, medians of 10 in the order {order}: "
+              f"{line}; on {smi}")
+        del x, y_ref, y
+    return total
+
+
+def walk_with_attn_block(model, images):
+    """``forward_features`` (tpuwsi_torch/models/vit.py) with every block's
+    attention half as one ``fused_attention_block`` call; patch embedding, MLP
+    half, final norm are the model's own modules. Eval only."""
+    cfg = model.config
+    x, (gh, gw) = model.patch_embed(images)
+    cls = model.cls_token.expand(x.shape[0], -1, -1).to(cfg.dtype)
+    x = torch.cat([cls, x], dim=1)
+    x = x + interpolate_pos_encoding(model.pos_embed, gh * gw, gh, gw).to(cfg.dtype)
+    for blk in model.blocks:
+        x = attention_half_as_one_op(blk, x)
+        x = x + blk.mlp(blk.norm2(x).to(cfg.dtype))
+    return model.norm(x)[:, 0].float()
+
+
+def phase_attn_block_serving(smi: str) -> dict:
+    """Small-batch serving through a full-depth ViT-S/16 at 256 px (257
+    tokens, tuned configuration, seeded weights) whose every block takes its
+    attention half as one ``fused_attention_block`` launch: batches of 8
+    tiles, the use the reference keeps the op for, and one 500-tile chunk,
+    held against ``model.forward_features`` on the same tiles and timed
+    beside it. → launches per kernel."""
+    base = create_model(MODEL, num_classes=2, img_size=TILE).config
+    cfg = dataclasses.replace(base, **tuned_vit_kwargs(True))
+    model = VisionTransformer(cfg)
+    model.load_state_dict(params_from_flax(flax_vit_tree(cfg, SEED)))
+    model = model.cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    zero = dict.fromkeys(all_launches(), 0)
+    total = dict(zero)
+    print(f"[attn_block_serving] {MODEL} img {TILE} ({cfg.num_patches + 1} tokens) depth "
+          f"{cfg.depth} dim {cfg.embed_dim} {cfg.dtype}; normalised tiles ~ N(0, 1)")
+    with torch.inference_mode():
+        for batch, n_batches, reps in ((SMALL_BATCH, 3, 20), (TILES_PER_ITER, 1, 5)):
+            tiles = [torch.randn((batch, TILE, TILE, 3), generator=gen, device="cuda")
+                     for _ in range(n_batches)]
+            for i, images in enumerate(tiles):
+                reset_launches()
+                feats = walk_with_attn_block(model, images)
+                torch.cuda.synchronize()
+                launches = all_launches()
+                if launches != {**zero, "attn_block_fwd": cfg.depth}:
+                    raise RuntimeError(f"the walk's forward: launches {launches}, expected "
+                                       f"attn_block_fwd = {cfg.depth} and no other kernel")
+                for name, count in launches.items():
+                    total[name] += count
+                want = model.forward_features(images)
+                cos = torch.nn.functional.cosine_similarity(feats, want, dim=1).min().item()
+                ok = feats.shape == (batch, cfg.embed_dim) and bool(torch.isfinite(feats).all())
+                print(f"[attn_block_serving] batch {batch}, forward {i}: launches "
+                      f"attn_block_fwd = {launches['attn_block_fwd']}, no other kernel; min "
+                      f"per-tile feature cosine against forward_features {cos:.6f} "
+                      f"(>= {FEAT_COSINE_MIN})")
+                if not ok or not cos >= FEAT_COSINE_MIN:
+                    raise RuntimeError("the walk and forward_features disagree")
+            images = tiles[0]
+            k1 = cuda_median_ms(lambda: walk_with_attn_block(model, images), reps=reps)
+            m1 = cuda_median_ms(lambda: model.forward_features(images), reps=reps)
+            m2 = cuda_median_ms(lambda: model.forward_features(images), reps=reps)
+            k2 = cuda_median_ms(lambda: walk_with_attn_block(model, images), reps=reps)
+
+            def rate(ms):
+                return batch / ms * 1e3
+
+            print(f"[attn_block_serving] batch {batch}, forward alone (normalised tiles on the "
+                  f"card to features), medians of {reps} in the order walk, model, model, walk: "
+                  f"walk with the one-op attention half {k1:.4f} / {k2:.4f} ms = {rate(k1):.1f} / "
+                  f"{rate(k2):.1f} tiles/s; model.forward_features {m1:.4f} / {m2:.4f} ms = "
+                  f"{rate(m1):.1f} / {rate(m2):.1f} tiles/s; on {smi}")
+            del tiles, images
     return total
 
 
@@ -1402,7 +1658,7 @@ def main() -> None:
     phase_build()
     kernels = {"mha_qkv_fwd": phase_k2(smi), **phase_train_kernels(smi),
                **phase_flash_kernels(smi), **phase_mlp_kernels(smi),
-               **phase_dense_kernels(smi)}
+               **phase_dense_kernels(smi), **phase_attn_block_kernels(smi)}
     paths = {"serving": phase_slice(smi), "training": phase_train(smi)}
     paths["serving_fused_mlp"] = phase_slice(
         smi, kernels=("mha_qkv_fwd", "mlp_block_fwd"), tag="slice_fused_mlp",
@@ -1410,6 +1666,7 @@ def main() -> None:
     paths["training_fused_mlp"], paths["training_mlp_pallas_bwd"] = phase_train_fused_mlp(smi)
     paths["training_dense"] = phase_train_dense(smi)
     paths["ln_gemm_path"] = phase_ln_gemm_path(smi)
+    paths["serving_attn_block"] = phase_attn_block_serving(smi)
     paths["serving_448"] = phase_slice(smi, MODEL_448, TILE_448, TILES_PER_ITER_448, VALID_448,
                                        kernels=("flash_fwd",), tag="slice448")
     paths["training_448"] = phase_train_448(smi)
@@ -1432,6 +1689,8 @@ def main() -> None:
         "ln_gemm_bwd": ("dense.cu", "tpuwsi/ops/mlp.py:850"),
         "gemm_res_fwd": ("dense.cu", "tpuwsi/ops/mlp.py:1079"),
         "gemm_res_bwd": ("dense.cu", "tpuwsi/ops/mlp.py:1092"),
+        "attn_block_fwd": ("attn_block.cu", "tpuwsi/ops/attention.py:1467"),
+        "attn_block_bwd": ("attn_block.cu", "tpuwsi/ops/attention.py:1490"),
     }
     lines = []
     for name, (source, replaces) in meta.items():

@@ -155,3 +155,121 @@ def test_registry_geometry_matches_jax(name):
 def test_create_model_rejects_unported_and_unknown(name, err):
     with pytest.raises(err):
         tregistry.create_model(name)
+
+
+def _drop_mask(shape, rate):
+    """One keep mask per shape for both packages."""
+    rng = np.random.default_rng(int(np.prod(shape)))
+    return rng.random(tuple(shape), dtype=np.float32) >= rate
+
+
+def test_attn_drop_rate_matches_flax_with_a_shared_mask(monkeypatch):
+    """``attn_drop_rate``: dropout on the attention output before proj, in
+    training only. Both packages draw their keep masks from ``_drop_mask``
+    (no other dropout or stochastic depth is on, so every draw is this one);
+    features and the gradient of the input at 1e-4."""
+    rate = 0.25
+    model, variables = _flax()
+    jmodel = jvit.VisionTransformer(dataclasses.replace(model.config, attn_drop_rate=rate))
+    monkeypatch.setattr(jax.random, "bernoulli",
+                        lambda key, p, shape: jnp.asarray(_drop_mask(shape, 1.0 - float(p))))
+    x = np.random.default_rng(7).standard_normal((3, 64, 64, 3)).astype(np.float32)
+
+    def jloss(xs, deterministic):
+        out = jmodel.apply(variables, xs, deterministic=deterministic,
+                           rngs={"dropout": jax.random.PRNGKey(0)})
+        return jnp.sum(out ** 2), out
+
+    (_, ref), ref_dx = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(x), False)
+    (_, ref_eval), _ = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(x), True)
+
+    draws = []
+
+    def dropout(t, r, deterministic, generator):
+        if deterministic or r == 0.0:
+            return t
+        draws.append((tuple(t.shape), r))
+        keep = torch.from_numpy(_drop_mask(t.shape, r))
+        return torch.where(keep, t / (1.0 - r), torch.zeros_like(t))
+
+    monkeypatch.setattr(tvit, "_dropout", dropout)
+    port = tvit.VisionTransformer(tvit.ViTConfig(**GEOM, dtype=torch.float32,
+                                                 attn_drop_rate=rate))
+    port.load_state_dict(params_from_flax(variables))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = port(xt, deterministic=False, generator=torch.Generator().manual_seed(0))
+    # its place in the draw order: one draw per block, on the attention output
+    assert draws == [((3, 65, 64), rate)] * GEOM["depth"]
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
+    (out ** 2).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_dx), **TOL)
+    assert not np.allclose(np.asarray(ref), np.asarray(ref_eval), atol=1e-3)
+    with torch.inference_mode():
+        np.testing.assert_allclose(port(torch.from_numpy(x)).numpy(), np.asarray(ref_eval), **TOL)
+
+
+def test_attn_dropout_draws_after_stochastic_depth_and_before_proj_dropout():
+    """The documented draw order with every source of randomness on: the
+    embedding mask, one (depth, 2, B) uniform for stochastic depth, then per
+    block the attention-output mask, the proj mask and the two MLP masks."""
+    cfg = tvit.ViTConfig(**GEOM, dtype=torch.float32, drop_rate=0.1, attn_drop_rate=0.2,
+                         drop_path_rate=0.1)
+    model = tvit.VisionTransformer(cfg)
+    shapes = []
+    real = torch.rand
+
+    def rand(shape, **kw):
+        shapes.append(tuple(shape))
+        return real(shape, **kw)
+
+    x = torch.zeros(2, 64, 64, 3)
+    try:
+        torch.rand = rand
+        model(x, deterministic=False, generator=torch.Generator().manual_seed(0))
+    finally:
+        torch.rand = real
+    tok, hid = (2, 65, 64), (2, 65, 256)
+    assert shapes == [tok, (2, 2, 2)] + [tok, tok, hid, tok] * 2
+
+
+@pytest.mark.parametrize("num_classes", [0, 2])
+def test_return_all_tokens_matches_flax(num_classes):
+    """``forward(..., return_all_tokens=True)``: the tokens after the final
+    norm, head or not, 1e-4; row 0 of them is ``forward_features``."""
+    model, variables = _flax(num_classes)
+    x = np.random.default_rng(11).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    ref = model.apply(variables, jnp.asarray(x), return_all_tokens=True)
+    port = _port(variables, num_classes)
+    with torch.inference_mode():
+        out = port(torch.from_numpy(x), return_all_tokens=True)
+        feats = port.forward_features(torch.from_numpy(x))
+    assert out.shape == ref.shape == (2, 65, 64)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_array_equal(out[:, 0].float().numpy(), feats.numpy())
+
+
+def test_create_model_takes_the_reference_keywords():
+    """The reference's ``create_model`` keywords reach the configuration;
+    the two that are not ported raise by name; ``list_models`` names parse."""
+    import inspect
+
+    kw = dict(num_classes=3, drop_rate=0.1, drop_path_rate=0.2, img_size=64,
+              attn_save_probs=True, bn_momentum=0.1, bn_eps=1e-5)
+    j = jregistry.create_model("vit_tiny_patch16_224", dtype=jnp.float32, **kw).config
+    t = tregistry.create_model("vit_tiny_patch16_224", dtype=torch.float32, **kw).config
+    for field in ("num_classes", "drop_rate", "drop_path_rate", "img_size", "attn_save_probs",
+                  "attn_drop_rate", "embed_dim", "depth", "num_heads"):
+        assert getattr(t, field) == getattr(j, field), field
+    jparams = inspect.signature(jregistry.create_model).parameters
+    tparams = inspect.signature(tregistry.create_model).parameters
+    renamed = {"use_pallas_attention": "use_kernel_attention"}
+    assert [renamed.get(k, k) for k in jparams] == list(tparams)[:len(jparams)]
+    assert list(tparams)[len(jparams):] == ["use_fused_mlp", "dense_pallas_bwd"]
+    for flag in ("grad_checkpointing", "quant_int8"):
+        with pytest.raises(NotImplementedError, match=flag):
+            tregistry.create_model("vit_tiny_patch16_224", **{flag: True})
+    names = tregistry.list_models()
+    assert names and set(names) <= set(jregistry.list_models())
+    assert [n for n in jregistry.list_models() if n.startswith("vit_")] == names
+    for name in names:
+        assert tregistry.parse_model_name(name) is not None

@@ -19,9 +19,15 @@ Training (``deterministic=False``) draws its randomness from the
 ``torch.Generator`` the caller passes, in this order: the embedding dropout
 mask (only when ``drop_rate`` > 0), ONE uniform tensor ``(depth, 2, B)`` for
 all stochastic-depth masks, thresholded per layer at ``1 - dpr_i`` as the
-reference does, then per block the projection and MLP dropout masks (only
-when ``drop_rate`` > 0). ``remat_blocks``, ``scan_blocks``,
-``return_last_attention`` and ``intermediate_layers`` are not ported yet.
+reference does, then per block the attention-output dropout mask (only when
+``attn_drop_rate`` > 0), the projection dropout mask and the two MLP dropout
+masks (only when ``drop_rate`` > 0).
+
+Not ported yet, of the reference's ``ViTConfig`` fields: ``remat_blocks``
+(raises when set) with ``remat_policy``, ``quant_int8``, ``scan_blocks`` (a
+layout of the parameter tree: ``params_from_flax`` reads scanned trees) and
+``pallas_interpret`` (the plain versions take its place); of its ``__call__``
+arguments: ``return_last_attention`` and ``intermediate_layers``.
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ class ViTConfig:
     mlp_ratio: float = 4.0
     qkv_bias: bool = True
     drop_rate: float = 0.0
+    # dropout on the attention output (before proj), in training
+    attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.0
     num_classes: int = 0  # 0 → no head (feature extractor)
     dtype: torch.dtype = torch.bfloat16
@@ -149,6 +157,7 @@ class Attention(nn.Module):
         self.plain = not cfg.use_kernel_attention
         self.hybrid = cfg.dense_pallas_bwd
         self.save_probs = cfg.attn_save_probs
+        self.attn_drop = cfg.attn_drop_rate
         self.proj_drop = cfg.drop_rate
         self.qkv = nn.Linear(d, 3 * d, bias=cfg.qkv_bias)
         self.proj = nn.Linear(d, d)
@@ -162,6 +171,8 @@ class Attention(nn.Module):
         qkv = self._dense(x, self.qkv)
         out = mha_from_qkv(qkv, self.num_heads, training=not deterministic,
                            save_probs=self.save_probs, plain=self.plain)
+        # on the output values, not inside the softmax (tpuwsi/models/vit.py:313-317)
+        out = _dropout(out, self.attn_drop, deterministic, generator)
         out = self._dense(out, self.proj)
         return _dropout(out, self.proj_drop, deterministic, generator)
 
@@ -291,8 +302,9 @@ class VisionTransformer(nn.Module):
         u = torch.rand((len(self.blocks), 2, batch), generator=generator, device=device)
         return u < keep[:, None, None]
 
-    def forward_features(self, x, deterministic: bool = True, generator=None):
-        """(B, H, W, 3) normalised images → fp32 cls features (B, D)."""
+    def forward_tokens(self, x, deterministic: bool = True, generator=None):
+        """(B, H, W, 3) normalised images → all tokens after the final norm,
+        (B, 1 + N, D) in ``cfg.ln_dtype``, the cls token first."""
         cfg = self.config
         x, (gh, gw) = self.patch_embed(x)
         cls = self.cls_token.expand(x.shape[0], -1, -1).to(cfg.dtype)
@@ -305,10 +317,19 @@ class VisionTransformer(nn.Module):
             masks = self.drop_path_masks(x.shape[0], x.device, generator)
         for i, blk in enumerate(self.blocks):
             x = blk(x, deterministic, generator, None if masks is None else masks[i])
-        return self.norm(x)[:, 0].float()
+        return self.norm(x)
 
-    def forward(self, x, deterministic: bool = True, generator=None):
-        """Logits (B, num_classes) fp32, or the cls features when there is no head."""
+    def forward_features(self, x, deterministic: bool = True, generator=None):
+        """(B, H, W, 3) normalised images → fp32 cls features (B, D)."""
+        return self.forward_tokens(x, deterministic, generator)[:, 0].float()
+
+    def forward(self, x, deterministic: bool = True, generator=None,
+                return_all_tokens: bool = False):
+        """Logits (B, num_classes) fp32, or the cls features when there is no
+        head; with ``return_all_tokens`` the normed tokens (B, 1 + N, D)
+        instead, head or not (``tpuwsi/models/vit.py:921-926``)."""
+        if return_all_tokens:
+            return self.forward_tokens(x, deterministic, generator)
         feats = self.forward_features(x, deterministic, generator)
         return feats if self.head is None else self.head(feats)
 

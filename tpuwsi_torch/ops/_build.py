@@ -143,6 +143,12 @@ def load() -> ctypes.CDLL:
         lib.tpuwsi_gemm_res_fwd.argtypes = [ptr] * 5 + [i32, i32, i32, ptr]
         lib.tpuwsi_dense_rows_per_step.argtypes = [i32]
         lib.tpuwsi_dense_cols_per_slice.argtypes = [i32]
+        # attention sub-block: tensors, then batch, tokens, width, heads
+        # (, the two numbers of row groups), scale, eps and the stream
+        lib.tpuwsi_attn_block_fwd.argtypes = [ptr] * 8 + [i32] * 4 + [f32, f32, ptr]
+        lib.tpuwsi_attn_block_bwd.argtypes = [ptr] * 16 + [i32] * 6 + [f32, f32, ptr]
+        lib.tpuwsi_attn_block_max_seq.argtypes = [i32]
+        lib.tpuwsi_attn_block_max_clusters.argtypes = [i32]
         for fn in (lib.tpuwsi_mha_qkv_fwd, lib.tpuwsi_mha_qkv_fwd_saved,
                    lib.tpuwsi_mha_qkv_bwd_saved, lib.tpuwsi_mha_qkv_bwd,
                    lib.tpuwsi_flash_fwd, lib.tpuwsi_flash_fwd_stats,
@@ -152,7 +158,9 @@ def load() -> ctypes.CDLL:
                    lib.tpuwsi_mlp_hidden_per_slice, lib.tpuwsi_dense_bwd,
                    lib.tpuwsi_gemm_res_bwd, lib.tpuwsi_ln_gemm_fwd, lib.tpuwsi_ln_gemm_bwd,
                    lib.tpuwsi_gemm_res_fwd, lib.tpuwsi_dense_rows_per_step,
-                   lib.tpuwsi_dense_cols_per_slice):
+                   lib.tpuwsi_dense_cols_per_slice, lib.tpuwsi_attn_block_fwd,
+                   lib.tpuwsi_attn_block_bwd, lib.tpuwsi_attn_block_max_seq,
+                   lib.tpuwsi_attn_block_max_clusters):
             fn.restype = i32
         lib.tpuwsi_cuda_error_string.argtypes = [i32]
         lib.tpuwsi_cuda_error_string.restype = ctypes.c_char_p

@@ -3,8 +3,10 @@
 Counterpart of ``tpuwsi/ops/attention.py``. ``mha_from_qkv`` takes the qkv
 GEMM output ``(B, N, 3D)`` with columns laid out ``[which(3), head, hd]``
 and returns ``(B, N, D)``; ``fused_attention`` takes ``(B, H, S, hd)`` q, k
-and v. Eight hand-written Hopper kernels carry them on a CUDA tensor, each
-with its plain PyTorch version beside it, which runs on a CPU tensor:
+and v; ``fused_attention_block`` is the whole pre-norm attention sub-block
+``x + MHA(LN(x) @ Wqkv + bqkv) @ Wproj + bproj`` as one op. Ten hand-written
+Hopper kernels carry them on a CUDA tensor, each with its plain PyTorch
+version beside it, which runs on a CPU tensor:
 
 ===================  ===========================  =========================
 kernel               replaces (tpuwsi/ops/        plain version
@@ -18,13 +20,19 @@ kernel               replaces (tpuwsi/ops/        plain version
 ``flash_fwd_stats``    ``_flash_kernel_stats``        ``_flash_reference`` (o, lse)
 ``flash_bwd_dq``       ``_flash_bwd_dq_kernel``       ``_flash_bwd_reference`` (dq)
 ``flash_bwd_dkv``      ``_flash_bwd_dkv_kernel``      ``_flash_bwd_reference`` (dk, dv)
+``attn_block_fwd``     ``_attn_block_fwd_kernel``     ``_attn_block_fwd_reference``
+``attn_block_bwd``     ``_attn_block_bwd_kernel``     ``_attn_block_bwd_reference``
 ===================  ===========================  =========================
 
 The first four hold a whole sequence of at most 511 tokens per block; the
 flash family tiles the sequence and takes any length. ``mha_from_qkv`` sends
 512+ tokens to the flash family, which reads q, k and v as strided views of
 qkv and writes ``(B, N, D)`` and ``(B, N, 3D)`` directly: nothing is
-transposed in device memory.
+transposed in device memory. The sub-block pair splits an image by head
+(``ATTN_BLOCK_MAX_SEQ`` tokens at most, width 384 with 6 heads): qkv, the
+scores and the probabilities stay on chip in both directions, and the backward
+works from ``x``, ``dy`` and the weights alone. No model calls it, as none
+does in the reference; it is an op of the library.
 
 ``torch.autograd.Function``s pair them as the reference's custom VJPs do:
 ``_MhaQkvSaved`` (forward saves ``(qkv, p)``), ``_MhaQkv`` (forward saves
@@ -42,15 +50,19 @@ from __future__ import annotations
 
 import torch
 
+from tpuwsi_torch.ops.mlp import DENSE_DW_WAVES, _ln_bwd, _ln_fwd, _mm
+
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 64
 KERNEL_MAX_SEQ = 511  # the whole-sequence kernels; 512+ tokens go to the flash family
 MIN_FLASH_SEQ = KERNEL_MAX_SEQ + 1
 FLASH_TILE_K = 64     # keys per step of the online softmax, in kernel and plain version
+ATTN_BLOCK_WIDTH = 384     # embedding width the sub-block kernels are built for (6 heads)
+ATTN_BLOCK_MAX_SEQ = 304   # five (N, 64) tiles of one head in a block's 227 KB (backward)
 
 LAUNCHES = {"mha_qkv_fwd": 0, "mha_qkv_fwd_saved": 0, "mha_qkv_bwd_saved": 0,
             "mha_qkv_bwd": 0, "flash_fwd": 0, "flash_fwd_stats": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+            "flash_bwd_dkv": 0, "attn_block_fwd": 0, "attn_block_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -116,10 +128,10 @@ def _mha_reference(qkv, num_heads, scale, block_len=0):
     return _mha_saved_reference(qkv, num_heads, scale, block_len)[0]
 
 
-def _dqkv_reference(qkv, g, p_dv, p_ds, num_heads, scale):
-    """dqkv from fp32 probabilities: ``p_dv`` is the operand of dV (already
-    rounded), ``p_ds`` the p of t and dS. dS is rounded to qkv's dtype before
-    dQ = dS.K and dK = dS^T.Q, which use the unscaled q and k."""
+def _dqkv_core(qkv, g, p_dv, p_ds, num_heads, scale):
+    """fp32 dqkv from fp32 probabilities: ``p_dv`` is the operand of dV
+    (already rounded), ``p_ds`` the p of t and dS. dS is rounded to qkv's
+    dtype before dQ = dS.K and dK = dS^T.Q, which use the unscaled q and k."""
     b, n, d3 = qkv.shape
     q, k, v = (x.float() for x in qkv.reshape(b, n, 3, num_heads, -1).unbind(2))
     gh = g.reshape(b, n, num_heads, -1).to(qkv.dtype).float()
@@ -129,7 +141,12 @@ def _dqkv_reference(qkv, g, p_dv, p_ds, num_heads, scale):
     ds = (p_ds * (dp - t) * scale).to(qkv.dtype).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
-    return torch.stack([dq, dk, dv], dim=2).reshape(b, n, d3).to(qkv.dtype)
+    return torch.stack([dq, dk, dv], dim=2).reshape(b, n, d3)
+
+
+def _dqkv_reference(qkv, g, p_dv, p_ds, num_heads, scale):
+    """``_dqkv_core`` rounded to qkv's dtype, as the attention kernels write it."""
+    return _dqkv_core(qkv, g, p_dv, p_ds, num_heads, scale).to(qkv.dtype)
 
 
 def _mha_bwd_saved_reference(qkv, g, p, num_heads, scale):
@@ -503,6 +520,213 @@ def _mha_flash_forward(qkv, num_heads, scale, stats, plain):
     out = torch.empty((b, n, d3 // 3), dtype=qkv.dtype, device=qkv.device)
     _, lse = _flash_forward(q, k, v, None, scale, stats, plain, out=_heads(out, num_heads, 1)[0])
     return out, lse
+
+
+def _attn_block_qkv(x, g, be, wqkv, bqkv, eps):
+    """The part both sub-block kernels share → ``(ln, xhat, inv, qkv)``: fp32
+    LayerNorm (fast variance), its output rounded to x's dtype, and
+    qkv = fp32 product + fp32 bias, rounded; ln, xhat, inv are (B N, ·)."""
+    b, n, d = x.shape
+    ln, xhat, inv = _ln_fwd(x.reshape(b * n, d).float(), g.float(), be.float(), eps)
+    ln = ln.to(x.dtype)
+    qkv = (_mm(ln, wqkv) + bqkv.float()).to(x.dtype)
+    return ln, xhat, inv, qkv.reshape(b, n, 3 * d)
+
+
+def _attn_block_fwd_reference(x, g, be, wqkv, bqkv, wp, bp, num_heads, scale, eps):
+    """Plain version of the sub-block forward kernel. x: (B, N, D); weights
+    ``(in, out)`` in x's dtype; g, be fp32. o is rounded before the projection
+    and the projection with its bias before x is added, in x's dtype."""
+    qkv = _attn_block_qkv(x, g, be, wqkv, bqkv, eps)[3]
+    o = _mha_reference(qkv, num_heads, scale)
+    y = (_mm(o.reshape(-1, o.shape[-1]), wp) + bp.float()).to(x.dtype)
+    return x + y.reshape(x.shape)
+
+
+def _attn_block_bwd_reference(x, dy, g, be, wqkv, bqkv, wp, num_heads, scale, eps):
+    """Plain version of the sub-block backward kernel →
+    ``(dx, dg, dbe, dwqkv, dbqkv, dwp, dbp)``; dx in x's dtype, the others
+    fp32. Everything is rebuilt from x and the weights. dqkv is rounded as
+    the operand of dWqkv and dln, but dbqkv sums the unrounded one."""
+    b, n, d = x.shape
+    dt = x.dtype
+    gam = g.float()
+    ln, xhat, inv, qkv = _attn_block_qkv(x, g, be, wqkv, bqkv, eps)
+    o = _mha_reference(qkv, num_heads, scale).reshape(b * n, d)
+    dy2 = dy.reshape(b * n, d).to(dt)
+    dyf = dy2.float()
+    do = _mm(dy2, wp.t()).to(dt).reshape(b, n, d)
+    p = _probs(qkv, num_heads, scale, 0)
+    dqkv = _dqkv_core(qkv, do, p.to(dt).float(), p, num_heads, scale).reshape(b * n, 3 * d)
+    dqkv_c = dqkv.to(dt)
+    dln = _mm(dqkv_c, wqkv.t())
+    dx = (dyf + _ln_bwd(dln, gam, xhat, inv)).to(dt).reshape(b, n, d)
+    return (dx, (dln * xhat).sum(dim=0), dln.sum(dim=0), _mm(ln.t(), dqkv_c),
+            dqkv.sum(dim=0), _mm(o.t(), dy2), dyf.sum(dim=0))
+
+
+def check_attn_block_operands(x, g, be, wqkv, bqkv, wp, bp=None, num_heads=0, dy=None) -> None:
+    """Raise unless the sub-block kernels take these operands as they are."""
+    if x.dim() != 3:
+        raise ValueError(f"fused_attention_block takes x (B, N, D), got {tuple(x.shape)}")
+    b, n, d = x.shape
+    if d % max(num_heads, 1) or d // max(num_heads, 1) != KERNEL_HEAD_DIM:
+        raise ValueError(f"attention sub-block kernels take head_dim {KERNEL_HEAD_DIM}: got "
+                         f"D = {d} with {num_heads} heads")
+    if d != ATTN_BLOCK_WIDTH:
+        raise NotImplementedError(
+            f"attention sub-block kernels are built for D = {ATTN_BLOCK_WIDTH} "
+            f"({ATTN_BLOCK_WIDTH // KERNEL_HEAD_DIM} heads, one block of a cluster each): "
+            f"got D = {d}")
+    if not 1 <= n <= ATTN_BLOCK_MAX_SEQ:
+        raise ValueError(f"{n} tokens: the attention sub-block kernels hold one head of at most "
+                         f"{ATTN_BLOCK_MAX_SEQ} in a block's shared memory")
+    if not 1 <= b <= 65535:
+        raise NotImplementedError(f"batch {b} exceeds the launch grid (65535)")
+    tensors = {"x": (x, (b, n, d)), "wqkv": (wqkv, (d, 3 * d)), "bqkv": (bqkv, (3 * d,)),
+               "wproj": (wp, (d, d)), "bproj": (bp, (d,)), "dy": (dy, (b, n, d))}
+    for name, (t, shape) in tensors.items():
+        if t is None:
+            continue
+        if tuple(t.shape) != shape or t.dtype != torch.bfloat16 or t.device != x.device:
+            raise ValueError(f"attention sub-block kernels take bf16 on one CUDA device: {name} "
+                             f"is {t.dtype} {tuple(t.shape)} on {t.device}, expected {shape}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("attention sub-block kernels take contiguous, 16-byte aligned "
+                             f"tensors: {name} has strides {t.stride()}")
+    for name, t in (("ln_scale", g), ("ln_bias", be)):
+        if (tuple(t.shape) != (d,) or t.dtype != torch.float32 or t.device != x.device
+                or not t.is_contiguous() or t.data_ptr() % 8):
+            raise ValueError(f"attention sub-block kernels take fp32 ({d},) {name} beside x: "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+_clusters_checked = set()
+
+
+def _check_clusters(x: torch.Tensor, n: int) -> None:
+    """Raise if the card cannot hold one cluster of the forward at this length,
+    or if the library was built for another length limit than this module
+    states (asked once per device and padded length)."""
+    from tpuwsi_torch.ops import _build
+
+    key = (x.device, -(-n // 16))
+    if key in _clusters_checked:
+        return
+    lib = _build.load()
+    if lib.tpuwsi_attn_block_max_seq(ATTN_BLOCK_WIDTH) != ATTN_BLOCK_MAX_SEQ:
+        raise RuntimeError("ATTN_BLOCK_MAX_SEQ and the kernels' own limit differ: "
+                           f"{ATTN_BLOCK_MAX_SEQ}, {lib.tpuwsi_attn_block_max_seq(ATTN_BLOCK_WIDTH)}")
+    with torch.cuda.device(x.device):
+        clusters = lib.tpuwsi_attn_block_max_clusters(n)
+    if clusters < 0:
+        _build.check(lib, -clusters, "attn_block_fwd occupancy query")
+    if clusters == 0:
+        raise RuntimeError(
+            f"attn_block_fwd: the device can hold 0 clusters of "
+            f"{ATTN_BLOCK_WIDTH // KERNEL_HEAD_DIM} blocks at {n} tokens "
+            "(cudaOccupancyMaxActiveClusters)")
+    _clusters_checked.add(key)
+
+
+def _launch_attn_block_fwd(x, g, be, wqkv, bqkv, wp, bp, num_heads, scale, eps):
+    check_attn_block_operands(x, g, be, wqkv, bqkv, wp, bp, num_heads)
+    b, n, d = x.shape
+    _check_clusters(x, n)
+    y = torch.empty_like(x)
+    _call("attn_block_fwd", x,
+          (x.data_ptr(), g.data_ptr(), be.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+           wp.data_ptr(), bp.data_ptr(), y.data_ptr(), b, n, d, num_heads, float(scale),
+           float(eps)))
+    return y
+
+
+def _launch_attn_block_bwd(x, dy, g, be, wqkv, bqkv, wp, num_heads, scale, eps):
+    """One launch of the backward: the per-head kernel, then the row-tiled
+    ones over the three workspaces it shares with them (dqkv, o and LN(x),
+    5 B N D bf16 in all). The numbers of row groups follow from the shapes
+    and the card alone, so the order of every sum is the same on every run."""
+    from tpuwsi_torch.ops import _build
+
+    check_attn_block_operands(x, g, be, wqkv, bqkv, wp, None, num_heads, dy)
+    b, n, d = x.shape
+    dev = x.device
+    lib = _build.load()
+    rows = b * n
+    steps = -(-rows // lib.tpuwsi_dense_rows_per_step(d))
+    slices = d // lib.tpuwsi_dense_cols_per_slice(d)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups_qkv = max(1, min(steps, DENSE_DW_WAVES * sms // (3 * slices)))
+    groups_proj = max(1, min(steps, DENSE_DW_WAVES * sms // slices))
+    n_qkv, n_proj = d * 3 * d + 3 * d, d * d + d
+    bf, f32 = torch.bfloat16, torch.float32
+    dx = torch.empty_like(x)
+    grads = torch.empty(n_qkv + n_proj + 2 * d + 3 * d, dtype=f32, device=dev)
+    dqkv_work = torch.empty((b, n, 3 * d), dtype=bf, device=dev)
+    o_work = torch.empty((b, n, d), dtype=bf, device=dev)
+    ln_work = torch.empty((b, n, d), dtype=bf, device=dev)
+    dbqkv_part = torch.empty((b, 3 * d), dtype=f32, device=dev)
+    w_part_qkv = torch.empty((groups_qkv, n_qkv), dtype=f32, device=dev)
+    w_part_proj = torch.empty((groups_proj, n_proj), dtype=f32, device=dev)
+    row_part = torch.empty((-(-rows // lib.tpuwsi_mlp_rows_per_tile(d)), 2 * d), dtype=f32,
+                           device=dev)
+    _call("attn_block_bwd", x,
+          (x.data_ptr(), dy.data_ptr(), g.data_ptr(), be.data_ptr(), wqkv.data_ptr(),
+           bqkv.data_ptr(), wp.data_ptr(), dx.data_ptr(), grads.data_ptr(),
+           dqkv_work.data_ptr(), o_work.data_ptr(), ln_work.data_ptr(), dbqkv_part.data_ptr(),
+           w_part_qkv.data_ptr(), w_part_proj.data_ptr(), row_part.data_ptr(), b, n, d,
+           num_heads, groups_qkv, groups_proj, float(scale), float(eps)))
+    dwqkv, _, dwp, dbp, dg, dbe, dbqkv = grads.split([d * 3 * d, 3 * d, d * d, d, d, d, 3 * d])
+    return dx, dg, dbe, dwqkv.view(d, 3 * d), dbqkv, dwp.view(d, d), dbp
+
+
+class _FusedAttnBlock(torch.autograd.Function):
+    """The pre-norm attention sub-block as one op; the forward saves x and
+    the cast weights only (``tpuwsi/ops/attention.py:1766 _fused_attn_block``)."""
+
+    @staticmethod
+    def forward(ctx, x, g, be, wqkv, bqkv, wp, bp, num_heads, scale, eps, plain):
+        fwd = _attn_block_fwd_reference if _use_plain(x, plain) else _launch_attn_block_fwd
+        ctx.save_for_backward(x, g, be, wqkv, bqkv, wp)
+        ctx.static = (num_heads, scale, eps)
+        ctx.plain = plain
+        return fwd(x, g, be, wqkv, bqkv, wp, bp, num_heads, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g, be, wqkv, bqkv, wp = ctx.saved_tensors
+        bwd = _attn_block_bwd_reference if _use_plain(x, ctx.plain) else _launch_attn_block_bwd
+        dx, dg, dbe, dwqkv, dbqkv, dwp, dbp = bwd(
+            x, dy.to(x.dtype).contiguous(), g, be, wqkv, bqkv, wp, *ctx.static)
+        # the reference's vjp returns parameter gradients in the operands' dtype
+        return (dx, dg.to(g.dtype), dbe.to(be.dtype), dwqkv.to(wqkv.dtype),
+                dbqkv.to(wqkv.dtype), dwp.to(wp.dtype), dbp.to(wp.dtype), None, None, None, None)
+
+
+def fused_attention_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_heads: int, *,
+                          eps: float = 1e-6, plain: bool = False) -> torch.Tensor:
+    """The pre-norm attention sub-block
+    ``x + MHA(LN(x) @ wqkv + bqkv) @ wproj + bproj`` as one op
+    (``tpuwsi/ops/attention.py:1800``). x: (B, N, D), the residual stream;
+    wqkv: (D, 3D) with columns ``[which(3), head, hd]``; wproj: (D, D).
+
+    LayerNorm runs in fp32 on fp32 ``ln_scale``, ``ln_bias``; the weights are
+    cast to x's dtype outside the op, so with bf16 compute their gradients
+    are rounded to bf16 on the way to fp32 parameters while the LayerNorm
+    gradients stay fp32. On a CUDA tensor the two sub-block kernels run (bf16,
+    D = 384 with 6 heads, at most ``ATTN_BLOCK_MAX_SEQ`` tokens, a contiguous
+    x) or the call raises; a CPU tensor, or ``plain``, takes their plain
+    versions. Short sequences are not packed several to a program as the
+    reference packs them: packing is exact, so the values are the same."""
+    if x.dim() != 3 or x.shape[-1] % num_heads:
+        raise ValueError(f"fused_attention_block takes x (B, N, D) with D a multiple of "
+                         f"{num_heads} heads, got {tuple(x.shape)}")
+    dt = x.dtype
+    scale = (x.shape[-1] // num_heads) ** -0.5
+    return _FusedAttnBlock.apply(
+        x, ln_scale.float().contiguous(), ln_bias.float().contiguous(),
+        *(p.to(dt).contiguous() for p in (wqkv, bqkv, wproj, bproj)),
+        int(num_heads), float(scale), float(eps), bool(plain))
 
 
 def fused_attention(q, k, v, kv_lengths=None, scale=None, force_kernel: bool = False,

@@ -1,5 +1,5 @@
 // Shared device code of the row-tiled GEMM kernels (mlp_fwd.cu, mlp_bwd.cu,
-// dense.cu): tile sizes by embedding width, mma.sync / ldmatrix / cp.async
+// dense.cu, attn_block.cu): tile sizes by embedding width, mma.sync / ldmatrix / cp.async
 // helpers, the two GELU forms with their derivatives, the LayerNorm of one
 // row, the LayerNorm backward of a row tile, and the fixed-order sum of
 // partial results.

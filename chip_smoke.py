@@ -8,7 +8,8 @@ Phases, each printing its own lines:
   2. build the Hopper kernels from tpuwsi_torch/ops/csrc with nvcc;
   3. each of the nineteen kernels against its plain PyTorch version on the
      card, at the shapes the paths give it (the four whole-sequence kernels
-     at 37-257 tokens, the four tiled flash kernels at 512-1,024 tokens,
+     at 37-257 tokens and at every branch edge of the forward kernel from 1
+     to 511 tokens, the four tiled flash kernels at 512-1,024 tokens,
      through strided views of a fused qkv and contiguous, and with key
      lengths; the four fused-MLP kernels at the step's and the serving
      chunk's row counts, at ViT-B width and at 7 rows, both GELU forms; the
@@ -102,20 +103,34 @@ OUT = Path(__file__).resolve().parent / "build" / "chip_smoke"
 # the card's data-sheet peaks (NVIDIA H100 SXM): device memory and dense bf16
 PEAK_BYTES_PER_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
 
+# The forward kernel's branch edges (mha_qkv_fwd.cu): one token, one 16-key
+# chunk, the 48-key score width and one past it (the 208-key one), one and two
+# 64-row tiles, the last key held in registers and the first parked in the
+# stash, the last a warpgroup takes alone (272) and the first where two share
+# a tile, the longest sequence, a block mask across tiles. (B, N, D, H, block_len).
+FWD_EDGES = [
+    (7, 1, 384, 6, 0), (5, 16, 384, 6, 0), (4, 48, 384, 6, 0), (4, 49, 384, 6, 0),
+    (4, 64, 384, 6, 0), (4, 65, 384, 6, 0), (3, 208, 384, 6, 0), (3, 209, 384, 6, 0),
+    (3, 272, 384, 6, 0), (3, 273, 384, 6, 0), (2, 511, 384, 6, 0), (2, 400, 384, 6, 37),
+]
 # (B, N, D, H, block_len): bf16 qkv ~ N(0, 1)
 K2_SHAPES = [
-    (500, 257, 384, 6, 0),   # serving: ViT-S/16 at 256 px, -tpi 500
-    (64, 197, 384, 6, 0),    # ViT-S/16 at 224 px
+    (500, 257, 384, 6, 0),   # serving: ViT-S/16 at 256 px, -tpi 500 (timed)
+    (192, 197, 384, 6, 0),   # the DINO step's teacher, global views (timed)
     (64, 257, 768, 12, 0),   # ViT-B/16 at 256 px
     (64, 111, 384, 6, 37),   # packed: three 37-token sequences per row
+    *FWD_EDGES,
 ]
+K2_TIMED = {(500, 257), (192, 197)}
 # the DINO step at 96 tiles: 2 global views of 197 tokens, 6 local of 37
 TRAIN_SHAPES = [
     (192, 197, 384, 6, 0),   # student and teacher, global views (timed)
-    (576, 37, 384, 6, 0),    # student, local views as the step launches them
+    (576, 37, 384, 6, 0),    # student, local views as the step launches them (K1a timed)
     (192, 111, 384, 6, 37),  # the same sequences packed three to a row
     (32, 197, 768, 12, 0),   # ViT-B/16
+    *FWD_EDGES,
 ]
+K1A_TIMED = {(192, 197), (576, 37)}
 # bf16 rounding of q*scale, of p and of dS, fp32 accumulation
 K_MAX_ABS, K_MEAN_ABS = 2e-2, 2e-3
 
@@ -241,7 +256,7 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.2f} s")
     log = lib_path.with_suffix(".log")
     for line in log.read_text().splitlines() if log.exists() else ():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line or "Performance Loss" in line) and "C7519" not in line:
             print(f"[build] ptxas: {line.strip()}")
 
 
@@ -306,8 +321,11 @@ def timed_ab(kernel_fn, library_fn, plain_fn) -> dict:
 
 
 def phase_k2(smi: str) -> dict:
+    """K2 against its plain version at every shape of K2_SHAPES; timed at
+    K2_TIMED. The line's own numbers are the serving shape's; ``timed`` holds
+    every timed shape's."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    max_err, timing = 0.0, {}
+    max_err, timed = 0.0, []
     for shape in K2_SHAPES:
         b, n, d, h, block_len = shape
         scale = (d // h) ** -0.5
@@ -316,18 +334,20 @@ def phase_k2(smi: str) -> dict:
         ref = attention._mha_reference(qkv, h, scale, block_len)
         torch.cuda.synchronize()
         max_err = max(max_err, check_close("mha_qkv_fwd", shape, out, ref))
-        if not timing:  # the serving shape comes first
-            timing = timed_ab(
+        if (b, n) in K2_TIMED:
+            t = timed_ab(
                 lambda: attention.mha_from_qkv(qkv, h, block_len=block_len),
                 lambda: sdpa_forward(qkv, h),
                 lambda: attention._mha_reference(qkv, h, scale, block_len))
-            timing.update(attention_bound("fwd", b, n, d, h))
-            print(f"[mha_qkv_fwd] serving shape, medians of 20 in the order kernel, library, "
-                  f"library, kernel: kernel {timing['ms_runs']} ms, library (SDPA) "
-                  f"{timing['library_ms_runs']} ms, plain {timing['plain_ms']:.4f} ms, bound "
-                  f"{timing['bound_ms']:.4f} ms by {timing['bound_by']}; on {smi}")
+            t.update(attention_bound("fwd", b, n, d, h))
+            timed.append({"shape": [b, n, d, h], **t})
+            print(f"[mha_qkv_fwd] ({b}, {n}, {d}, {h}), medians of 20 in the order kernel, "
+                  f"library, library, kernel: kernel {t['ms_runs']} ms, library (SDPA) "
+                  f"{t['library_ms_runs']} ms, plain {t['plain_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms by {t['bound_by']}; on {smi}")
         del qkv, out, ref
-    return {"max_abs_err": max_err, **timing}
+    main = {k: v for k, v in timed[0].items() if k != "shape"}  # the serving shape
+    return {"max_abs_err": max_err, **main, "timed": timed}
 
 
 def phase_train_kernels(smi: str) -> dict:
@@ -338,6 +358,7 @@ def phase_train_kernels(smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     names = ("mha_qkv_fwd_saved", "mha_qkv_bwd_saved", "mha_qkv_bwd")
     res = {name: {"max_abs_err": 0.0} for name in names}
+    res["mha_qkv_fwd_saved"]["timed"] = []
     local_ms = {}
     for shape in TRAIN_SHAPES:
         b, n, d, h, block_len = shape
@@ -376,16 +397,19 @@ def phase_train_kernels(smi: str) -> dict:
                  "mha_qkv_bwd": "bwd"}
         for name in names:
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], errs[name])
-            if shape == TRAIN_SHAPES[0]:
-                res[name].update(timed_ab(*fns[name]))
-                res[name].update(attention_bound(kinds[name], b, n, d, h))
-                r = res[name]
-                print(f"[{name}] student-global shape, medians of 20 in the order kernel, "
+            if shape == TRAIN_SHAPES[0] or (
+                    name == "mha_qkv_fwd_saved" and (b, n) in K1A_TIMED):
+                r = {**timed_ab(*fns[name]), **attention_bound(kinds[name], b, n, d, h)}
+                if shape == TRAIN_SHAPES[0]:
+                    res[name].update(r)
+                if name == "mha_qkv_fwd_saved":
+                    res[name]["timed"].append({"shape": [b, n, d, h], **r})
+                print(f"[{name}] ({b}, {n}, {d}, {h}), medians of 20 in the order kernel, "
                       f"library, library, kernel: kernel {r['ms_runs']} ms, library (SDPA"
                       f"{'' if name == 'mha_qkv_fwd_saved' else ' backward'}) "
                       f"{r['library_ms_runs']} ms, plain {r['plain_ms']:.4f} ms, bound "
                       f"{r['bound_ms']:.4f} ms by {r['bound_by']}; on {smi}")
-            elif n in (37, 111):
+            if n in (37, 111) and d == 384:
                 local_ms.setdefault(name, []).append(cuda_median_ms(fns[name][0]))
         del qkv, g, out, p, out_ref, p_ref, fns
     for name in names:
@@ -1673,7 +1697,7 @@ def main() -> None:
     phase_profiles(smi)
     meta = {
         "mha_qkv_fwd": ("mha_qkv_fwd.cu", "tpuwsi/ops/attention.py:633"),
-        "mha_qkv_fwd_saved": ("mha_qkv_fwd.cu", "tpuwsi/ops/attention.py:852"),
+        "mha_qkv_fwd_saved": ("mha_qkv_fwd.cu", "tpuwsi/ops/attention.py:850"),
         "mha_qkv_bwd_saved": ("mha_qkv_bwd.cu", "tpuwsi/ops/attention.py:935"),
         "mha_qkv_bwd": ("mha_qkv_bwd.cu", "tpuwsi/ops/attention.py:732"),
         "flash_fwd": ("flash_fwd.cu", "tpuwsi/ops/attention.py:80"),

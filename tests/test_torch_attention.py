@@ -65,8 +65,18 @@ def test_kernel_rejects_what_it_does_not_take(shape, heads, dtype, err):
         tattn.check_kernel_input(torch.zeros(shape, dtype=dtype), heads)
 
 
+# The forward kernel's branches: one 16-key chunk, the 48-key score width
+# and one past it, one 64-row tile and a second, the last key held in
+# registers (208) and the first parked in shared memory, the last a
+# warpgroup takes alone (272) and the first where two share a tile, the
+# longest sequence; ViT-B's 12 heads; a block mask across tiles.
+_FWD_EDGES = [(8, 257, 6, 0), (6, 111, 6, 37), (5, 1, 6, 0), (5, 16, 6, 0), (4, 48, 6, 0),
+              (4, 49, 6, 0), (4, 64, 6, 0), (4, 65, 6, 0), (3, 208, 6, 0), (3, 209, 6, 0),
+              (3, 272, 6, 0), (3, 273, 6, 0), (2, 511, 6, 0), (4, 257, 12, 0), (2, 400, 6, 37)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n,heads,block_len", [(8, 257, 6, 0), (6, 111, 6, 37)])
+@pytest.mark.parametrize("b,n,heads,block_len", _FWD_EDGES)
 def test_kernel_matches_plain_on_card(b, n, heads, block_len):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
@@ -196,4 +206,26 @@ def test_training_kernels_match_plain_on_card(b, n, heads, block_len, save_probs
         diff = (got - want).abs()
         # bf16 rounding of q*scale, p and dS; fp32 accumulation
         assert torch.isfinite(got).all()
+        assert diff.max().item() <= 2e-2 and diff.mean().item() <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,heads,block_len", _FWD_EDGES)
+def test_saving_forward_matches_plain_on_card(b, n, heads, block_len):
+    """The saving forward at the forward kernel's branches: o and the stored
+    bf16 p against the plain version, the pad columns exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    qkv = torch.randn((b, n, 3 * heads * 64), generator=g, device="cuda").to(torch.bfloat16)
+    before = tattn.LAUNCHES["mha_qkv_fwd_saved"]
+    out, p = tattn._launch_fwd_saved(qkv, heads, 64 ** -0.5, block_len)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES["mha_qkv_fwd_saved"] == before + 1
+    out_ref, p_ref = tattn._mha_saved_reference(qkv, heads, 64 ** -0.5, block_len)
+    assert (p[..., n:] == 0).all()
+    for got, want in ((out, out_ref), (p, p_ref)):
+        diff = (got.float() - want.float()).abs()
+        # bf16 rounding of q*scale and of p, fp32 accumulation
+        assert torch.isfinite(got.float()).all()
         assert diff.max().item() <= 2e-2 and diff.mean().item() <= 2e-3

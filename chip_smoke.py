@@ -11,7 +11,10 @@ Phases, each printing its own lines:
      at 37-257 tokens and at every branch edge of the forward kernel from 1
      to 511 tokens, the four tiled flash kernels at 512-1,024 tokens,
      through strided views of a fused qkv and contiguous, and with key
-     lengths; the four fused-MLP kernels at the step's and the serving
+     lengths; the flash forward pair also at the edges of its tiles: Sq !=
+     Sk both ways, 1, 37 and 197 tokens through fused_attention, key lengths
+     on either side of each tile edge, a negative scale, and the same bits
+     from two launches; the four fused-MLP kernels at the step's and the serving
      chunk's row counts, at ViT-B width and at 7 rows, both GELU forms; the
      five dense-layer kernels at the qkv and proj layers of the same row
      counts; the two attention sub-block kernels at the step's global and
@@ -137,12 +140,19 @@ K_MAX_ABS, K_MEAN_ABS = 2e-2, 2e-3
 # flash family: (B, H, S, strided): strided = q, k, v are views of a fused
 # (B, S, 3 * H * 64) qkv and o, dO of (B, S, H * 64); else contiguous (B, H, S, 64)
 FLASH_SHAPES = [
-    (192, 6, 785, True),    # the 448-px DINO step's global views (timed)
+    (192, 6, 785, True),    # the 448-px DINO step's global views (timed, all four)
+    (128, 6, 785, True),    # a 448-px serving chunk (timed, the forward pair)
     (4, 6, 1024, False),
     (8, 6, 512, True),      # the first length that takes the flash family
     (2, 6, 513, False),     # one key into the ninth tile
 ]
-FLASH_LENGTHS = [512, 300, 37, 1, 0]  # masked forward at S = 512, one element each
+FLASH_TIMED_FWD = FLASH_SHAPES[:2]
+# masked forward, one element per length: (S, kv_lengths); the second puts a
+# length on either side of the first two edges of the forward's 64-key tiles,
+# and one at the full 785
+FLASH_LENGTHS = [(512, [512, 300, 37, 1, 0]), (785, [63, 64, 65, 127, 128, 129, 785])]
+FLASH_UNEQUAL = [(4, 6, 100, 1000), (4, 6, 900, 200)]  # (B, H, Sq, Sk), contiguous
+FLASH_SHORT = [1, 37, 197]  # fused_attention(force_kernel=True) at (4, 6, S, 64)
 # outputs: one bf16 ulp of a value below 4 where a rounding falls the other
 # way (p, dS, o), else fp32 accumulation order; lse is fp32 throughout
 FLASH_MAX_ABS, FLASH_MEAN_ABS, FLASH_LSE_MAX_ABS = 2e-2, 1e-5, 1e-4
@@ -466,33 +476,56 @@ def flash_operands(gen, b, h, s, strided):
     return (*attention._heads(qkv, h, 3), attention._heads(g, h, 1)[0], out, grads)
 
 
+def flash_fwd_pair(case, q, k, v, lengths, scale, out=None, worse=None):
+    """K4a' and K4a against ``_flash_reference`` on the same inputs: o and lse
+    under the FLASH bounds, the same o from both, and the same bits of o and
+    lse from a second launch; → (o, lse) of K4a'."""
+    o_plain, lse_plain = attention._flash_reference(q, k, v, lengths, scale)
+    o, lse = attention._launch_flash_fwd(q, k, v, lengths, scale, True, out)
+    torch.cuda.synchronize()
+    err = check_flash("flash_fwd_stats o", case, o, o_plain)
+    check_flash("flash_fwd_stats lse", case, lse, lse_plain, FLASH_LSE_MAX_ABS)
+    o = o.clone()  # the launches below write the same view
+    o_only, none = attention._launch_flash_fwd(q, k, v, lengths, scale, False, out)
+    torch.cuda.synchronize()
+    if none is not None or not torch.equal(o_only, o):
+        raise RuntimeError(f"flash_fwd and flash_fwd_stats differ in o at {case}")
+    o_again, lse_again = attention._launch_flash_fwd(q, k, v, lengths, scale, True, out)
+    torch.cuda.synchronize()
+    if not (torch.equal(o_again, o) and torch.equal(lse_again, lse)):
+        raise RuntimeError(f"two launches of flash_fwd_stats differ at {case}")
+    if worse is not None:
+        worse("flash_fwd_stats", err)
+        worse("flash_fwd", err)
+    return o, lse
+
+
 def phase_flash_kernels(smi: str) -> dict:
     """K4a, K4a', K4b, K4b' against their plain versions. The backward
     kernels and their plain version get the same lse and delta, those of the
-    forward kernel's own output."""
+    forward kernel's own output. The forward pair is also held at the edges
+    of its tiles: Sq != Sk both ways, short sequences through
+    fused_attention(force_kernel=True), key lengths on either side of a tile
+    edge; every forward case launches K4a' twice and must repeat its bits."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     names = ("flash_fwd", "flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")
     res = {name: {"max_abs_err": 0.0} for name in names}
+    for name in names[:2]:
+        res[name]["timed"] = []
 
     def worse(name, err):
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
 
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for shape in FLASH_SHAPES:
         b, h, s, strided = shape
         scale = 64 ** -0.5
         case = f"B={b} H={h} S={s} {'strided qkv views' if strided else 'contiguous'}"
         q, k, v, do, out, grads = flash_operands(gen, b, h, s, strided)
-        o_plain, lse_plain = attention._flash_reference(q, k, v, None, scale)
-        o, lse = attention._launch_flash_fwd(q, k, v, None, scale, True, out)
-        torch.cuda.synchronize()
-        worse("flash_fwd_stats", check_flash("flash_fwd_stats o", case, o, o_plain))
-        check_flash("flash_fwd_stats lse", case, lse, lse_plain, FLASH_LSE_MAX_ABS)
-        o = o.clone()  # the no-statistics launch below writes the same view
-        o_only, none = attention._launch_flash_fwd(q, k, v, None, scale, False, out)
-        torch.cuda.synchronize()
-        if none is not None or not torch.equal(o_only, o):
-            raise RuntimeError("flash_fwd and flash_fwd_stats differ in o")
-        worse("flash_fwd", check_flash("flash_fwd o", case, o_only, o_plain))
+        o, lse = flash_fwd_pair(case, q, k, v, None, scale, out, worse)
         delta = attention._flash_delta(o, do)
         dq, dk, dv = attention._launch_flash_bwd(q, k, v, do, lse, delta, scale, grads)
         torch.cuda.synchronize()
@@ -500,9 +533,9 @@ def phase_flash_kernels(smi: str) -> dict:
         worse("flash_bwd_dq", check_flash("flash_bwd_dq", case, dq, dq_p))
         worse("flash_bwd_dkv", max(check_flash("flash_bwd_dkv dk", case, dk, dk_p),
                                    check_flash("flash_bwd_dkv dv", case, dv, dv_p)))
-        del o_plain, lse_plain, dq_p, dk_p, dv_p
-        if shape == FLASH_SHAPES[0]:
-            sdpa = torch.nn.functional.scaled_dot_product_attention
+        del dq_p, dk_p, dv_p
+        timed = names if shape == FLASH_SHAPES[0] else names[:2] if shape in FLASH_TIMED_FWD else ()
+        if timed:
             ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
             lib_out = sdpa(ql, kl, vl)
 
@@ -534,10 +567,12 @@ def phase_flash_kernels(smi: str) -> dict:
                 "flash_bwd_dkv": (dkv_only, lib_bwd, lambda: attention._flash_bwd_reference(
                     q, k, v, do, lse, delta, scale)),
             }
-            for name in names:
-                res[name].update(timed_ab(*fns[name]))
-                res[name].update(flash_bound(name, b, h, s, s))
-                r = res[name]
+            for name in timed:
+                r = {**timed_ab(*fns[name]), **flash_bound(name, b, h, s, s)}
+                if shape == FLASH_SHAPES[0]:
+                    res[name].update(r)  # the line's own numbers: the step's shape
+                if name in names[:2]:
+                    res[name]["timed"].append({"shape": [b, h, s, s], **r})
                 lib = ("SDPA" if name.startswith("flash_fwd")
                        else "SDPA backward, which computes dq, dk and dv")
                 print(f"[{name}] {case}, medians of 20 in the order kernel, library, library, "
@@ -549,31 +584,51 @@ def phase_flash_kernels(smi: str) -> dict:
             del lib_out, ql, kl, vl, fns
         del q, k, v, do, out, grads, o, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
+    print("[flash_fwd] two launches on the same inputs gave the same bits of o and lse "
+          "at every shape")
+
+    # Sq != Sk both ways, contiguous; a negative scale (the kernel's other sign)
+    for b, h, sq, sk in FLASH_UNEQUAL:
+        q, k, v = randn((b, h, sq, 64)), randn((b, h, sk, 64)), randn((b, h, sk, 64))
+        flash_fwd_pair(f"B={b} H={h} Sq={sq} Sk={sk} contiguous", q, k, v, None,
+                       0.125, worse=worse)
+    q, k, v = (randn((2, 6, 300, 64)) for _ in range(3))
+    flash_fwd_pair("B=2 H=6 S=300 contiguous, scale -0.125", q, k, v, None, -0.125, worse=worse)
+
+    # short sequences through the public function, which takes K4a without a gradient
+    for s in FLASH_SHORT:
+        q, k, v = (randn((4, 6, s, 64)) for _ in range(3))
+        case = f"B=4 H=6 S={s} through fused_attention(force_kernel=True)"
+        o, _ = flash_fwd_pair(case, q, k, v, None, 0.125, worse=worse)
+        before = attention.LAUNCHES["flash_fwd"]
+        via_api = attention.fused_attention(q, k, v, force_kernel=True)
+        torch.cuda.synchronize()
+        if attention.LAUNCHES["flash_fwd"] != before + 1 or not torch.equal(via_api, o):
+            raise RuntimeError(f"fused_attention(force_kernel=True) did not take K4a at {case}")
 
     # the masked forward: keys at or past an element's length count for nothing
-    b, h, s = len(FLASH_LENGTHS), 6, 512
-    q, k, v, _, _, _ = flash_operands(gen, b, h, s, False)
-    lengths = torch.tensor(FLASH_LENGTHS, dtype=torch.int32, device="cuda")
-    case = f"B={b} H={h} S={s} kv_lengths={FLASH_LENGTHS}"
-    o_plain, lse_plain = attention._flash_reference(q, k, v, lengths, 0.125)
-    o, lse = attention._launch_flash_fwd(q, k, v, lengths, 0.125, True)
-    o_only, _ = attention._launch_flash_fwd(q, k, v, lengths, 0.125, False)
-    via_api = attention.fused_attention(q, k, v, kv_lengths=lengths)
-    torch.cuda.synchronize()
-    worse("flash_fwd_stats", check_flash("flash_fwd_stats o", case, o, o_plain))
-    check_flash("flash_fwd_stats lse", case, lse, lse_plain, FLASH_LSE_MAX_ABS)
-    worse("flash_fwd", check_flash("flash_fwd o", case, o_only, o_plain))
-    empty = FLASH_LENGTHS.index(0)
-    if o[empty].any() or lse[empty].any() or o_only[empty].any():
-        raise RuntimeError("an element with no valid key must give o = 0 and lse = 0")
-    if not torch.equal(via_api, o_only):
-        raise RuntimeError("fused_attention(kv_lengths=...) did not take the forward kernel")
-    whole = attention.attention_reference(q[:1], k[:1], v[:1], lengths[:1])
-    # another order of roundings (p normalised before it is rounded): the
-    # whole-sequence kernels' bounds
-    check_flash("flash_fwd o vs plain softmax attention", "the full-length element", o[:1],
-                whole, K_MAX_ABS, K_MEAN_ABS)
-    print("[flash_fwd] the element of length 0 gives o = 0 and lse = 0")
+    for s, lens in FLASH_LENGTHS:
+        b, h = len(lens), 6
+        q, k, v, _, _, _ = flash_operands(gen, b, h, s, False)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        case = f"B={b} H={h} S={s} kv_lengths={lens}"
+        o, lse = flash_fwd_pair(case, q, k, v, lengths, 0.125, worse=worse)
+        via_api = attention.fused_attention(q, k, v, kv_lengths=lengths)
+        torch.cuda.synchronize()
+        if not torch.equal(via_api, o):
+            raise RuntimeError("fused_attention(kv_lengths=...) did not take the forward kernel")
+        if 0 in lens:
+            empty = lens.index(0)
+            if o[empty].any() or lse[empty].any():
+                raise RuntimeError("an element with no valid key must give o = 0 and lse = 0")
+            print("[flash_fwd] the element of length 0 gives o = 0 and lse = 0")
+        full = lens.index(s)
+        whole = attention.attention_reference(q[full:full + 1], k[full:full + 1],
+                                              v[full:full + 1], lengths[full:full + 1])
+        # another order of roundings (p normalised before it is rounded): the
+        # whole-sequence kernels' bounds
+        check_flash("flash_fwd o vs plain softmax attention", f"the full-length element, S={s}",
+                    o[full:full + 1], whole, K_MAX_ABS, K_MEAN_ABS)
     return res
 
 

@@ -275,3 +275,120 @@ def test_flash_forward_kv_lengths_on_card():
     assert not out[4].any()
     _, lse = tattn._launch_flash_fwd(q, k, v, lengths, 0.125, True)
     assert not lse[4].any() and torch.isfinite(lse).all()
+
+
+@pytest.mark.parametrize("sq,sk", [(70, 130), (130, 70)])
+def test_flash_forward_with_unequal_lengths_matches_pallas(sq, sk):
+    """Sq != Sk both ways: the plain forward and fused_attention(force_kernel=True)
+    (the plain pair on a CPU tensor) against the Pallas forward in interpret mode."""
+    rng = np.random.default_rng(sq * 1000 + sk)
+    q = rng.standard_normal((2, 2, sq, 32), dtype=np.float32)
+    k, v = (rng.standard_normal((2, 2, sk, 32), dtype=np.float32) for _ in range(2))
+    ref_o, ref_lse = jattn._flash_forward(*map(jnp.asarray, (q, k, v)), None, 32 ** -0.5, TILE,
+                                          TILE, True, return_stats=True)
+    ref_o = np.asarray(ref_o)
+    ref_lse = np.asarray(ref_lse).reshape(2, 2, -1)[..., :sq]
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    o, lse = tattn._flash_reference(tq, tk, tv)
+    assert o.shape == (2, 2, sq, 32) and lse.shape == (2, 2, sq)
+    np.testing.assert_allclose(o.numpy(), ref_o, **TOL)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, **TOL)
+    before = dict(tattn.LAUNCHES)
+    out = tattn.fused_attention(tq, tk, tv, force_kernel=True)
+    assert tattn.LAUNCHES == before
+    np.testing.assert_allclose(out.numpy(), ref_o, **TOL)
+
+
+# the forward pair's bounds on the card (chip_smoke.py's FLASH_* bounds): one
+# bf16 ulp of o where a rounding of p falls the other way; lse is fp32
+CARD_MAX_ABS, CARD_MEAN_ABS, CARD_LSE_MAX_ABS = 2e-2, 1e-5, 1e-4
+
+
+def _card_forward_pair(q, k, v, lengths=None, scale=0.125):
+    """K4a' and K4a on the card against the plain forward; K4a' twice gives
+    the same bits, and K4a the same o."""
+    want_o, want_lse = tattn._flash_reference(q, k, v, lengths, scale)
+    o, lse = tattn._launch_flash_fwd(q, k, v, lengths, scale, True)
+    o2, lse2 = tattn._launch_flash_fwd(q, k, v, lengths, scale, True)
+    o_only, _ = tattn._launch_flash_fwd(q, k, v, lengths, scale, False)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2) and torch.equal(o, o_only)
+    diff = (o.float() - want_o.float()).abs()
+    assert torch.isfinite(o.float()).all()
+    assert diff.max().item() <= CARD_MAX_ABS and diff.mean().item() <= CARD_MEAN_ABS
+    assert (lse - want_lse).abs().max().item() <= CARD_LSE_MAX_ABS
+    return o, lse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,sk", [(4, 6, 100, 1000), (4, 6, 900, 200)])
+def test_flash_forward_unequal_lengths_on_card(b, h, sq, sk):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(sq + sk)
+    q = torch.randn((b, h, sq, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, h, sk, 64), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    _card_forward_pair(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 37, 197])
+def test_fused_attention_short_sequences_take_the_kernel_on_card(s):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(s)
+    q, k, v = (torch.randn((4, 6, s, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    o, _ = _card_forward_pair(q, k, v)
+    before = tattn.LAUNCHES["flash_fwd"]
+    out = tattn.fused_attention(q, k, v, force_kernel=True)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES["flash_fwd"] == before + 1 and torch.equal(out, o)
+
+
+@pytest.mark.cuda
+def test_flash_forward_lengths_at_tile_edges_on_card():
+    """A key length on either side of the first two 64-key tile edges and the
+    full length, at 785 tokens, through the public function too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    lens = [63, 64, 65, 127, 128, 129, 785]
+    gen = torch.Generator(device="cuda").manual_seed(785)
+    q, k, v = (torch.randn((len(lens), 6, 785, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    o, _ = _card_forward_pair(q, k, v, lengths)
+    out = tattn.fused_attention(q, k, v, kv_lengths=lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(out, o)
+
+
+@pytest.mark.cuda
+def test_flash_forward_negative_scale_on_card():
+    """The kernel's other sign: q negated in the product, |scale| in the softmax."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(300)
+    q, k, v = (torch.randn((2, 6, 300, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    _card_forward_pair(q, k, v, scale=-0.125)
+
+
+def test_library_is_keyed_by_its_tree_and_shared_headers(tmp_path, monkeypatch):
+    """The library's name is a hash of the kernel tree: a copy of the tree
+    keys the same library, and a change to a shared header alone gives
+    another (flash_fwd.cu and mha_qkv_fwd.cu both include hopper.cuh)."""
+    from tpuwsi_torch.ops import _build
+
+    want = _build.library_path()
+    tree = tmp_path / "csrc"
+    tree.mkdir()
+    for src in [*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")]:
+        (tree / src.name).write_bytes(src.read_bytes())
+    assert (tree / "hopper.cuh").exists()
+    monkeypatch.setattr(_build, "CSRC", tree)
+    assert _build.library_path() == want
+    (tree / "hopper.cuh").write_text((tree / "hopper.cuh").read_text() + "\n")
+    assert _build.library_path() != want
+    assert _build.library_path().parent == _build.BUILD_DIR

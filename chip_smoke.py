@@ -11,11 +11,14 @@ Phases, each printing its own lines:
      at 37-257 tokens and at every branch edge of the forward kernel from 1
      to 511 tokens, the four tiled flash kernels at 512-1,024 tokens,
      through strided views of a fused qkv and contiguous, and with key
-     lengths; the flash forward pair also at the edges of its tiles: Sq !=
-     Sk both ways, 1, 37 and 197 tokens through fused_attention, key lengths
-     on either side of each tile edge, a negative scale, and the same bits
-     from two launches; the four fused-MLP kernels at the step's and the serving
-     chunk's row counts, at ViT-B width and at 7 rows, both GELU forms; the
+     lengths; both flash pairs also at the edges of their tiles: Sq != Sk
+     both ways, 1, 37 and 197 tokens through fused_attention (with a
+     gradient for the backward pair), lengths on either side of each 64-row
+     stage and of the backward's 128-key and 192-query items, a negative
+     scale, the forward at key lengths on either side of each tile edge, and
+     the same bits from two launches of each; the four fused-MLP kernels at
+     the step's and the serving chunk's row counts, at ViT-B width and at 7
+     rows, both GELU forms; the
      five dense-layer kernels at the qkv and proj layers of the same row
      counts; the two attention sub-block kernels at the step's global and
      local views, a serving chunk, a batch of 8 tiles, one token and the
@@ -146,13 +149,19 @@ FLASH_SHAPES = [
     (8, 6, 512, True),      # the first length that takes the flash family
     (2, 6, 513, False),     # one key into the ninth tile
 ]
+FLASH_NAMES = ("flash_fwd", "flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")
 FLASH_TIMED_FWD = FLASH_SHAPES[:2]
+FLASH_TIMED_BWD = [FLASH_SHAPES[0], FLASH_SHAPES[2]]
 # masked forward, one element per length: (S, kv_lengths); the second puts a
 # length on either side of the first two edges of the forward's 64-key tiles,
 # and one at the full 785
 FLASH_LENGTHS = [(512, [512, 300, 37, 1, 0]), (785, [63, 64, 65, 127, 128, 129, 785])]
 FLASH_UNEQUAL = [(4, 6, 100, 1000), (4, 6, 900, 200)]  # (B, H, Sq, Sk), contiguous
 FLASH_SHORT = [1, 37, 197]  # fused_attention(force_kernel=True) at (4, 6, S, 64)
+# the backward's item and stage edges at (2, 6, S, 64), forward and backward:
+# a 64-row stage (both kernels), the 128 keys of a dK/dV item, the 192 query
+# rows of a dQ item
+FLASH_EDGES = [63, 64, 65, 127, 128, 129, 191, 192, 193]
 # outputs: one bf16 ulp of a value below 4 where a rounding falls the other
 # way (p, dS, o), else fp32 accumulation order; lse is fp32 throughout
 FLASH_MAX_ABS, FLASH_MEAN_ABS, FLASH_LSE_MAX_ABS = 2e-2, 1e-5, 1e-4
@@ -500,18 +509,41 @@ def flash_fwd_pair(case, q, k, v, lengths, scale, out=None, worse=None):
     return o, lse
 
 
+def flash_bwd_pair(case, q, k, v, do, o, lse, scale, grads=None, worse=None):
+    """K4b and K4b' against ``_flash_bwd_reference`` on the same inputs (lse
+    and delta from the forward kernel's own o and lse): dq, dk, dv under the
+    FLASH bounds, and the same bits from a second launch; → (dq, dk, dv) of
+    the second launch (the views ``grads`` where given)."""
+    delta = attention._flash_delta(o, do)
+    want = attention._flash_bwd_reference(q, k, v, do, lse, delta, scale)
+    first = [x.clone() for x in attention._launch_flash_bwd(q, k, v, do, lse, delta, scale, grads)]
+    torch.cuda.synchronize()
+    err_dq = check_flash("flash_bwd_dq", case, first[0], want[0])
+    err_dkv = max(check_flash("flash_bwd_dkv dk", case, first[1], want[1]),
+                  check_flash("flash_bwd_dkv dv", case, first[2], want[2]))
+    del want
+    again = attention._launch_flash_bwd(q, k, v, do, lse, delta, scale, grads)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise RuntimeError(f"two launches of flash_bwd_dq / flash_bwd_dkv differ at {case}")
+    if worse is not None:
+        worse("flash_bwd_dq", err_dq)
+        worse("flash_bwd_dkv", err_dkv)
+    return again
+
+
 def phase_flash_kernels(smi: str) -> dict:
     """K4a, K4a', K4b, K4b' against their plain versions. The backward
     kernels and their plain version get the same lse and delta, those of the
-    forward kernel's own output. The forward pair is also held at the edges
-    of its tiles: Sq != Sk both ways, short sequences through
-    fused_attention(force_kernel=True), key lengths on either side of a tile
-    edge; every forward case launches K4a' twice and must repeat its bits."""
+    forward kernel's own output. Both pairs are also held at the edges of
+    their tiles: Sq != Sk both ways, a negative scale, short sequences through
+    fused_attention(force_kernel=True) with a gradient, lengths on either side
+    of each stage and item edge; the forward also at key lengths on either
+    side of a tile edge. Every case launches each kernel twice and must
+    repeat its bits."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    names = ("flash_fwd", "flash_fwd_stats", "flash_bwd_dq", "flash_bwd_dkv")
-    res = {name: {"max_abs_err": 0.0} for name in names}
-    for name in names[:2]:
-        res[name]["timed"] = []
+    names = FLASH_NAMES
+    res = {name: {"max_abs_err": 0.0, "timed": []} for name in names}
 
     def worse(name, err):
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
@@ -526,15 +558,10 @@ def phase_flash_kernels(smi: str) -> dict:
         case = f"B={b} H={h} S={s} {'strided qkv views' if strided else 'contiguous'}"
         q, k, v, do, out, grads = flash_operands(gen, b, h, s, strided)
         o, lse = flash_fwd_pair(case, q, k, v, None, scale, out, worse)
+        dq, dk, dv = flash_bwd_pair(case, q, k, v, do, o, lse, scale, grads, worse)
         delta = attention._flash_delta(o, do)
-        dq, dk, dv = attention._launch_flash_bwd(q, k, v, do, lse, delta, scale, grads)
-        torch.cuda.synchronize()
-        dq_p, dk_p, dv_p = attention._flash_bwd_reference(q, k, v, do, lse, delta, scale)
-        worse("flash_bwd_dq", check_flash("flash_bwd_dq", case, dq, dq_p))
-        worse("flash_bwd_dkv", max(check_flash("flash_bwd_dkv dk", case, dk, dk_p),
-                                   check_flash("flash_bwd_dkv dv", case, dv, dv_p)))
-        del dq_p, dk_p, dv_p
-        timed = names if shape == FLASH_SHAPES[0] else names[:2] if shape in FLASH_TIMED_FWD else ()
+        timed = ((names[:2] if shape in FLASH_TIMED_FWD else ())
+                 + (names[2:] if shape in FLASH_TIMED_BWD else ()))
         if timed:
             ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
             lib_out = sdpa(ql, kl, vl)
@@ -571,8 +598,7 @@ def phase_flash_kernels(smi: str) -> dict:
                 r = {**timed_ab(*fns[name]), **flash_bound(name, b, h, s, s)}
                 if shape == FLASH_SHAPES[0]:
                     res[name].update(r)  # the line's own numbers: the step's shape
-                if name in names[:2]:
-                    res[name]["timed"].append({"shape": [b, h, s, s], **r})
+                res[name]["timed"].append({"shape": [b, h, s, s], **r})
                 lib = ("SDPA" if name.startswith("flash_fwd")
                        else "SDPA backward, which computes dq, dk and dv")
                 print(f"[{name}] {case}, medians of 20 in the order kernel, library, library, "
@@ -584,27 +610,47 @@ def phase_flash_kernels(smi: str) -> dict:
             del lib_out, ql, kl, vl, fns
         del q, k, v, do, out, grads, o, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
-    print("[flash_fwd] two launches on the same inputs gave the same bits of o and lse "
-          "at every shape")
 
-    # Sq != Sk both ways, contiguous; a negative scale (the kernel's other sign)
+    # Sq != Sk both ways, contiguous; a negative scale (the forward's other sign)
     for b, h, sq, sk in FLASH_UNEQUAL:
-        q, k, v = randn((b, h, sq, 64)), randn((b, h, sk, 64)), randn((b, h, sk, 64))
-        flash_fwd_pair(f"B={b} H={h} Sq={sq} Sk={sk} contiguous", q, k, v, None,
-                       0.125, worse=worse)
-    q, k, v = (randn((2, 6, 300, 64)) for _ in range(3))
-    flash_fwd_pair("B=2 H=6 S=300 contiguous, scale -0.125", q, k, v, None, -0.125, worse=worse)
+        q, do, k, v = randn((b, h, sq, 64)), randn((b, h, sq, 64)), randn((b, h, sk, 64)), \
+            randn((b, h, sk, 64))
+        case = f"B={b} H={h} Sq={sq} Sk={sk} contiguous"
+        o, lse = flash_fwd_pair(case, q, k, v, None, 0.125, worse=worse)
+        flash_bwd_pair(case, q, k, v, do, o, lse, 0.125, worse=worse)
+    q, k, v, do = (randn((2, 6, 300, 64)) for _ in range(4))
+    case = "B=2 H=6 S=300 contiguous, scale -0.125"
+    o, lse = flash_fwd_pair(case, q, k, v, None, -0.125, worse=worse)
+    flash_bwd_pair(case, q, k, v, do, o, lse, -0.125, worse=worse)
 
-    # short sequences through the public function, which takes K4a without a gradient
+    # the backward's stage and item edges
+    for s in FLASH_EDGES:
+        q, k, v, do = (randn((2, 6, s, 64)) for _ in range(4))
+        case = f"B=2 H=6 S={s} contiguous"
+        o, lse = flash_fwd_pair(case, q, k, v, None, 0.125, worse=worse)
+        flash_bwd_pair(case, q, k, v, do, o, lse, 0.125, worse=worse)
+
+    # short sequences through the public function: K4a without a gradient,
+    # K4a', K4b and K4b' with one, the same bits as the direct launches
     for s in FLASH_SHORT:
-        q, k, v = (randn((4, 6, s, 64)) for _ in range(3))
+        q, k, v, do = (randn((4, 6, s, 64)) for _ in range(4))
         case = f"B=4 H=6 S={s} through fused_attention(force_kernel=True)"
-        o, _ = flash_fwd_pair(case, q, k, v, None, 0.125, worse=worse)
-        before = attention.LAUNCHES["flash_fwd"]
+        o, lse = flash_fwd_pair(case, q, k, v, None, 0.125, worse=worse)
+        grads = flash_bwd_pair(case, q, k, v, do, o, lse, 0.125, worse=worse)
+        before = dict(attention.LAUNCHES)
         via_api = attention.fused_attention(q, k, v, force_kernel=True)
+        xs = [x.detach().requires_grad_() for x in (q, k, v)]
+        with_grad = attention.fused_attention(*xs, scale=0.125, force_kernel=True)
+        with_grad.backward(do)
         torch.cuda.synchronize()
-        if attention.LAUNCHES["flash_fwd"] != before + 1 or not torch.equal(via_api, o):
-            raise RuntimeError(f"fused_attention(force_kernel=True) did not take K4a at {case}")
+        want = {name: before[name] + 1 for name in names}
+        if ({name: attention.LAUNCHES[name] for name in names} != want
+                or not torch.equal(via_api, o) or not torch.equal(with_grad, o)
+                or not all(torch.equal(x.grad, g) for x, g in zip(xs, grads))):
+            raise RuntimeError(f"fused_attention(force_kernel=True) did not take the flash "
+                               f"kernels at {case}")
+    print("[flash_fwd] [flash_bwd] two launches on the same inputs gave the same bits of o, "
+          "lse, dq, dk and dv in every case")
 
     # the masked forward: keys at or past an element's length count for nothing
     for s, lens in FLASH_LENGTHS:

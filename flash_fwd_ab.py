@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""A/B of the tiled attention forward (K4a, K4a') against another kernel tree, on one card.
+"""A/B of the flash kernels (K4a, K4a', K4b, K4b') against another kernel tree, on one card.
 
-    python3 flash_fwd_ab.py [check] [ab] [e2e] [ablate 'NAME:FIND=>REPLACE;...' ...]
-        [--old DIR]
+    python3 flash_fwd_ab.py [check] [ab] [bwd] [e2e] [ablate 'NAME:FIND=>REPLACE;...' ...]
+        [cutout] [--old DIR]
 
 ``DIR`` (default ``build/ab/csrc_v1``) holds another copy of
 ``tpuwsi_torch/ops/csrc`` (for instance the parent commit's, unpacked with
@@ -10,22 +10,33 @@
 their sources' hash, and the script switches between them in one process.
 Modes, in the order given:
 
-- ``check``: build this tree, print ptxas' lines for the flash forward, and
+- ``check``: build this tree, print ptxas' lines for the flash kernels, and
   run ``chip_smoke.phase_flash_kernels`` (every flash case and its timing);
 - ``ab``: K4a and K4a' at the 448-px step's shape (192, 6, 785) and a 448-px
   serving chunk's (128, 6, 785), q, k, v as strided views of a fused qkv, in
   the order new, old, old, new: medians of 20 single calls and medians of 5
   runs of 50 launches back to back (CUDA events), SDPA on the same inputs,
   the bound from ``chip_smoke.flash_bound``;
+- ``bwd``: K4b and K4b' (each C function alone) and the pair through
+  ``_launch_flash_bwd`` at (192, 6, 785) with q, k, v, dO, dq, dk, dv as
+  strided views and at (4, 6, 1024) contiguous, in the order new, old, old,
+  new, timed as ``ab`` times the forward, beside SDPA's autograd backward on
+  the same inputs and the bound; the new kernels must give the same bits in
+  both of their arms;
 - ``e2e``: the DINO step with ``--dino-global-size 448`` (one bundle, 2
   warm-up steps, then 1 + 6 steps a library, medians of the 6) and serving at
   448 px (``extract_features`` over 8 chunks of 128 tiles), each in the order
   new, old, old, new, with the launch counts checked;
-- ``ablate``: variants of this tree's flash_fwd.cu, each a copy under
+- ``ablate``: variants of this tree's flash_fwd.cu or flash_bwd.cu (the one
+  that holds a variant's first FIND), each a copy under
   ``build/ab/var_NAME/`` with the given text replacements (for instance
-  ``'st10:kStages = 8=>kStages = 10'``), checked against the plain forward and
-  timed beside the tree's own kernel at the step's shape in the order
-  base, v1 .. vn, vn .. v1, base.
+  ``'st10:kStages = 8=>kStages = 10'``), checked against the plain version and
+  timed beside the tree's own kernels at the step's shape in the order
+  base, v1 .. vn, vn .. v1, base: the forward pair for flash_fwd.cu, K4b and
+  K4b' for flash_bwd.cu;
+- ``cutout``: K4b and K4b' timed the same way beside copies of flash_bwd.cu
+  with one part of their stage loops cut out (``CUTOUTS``): where their time
+  goes. The copies' outputs are wrong by design and are not checked.
 
 Every line names the card's name and power limit; the last line is a JSON
 summary.
@@ -52,6 +63,9 @@ from tpuwsi_torch.ops import _build, attention
 ROOT = Path(__file__).resolve().parent
 NEW = _build.CSRC
 AB_SHAPES = [(192, 6, 785), (128, 6, 785)]
+BWD_SHAPES = [(192, 6, 785, True), (4, 6, 1024, False)]  # (B, H, S, strided)
+ABLATE_SOURCES = {"flash_fwd.cu": ("flash_fwd", "flash_fwd_stats"),
+                  "flash_bwd.cu": ("flash_bwd_dq", "flash_bwd_dkv")}
 SERVE_CHUNKS, STEP_TIMED = 8, 6
 
 
@@ -94,7 +108,7 @@ def back_to_back_ms(fn, launches: int = 50, runs: int = 5) -> float:
 
 def mode_check(smi: str) -> dict:
     lib = use(NEW)
-    for line in ptxas_lines(lib, "flash_fwd"):
+    for line in ptxas_lines(lib, "flash_"):
         print(f"[check] ptxas: {line}")
     return cs.phase_flash_kernels(smi)
 
@@ -139,56 +153,200 @@ def mode_ab(smi: str, old: Path) -> dict:
     return out
 
 
-def variant_tree(name: str, edits: list[str]) -> Path:
-    """A copy of this tree under build/ab/ whose flash_fwd.cu has each
-    ``FIND=>REPLACE`` of ``edits`` applied (each FIND must occur)."""
+def bwd_setup(gen, b, h, s, strided, scale=0.125):
+    """Operands of the backward at (b, h, s) with lse from this tree's forward
+    kernel → (q, k, v, do, lse, delta, grads, {name: fn}): each C function
+    alone and the pair through the wrapper, writing into ``grads``."""
+    q, k, v, do, o_view, grads = cs.flash_operands(gen, b, h, s, strided)
+    o, lse = attention._launch_flash_fwd(q, k, v, None, scale, True, o_view)
+    delta = attention._flash_delta(o, do)
+    if grads is None:
+        grads = tuple(torch.empty_like(x) for x in (q, k, v))
+    dq, dk, dv = grads
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr())
+    dims = (b, h, s, s)
+    dq_args = (*ptrs, dq.data_ptr(), *dims, attention._strides(q, k, do, dq), scale)
+    dkv_args = (*ptrs, dk.data_ptr(), dv.data_ptr(), *dims, attention._strides(q, k, do, dk),
+                scale)
+    fns = {"flash_bwd_dq": lambda: attention._call("flash_bwd_dq", q, dq_args),
+           "flash_bwd_dkv": lambda: attention._call("flash_bwd_dkv", q, dkv_args),
+           "pair": lambda: attention._launch_flash_bwd(q, k, v, do, lse, delta, scale, grads)}
+    return q, k, v, do, lse, delta, grads, fns
+
+
+def mode_bwd(smi: str, old: Path) -> dict:
+    arms = [("new", NEW), ("old", old), ("old", old), ("new", NEW)]
+    for _, csrc in arms[:2]:
+        use(csrc)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 10)
+    out = {}
+    for b, h, s, strided in BWD_SHAPES:
+        use(NEW)
+        q, k, v, do, lse, delta, grads, fns = bwd_setup(gen, b, h, s, strided)
+        rows = {name: {"single_ms": [], "b2b_ms": [], "arms": [a for a, _ in arms]}
+                for name in fns}
+        ref = None
+        for arm, csrc in arms:
+            use(csrc)
+            got = [x.clone() for x in fns["pair"]()]
+            if arm == "new":
+                if ref is None:
+                    ref = got
+                elif not all(torch.equal(a, r) for a, r in zip(got, ref)):
+                    raise RuntimeError(f"the new backward's bits changed between arms at {s}")
+            for name, fn in fns.items():
+                rows[name]["single_ms"].append(cs.cuda_median_ms(fn))
+                rows[name]["b2b_ms"].append(back_to_back_ms(fn))
+        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
+
+        lib = [cs.cuda_median_ms(lib_bwd) for _ in range(2)]
+        lib_b2b = back_to_back_ms(lib_bwd)
+        bounds = {name: cs.flash_bound(name, b, h, s, s) for name in ("flash_bwd_dq",
+                                                                        "flash_bwd_dkv")}
+        bounds["pair"] = {"bound_ms": sum(x["bound_ms"] for x in bounds.values()),
+                          "bound_by": "operations"}
+        layout = "strided views" if strided else "contiguous"
+        for name, row in rows.items():
+            row.update(sdpa_bwd_ms=lib, sdpa_bwd_b2b_ms=lib_b2b, **bounds[name])
+            out[f"{name} {b}x{h}x{s}"] = row
+            print(f"[bwd] {name} B={b} H={h} S={s} {layout}, order {row['arms']}: single "
+                  f"calls (medians of 20) {row['single_ms']} ms; 50 back to back (medians of "
+                  f"5, per launch) {row['b2b_ms']} ms; SDPA's whole backward {lib} / "
+                  f"{lib_b2b:.4f} back to back; bound {row['bound_ms']:.4f} ms by "
+                  f"{row['bound_by']}; on {smi}")
+        del q, k, v, do, lse, delta, grads, fns, ql, kl, vl, lib_out, ref
+        torch.cuda.empty_cache()
+    use(NEW)
+    return out
+
+
+def variant_tree(name: str, edits: list[str]) -> tuple[Path, str]:
+    """A copy of this tree under build/ab/ with each ``FIND=>REPLACE`` of
+    ``edits`` applied to the one of ``ABLATE_SOURCES`` that holds the first
+    FIND (each FIND must occur there) → (the tree, that source's name)."""
     dst = ROOT / "build" / "ab" / f"var_{name}"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(NEW, dst)
-    src = dst / "flash_fwd.cu"
+    first = edits[0].partition("=>")[0]
+    hits = [s for s in ABLATE_SOURCES if first in (dst / s).read_text()]
+    if len(hits) != 1:
+        raise SystemExit(f"ablate {name}: {first!r} is in {hits or 'none'} of "
+                         f"{list(ABLATE_SOURCES)}")
+    src = dst / hits[0]
     text = src.read_text()
     for edit in edits:
         find, _, repl = edit.partition("=>")
         if find not in text:
-            raise SystemExit(f"ablate {name}: {find!r} is not in flash_fwd.cu")
+            raise SystemExit(f"ablate {name}: {find!r} is not in {hits[0]}")
         text = text.replace(find, repl)
     src.write_text(text)
-    return dst
+    return dst, hits[0]
 
 
 def mode_ablate(smi: str, specs: list[str]) -> dict:
-    """``NAME:FIND=>REPLACE;...`` variants of flash_fwd.cu, then K4a and K4a'
-    at the step's shape in the order base, v1 .. vn, vn .. v1, base."""
-    trees = {"base": NEW}
+    """``NAME:FIND=>REPLACE;...`` variants of flash_fwd.cu or flash_bwd.cu, then
+    the kernels of each edited source at the step's shape in the order base,
+    v1 .. vn, vn .. v1, base, each variant held against the plain version."""
+    trees, sources = {"base": NEW}, set()
     for spec in specs:
         name, _, edits = spec.partition(":")
-        trees[name] = variant_tree(name, [e for e in edits.split(";") if e])
+        trees[name], source = variant_tree(name, [e for e in edits.split(";") if e])
+        sources.add(source)
+    return time_variants(smi, "ablate", trees, sources, check=True)
+
+
+# Copies of flash_bwd.cu with one part of both kernels' stage loops cut out, to
+# see where their time goes without a profiler that sees inside a kernel:
+# their outputs are wrong by design, so ``cutout`` times them unchecked.
+_ROWS = """      float p = exp2_approx(fmaf(s[4 * i + e], scale_log2, row_b ? r.nl_b : r.nl_a));
+      if (kMask && key0 + 8 * i + 2 * t4 + (e & 1) >= sk) p = 0.f;
+      s[4 * i + e] = p * (dp[4 * i + e] - (row_b ? r.dl_b : r.dl_a)) * scale;"""
+_COL_STATS = """    const float2 l = *reinterpret_cast<const float2*>(stats + 8 * i + 2 * t4);
+    const float2 dl = *reinterpret_cast<const float2*>(stats + kTile + 8 * i + 2 * t4);
+    const float nl0 = -l.x * kLog2e, nl1 = -l.y * kLog2e;"""
+_COLS = """      const float p = exp2_approx(fmaf(s[4 * i + e], scale_log2, odd ? nl1 : nl0));
+      s[4 * i + e] = p;
+      dp[4 * i + e] = p * (dp[4 * i + e] - (odd ? dl.y : dl.x)) * scale;"""
+_KEEP = "      s[4 * i + e] += dp[4 * i + e];"  # keeps both products' results in use
+CUTOUTS = {
+    "no_elementwise": [(_ROWS, _KEEP), (_COL_STATS, ""), (_COLS, _KEEP)],
+    "no_exp": [("exp2_approx(fmaf(s[4 * i + e], scale_log2, row_b ? r.nl_b : r.nl_a))",
+                "fmaf(s[4 * i + e], scale_log2, row_b ? r.nl_b : r.nl_a)"),
+               ("exp2_approx(fmaf(s[4 * i + e], scale_log2, odd ? nl1 : nl0))",
+                "fmaf(s[4 * i + e], scale_log2, odd ? nl1 : nl0)")],
+    "no_s_dp": [("      wgmma_nt_k64(s, dq_, dk);\n      wgmma_nt_k64(dp, dd, dv);\n"
+                 "      wgmma_commit();\n      wgmma_rn_k64(acc", "      wgmma_commit();\n"
+                 "      wgmma_rn_k64(acc"),
+                ("      wgmma_nt_k64(s, dk_, dq_);\n      wgmma_nt_k64(dp, dv_, dd);\n"
+                 "      wgmma_commit();\n      wgmma_rn_k64(dv", "      wgmma_commit();\n"
+                 "      wgmma_rn_k64(dv")],
+    "no_accumulate": [("      wgmma_rn_k64(acc, ds, dk_prev);\n", ""),
+                      ("      wgmma_rn_k64(dv, pt, dd_prev);\n"
+                       "      wgmma_rn_k64(dk, dst, dq_prev);\n", "")],
+}
+
+
+def mode_cutout(smi: str) -> dict:
+    """K4b and K4b' with one part of their stage loops cut out (``CUTOUTS``:
+    the elementwise work, the exponentials, S and dP, the accumulating
+    products; in the steps after the first stage) beside the whole kernels at
+    the step's shape, order base, v1 .. vn, vn .. v1, base; unchecked."""
+    trees = {"base": NEW}
+    for name, edits in CUTOUTS.items():
+        trees[name], _ = variant_tree(name, [f"{find}=>{repl}" for find, repl in edits])
+    return time_variants(smi, "cutout", trees, {"flash_bwd.cu"}, check=False)
+
+
+def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) -> dict:
+    """Build each tree, then time the kernels of ``sources`` of each at the
+    step's shape in the order base, v1 .. vn, vn .. v1, base; with ``check``,
+    each variant's outputs must agree with the plain version."""
+    kernels = [k for s in ABLATE_SOURCES if s in sources for k in ABLATE_SOURCES[s]]
     for name, tree in trees.items():
         t0 = time.perf_counter()
         lib = use(tree)
-        print(f"[ablate] {name}: built in {time.perf_counter() - t0:.1f} s")
-        for line in ptxas_lines(lib, "flash_fwd"):
+        print(f"[{tag}] {name}: built in {time.perf_counter() - t0:.1f} s")
+        for line in ptxas_lines(lib, "flash_"):
             if "registers" in line or "spill" in line or "Performance Loss" in line:
-                print(f"[ablate] {name} ptxas: {line}")
+                print(f"[{tag}] {name} ptxas: {line}")
+    use(NEW)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 9)
     b, h, s = AB_SHAPES[0]
-    q, k, v, _, o_view, _ = cs.flash_operands(gen, b, h, s, True)
-    want = attention._flash_reference(q, k, v, None, 0.125)
+    q, k, v, do, lse, delta, grads, bwd = bwd_setup(gen, b, h, s, True)
+    o_view = attention._heads(torch.empty((b, s, h * 64), dtype=q.dtype, device="cuda"), h, 1)[0]
+    fns = {"flash_fwd": lambda: attention._launch_flash_fwd(q, k, v, None, 0.125, False, o_view),
+           "flash_fwd_stats": lambda: attention._launch_flash_fwd(q, k, v, None, 0.125, True,
+                                                                  o_view),
+           "flash_bwd_dq": bwd["flash_bwd_dq"], "flash_bwd_dkv": bwd["flash_bwd_dkv"]}
+    case = f"B={b} H={h} S={s}"
+    if check:
+        want_o = attention._flash_reference(q, k, v, None, 0.125)[0]
+        want_grads = attention._flash_bwd_reference(q, k, v, do, lse, delta, 0.125)
     order = [*trees, *reversed(trees)]
-    res = {name: {"flash_fwd": [], "flash_fwd_stats": []} for name in trees}
+    res = {name: {kname: [] for kname in kernels} for name in trees}
     for name in order:
         use(trees[name])
-        for stats in (False, True):
-            kname = "flash_fwd_stats" if stats else "flash_fwd"
-            fn = lambda: attention._launch_flash_fwd(q, k, v, None, 0.125, stats, o_view)  # noqa: E731
-            o, lse = fn()
+        if check and "flash_fwd.cu" in sources:
+            for kname in ABLATE_SOURCES["flash_fwd.cu"]:
+                o = fns[kname]()[0]
+                torch.cuda.synchronize()
+                cs.check_flash(f"{kname} {name}", case, o, want_o)
+        if check and "flash_bwd.cu" in sources:
+            got = bwd["pair"]()
             torch.cuda.synchronize()
-            cs.check_flash(f"{kname} {name}", f"B={b} H={h} S={s}", o, want[0])
-            res[name][kname].append((cs.cuda_median_ms(fn), back_to_back_ms(fn)))
+            for gname, g, w in zip(("dq", "dk", "dv"), got, want_grads):
+                cs.check_flash(f"flash_bwd {gname} {name}", case, g, w)
+        for kname in kernels:
+            res[name][kname].append((cs.cuda_median_ms(fns[kname]), back_to_back_ms(fns[kname])))
     for name, r in res.items():
-        print(f"[ablate] {name}: (single, back to back) ms, order {order}: flash_fwd "
-              f"{r['flash_fwd']}, flash_fwd_stats {r['flash_fwd_stats']}; B={b} H={h} S={s} "
-              f"strided; on {smi}")
+        print(f"[{tag}] {name}: (single, back to back) ms, order {order}: "
+              + ", ".join(f"{kname} {r[kname]}" for kname in kernels)
+              + f"; {case} strided; on {smi}")
     use(NEW)
     return res
 
@@ -207,7 +365,7 @@ def mode_e2e(smi: str, old: Path) -> dict:
         use(csrc)
         rows = cs.run_steps(bundle, batch, 1 + STEP_TIMED)
         for r in rows:
-            if r["launches"]["flash_fwd"] != depth or r["launches"]["flash_fwd_stats"] != depth:
+            if any(r["launches"][name] != depth for name in cs.FLASH_NAMES):
                 raise RuntimeError(f"448-px step ({arm}): launches {r['launches']}")
             if not np.isfinite(r["loss"]):
                 raise RuntimeError(f"448-px step ({arm}): the loss is not finite")
@@ -259,12 +417,16 @@ def main() -> None:
             summary["check"] = mode_check(smi)
         elif mode == "ab":
             summary["ab"] = mode_ab(smi, old)
+        elif mode == "bwd":
+            summary["bwd"] = mode_bwd(smi, old)
         elif mode == "e2e":
             summary["e2e"] = mode_e2e(smi, old)
         elif mode == "ablate":
             summary["ablate"] = mode_ablate(smi, variants)
+        elif mode == "cutout":
+            summary["cutout"] = mode_cutout(smi)
         else:
-            raise SystemExit(f"unknown mode {mode!r}: check, ab, e2e, ablate")
+            raise SystemExit(f"unknown mode {mode!r}: check, ab, bwd, e2e, ablate, cutout")
     print(f"[ab] done in {time.perf_counter() - t0:.1f} s; on {smi}")
     print(json.dumps(summary))
 

@@ -110,6 +110,26 @@ def test_flash_bwd_reference_matches_pallas_backward():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=f"d{name}", **GRAD_TOL)
 
 
+def test_flash_bwd_reference_matches_pallas_backward_at_unequal_lengths():
+    """Sq != Sk: the two backward kernels' plain version against the Pallas
+    pair in interpret mode, fed the JAX forward's output and lse."""
+    sq, sk = 40, 100
+    rng = np.random.default_rng(4100)
+    q, g = (rng.standard_normal((1, 2, sq, 32), dtype=np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((1, 2, sk, 32), dtype=np.float32) for _ in range(2))
+    scale = 32 ** -0.5
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    o, lse = jattn._flash_forward(jq, jk, jv, None, scale, TILE, TILE, True, return_stats=True)
+    ref = jattn._flash_backward(jq, jk, jv, o, jg, lse, scale, TILE, TILE, True)
+    tlse = torch.from_numpy(np.asarray(lse).reshape(1, 2, -1)[..., :sq].copy())
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    delta = tattn._flash_delta(torch.from_numpy(np.array(o)), tg)
+    got = tattn._flash_bwd_reference(tq, tk, tv, tg, tlse, delta, scale)
+    assert [x.shape for x in got] == [(1, 2, sq, 32), (1, 2, sk, 32), (1, 2, sk, 32)]
+    for a, b, name in zip(got, ref, "qkv"):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=f"d{name}", **GRAD_TOL)
+
+
 def test_flash_pair_in_bf16_rounds_where_the_pallas_kernels_do():
     s = 130
     q, k, v, g = _qkv(17, 2, 2, s, 32, n=4)
@@ -320,6 +340,30 @@ def _card_forward_pair(q, k, v, lengths=None, scale=0.125):
     return o, lse
 
 
+def _card_backward_pair(q, k, v, do, o, lse, scale=0.125):
+    """K4b and K4b' on the card against the plain backward, fed the forward
+    kernel's o and lse: two launches give the same bits of dq, dk and dv."""
+    delta = tattn._flash_delta(o, do)
+    want = tattn._flash_bwd_reference(q, k, v, do, lse, delta, scale)
+    got = tattn._launch_flash_bwd(q, k, v, do, lse, delta, scale)
+    again = tattn._launch_flash_bwd(q, k, v, do, lse, delta, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for x, w in zip(got, want):
+        assert torch.isfinite(x.float()).all()
+        diff = (x.float() - w.float()).abs()
+        assert diff.max().item() <= CARD_MAX_ABS and diff.mean().item() <= CARD_MEAN_ABS
+
+
+def _card_operands(seed, b, h, sq, sk):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn((b, h, sq, 64), generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((b, h, sk, 64), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    return q, k, v, do
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,sq,sk", [(4, 6, 100, 1000), (4, 6, 900, 200)])
 def test_flash_forward_unequal_lengths_on_card(b, h, sq, sk):
@@ -330,6 +374,35 @@ def test_flash_forward_unequal_lengths_on_card(b, h, sq, sk):
     k, v = (torch.randn((b, h, sk, 64), generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(2))
     _card_forward_pair(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,sk", [(4, 6, 100, 1000), (4, 6, 900, 200)])
+def test_flash_backward_unequal_lengths_on_card(b, h, sq, sk):
+    """Sq != Sk both ways: dQ's key tiles and dK/dV's query stages end apart."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    q, k, v, do = _card_operands(sq + sk + 1, b, h, sq, sk)
+    _card_backward_pair(q, k, v, do, *_card_forward_pair(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 191, 192, 193, 785])
+def test_flash_backward_same_bits_at_item_edges_on_card(s):
+    """Lengths on either side of a 64-row stage, a 128-key dK/dV item and a
+    192-row dQ item: right, and the same bits from two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    q, k, v, do = _card_operands(s, 2, 6, s, s)
+    _card_backward_pair(q, k, v, do, *_card_forward_pair(q, k, v))
+
+
+@pytest.mark.cuda
+def test_flash_backward_negative_scale_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    q, k, v, do = _card_operands(301, 2, 6, 300, 300)
+    _card_backward_pair(q, k, v, do, *_card_forward_pair(q, k, v, scale=-0.125), scale=-0.125)
 
 
 @pytest.mark.cuda

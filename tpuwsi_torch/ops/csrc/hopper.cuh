@@ -1,7 +1,8 @@
 // Hopper building blocks that more than one kernel source uses
-// (mha_qkv_fwd.cu, flash_fwd.cu): mbarriers, TMA loads through tensor maps
-// and their encoding on the host, named barriers, wgmma descriptors for
-// 128-byte swizzled tiles, and the wgmma shapes the attention kernels share.
+// (mha_qkv_fwd.cu, flash_fwd.cu, flash_bwd.cu): mbarriers, TMA loads through
+// tensor maps and their encoding on the host, named barriers, wgmma
+// descriptors for 128-byte swizzled tiles, and the wgmma shapes the attention
+// kernels share.
 // Every function is inline; sm_90a only (wgmma).
 
 #pragma once
@@ -145,6 +146,17 @@ __device__ __forceinline__ void wgmma_wait() {
 // register, between an asynchronous wgmma and its wait.
 __device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 __device__ __forceinline__ void reg_fence(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) reg_fence(r[i]);
+}
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) reg_fence(r[c][e]);
+}
 
 // D(64 x 64) (+)= A(64 x 16) . B(16 x 64), A and B both from shared memory,
 // K-major (m64n64k16); kScaleA = -1 negates A in the product.
@@ -193,6 +205,43 @@ __device__ __forceinline__ void wgmma_n64_mn(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
+// Fragment ownership (wgmma m64nN, PTX ISA): warp w of a warpgroup holds rows
+// 16w..16w+15; lane = 4*g + t holds rows 16w+g and 16w+g+8, and of each
+// 8-column group of an accumulator, columns 2t and 2t+1 (regs 4i, 4i+1 for row
+// g; 4i+2, 4i+3 for row g+8). The register A operand of m64nNk16 has the
+// layout of mma.m16n8k16's, so 16 columns of an accumulator rounded to bf16
+// pairs are the A fragment of one k16 step of a following product.
+//
+// The 64 columns of this thread's accumulator rows as bf16 pairs: the A
+// fragments of four k16 steps.
+__device__ __forceinline__ void pack_a(const float (&x)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    a[c][0] = pack_bf16(x[8 * c], x[8 * c + 1]);
+    a[c][1] = pack_bf16(x[8 * c + 2], x[8 * c + 3]);
+    a[c][2] = pack_bf16(x[8 * c + 4], x[8 * c + 5]);
+    a[c][3] = pack_bf16(x[8 * c + 6], x[8 * c + 7]);
+  }
+}
+
+// D(64 x 64) = A . B^T over 64 columns: A and B are 64-row tiles of 128-byte
+// rows in shared memory (K-major); four k16 steps, 32 bytes (2 descriptor
+// units) apart, the first overwriting D (a constant flag: a flag computed at
+// run time makes ptxas serialise the wgmma, C7513).
+__device__ __forceinline__ void wgmma_nt_k64(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss_n64(d, desc_a + 2 * kk, desc_b + 2 * kk, kk);
+}
+
+// D(64 x 64) += A . B over 64 rows of B: A the four k16 fragments in
+// registers (pack_a), B a 64-row tile of 128-byte rows read MN-major, 16 rows
+// (2,048 bytes, 128 descriptor units) a step.
+__device__ __forceinline__ void wgmma_rn_k64(float (&d)[32], const uint32_t (&a)[4][4],
+                                            uint64_t desc_b) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) wgmma_n64_mn(d, a[c], desc_b + 128 * c, 1);
+}
+
 // cuTensorMapEncodeTiled, handed out by the runtime (cudaGetDriverEntryPoint),
 // so the library links no libcuda; null if the installed CUDA has none.
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -211,6 +260,25 @@ inline EncodeTiledFn encode_tiled() {
       fn = reinterpret_cast<EncodeTiledFn>(ptr);
   }
   return fn;
+}
+
+// A 4-D map (64 columns, rows, heads, batch) over bf16 rows of 64 contiguous
+// values at the given element strides {batch, head, row}; boxes of 64 columns
+// x box_rows rows, 128-byte swizzled. Rows past `rows` arrive as zeros, never
+// as the next head's.
+inline bool encode_rows_4d(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, int rows,
+                           int heads, int batch, const long long* strides, int box_rows) {
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(strides[2]) * 2,
+                               static_cast<cuuint64_t>(strides[1]) * 2,
+                               static_cast<cuuint64_t>(strides[0]) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, bytes,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -131,12 +131,25 @@ K2_TIMED = {(500, 257), (192, 197)}
 # the DINO step at 96 tiles: 2 global views of 197 tokens, 6 local of 37
 TRAIN_SHAPES = [
     (192, 197, 384, 6, 0),   # student and teacher, global views (timed)
-    (576, 37, 384, 6, 0),    # student, local views as the step launches them (K1a timed)
+    (576, 37, 384, 6, 0),    # student, local views as the step launches them (timed)
     (192, 111, 384, 6, 37),  # the same sequences packed three to a row
     (32, 197, 768, 12, 0),   # ViT-B/16
     *FWD_EDGES,
 ]
-K1A_TIMED = {(192, 197), (576, 37)}
+# The backward kernels' branch edges (mha_qkv_bwd.cu): one token, one k16
+# step, the local views, the last length with three item slots a warpgroup
+# (48) and the first with two, one and two 64-row tiles, the last length where
+# each warpgroup runs its own items (128) and the first where both share one,
+# the fourth tile, the last resident length (208: kResidentMax) and the first
+# streamed one, the forward's 272/273, the longest sequence, a block mask in
+# the streamed and in the resident form. (B, N, D, H, block_len)
+BWD_EDGES = [
+    (7, 1, 384, 6, 0), (5, 16, 384, 6, 0), (4, 37, 384, 6, 0), (4, 48, 384, 6, 0),
+    (4, 49, 384, 6, 0), (4, 64, 384, 6, 0), (4, 65, 384, 6, 0), (3, 128, 384, 6, 0),
+    (3, 129, 384, 6, 0), (3, 192, 384, 6, 0), (3, 193, 384, 6, 0), (3, 208, 384, 6, 0),
+    (3, 209, 384, 6, 0), (3, 272, 384, 6, 0), (3, 273, 384, 6, 0), (2, 511, 384, 6, 0),
+    (2, 400, 384, 6, 37), (4, 111, 384, 6, 37),
+]
 # bf16 rounding of q*scale, of p and of dS, fp32 accumulation
 K_MAX_ABS, K_MEAN_ABS = 2e-2, 2e-3
 
@@ -329,6 +342,22 @@ def check_close(name, shape, got, want):
     return mx
 
 
+def back_to_back_ms(fn, launches: int = 50, runs: int = 5) -> float:
+    """Median over ``runs`` of the time of ``launches`` calls between two
+    events, per call: what a kernel costs without the host's launch between."""
+    fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
 def timed_ab(kernel_fn, library_fn, plain_fn) -> dict:
     """Medians in the order kernel, library, library, kernel, then plain."""
     k1 = cuda_median_ms(kernel_fn)
@@ -370,16 +399,20 @@ def phase_k2(smi: str) -> dict:
 
 
 def phase_train_kernels(smi: str) -> dict:
-    """K1a, K1b and K3 against their plain versions at the DINO step's shapes;
-    the backward from saved probabilities is fed the p that the saving forward
-    produced. Times at the student-global shape, and of the local views packed
-    and as they are."""
+    """K1a, K1b and K3 against their plain versions at the DINO step's shapes
+    and at the backward's branch edges (``BWD_EDGES``); the backward from
+    saved probabilities is fed the p that the saving forward produced, and
+    each backward launched twice must repeat its bits, at the edges also
+    through autograd (which runs it on a thread of its own). Times at the
+    student-global shape, K1a, K1b and K3 also at the local views as the step
+    launches them (single calls and back to back), and of the local views
+    packed."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     names = ("mha_qkv_fwd_saved", "mha_qkv_bwd_saved", "mha_qkv_bwd")
-    res = {name: {"max_abs_err": 0.0} for name in names}
-    res["mha_qkv_fwd_saved"]["timed"] = []
+    res = {name: {"max_abs_err": 0.0, "timed": []} for name in names}
     local_ms = {}
-    for shape in TRAIN_SHAPES:
+    shapes = TRAIN_SHAPES + [s for s in BWD_EDGES if s not in TRAIN_SHAPES]
+    for shape in shapes:
         b, n, d, h, block_len = shape
         scale = (d // h) ** -0.5
         qkv = torch.randn((b, n, 3 * d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -401,36 +434,51 @@ def phase_train_kernels(smi: str) -> dict:
                 lambda: attention._mha_bwd_reference(qkv, g, h, scale, block_len)),
         }
         torch.cuda.synchronize()
-        errs = {
-            "mha_qkv_fwd_saved": max(check_close("mha_qkv_fwd_saved out", shape, out, out_ref),
-                                     check_close("mha_qkv_fwd_saved p", shape, p, p_ref)),
-            "mha_qkv_bwd_saved": check_close("mha_qkv_bwd_saved", shape,
-                                             fns["mha_qkv_bwd_saved"][0](),
-                                             fns["mha_qkv_bwd_saved"][2]()),
-            "mha_qkv_bwd": check_close("mha_qkv_bwd", shape, fns["mha_qkv_bwd"][0](),
-                                       fns["mha_qkv_bwd"][2]()),
-        }
+        errs = {"mha_qkv_fwd_saved": max(
+            check_close("mha_qkv_fwd_saved out", shape, out, out_ref),
+            check_close("mha_qkv_fwd_saved p", shape, p, p_ref))}
+        for name in names[1:]:
+            got, again = fns[name][0](), fns[name][0]()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise RuntimeError(f"{name}: two launches on the same inputs differ at {shape}")
+            errs[name] = check_close(name, shape, got, fns[name][2]())
+            if shape not in TRAIN_SHAPES:
+                # the same backward through autograd, on its own thread
+                x = qkv.clone().requires_grad_()
+                attention.mha_from_qkv(x, h, block_len=block_len, training=True,
+                                       save_probs=name == "mha_qkv_bwd_saved").backward(g)
+                torch.cuda.synchronize()
+                if not torch.equal(x.grad, got):
+                    raise RuntimeError(f"{name} through autograd differs at {shape}")
+                del x
+            del got, again
         if (p[..., n:] != 0).any():
             raise RuntimeError("mha_qkv_fwd_saved left pad columns of p non-zero")
         kinds = {"mha_qkv_fwd_saved": "fwd_saved", "mha_qkv_bwd_saved": "bwd_saved",
                  "mha_qkv_bwd": "bwd"}
         for name in names:
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], errs[name])
-            if shape == TRAIN_SHAPES[0] or (
-                    name == "mha_qkv_fwd_saved" and (b, n) in K1A_TIMED):
+            if shape in TRAIN_SHAPES[:2]:
                 r = {**timed_ab(*fns[name]), **attention_bound(kinds[name], b, n, d, h)}
+                r["b2b_ms"] = back_to_back_ms(fns[name][0])
+                r["library_b2b_ms"] = back_to_back_ms(fns[name][1])
                 if shape == TRAIN_SHAPES[0]:
                     res[name].update(r)
-                if name == "mha_qkv_fwd_saved":
-                    res[name]["timed"].append({"shape": [b, n, d, h], **r})
+                res[name]["timed"].append({"shape": [b, n, d, h], **r})
                 print(f"[{name}] ({b}, {n}, {d}, {h}), medians of 20 in the order kernel, "
                       f"library, library, kernel: kernel {r['ms_runs']} ms, library (SDPA"
                       f"{'' if name == 'mha_qkv_fwd_saved' else ' backward'}) "
-                      f"{r['library_ms_runs']} ms, plain {r['plain_ms']:.4f} ms, bound "
-                      f"{r['bound_ms']:.4f} ms by {r['bound_by']}; on {smi}")
-            if n in (37, 111) and d == 384:
+                      f"{r['library_ms_runs']} ms, plain {r['plain_ms']:.4f} ms; 50 back to "
+                      f"back (medians of 5, per launch): kernel {r['b2b_ms']:.4f} ms, library "
+                      f"{r['library_b2b_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms by "
+                      f"{r['bound_by']}; on {smi}")
+            if n in (37, 111) and d == 384 and shape in TRAIN_SHAPES:
                 local_ms.setdefault(name, []).append(cuda_median_ms(fns[name][0]))
         del qkv, g, out, p, out_ref, p_ref, fns
+    print("[mha_qkv_bwd_saved] [mha_qkv_bwd] two launches on the same inputs gave the same "
+          f"bits at every one of {len(shapes)} shapes, and the backward through autograd "
+          "gave them too at every BWD_EDGES shape")
     for name in names:
         as_is, packed = local_ms[name]
         print(f"[{name}] 576 local sequences of 37 tokens: as they are {as_is:.4f} ms, packed "

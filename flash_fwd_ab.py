@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""A/B of the flash kernels (K4a, K4a', K4b, K4b') against another kernel tree, on one card.
+"""A/B of hand-written attention kernels against another kernel tree, on one card:
+the flash family (K4a, K4a', K4b, K4b') and the whole-sequence backward (K1b, K3).
 
-    python3 flash_fwd_ab.py [check] [ab] [bwd] [e2e] [ablate 'NAME:FIND=>REPLACE;...' ...]
-        [cutout] [--old DIR]
+    python3 flash_fwd_ab.py [check] [ab] [bwd] [e2e] [mha_bwd]
+        [ablate 'NAME:FIND=>REPLACE;...' ...] [cutout] [--old DIR] [--only SOURCE]
 
 ``DIR`` (default ``build/ab/csrc_v1``) holds another copy of
 ``tpuwsi_torch/ops/csrc`` (for instance the parent commit's, unpacked with
@@ -34,9 +35,20 @@ Modes, in the order given:
   timed beside the tree's own kernels at the step's shape in the order
   base, v1 .. vn, vn .. v1, base: the forward pair for flash_fwd.cu, K4b and
   K4b' for flash_bwd.cu;
-- ``cutout``: K4b and K4b' timed the same way beside copies of flash_bwd.cu
-  with one part of their stage loops cut out (``CUTOUTS``): where their time
-  goes. The copies' outputs are wrong by design and are not checked.
+- ``mha_bwd``: K1b (``mha_qkv_bwd_saved``) and K3 (``mha_qkv_bwd``) at the DINO
+  step's shapes (192, 197) and (576, 37), D 384, 6 heads, in the order new,
+  old, old, new, timed as ``ab`` times the forward, beside SDPA's autograd
+  backward and the bound from ``chip_smoke.attention_bound`` (the new kernels
+  must repeat their bits in both arms); then the tuned 224-px DINO step and
+  the step with ``attn_save_probs`` off (one bundle each, 2 warm-up steps,
+  then 1 + 6 steps a library, medians of the 6, launch counts checked), in
+  the same order, and last one profiled step of each with each library
+  (kernel time and busy share);
+- ``cutout``: the kernels of a source timed beside copies of it with one
+  part cut out (``CUTOUTS``): K4b and K4b' (flash_bwd.cu, at (192, 6, 785))
+  and K1b and K3 (mha_qkv_bwd.cu, at (192, 197)): where their time goes. The
+  copies' outputs are wrong by design and are not checked. ``--only SOURCE``
+  limits ``cutout`` to one source.
 
 Every line names the card's name and power limit; the last line is a JSON
 summary.
@@ -65,7 +77,9 @@ NEW = _build.CSRC
 AB_SHAPES = [(192, 6, 785), (128, 6, 785)]
 BWD_SHAPES = [(192, 6, 785, True), (4, 6, 1024, False)]  # (B, H, S, strided)
 ABLATE_SOURCES = {"flash_fwd.cu": ("flash_fwd", "flash_fwd_stats"),
-                  "flash_bwd.cu": ("flash_bwd_dq", "flash_bwd_dkv")}
+                  "flash_bwd.cu": ("flash_bwd_dq", "flash_bwd_dkv"),
+                  "mha_qkv_bwd.cu": ("mha_qkv_bwd_saved", "mha_qkv_bwd")}
+MHA_SHAPES = [(192, 197, 384, 6), (576, 37, 384, 6)]  # (B, N, D, H)
 SERVE_CHUNKS, STEP_TIMED = 8, 6
 
 
@@ -89,21 +103,6 @@ def ptxas_lines(lib: Path, needle: str) -> list[str]:
         if keep or "Performance Loss" in line:
             out.append(line.strip())
     return out
-
-
-def back_to_back_ms(fn, launches: int = 50, runs: int = 5) -> float:
-    """Median over ``runs`` of the time of ``launches`` calls between two events, per call."""
-    fn()
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(launches):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / launches)
-    return statistics.median(times)
 
 
 def mode_check(smi: str) -> dict:
@@ -135,9 +134,9 @@ def mode_ab(smi: str, old: Path) -> dict:
                 elif arm == "new" and not torch.equal(o, ref):
                     raise RuntimeError(f"{name}: the new kernel's o changed between arms")
                 row["single_ms"].append(cs.cuda_median_ms(fn))
-                row["b2b_ms"].append(back_to_back_ms(fn))
+                row["b2b_ms"].append(cs.back_to_back_ms(fn))
             lib = [cs.cuda_median_ms(lambda: sdpa(q, k, v)) for _ in range(2)]
-            lib_b2b = back_to_back_ms(lambda: sdpa(q, k, v))
+            lib_b2b = cs.back_to_back_ms(lambda: sdpa(q, k, v))
             bound = cs.flash_bound(name, b, h, s, s)
             row.update(sdpa_ms=lib, sdpa_b2b_ms=lib_b2b, bound_ms=bound["bound_ms"],
                        bound_by=bound["bound_by"])
@@ -197,7 +196,7 @@ def mode_bwd(smi: str, old: Path) -> dict:
                     raise RuntimeError(f"the new backward's bits changed between arms at {s}")
             for name, fn in fns.items():
                 rows[name]["single_ms"].append(cs.cuda_median_ms(fn))
-                rows[name]["b2b_ms"].append(back_to_back_ms(fn))
+                rows[name]["b2b_ms"].append(cs.back_to_back_ms(fn))
         ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
         lib_out = torch.nn.functional.scaled_dot_product_attention(ql, kl, vl)
 
@@ -205,7 +204,7 @@ def mode_bwd(smi: str, old: Path) -> dict:
             return torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
 
         lib = [cs.cuda_median_ms(lib_bwd) for _ in range(2)]
-        lib_b2b = back_to_back_ms(lib_bwd)
+        lib_b2b = cs.back_to_back_ms(lib_bwd)
         bounds = {name: cs.flash_bound(name, b, h, s, s) for name in ("flash_bwd_dq",
                                                                         "flash_bwd_dkv")}
         bounds["pair"] = {"bound_ms": sum(x["bound_ms"] for x in bounds.values()),
@@ -221,6 +220,102 @@ def mode_bwd(smi: str, old: Path) -> dict:
                   f"{row['bound_by']}; on {smi}")
         del q, k, v, do, lse, delta, grads, fns, ql, kl, vl, lib_out, ref
         torch.cuda.empty_cache()
+    use(NEW)
+    return out
+
+
+def mha_operands(gen, b, n, d, h):
+    """qkv, g and the saved p at (b, n, d, h) → (operands, {name: kernel fn},
+    {name: plain fn}) for K1b and K3 through their wrappers; p comes from
+    this tree's K1a."""
+    scale = (d // h) ** -0.5
+    qkv = torch.randn((b, n, 3 * d), generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+    _, p = attention._launch_fwd_saved(qkv, h, scale, 0)
+    fns = {"mha_qkv_bwd_saved": lambda: attention._launch_bwd_saved(qkv, g, p, h, scale),
+           "mha_qkv_bwd": lambda: attention._launch_bwd(qkv, g, h, scale, 0)}
+    plain = {"mha_qkv_bwd_saved": lambda: attention._mha_bwd_saved_reference(qkv, g, p, h, scale),
+             "mha_qkv_bwd": lambda: attention._mha_bwd_reference(qkv, g, h, scale, 0)}
+    return (qkv, g, p), fns, plain
+
+
+def mode_mha_bwd(smi: str, old: Path) -> dict:
+    arms = [("new", NEW), ("old", old), ("old", old), ("new", NEW)]
+    for _, csrc in arms[:2]:
+        use(csrc)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 11)
+    kinds = {"mha_qkv_bwd_saved": "bwd_saved", "mha_qkv_bwd": "bwd"}
+    out = {}
+    for b, n, d, h in MHA_SHAPES:
+        use(NEW)
+        (qkv, g, _), fns, _ = mha_operands(gen, b, n, d, h)
+        rows = {name: {"single_ms": [], "b2b_ms": [], "arms": [a for a, _ in arms]}
+                for name in fns}
+        ref = {}
+        for arm, csrc in arms:
+            use(csrc)
+            for name, fn in fns.items():
+                got = fn().clone()
+                if arm == "new":
+                    if name not in ref:
+                        ref[name] = got
+                    elif not torch.equal(got, ref[name]):
+                        raise RuntimeError(f"{name}: the new kernel's bits changed between arms")
+                rows[name]["single_ms"].append(cs.cuda_median_ms(fn))
+                rows[name]["b2b_ms"].append(cs.back_to_back_ms(fn))
+        lib_bwd = cs.sdpa_backward_fn(qkv, g, h)
+        lib = [cs.cuda_median_ms(lib_bwd) for _ in range(2)]
+        lib_b2b = cs.back_to_back_ms(lib_bwd)
+        for name, row in rows.items():
+            row.update(sdpa_bwd_ms=lib, sdpa_bwd_b2b_ms=lib_b2b,
+                       **cs.attention_bound(kinds[name], b, n, d, h))
+            out[f"{name} {b}x{n}"] = row
+            print(f"[mha_bwd] {name} B={b} N={n} D={d} H={h}, order {row['arms']}: single "
+                  f"calls (medians of 20) {row['single_ms']} ms; 50 back to back (medians of "
+                  f"5, per launch) {row['b2b_ms']} ms; SDPA's autograd backward {lib} / "
+                  f"{lib_b2b:.4f} back to back; bound {row['bound_ms']:.4f} ms by "
+                  f"{row['bound_by']}; on {smi}")
+        del qkv, g, fns, lib_bwd, ref
+        torch.cuda.empty_cache()
+
+    # the 224-px DINO step, tuned (K1b) and with attn_save_probs off (K3)
+    batch = cs.train_batch()
+    routes = {"tuned": (None, {"mha_qkv_bwd_saved": 24, "mha_qkv_bwd": 0}),
+              "attn_save_probs off": ({"attn_save_probs": False},
+                                      {"mha_qkv_bwd_saved": 0, "mha_qkv_bwd": 24})}
+    views = None
+    for tag, (overrides, want) in routes.items():
+        use(NEW)
+        bundle = cs.train_bundle(overrides)
+        views = cs.TRAIN_BATCH * (bundle.dcfg.n_global + bundle.dcfg.n_local)
+        cs.run_steps(bundle, batch, cs.WARMUP_STEPS)
+        step_ms = []
+        for arm, csrc in arms:
+            use(csrc)
+            steps = cs.run_steps(bundle, batch, 1 + STEP_TIMED)
+            for r in steps:
+                got = {name: r["launches"][name] for name in want}
+                if got != want or not np.isfinite(r["loss"]):
+                    raise RuntimeError(f"224-px step, {tag} ({arm}): launches {got}, loss "
+                                       f"{r['loss']}")
+            step_ms.append(statistics.median(r["ms"] for r in steps[1:]))
+        out[f"step {tag}"] = {"arms": [a for a, _ in arms], "step_ms": step_ms}
+        print(f"[mha_bwd] the 224-px DINO step, {tag}, order {[a for a, _ in arms]}, medians "
+              f"of {STEP_TIMED} steps: {step_ms} ms per step = "
+              f"{[round(views / ms * 1e3, 1) for ms in step_ms]} views/s; on {smi}")
+        del bundle
+        torch.cuda.empty_cache()
+
+    # last (a profiled process launches more slowly after): kernel time and busy share
+    for tag, (overrides, _) in routes.items():
+        for arm, csrc in arms[:2]:
+            use(csrc)
+            bundle = cs.train_bundle(overrides)
+            steps = cs.run_steps(bundle, batch, cs.WARMUP_STEPS + 3)
+            ms = statistics.median(r["ms"] for r in steps[cs.WARMUP_STEPS:])
+            cs.profile_step(f"224-px step, {tag}, {arm} kernels", bundle, batch, ms, smi)
+            del bundle
+            torch.cuda.empty_cache()
     use(NEW)
     return out
 
@@ -260,9 +355,10 @@ def mode_ablate(smi: str, specs: list[str]) -> dict:
     return time_variants(smi, "ablate", trees, sources, check=True)
 
 
-# Copies of flash_bwd.cu with one part of both kernels' stage loops cut out, to
-# see where their time goes without a profiler that sees inside a kernel:
-# their outputs are wrong by design, so ``cutout`` times them unchecked.
+# Copies of a source with one part of its kernels cut out, to see where their
+# time goes without a profiler that sees inside a kernel: their outputs are
+# wrong by design, so ``cutout`` times them unchecked. Each edit names exact
+# source lines, so a change to the kernel needs its entry here updated.
 _ROWS = """      float p = exp2_approx(fmaf(s[4 * i + e], scale_log2, row_b ? r.nl_b : r.nl_a));
       if (kMask && key0 + 8 * i + 2 * t4 + (e & 1) >= sk) p = 0.f;
       s[4 * i + e] = p * (dp[4 * i + e] - (row_b ? r.dl_b : r.dl_a)) * scale;"""
@@ -273,80 +369,128 @@ _COLS = """      const float p = exp2_approx(fmaf(s[4 * i + e], scale_log2, odd 
       s[4 * i + e] = p;
       dp[4 * i + e] = p * (dp[4 * i + e] - (odd ? dl.y : dl.x)) * scale;"""
 _KEEP = "      s[4 * i + e] += dp[4 * i + e];"  # keeps both products' results in use
+# mha_qkv_bwd.cu: the resident form's three steps (the path shapes take it)
+_STEP1 = "    for (int i = kRank; i < T; i += kStep) {\n      const int row_a"
+_STEP2 = "    for (int j = kRank; j < T; j += kStep) {\n      const int key_a"
+_STEP3 = "      for (int t = kRank; t < T; t += kStep) {\n        float acc[32];"
+_DS_COLS = "        ds_cols<kSaved>(pt, dst, sc, dp, st, span, bnd, c * kTile, prm.scale, t4);"
+_STEP2_PRODUCT = "        wgmma_rn(dv, pt, sl.tile(sl.g, c), min(4, (R - c * kTile) / 16));\n"
+
+
+def _skip(loop: str) -> tuple[str, str]:
+    """The edit that makes a warpgroup's tile loop start past its last tile."""
+    return (loop, loop.replace("= kRank;", "= T;"))
+
+
 CUTOUTS = {
-    "no_elementwise": [(_ROWS, _KEEP), (_COL_STATS, ""), (_COLS, _KEEP)],
-    "no_exp": [("exp2_approx(fmaf(s[4 * i + e], scale_log2, row_b ? r.nl_b : r.nl_a))",
-                "fmaf(s[4 * i + e], scale_log2, row_b ? r.nl_b : r.nl_a)"),
-               ("exp2_approx(fmaf(s[4 * i + e], scale_log2, odd ? nl1 : nl0))",
-                "fmaf(s[4 * i + e], scale_log2, odd ? nl1 : nl0)")],
-    "no_s_dp": [("      wgmma_nt_k64(s, dq_, dk);\n      wgmma_nt_k64(dp, dd, dv);\n"
-                 "      wgmma_commit();\n      wgmma_rn_k64(acc", "      wgmma_commit();\n"
-                 "      wgmma_rn_k64(acc"),
-                ("      wgmma_nt_k64(s, dk_, dq_);\n      wgmma_nt_k64(dp, dv_, dd);\n"
-                 "      wgmma_commit();\n      wgmma_rn_k64(dv", "      wgmma_commit();\n"
-                 "      wgmma_rn_k64(dv")],
-    "no_accumulate": [("      wgmma_rn_k64(acc, ds, dk_prev);\n", ""),
-                      ("      wgmma_rn_k64(dv, pt, dd_prev);\n"
-                       "      wgmma_rn_k64(dk, dst, dq_prev);\n", "")],
+    "flash_bwd.cu": {
+        "no_elementwise": [(_ROWS, _KEEP), (_COL_STATS, ""), (_COLS, _KEEP)],
+        "no_exp": [("exp2_approx(fmaf(s[4 * i + e], scale_log2, row_b ? r.nl_b : r.nl_a))",
+                    "fmaf(s[4 * i + e], scale_log2, row_b ? r.nl_b : r.nl_a)"),
+                   ("exp2_approx(fmaf(s[4 * i + e], scale_log2, odd ? nl1 : nl0))",
+                    "fmaf(s[4 * i + e], scale_log2, odd ? nl1 : nl0)")],
+        "no_s_dp": [("      wgmma_nt_k64(s, dq_, dk);\n      wgmma_nt_k64(dp, dd, dv);\n"
+                     "      wgmma_commit();\n      wgmma_rn_k64(acc", "      wgmma_commit();\n"
+                     "      wgmma_rn_k64(acc"),
+                    ("      wgmma_nt_k64(s, dk_, dq_);\n      wgmma_nt_k64(dp, dv_, dd);\n"
+                     "      wgmma_commit();\n      wgmma_rn_k64(dv", "      wgmma_commit();\n"
+                     "      wgmma_rn_k64(dv")],
+        "no_accumulate": [("      wgmma_rn_k64(acc, ds, dk_prev);\n", ""),
+                          ("      wgmma_rn_k64(dv, pt, dd_prev);\n"
+                           "      wgmma_rn_k64(dk, dst, dq_prev);\n", "")],
+    },
+    "mha_qkv_bwd.cu": {
+        "no_step1": [_skip(_STEP1)],
+        "no_step2_elementwise": [(_DS_COLS, "        pack_a(dp, pt);\n        pack_a(dp, dst);")],
+        "no_step2_product": [(_STEP2_PRODUCT, "")],
+        "no_step3": [_skip(_STEP3)],
+        "loads_only": [_skip(_STEP1), _skip(_STEP2), _skip(_STEP3)],
+    },
 }
 
 
-def mode_cutout(smi: str) -> dict:
-    """K4b and K4b' with one part of their stage loops cut out (``CUTOUTS``:
-    the elementwise work, the exponentials, S and dP, the accumulating
-    products; in the steps after the first stage) beside the whole kernels at
-    the step's shape, order base, v1 .. vn, vn .. v1, base; unchecked."""
-    trees = {"base": NEW}
-    for name, edits in CUTOUTS.items():
-        trees[name], _ = variant_tree(name, [f"{find}=>{repl}" for find, repl in edits])
-    return time_variants(smi, "cutout", trees, {"flash_bwd.cu"}, check=False)
+def mode_cutout(smi: str, only: str | None = None) -> dict:
+    """Each source's kernels with one part cut out (``CUTOUTS``) beside the
+    whole kernels at the step's shape, order base, v1 .. vn, vn .. v1, base;
+    unchecked. flash_bwd.cu: the elementwise work, the exponentials, S and
+    dP, the accumulating products, in the steps after the first stage.
+    mha_qkv_bwd.cu: each of the three steps, step 2's elementwise work or
+    its accumulating product (dV), and all of the arithmetic (loads only)."""
+    res = {}
+    for source, cuts in CUTOUTS.items():
+        if only not in (None, source):
+            continue
+        trees = {"base": NEW}
+        for name, edits in cuts.items():
+            trees[name], _ = variant_tree(name, [f"{find}=>{repl}" for find, repl in edits])
+        res[source] = time_variants(smi, "cutout", trees, {source}, check=False)
+    return res
 
 
 def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) -> dict:
     """Build each tree, then time the kernels of ``sources`` of each at the
-    step's shape in the order base, v1 .. vn, vn .. v1, base; with ``check``,
-    each variant's outputs must agree with the plain version."""
+    step's shape (the flash kernels at (192, 6, 785), K1b and K3 at (192,
+    197)) in the order base, v1 .. vn, vn .. v1, base; with ``check``, each
+    variant's outputs must agree with the plain version."""
     kernels = [k for s in ABLATE_SOURCES if s in sources for k in ABLATE_SOURCES[s]]
     for name, tree in trees.items():
         t0 = time.perf_counter()
         lib = use(tree)
         print(f"[{tag}] {name}: built in {time.perf_counter() - t0:.1f} s")
-        for line in ptxas_lines(lib, "flash_"):
-            if "registers" in line or "spill" in line or "Performance Loss" in line:
-                print(f"[{tag}] {name} ptxas: {line}")
+        for needle in ("flash_", "mha_qkv_bwd"):
+            for line in ptxas_lines(lib, needle):
+                if "registers" in line or "spill" in line or "Performance Loss" in line:
+                    print(f"[{tag}] {name} ptxas: {line}")
     use(NEW)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 9)
-    b, h, s = AB_SHAPES[0]
-    q, k, v, do, lse, delta, grads, bwd = bwd_setup(gen, b, h, s, True)
-    o_view = attention._heads(torch.empty((b, s, h * 64), dtype=q.dtype, device="cuda"), h, 1)[0]
-    fns = {"flash_fwd": lambda: attention._launch_flash_fwd(q, k, v, None, 0.125, False, o_view),
-           "flash_fwd_stats": lambda: attention._launch_flash_fwd(q, k, v, None, 0.125, True,
-                                                                  o_view),
-           "flash_bwd_dq": bwd["flash_bwd_dq"], "flash_bwd_dkv": bwd["flash_bwd_dkv"]}
-    case = f"B={b} H={h} S={s}"
-    if check:
-        want_o = attention._flash_reference(q, k, v, None, 0.125)[0]
-        want_grads = attention._flash_bwd_reference(q, k, v, do, lse, delta, 0.125)
+    fns, checks = {}, []
+    flash = {"flash_fwd.cu", "flash_bwd.cu"} & sources
+    if flash:
+        b, h, s = AB_SHAPES[0]
+        q, k, v, do, lse, delta, grads, bwd = bwd_setup(gen, b, h, s, True)
+        o_view = attention._heads(torch.empty((b, s, h * 64), dtype=q.dtype, device="cuda"),
+                                  h, 1)[0]
+        fns.update({
+            "flash_fwd": lambda: attention._launch_flash_fwd(q, k, v, None, 0.125, False, o_view),
+            "flash_fwd_stats": lambda: attention._launch_flash_fwd(q, k, v, None, 0.125, True,
+                                                                   o_view),
+            "flash_bwd_dq": bwd["flash_bwd_dq"], "flash_bwd_dkv": bwd["flash_bwd_dkv"]})
+        case = f"B={b} H={h} S={s} strided"
+        if check and "flash_fwd.cu" in sources:
+            want_o = attention._flash_reference(q, k, v, None, 0.125)[0]
+            checks += [lambda name, kname=kname: cs.check_flash(
+                f"{kname} {name}", case, fns[kname]()[0], want_o)
+                for kname in ABLATE_SOURCES["flash_fwd.cu"]]
+        if check and "flash_bwd.cu" in sources:
+            want_grads = attention._flash_bwd_reference(q, k, v, do, lse, delta, 0.125)
+
+            def check_bwd(name):
+                for gname, got, want in zip(("dq", "dk", "dv"), bwd["pair"](), want_grads):
+                    cs.check_flash(f"flash_bwd {gname} {name}", case, got, want)
+            checks.append(check_bwd)
+    if "mha_qkv_bwd.cu" in sources:
+        shape = MHA_SHAPES[0]
+        _, mha, plain = mha_operands(gen, *shape)
+        fns.update(mha)
+        case = f"B={shape[0]} N={shape[1]}"
+        if check:
+            want = {kname: fn() for kname, fn in plain.items()}
+            checks += [lambda name, kname=kname: cs.check_close(
+                f"{kname} {name}", (*shape, 0), mha[kname](), want[kname]) for kname in mha]
     order = [*trees, *reversed(trees)]
     res = {name: {kname: [] for kname in kernels} for name in trees}
     for name in order:
         use(trees[name])
-        if check and "flash_fwd.cu" in sources:
-            for kname in ABLATE_SOURCES["flash_fwd.cu"]:
-                o = fns[kname]()[0]
-                torch.cuda.synchronize()
-                cs.check_flash(f"{kname} {name}", case, o, want_o)
-        if check and "flash_bwd.cu" in sources:
-            got = bwd["pair"]()
-            torch.cuda.synchronize()
-            for gname, g, w in zip(("dq", "dk", "dv"), got, want_grads):
-                cs.check_flash(f"flash_bwd {gname} {name}", case, g, w)
+        for fn in checks:
+            fn(name)
+        torch.cuda.synchronize()
         for kname in kernels:
-            res[name][kname].append((cs.cuda_median_ms(fns[kname]), back_to_back_ms(fns[kname])))
+            res[name][kname].append((cs.cuda_median_ms(fns[kname]),
+                                     cs.back_to_back_ms(fns[kname])))
     for name, r in res.items():
         print(f"[{tag}] {name}: (single, back to back) ms, order {order}: "
               + ", ".join(f"{kname} {r[kname]}" for kname in kernels)
-              + f"; {case} strided; on {smi}")
+              + f"; {case}; on {smi}")
     use(NEW)
     return res
 
@@ -406,6 +550,11 @@ def main() -> None:
         i = args.index("--old")
         old = Path(args[i + 1])
         del args[i:i + 2]
+    only = None
+    if "--only" in args:
+        i = args.index("--only")
+        only = args[i + 1]
+        del args[i:i + 2]
     variants = [a for a in args if ":" in a]  # ablate's NAME:FIND=>REPLACE;...
     modes = [a for a in args if ":" not in a] or ["check"]
     torch.manual_seed(cs.SEED)
@@ -423,10 +572,13 @@ def main() -> None:
             summary["e2e"] = mode_e2e(smi, old)
         elif mode == "ablate":
             summary["ablate"] = mode_ablate(smi, variants)
+        elif mode == "mha_bwd":
+            summary["mha_bwd"] = mode_mha_bwd(smi, old)
         elif mode == "cutout":
-            summary["cutout"] = mode_cutout(smi)
+            summary["cutout"] = mode_cutout(smi, only)
         else:
-            raise SystemExit(f"unknown mode {mode!r}: check, ab, bwd, e2e, ablate, cutout")
+            raise SystemExit(f"unknown mode {mode!r}: check, ab, bwd, e2e, mha_bwd, ablate, "
+                             "cutout")
     print(f"[ab] done in {time.perf_counter() - t0:.1f} s; on {smi}")
     print(json.dumps(summary))
 

@@ -94,8 +94,10 @@ def test_kernel_matches_plain_on_card(b, n, heads, block_len):
 
 # (B, N, heads, packed): hd 64, D 128. packed: the port is given the
 # sequences three to a row with block_len = N, as the JAX function packs them
-# itself for N <= 64.
-_TRAIN_CASES = [(2, 197, 2, False), (6, 37, 2, False), (6, 37, 2, True), (2, 130, 2, False)]
+# itself for N <= 64. 213 lies past the length where the card's backward
+# stops holding an item on chip (208) and streams it instead.
+_TRAIN_CASES = [(2, 197, 2, False), (6, 37, 2, False), (6, 37, 2, True), (2, 130, 2, False),
+                (2, 213, 2, False)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -177,11 +179,25 @@ def test_analytic_backward_matches_autograd_in_fp32():
         tattn._mha_bwd_reference(qkv, g, 2, 0.25, 8).numpy(), want.numpy(), atol=1e-5)
 
 
+# The backward kernels' branch edges (mha_qkv_bwd.cu): one token, one k16
+# step, the last length with three item slots a warpgroup (48) and the first
+# with two, one and two 64-row tiles, the last length where each warpgroup runs
+# its own items and the first where both share one, the fourth tile, the last
+# resident length (208) and the first streamed one, 272/273, a block mask in
+# the streamed form.
+_BWD_EDGES = [(7, 1, 6, 0), (5, 16, 6, 0), (4, 48, 6, 0), (4, 49, 6, 0), (4, 64, 6, 0),
+              (4, 65, 6, 0), (3, 128, 6, 0), (3, 129, 6, 0), (3, 192, 6, 0), (3, 193, 6, 0),
+              (3, 208, 6, 0), (3, 209, 6, 0), (3, 272, 6, 0), (3, 273, 6, 0), (2, 400, 6, 37)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("save_probs", [True, False], ids=["saved", "recompute"])
 @pytest.mark.parametrize("b,n,heads,block_len",
-                         [(8, 197, 6, 0), (12, 37, 6, 0), (4, 111, 6, 37), (2, 511, 2, 0)])
+                         [(8, 197, 6, 0), (12, 37, 6, 0), (4, 111, 6, 37), (2, 511, 2, 0),
+                          *_BWD_EDGES])
 def test_training_kernels_match_plain_on_card(b, n, heads, block_len, save_probs):
+    """The training pair against its plain version; the backward launched
+    again on the same inputs gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -196,12 +212,18 @@ def test_training_kernels_match_plain_on_card(b, n, heads, block_len, save_probs
         before = dict(tattn.LAUNCHES)
         out = tattn.mha_from_qkv(x, heads, block_len=block_len, training=True,
                                  save_probs=save_probs, plain=plain)
-        out.backward(g)
+        out.backward(g, retain_graph=True)
         torch.cuda.synchronize()
         step = 0 if plain else 1
         assert tattn.LAUNCHES[fwd] == before[fwd] + step
         assert tattn.LAUNCHES[bwd] == before[bwd] + step
         results.append((out.detach().float(), x.grad.float()))
+        if not plain:
+            first = x.grad.clone()
+            x.grad = None
+            out.backward(g)
+            torch.cuda.synchronize()
+            assert torch.equal(x.grad, first)
     for got, want in zip(*results):
         diff = (got - want).abs()
         # bf16 rounding of q*scale, p and dS; fp32 accumulation

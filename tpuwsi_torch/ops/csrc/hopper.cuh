@@ -249,7 +249,14 @@ using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t
                                    const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                    CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// The encoding is a driver call and fails (CUDA_ERROR_INVALID_CONTEXT) in a
+// thread with no current context: autograd's backward thread has none until
+// some runtime call makes one current, which a caching allocator that serves
+// every tensor from its cache never does. So the calling thread's device is
+// made current first; a failure shows in the launch's cudaGetLastError.
 inline EncodeTiledFn encode_tiled() {
+  int device = 0;
+  if (cudaGetDevice(&device) == cudaSuccess) cudaSetDevice(device);
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {
     void* ptr = nullptr;

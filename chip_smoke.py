@@ -5,7 +5,9 @@
 
 Phases, each printing its own lines:
   1. the card's name and power limit (nvidia-smi);
-  2. build the Hopper kernels from tpuwsi_torch/ops/csrc with nvcc;
+  2. build the Hopper kernels from tpuwsi_torch/ops/csrc with nvcc (ptxas'
+     report of csrc/mlp_sm90.cu's kernels must show 0 spill bytes and no
+     serialised wgmma);
   3. each of the nineteen kernels against its plain PyTorch version on the
      card, at the shapes the paths give it (the four whole-sequence kernels
      at 37-257 tokens and at every branch edge of the forward kernel from 1
@@ -16,9 +18,13 @@ Phases, each printing its own lines:
      gradient for the backward pair), lengths on either side of each 64-row
      stage and of the backward's 128-key and 192-query items, a negative
      scale, the forward at key lengths on either side of each tile edge, and
-     the same bits from two launches of each; the four fused-MLP kernels at
-     the step's and the serving chunk's row counts, at ViT-B width and at 7
-     rows, both GELU forms; the
+     the same bits from two launches of each; the four whole-sequence
+     kernels also at 65,536 sequences of 16 tokens (past the old 65,535
+     cap); the four fused-MLP kernels at the step's and the serving chunk's
+     row counts, at ViT-B width and at 7 rows, both GELU forms, and K5f and
+     K5b at both widths at the row counts where their tiles and clusters
+     end (1, 63-65, 127-129, 321), K5f and K5b also timed back to back
+     beside the unfused route at the step's two row counts; the
      five dense-layer kernels at the qkv and proj layers of the same row
      counts; the two attention sub-block kernels at the step's global and
      local views, a serving chunk, a batch of 8 tiles, one token and the
@@ -84,6 +90,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -179,6 +186,9 @@ FLASH_EDGES = [63, 64, 65, 127, 128, 129, 191, 192, 193]
 # way (p, dS, o), else fp32 accumulation order; lse is fp32 throughout
 FLASH_MAX_ABS, FLASH_MEAN_ABS, FLASH_LSE_MAX_ABS = 2e-2, 1e-5, 1e-4
 
+# F6: the whole-sequence kernels past the old 65,535-sequence cap (B, N, D, H, block_len)
+F6_SHAPE = (65536, 16, 384, 6, 0)
+
 # fused MLP: (rows, D, F): bf16 x, dy ~ N(0, 1), weights ~ N(0, 1 / fan_in)
 MLP_SHAPES = [
     (37824, 384, 1536),   # the DINO step's student global views, 192 x 197 (timed)
@@ -187,6 +197,11 @@ MLP_SHAPES = [
     (6304, 768, 3072),    # ViT-B/16, 32 x 197
     (7, 384, 1536),       # less than one row tile
 ]
+# K5f and K5b at both widths (F = 4 D) where their row tiles and clusters end:
+# one row, either side of one and two 64-row tiles, and five tiles and a row
+# (csrc/mlp_sm90.cu's second cluster of four tiles holds two, one of a row)
+MLP_EDGE_ROWS = [1, 63, 64, 65, 127, 128, 129, 5 * 64 + 1]
+MLP_TIMED_B2B = MLP_SHAPES[:2]  # K5f, K5b back to back beside the unfused route
 # bf16 outputs (y, dx): one bf16 ulp of a value below 8, where the rounding of
 # the result, or of h, du or LN(x) before a product, falls the other way
 MLP_MAX_ABS, MLP_MEAN_ABS = 4e-2, 2e-3
@@ -287,9 +302,22 @@ def phase_build() -> None:
     print(f"[build] {verb} {lib_path.relative_to(OUT.parents[1])} in "
           f"{time.perf_counter() - t0:.2f} s")
     log = lib_path.with_suffix(".log")
+    fn, spills, serialised = None, {}, []
     for line in log.read_text().splitlines() if log.exists() else ():
         if ("registers" in line or "spill" in line or "Performance Loss" in line) and "C7519" not in line:
             print(f"[build] ptxas: {line.strip()}")
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn and "mlp_sm90" in fn:
+            spills[fn] = int(m.group(1)) + int(m.group(2))
+        if "Performance Loss" in line and "mlp_sm90" in line:
+            serialised.append(line.strip())
+    if not spills or any(spills.values()) or serialised:
+        raise RuntimeError(f"csrc/mlp_sm90.cu: spill bytes {spills}, serialised wgmma {serialised}")
+    print(f"[build] ptxas: csrc/mlp_sm90.cu's {len(spills)} kernels (K5f, K5b): 0 spill bytes, "
+          "no serialised wgmma (C7512-C7520)")
 
 
 def heads_view(qkv, h):
@@ -479,12 +507,37 @@ def phase_train_kernels(smi: str) -> dict:
     print("[mha_qkv_bwd_saved] [mha_qkv_bwd] two launches on the same inputs gave the same "
           f"bits at every one of {len(shapes)} shapes, and the backward through autograd "
           "gave them too at every BWD_EDGES shape")
+    phase_f6()
     for name in names:
         as_is, packed = local_ms[name]
         print(f"[{name}] 576 local sequences of 37 tokens: as they are {as_is:.4f} ms, packed "
               f"three to a row (block_len 37) {packed:.4f} ms; the step launches them as "
               f"they are; on {smi}")
     return res
+
+
+def phase_f6() -> None:
+    """K2, K1a, K1b and K3 at F6_SHAPE, past the 65,535 sequences the
+    launchers refused before their grids became persistent, against their
+    plain versions at the usual bounds."""
+    b, n, d, h, block_len = F6_SHAPE
+    scale = (d // h) ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    qkv = torch.randn((b, n, 3 * d), generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((b, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+    check_close("mha_qkv_fwd F6", F6_SHAPE, attention._launch_fwd(qkv, h, scale, block_len),
+                attention._mha_reference(qkv, h, scale, block_len))
+    out, p = attention._launch_fwd_saved(qkv, h, scale, block_len)
+    out_ref, p_ref = attention._mha_saved_reference(qkv, h, scale, block_len)
+    check_close("mha_qkv_fwd_saved F6 out", F6_SHAPE, out, out_ref)
+    check_close("mha_qkv_fwd_saved F6 p", F6_SHAPE, p, p_ref)
+    del out_ref, p_ref
+    check_close("mha_qkv_bwd_saved F6", F6_SHAPE, attention._launch_bwd_saved(qkv, g, p, h, scale),
+                attention._mha_bwd_saved_reference(qkv, g, p, h, scale))
+    check_close("mha_qkv_bwd F6", F6_SHAPE, attention._launch_bwd(qkv, g, h, scale, block_len),
+                attention._mha_bwd_reference(qkv, g, h, scale, block_len))
+    del qkv, g, out, p
+    torch.cuda.empty_cache()
 
 
 def flash_bound(kind: str, b, h, sq, sk) -> dict:
@@ -794,10 +847,12 @@ def unfused_mlp(x, g, be, w1t, b1, w2t, b2, approx, block):
 
 
 def phase_mlp_kernels(smi: str) -> dict:
-    """K5f, K5b, K6f, K6b against their plain versions; times at the student's
-    global views (the sub-block forward at the serving chunk), beside the
-    plain version's, the unfused route's and the bound. The backward kernels
-    run twice on the same inputs and must give the same bits."""
+    """K5f, K5b, K6f, K6b against their plain versions at MLP_SHAPES, and K5f
+    and K5b at both widths at MLP_EDGE_ROWS; times at the student's global
+    views (the sub-block forward at the serving chunk; K5f and K5b also at
+    the local views, and back to back at both), beside the plain version's,
+    the unfused route's and the bound. The backward kernels run twice on the
+    same inputs and must give the same bits."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     names = ("mlp_fwd", "mlp_bwd", "mlp_block_fwd", "mlp_block_bwd")
     res = {name: {"max_abs_err": 0.0, "library_ms": None} for name in names}
@@ -829,6 +884,7 @@ def phase_mlp_kernels(smi: str) -> dict:
                 res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
                                                check_kernel(name, case, *fns[name]))
             timed = {MLP_SHAPES[0]: ("mlp_fwd", "mlp_bwd", "mlp_block_bwd"),
+                     MLP_SHAPES[1]: ("mlp_fwd", "mlp_bwd"),
                      MLP_SHAPES[2]: ("mlp_block_fwd",)}.get(shape, ())
             if not approx or not timed:
                 continue
@@ -847,15 +903,28 @@ def phase_mlp_kernels(smi: str) -> dict:
                     def unfused(block=block):
                         with torch.no_grad():
                             return unfused_mlp(*leaves, approx, block)
-                r = res[name]
                 k1 = cuda_median_ms(fns[name][0])
                 u1 = cuda_median_ms(unfused)
                 u2 = cuda_median_ms(unfused)
                 k2 = cuda_median_ms(fns[name][0])
-                r.update(ms=min(k1, k2), ms_runs=[k1, k2], unfused_ms=min(u1, u2),
+                r = dict(ms=min(k1, k2), ms_runs=[k1, k2], unfused_ms=min(u1, u2),
                          unfused_ms_runs=[u1, u2],
                          plain_ms=cuda_median_ms(fns[name][1], reps=5, warmup=1),
                          **mlp_bound(name.endswith("bwd"), block, rows, d, f))
+                if shape in MLP_TIMED_B2B and name in ("mlp_fwd", "mlp_bwd"):
+                    # back to back in the order kernel, unfused, unfused, kernel
+                    b2b = [back_to_back_ms(fns[name][0]), back_to_back_ms(unfused),
+                           back_to_back_ms(unfused), back_to_back_ms(fns[name][0])]
+                    r.update(b2b_ms=min(b2b[0], b2b[3]), b2b_ms_runs=[b2b[0], b2b[3]],
+                             unfused_b2b_ms=min(b2b[1], b2b[2]),
+                             unfused_b2b_ms_runs=[b2b[1], b2b[2]])
+                    print(f"[{name}] {case}, 50 back to back (medians of 5, per launch) in "
+                          f"the order kernel, unfused, unfused, kernel: kernel "
+                          f"{r['b2b_ms_runs']} ms, unfused route {r['unfused_b2b_ms_runs']} ms, "
+                          f"bound {r['bound_ms']:.4f} ms; on {smi}")
+                res[name].setdefault("timed", []).append({"shape": [rows, d, f], **r})
+                if shape == MLP_SHAPES[0] or name == "mlp_block_fwd":
+                    res[name].update(r)
                 print(f"[{name}] {case}, medians of 20 in the order kernel, unfused, unfused, "
                       f"kernel: kernel {r['ms_runs']} ms, unfused route (library GEMMs, GELU"
                       f"{', LayerNorm, residual sum' if block else ''}"
@@ -868,6 +937,20 @@ def phase_mlp_kernels(smi: str) -> dict:
             del leaves
         del x, dy, g, be, w1, b1, w2, b2, fns
         torch.cuda.empty_cache()
+    for d in (384, 768):
+        f = 4 * d
+        w1, b1 = randn((d, f), d ** -0.5), randn((f,), 0.1)
+        w2, b2 = randn((f, d), f ** -0.5), randn((d,), 0.1)
+        for rows in MLP_EDGE_ROWS:
+            x, dy = randn((rows, d)), randn((rows, d))
+            case = f"rows={rows} D={d} F={f} tanh"
+            for name, fns in {
+                    "mlp_fwd": (lambda: mlp._launch_mlp_fwd(x, w1, b1, w2, b2, True),
+                                lambda: mlp._mlp_fwd_reference(x, w1, b1, w2, b2, True)),
+                    "mlp_bwd": (lambda: mlp._launch_mlp_bwd(x, dy, w1, b1, w2, True),
+                                lambda: mlp._mlp_bwd_reference(x, dy, w1, b1, w2, True))}.items():
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                               check_kernel(name, case, *fns))
     print("[mlp_bwd, mlp_block_bwd] two runs on the same inputs gave the same bits at every shape")
     return res
 
@@ -1301,7 +1384,8 @@ def check_losses(tag, rows, plain_rows, other="plain attention"):
 # kernel-name fragments → kind, first match wins
 PROFILE_KINDS = [
     ("attention kernels (hand-written)", ("mha_qkv", "flash_fwd_kernel", "flash_bwd_d")),
-    ("fused MLP kernels (hand-written)", ("mlp_fwd_kernel", "mlp_bwd_d")),
+    ("fused MLP kernels (hand-written)", ("mlp_fwd_kernel", "mlp_bwd_d", "mlp_row_kernel",
+                                          "mlp_dw_kernel")),
     ("dense-layer kernels (hand-written)", ("dense_bwd_d", "row_gemm_fwd")),
     ("fixed-order sums of partial gradients (hand-written)", ("sum_partials",)),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "cublas", "gemv")),
@@ -1853,8 +1937,8 @@ def main() -> None:
         "flash_fwd_stats": ("flash_fwd.cu", "tpuwsi/ops/attention.py:148"),
         "flash_bwd_dq": ("flash_bwd.cu", "tpuwsi/ops/attention.py:261"),
         "flash_bwd_dkv": ("flash_bwd.cu", "tpuwsi/ops/attention.py:303"),
-        "mlp_fwd": ("mlp_fwd.cu", "tpuwsi/ops/mlp.py:83"),
-        "mlp_bwd": ("mlp_bwd.cu", "tpuwsi/ops/mlp.py:100"),
+        "mlp_fwd": ("mlp_sm90.cu", "tpuwsi/ops/mlp.py:83"),
+        "mlp_bwd": ("mlp_sm90.cu", "tpuwsi/ops/mlp.py:100"),
         "mlp_block_fwd": ("mlp_fwd.cu", "tpuwsi/ops/mlp.py:485"),
         "mlp_block_bwd": ("mlp_bwd.cu", "tpuwsi/ops/mlp.py:508"),
         "dense_bwd": ("dense.cu", "tpuwsi/ops/dense.py:51"),

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""A/B of hand-written attention kernels against another kernel tree, on one card:
-the flash family (K4a, K4a', K4b, K4b') and the whole-sequence backward (K1b, K3).
+"""A/B of hand-written kernels against another kernel tree, on one card: the
+flash family (K4a, K4a', K4b, K4b'), the whole-sequence backward (K1b, K3) and
+the fused MLP (K5f, K5b).
 
-    python3 flash_fwd_ab.py [check] [ab] [bwd] [e2e] [mha_bwd]
+    python3 flash_fwd_ab.py [check] [ab] [bwd] [e2e] [mha_bwd] [mlp] [mlp_e2e]
         [ablate 'NAME:FIND=>REPLACE;...' ...] [cutout] [--old DIR] [--only SOURCE]
 
 ``DIR`` (default ``build/ab/csrc_v1``) holds another copy of
@@ -44,11 +45,28 @@ Modes, in the order given:
   then 1 + 6 steps a library, medians of the 6, launch counts checked), in
   the same order, and last one profiled step of each with each library
   (kernel time and busy share);
+- ``mlp``: K5f and K5b (``_launch_mlp_fwd``, ``_launch_mlp_bwd``) at the DINO
+  step's student rows (37,824 and 21,312), D 384, F 1,536, tanh GELU, in the
+  order new, old, old, new: medians of 20 single calls and medians of 5 runs
+  of 50 launches back to back, beside the unfused route (library GEMMs and
+  GELU, their autograd backward) read the same two ways, and the bound from
+  ``chip_smoke.mlp_bound``; the new kernels must repeat their bits in both
+  of their arms. The old arm's backward gets the row groups the old kernels
+  were launched with (``DW_WAVES`` x SMs / slices, 22 on 132 SMs);
+- ``mlp_e2e``: the DINO step with ``use_fused_mlp`` and with
+  ``mlp_pallas_bwd``, full width and depth (one bundle each, 2 warm-up
+  steps, then 1 + 6 steps a library, medians of the 6, the MLP kernels'
+  launch counts checked), in the order new, old, old, new; last, one
+  profiled step of each route with each library (kernel time by kind, busy
+  share);
 - ``cutout``: the kernels of a source timed beside copies of it with one
-  part cut out (``CUTOUTS``): K4b and K4b' (flash_bwd.cu, at (192, 6, 785))
-  and K1b and K3 (mha_qkv_bwd.cu, at (192, 197)): where their time goes. The
-  copies' outputs are wrong by design and are not checked. ``--only SOURCE``
-  limits ``cutout`` to one source.
+  part cut out (``CUTOUTS``): K4b and K4b' (flash_bwd.cu, at (192, 6, 785)),
+  K1b and K3 (mha_qkv_bwd.cu, at (192, 197)), K5f and K5b (mlp_sm90.cu, at
+  (37,824, 384, 1,536)): where their time goes; for mlp_sm90.cu also copies
+  with a choice of the design undone (releases at cluster scope, a
+  384-thread block with ``setmaxnreg``), whose ptxas lines are printed. The
+  copies' outputs are not checked (a cut-out's are wrong by design).
+  ``--only SOURCE`` limits ``cutout`` to one source.
 
 Every line names the card's name and power limit; the last line is a JSON
 summary.
@@ -70,7 +88,7 @@ import chip_smoke as cs
 from tpuwsi_torch.cli.train import extract_features
 from tpuwsi_torch.models.convert import params_from_flax
 from tpuwsi_torch.models.registry import create_model
-from tpuwsi_torch.ops import _build, attention
+from tpuwsi_torch.ops import _build, attention, mlp
 
 ROOT = Path(__file__).resolve().parent
 NEW = _build.CSRC
@@ -78,18 +96,31 @@ AB_SHAPES = [(192, 6, 785), (128, 6, 785)]
 BWD_SHAPES = [(192, 6, 785, True), (4, 6, 1024, False)]  # (B, H, S, strided)
 ABLATE_SOURCES = {"flash_fwd.cu": ("flash_fwd", "flash_fwd_stats"),
                   "flash_bwd.cu": ("flash_bwd_dq", "flash_bwd_dkv"),
-                  "mha_qkv_bwd.cu": ("mha_qkv_bwd_saved", "mha_qkv_bwd")}
+                  "mha_qkv_bwd.cu": ("mha_qkv_bwd_saved", "mha_qkv_bwd"),
+                  "mlp_sm90.cu": ("mlp_fwd", "mlp_bwd")}
 MHA_SHAPES = [(192, 197, 384, 6), (576, 37, 384, 6)]  # (B, N, D, H)
 SERVE_CHUNKS, STEP_TIMED = 8, 6
+MLP_AB_SHAPES = cs.MLP_TIMED_B2B  # (37,824, 384, 1,536), (21,312, 384, 1,536)
+_NEW_DW_GROUPS = mlp.mlp_dw_groups
+
+
+def _old_dw_groups(rows: int, f: int, sms: int) -> int:
+    """The row groups the parent's K5b was launched with (one per 64-row tile
+    at most, ``DW_WAVES`` blocks per SM over F / 64 slices)."""
+    return max(1, min(-(-rows // 64), mlp.DW_WAVES * sms // (f // 64)))
 
 
 def use(csrc: Path) -> Path:
     """Make the kernels of ``csrc`` the ones every wrapper launches: the
     builder reads its tree from ``_build.CSRC`` and keys each library by the
-    tree's hash, so the libraries of both trees sit side by side."""
+    tree's hash, so the libraries of both trees sit side by side. A tree
+    without csrc/mlp_sm90.cu (the parent's) gets its K5b launched with the
+    row groups it was built for."""
     _build.CSRC = Path(csrc)
     _build._lib = None
     _build.load()
+    mlp.mlp_dw_groups = (_NEW_DW_GROUPS if (Path(csrc) / "mlp_sm90.cu").exists()
+                         else _old_dw_groups)
     return _build.library_path()
 
 
@@ -382,6 +413,42 @@ def _skip(loop: str) -> tuple[str, str]:
     return (loop, loop.replace("= kRank;", "= T;"))
 
 
+# mlp_sm90.cu: the products that rebuild u^T (and dh^T) in the row kernels and
+# the dW passes, the elementwise steps, the row kernels' accumulating product
+_U_ROW = ("          ss_n32<1, 0>(u, sw128(a), sw128(opaque(xb) + (kk >> 2) * kBox + (kk & 3) * 32), "
+          "kk);\n")
+_DH_ROW = ("          ss_n32<0, 0>(dh, sw128(a), sw128(opaque(xb) + L::kOffDy + (kk >> 2) * kBox + "
+           "(kk & 3) * 32),\n                       kk);\n")
+_U_DW = ("        ss_n32<1, 0>(u, sw128(opaque(w1s) + kk * 2048),\n"
+         "                     sw128(opaque(xb) + (kk >> 2) * 4096 + (kk & 3) * 32), kk);\n")
+_DH_DW = ("          ss_n32<0, 0>(dh, sw128(opaque(w2s) + (kk >> 2) * kBox + (kk & 3) * 32),\n"
+          "                       sw128(opaque(xb) + 6 * 4096 + (kk >> 2) * 4096 + (kk & 3) * 32), "
+          "kk);\n")
+_ACC_FWD = ("            ss_n192<1, 1>(acc, sw128(opaque(ta) + k4 * 2048), sw128(opaque(wb) + "
+            "k4 * 2048, kBox),\n                          1);\n")
+_ACC_DX = ("            ss_n192<1, 0>(acc, sw128(opaque(ta) + k4 * 2048), sw128(opaque(wb) + "
+           "k4 * 32), 1);\n")
+_GELU = "            v[e] = mlp::gelu(x, kApprox);"
+# and two choices of its design undone (valid kernels, slower): remote releases
+# at cluster scope, by each warp's lane 0 for all four blocks in turn (the
+# first version) or by lane r for block r; and a producer warpgroup with
+# setmaxnreg 24 / 240 in a 384-thread block in place of the 288-thread one
+_ARRIVE = "  if (lane < kCluster) mbar_arrive_cluster(bar, lane);"
+_ARRIVE_CLUSTER = ('  if ({}) {{ for (uint32_t r = {}; r < {}; ++r) asm volatile("{{\\n.reg .b32 rem;\\n'
+                   'mapa.shared::cluster.u32 rem, %0, %1;\\nmbarrier.arrive.release.cluster.'
+                   'shared::cluster.b64 _, [rem];\\n}}\\n" ::"r"(bar), "r"(r) : "memory"); }}')
+_T384 = [("constexpr int kThreads = 288;", "constexpr int kThreads = 384;"),
+         ("  if (role == 2) {\n    if (threadIdx.x == kConsumerThreads)\n",
+          '  if (role == 2) {\n    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\\n");\n'
+          "    if (threadIdx.x == kConsumerThreads)\n"),
+         ("  } else if (role == 0) {\n",
+          '  } else if (role == 0) {\n    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\\n");\n'),
+         ("  } else {\n    row_consumer",
+          '  } else {\n    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\\n");\n    row_consumer'),
+         ("  } else {\n    slice_consumer",
+          '  } else {\n    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\\n");\n'
+          "    slice_consumer")]
+
 CUTOUTS = {
     "flash_bwd.cu": {
         "no_elementwise": [(_ROWS, _KEEP), (_COL_STATS, ""), (_COLS, _KEEP)],
@@ -399,6 +466,17 @@ CUTOUTS = {
                           ("      wgmma_rn_k64(dv, pt, dd_prev);\n"
                            "      wgmma_rn_k64(dk, dst, dq_prev);\n", "")],
     },
+    "mlp_sm90.cu": {
+        "no_rebuild": [(_U_ROW, ""), (_DH_ROW, ""), (_U_DW, ""), (_DH_DW, "")],
+        "no_gelu": [(_GELU, "            v[e] = x;")],
+        "no_accumulate": [(_ACC_FWD, "            ;\n"), (_ACC_DX, "            ;\n")],
+        "loads_only": [(_U_ROW, ""), (_DH_ROW, ""), (_U_DW, ""), (_DH_DW, ""),
+                       (_GELU, "            v[e] = x;"),
+                       (_ACC_FWD, "            ;\n"), (_ACC_DX, "            ;\n")],
+        "release_cluster": [(_ARRIVE, _ARRIVE_CLUSTER.format("lane < kCluster", "lane", "lane + 1"))],
+        "release_cluster_lane0": [(_ARRIVE, _ARRIVE_CLUSTER.format("lane == 0", "0", "kCluster"))],
+        "t384_setmaxnreg": _T384,
+    },
     "mha_qkv_bwd.cu": {
         "no_step1": [_skip(_STEP1)],
         "no_step2_elementwise": [(_DS_COLS, "        pack_a(dp, pt);\n        pack_a(dp, dst);")],
@@ -415,7 +493,9 @@ def mode_cutout(smi: str, only: str | None = None) -> dict:
     unchecked. flash_bwd.cu: the elementwise work, the exponentials, S and
     dP, the accumulating products, in the steps after the first stage.
     mha_qkv_bwd.cu: each of the three steps, step 2's elementwise work or
-    its accumulating product (dV), and all of the arithmetic (loads only)."""
+    its accumulating product (dV), and all of the arithmetic (loads only).
+    mlp_sm90.cu: the rebuild products, the GELU, the accumulating products,
+    all of the arithmetic; and the design variants beside them."""
     res = {}
     for source, cuts in CUTOUTS.items():
         if only not in (None, source):
@@ -430,14 +510,15 @@ def mode_cutout(smi: str, only: str | None = None) -> dict:
 def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) -> dict:
     """Build each tree, then time the kernels of ``sources`` of each at the
     step's shape (the flash kernels at (192, 6, 785), K1b and K3 at (192,
-    197)) in the order base, v1 .. vn, vn .. v1, base; with ``check``, each
-    variant's outputs must agree with the plain version."""
+    197), K5f and K5b at (37,824, 384, 1,536)) in the order base, v1 .. vn,
+    vn .. v1, base; with ``check``, each variant's outputs must agree with the
+    plain version."""
     kernels = [k for s in ABLATE_SOURCES if s in sources for k in ABLATE_SOURCES[s]]
     for name, tree in trees.items():
         t0 = time.perf_counter()
         lib = use(tree)
         print(f"[{tag}] {name}: built in {time.perf_counter() - t0:.1f} s")
-        for needle in ("flash_", "mha_qkv_bwd"):
+        for needle in ("flash_", "mha_qkv_bwd", "mlp_sm90"):
             for line in ptxas_lines(lib, needle):
                 if "registers" in line or "spill" in line or "Performance Loss" in line:
                     print(f"[{tag}] {name} ptxas: {line}")
@@ -468,6 +549,16 @@ def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) ->
                 for gname, got, want in zip(("dq", "dk", "dv"), bwd["pair"](), want_grads):
                     cs.check_flash(f"flash_bwd {gname} {name}", case, got, want)
             checks.append(check_bwd)
+    if "mlp_sm90.cu" in sources:
+        rows, d, f = MLP_AB_SHAPES[0]
+        mlp_fns, _, mlp_plain = mlp_operands(gen, rows, d, f)
+        fns.update(mlp_fns)
+        case = f"rows={rows} D={d} F={f}"
+        if check:
+            want_mlp = {kname: fn() for kname, fn in mlp_plain.items()}
+            checks += [lambda name, kname=kname: cs.check_mlp(f"{kname} {name}", case, fns[kname](),
+                                                              want_mlp[kname])
+                       for kname in mlp_fns]
     if "mha_qkv_bwd.cu" in sources:
         shape = MHA_SHAPES[0]
         _, mha, plain = mha_operands(gen, *shape)
@@ -493,6 +584,117 @@ def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) ->
               + f"; {case}; on {smi}")
     use(NEW)
     return res
+
+
+def mlp_operands(gen, rows, d, f):
+    """bf16 operands of K5f/K5b as chip_smoke makes them → (kernel functions,
+    the unfused route's functions, the plain versions, on the same operands)."""
+    def randn(shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+
+    x, dy = randn((rows, d)), randn((rows, d))
+    w1, b1 = randn((d, f), d ** -0.5), randn((f,), 0.1)
+    w2, b2 = randn((f, d), f ** -0.5), randn((d,), 0.1)
+    fns = {"mlp_fwd": lambda: (mlp._launch_mlp_fwd(x, w1, b1, w2, b2, True),),
+           "mlp_bwd": lambda: mlp._launch_mlp_bwd(x, dy, w1, b1, w2, True)}
+    leaves = [t.detach().requires_grad_() for t in
+              (x, None, None, w1.t().contiguous(), b1, w2.t().contiguous(), b2) if t is not None]
+    y = cs.unfused_mlp(leaves[0], None, None, *leaves[1:], True, False)
+
+    def unfused_fwd():
+        with torch.no_grad():
+            return cs.unfused_mlp(leaves[0], None, None, *leaves[1:], True, False)
+
+    unfused = {"mlp_fwd": unfused_fwd,
+               "mlp_bwd": lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)}
+    plain = {"mlp_fwd": lambda: (mlp._mlp_fwd_reference(x, w1, b1, w2, b2, True),),
+             "mlp_bwd": lambda: mlp._mlp_bwd_reference(x, dy, w1, b1, w2, True)}
+    return fns, unfused, plain
+
+
+def mode_mlp(smi: str, old: Path) -> dict:
+    arms = [("new", NEW), ("old", old), ("old", old), ("new", NEW)]
+    for _, csrc in arms[:2]:
+        use(csrc)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 12)
+    out = {}
+    for rows, d, f in MLP_AB_SHAPES:
+        use(NEW)
+        fns, unfused, _ = mlp_operands(gen, rows, d, f)
+        res = {name: {"single_ms": [], "b2b_ms": [], "arms": [a for a, _ in arms]}
+               for name in fns}
+        ref = {}
+        for arm, csrc in arms:
+            use(csrc)
+            for name, fn in fns.items():
+                got = [t.clone() for t in fn()]
+                if arm == "new":
+                    if name not in ref:
+                        ref[name] = got
+                    elif not all(torch.equal(a, b) for a, b in zip(got, ref[name])):
+                        raise RuntimeError(f"{name}: the new kernels' bits changed between arms")
+                res[name]["single_ms"].append(cs.cuda_median_ms(fn))
+                res[name]["b2b_ms"].append(cs.back_to_back_ms(fn))
+        for name, row in res.items():
+            lib = [cs.cuda_median_ms(unfused[name]) for _ in range(2)]
+            lib_b2b = [cs.back_to_back_ms(unfused[name]) for _ in range(2)]
+            row.update(unfused_ms=lib, unfused_b2b_ms=lib_b2b,
+                       **cs.mlp_bound(name == "mlp_bwd", False, rows, d, f))
+            out[f"{name} {rows}"] = row
+            print(f"[mlp] {name} rows={rows} D={d} F={f} tanh, order {row['arms']}: single "
+                  f"calls (medians of 20) {row['single_ms']} ms; 50 back to back (medians of "
+                  f"5, per launch) {row['b2b_ms']} ms; unfused route {lib} ms, back to back "
+                  f"{lib_b2b} ms; bound {row['bound_ms']:.4f} ms by {row['bound_by']}; on {smi}")
+        del fns, unfused, ref
+        torch.cuda.empty_cache()
+    use(NEW)
+    return out
+
+
+def mode_mlp_e2e(smi: str, old: Path) -> dict:
+    arms = [("new", NEW), ("old", old), ("old", old), ("new", NEW)]
+    for _, csrc in arms[:2]:
+        use(csrc)
+    batch = cs.train_batch()
+    routes = {"use_fused_mlp": lambda depth: {"mlp_fwd": 2 * (depth - 1),
+                                              "mlp_bwd": 2 * (depth - 1)},
+              "mlp_pallas_bwd": lambda depth: {"mlp_fwd": 0, "mlp_bwd": 2 * depth}}
+    out, step_ms_by = {}, {}
+    for flag, counts in routes.items():
+        use(NEW)
+        bundle = cs.train_bundle({flag: True})
+        want = counts(bundle.model.backbone.config.depth)
+        views = cs.TRAIN_BATCH * (bundle.dcfg.n_global + bundle.dcfg.n_local)
+        cs.run_steps(bundle, batch, cs.WARMUP_STEPS)
+        step_ms = []
+        for arm, csrc in arms:
+            use(csrc)
+            steps = cs.run_steps(bundle, batch, 1 + STEP_TIMED)
+            for r in steps:
+                got = {name: r["launches"][name] for name in want}
+                if got != want or not np.isfinite(r["loss"]):
+                    raise RuntimeError(f"the step with {flag} ({arm}): launches {got}, loss "
+                                       f"{r['loss']}")
+            step_ms.append(statistics.median(r["ms"] for r in steps[1:]))
+        out[flag] = {"arms": [a for a, _ in arms], "step_ms": step_ms}
+        step_ms_by[flag] = step_ms
+        print(f"[mlp_e2e] the DINO step with {flag}, full depth, order {[a for a, _ in arms]}, "
+              f"medians of {STEP_TIMED} steps after {cs.WARMUP_STEPS} warm-up: {step_ms} ms "
+              f"per step = {[round(views / ms * 1e3, 1) for ms in step_ms]} views/s; on {smi}")
+        del bundle
+        torch.cuda.empty_cache()
+    # last (a profiled process launches more slowly after): kernel time and busy share
+    for flag in routes:
+        for i, (arm, csrc) in enumerate(arms[:2]):
+            use(csrc)
+            bundle = cs.train_bundle({flag: True})
+            cs.run_steps(bundle, batch, cs.WARMUP_STEPS)
+            cs.profile_step(f"the step with {flag}, {arm} kernels", bundle, batch,
+                            step_ms_by[flag][i], smi)
+            del bundle
+            torch.cuda.empty_cache()
+    use(NEW)
+    return out
 
 
 def mode_e2e(smi: str, old: Path) -> dict:
@@ -576,9 +778,13 @@ def main() -> None:
             summary["mha_bwd"] = mode_mha_bwd(smi, old)
         elif mode == "cutout":
             summary["cutout"] = mode_cutout(smi, only)
+        elif mode == "mlp":
+            summary["mlp"] = mode_mlp(smi, old)
+        elif mode == "mlp_e2e":
+            summary["mlp_e2e"] = mode_mlp_e2e(smi, old)
         else:
-            raise SystemExit(f"unknown mode {mode!r}: check, ab, bwd, e2e, mha_bwd, ablate, "
-                             "cutout")
+            raise SystemExit(f"unknown mode {mode!r}: check, ab, bwd, e2e, mha_bwd, mlp, "
+                             "mlp_e2e, ablate, cutout")
     print(f"[ab] done in {time.perf_counter() - t0:.1f} s; on {smi}")
     print(json.dumps(summary))
 

@@ -65,6 +65,18 @@ def test_kernel_rejects_what_it_does_not_take(shape, heads, dtype, err):
         tattn.check_kernel_input(torch.zeros(shape, dtype=dtype), heads)
 
 
+def test_kernel_takes_more_than_65535_sequences():
+    """The whole-sequence kernels' grids are persistent and their offsets
+    64-bit, so a batch past 65,535 goes to them; only batch x heads past
+    their int item count is refused. Shapes only: meta tensors hold no data."""
+    qkv = torch.empty((65536, 16, 3 * 384), dtype=torch.bfloat16, device="meta")
+    tattn.check_kernel_input(qkv, 6)
+    past = torch.empty((tattn.KERNEL_MAX_ITEMS // 6 + 1, 1, 3 * 384), dtype=torch.bfloat16,
+                       device="meta")
+    with pytest.raises(NotImplementedError):
+        tattn.check_kernel_input(past, 6)
+
+
 # The forward kernel's branches: one 16-key chunk, the 48-key score width
 # and one past it, one 64-row tile and a second, the last key held in
 # registers (208) and the first parked in shared memory, the last a
@@ -227,6 +239,40 @@ def test_training_kernels_match_plain_on_card(b, n, heads, block_len, save_probs
     for got, want in zip(*results):
         diff = (got - want).abs()
         # bf16 rounding of q*scale, p and dS; fp32 accumulation
+        assert torch.isfinite(got).all()
+        assert diff.max().item() <= 2e-2 and diff.mean().item() <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("save_probs", [True, False], ids=["saved", "recompute"])
+def test_batch_past_65535_matches_plain_on_card(save_probs):
+    """65,536 sequences of 16 tokens, D 384, 6 heads: K2 (inference) and
+    the training pair (K1a and K1b, or K2 and K3) against their plain
+    versions at the tolerances of the other card cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    b, n, heads = 65536, 16, 6
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    qkv = torch.randn((b, n, 3 * heads * 64), generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((b, n, heads * 64), generator=gen, device="cuda").to(torch.bfloat16)
+    before = dict(tattn.LAUNCHES)
+    out = tattn.mha_from_qkv(qkv, heads)
+    torch.cuda.synchronize()
+    assert tattn.LAUNCHES["mha_qkv_fwd"] == before["mha_qkv_fwd"] + 1
+    diff = (out.float() - tattn._mha_reference(qkv, heads, 64 ** -0.5, 0).float()).abs()
+    assert diff.max().item() <= 2e-2 and diff.mean().item() <= 2e-3
+    results = []
+    for plain in (False, True):
+        x = qkv.clone().requires_grad_()
+        o = tattn.mha_from_qkv(x, heads, training=True, save_probs=save_probs, plain=plain)
+        o.backward(g)
+        torch.cuda.synchronize()
+        results.append((o.detach().float(), x.grad.float()))
+        del x, o
+    bwd = "mha_qkv_bwd_saved" if save_probs else "mha_qkv_bwd"
+    assert tattn.LAUNCHES[bwd] == before[bwd] + 1
+    for got, want in zip(*results):
+        diff = (got - want).abs()
         assert torch.isfinite(got).all()
         assert diff.max().item() <= 2e-2 and diff.mean().item() <= 2e-3
 

@@ -313,3 +313,23 @@ def test_fused_mlp_step_bundle_trajectory_matches_jax(shared_drop_path, op_calls
             if key.endswith("attn/qkv/bias"):  # the key bias: see test_torch_dino.py
                 a, c = np.delete(a, np.s_[64:128]), np.delete(c, np.s_[64:128])
             np.testing.assert_allclose(a, c, atol=1e-4, rtol=1e-4, err_msg=f"{name} {key}")
+
+
+@pytest.mark.parametrize("rows,f,sms", [(37824, 1536, 132), (21312, 1536, 132), (1, 1536, 132),
+                                        (7, 64, 132), (1000, 320, 132), (37824, 1536, 16),
+                                        (129, 1536, 1), (5 * 32 + 1, 256, 132)])
+def test_dw_groups_cover_every_row_within_the_grid(rows, f, sms):
+    """The row groups of the D = 384 backward's weight-gradient passes: a pure
+    function of (rows, F, SMs) whose groups of 32-row stages cover every row
+    once, in order, and whose grid fills at most the card."""
+    groups = tmlp.mlp_dw_groups(rows, f, sms)
+    assert groups == tmlp.mlp_dw_groups(rows, f, sms)
+    stages = -(-rows // tmlp.MLP_DW_STAGE_ROWS)
+    per = -(-stages // groups)
+    assert 1 <= groups <= stages
+    covered = [s for g in range(groups) for s in range(g * per, min((g + 1) * per, stages))]
+    assert covered == list(range(stages))
+    blocks_per_group = -(-(f // tmlp.MLP_DW_SLICE) // tmlp.MLP_DW_CLUSTER) * tmlp.MLP_DW_CLUSTER
+    assert groups * blocks_per_group <= max(sms, blocks_per_group) < 2 ** 31
+    if (rows, f, sms) == (37824, 1536, 132):
+        assert groups == 5  # 24 slices in 6 clusters of 4: 120 of 132 SMs

@@ -55,6 +55,9 @@ from tpuwsi_torch.ops.mlp import DENSE_DW_WAVES, _ln_bwd, _ln_fwd, _mm
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 64
 KERNEL_MAX_SEQ = 511  # the whole-sequence kernels; 512+ tokens go to the flash family
+# (sequence, head) items of one whole-sequence launch: an int in the kernels, whose
+# grid is persistent and whose offsets are 64-bit, so the batch has no other cap
+KERNEL_MAX_ITEMS = 2 ** 31 - 1
 MIN_FLASH_SEQ = KERNEL_MAX_SEQ + 1
 FLASH_TILE_K = 64     # keys per step of the online softmax, in kernel and plain version
 ATTN_BLOCK_WIDTH = 384     # embedding width the sub-block kernels are built for (6 heads)
@@ -178,8 +181,9 @@ def check_kernel_input(qkv: torch.Tensor, num_heads: int) -> None:
         raise ValueError(
             f"{n} tokens: the whole-sequence kernels hold at most {KERNEL_MAX_SEQ} "
             "per block; mha_from_qkv sends longer sequences to the flash kernels")
-    if b > 65535:
-        raise NotImplementedError(f"batch {b} exceeds the launch grid (65535)")
+    if b * num_heads > KERNEL_MAX_ITEMS:
+        raise NotImplementedError(
+            f"batch {b} x {num_heads} heads exceeds the kernels' item count ({KERNEL_MAX_ITEMS})")
 
 
 def _check_grad_input(qkv: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 // Hopper building blocks that more than one kernel source uses
-// (mha_qkv_fwd.cu, flash_fwd.cu, flash_bwd.cu): mbarriers, TMA loads through
-// tensor maps and their encoding on the host, named barriers, wgmma
-// descriptors for 128-byte swizzled tiles, and the wgmma shapes the attention
-// kernels share.
+// (mha_qkv_fwd.cu, flash_fwd.cu, flash_bwd.cu, mlp_sm90.cu): mbarriers, TMA
+// loads through tensor maps (2-D ones also multicast to a thread-block
+// cluster) and their encoding on the host, cluster barriers and remote
+// arrivals, named barriers, wgmma descriptors for 128-byte swizzled tiles,
+// and the wgmma shapes the attention kernels share.
 // Every function is inline; sm_90a only (wgmma).
 
 #pragma once
@@ -90,6 +91,67 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head), "r"(batch)
+      : "memory");
+}
+
+// One box of a 2-D tensor map into shared memory, completing on `bar`:
+// coordinates (col, row) of its first element; elements past the map's
+// extent arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// The same box written to the same shared-memory offset in every block of the
+// cluster named in `mask` (bit i: the block of rank i), each completing its
+// bytes on its own mbarrier at offset `bar`. One read of device memory (or
+// L2) feeds them all.
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int col, int row,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "h"(mask)
+      : "memory");
+}
+
+// ---- thread-block clusters -------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster: what each wrote before (its
+// mbarrier inits included) is visible to all after. Not .aligned: a warp may
+// reach it divergent (a producer warp whose one thread issued the loads).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
+// Arrive on the mbarrier at shared-memory offset `bar` of the cluster's block
+// of rank `cta` (this block's own included). The default release at CTA
+// scope, as CUTLASS's cluster barrier has it: what it orders are this
+// thread's wgmma reads of a stage, complete at their wait; a release at
+// cluster scope waits for every earlier write of the thread to reach the
+// cluster and cost microseconds an arrival.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(cta)
       : "memory");
 }
 
@@ -267,6 +329,21 @@ inline EncodeTiledFn encode_tiled() {
       fn = reinterpret_cast<EncodeTiledFn>(ptr);
   }
   return fn;
+}
+
+// A 2-D map over a row-major bf16 matrix of `rows` rows of `cols` values
+// (cols a multiple of 8); boxes of 64 columns x box_rows rows, 128-byte
+// swizzled. Rows past `rows` arrive as zeros.
+inline bool encode_2d(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, long long cols,
+                      long long rows, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t bytes[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, bytes,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // A 4-D map (64 columns, rows, heads, batch) over bf16 rows of 64 contiguous

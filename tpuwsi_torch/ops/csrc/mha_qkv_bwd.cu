@@ -1051,7 +1051,11 @@ bool encode_3d(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, int cols
 template <bool kSaved>
 int launch_bwd(const void* qkv, const void* g, const void* probs, void* dqkv, int p_stride,
                int batch, int n, int num_heads, float scale, int block_len, void* stream) {
-  if (batch < 1 || batch > 65535 || n < 1 || n > kMaxSeq || num_heads < 1)
+  // The grid is persistent (at most one block per SM) and every offset is 64-bit:
+  // the batch is bounded only by the item count (an int) and the tensor maps'
+  // dimensions (below 2^32).
+  if (batch < 1 || n < 1 || n > kMaxSeq || num_heads < 1 ||
+      static_cast<long long>(batch) * num_heads > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (kSaved && (p_stride < n || p_stride % 8 != 0)) return static_cast<int>(cudaErrorInvalidValue);
   Params prm{};

@@ -605,7 +605,11 @@ uint32_t plan(Params& prm, bool save, bool split, bool tail, int read_rows) {
 template <bool kSaveP>
 int launch_fwd(const void* qkv, void* out, void* probs, int p_stride, int batch, int n,
                int num_heads, float scale, int block_len, void* stream) {
-  if (batch < 1 || batch > 65535 || n < 1 || n > kMaxSeq || num_heads < 1)
+  // The grid is persistent (at most one block per SM) and every offset is 64-bit:
+  // the batch is bounded only by the item count (an int) and the tensor maps'
+  // dimensions (below 2^32).
+  if (batch < 1 || n < 1 || n > kMaxSeq || num_heads < 1 ||
+      static_cast<long long>(batch) * num_heads > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n16 = (n + 15) / 16 * 16;
   if (kSaveP && p_stride != n16) return static_cast<int>(cudaErrorInvalidValue);

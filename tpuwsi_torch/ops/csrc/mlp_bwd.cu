@@ -3,6 +3,8 @@
 //
 // Replaces two TPU kernels of tpuwsi/ops/mlp.py:
 //   kBlock = false  :100 `_mlp_bwd_kernel`        (pallas_call at :185)
+//                   (at D = 768 only: D = 384 takes the Hopper kernels of
+//                   mlp_sm90.cu, whose partials the same sums add)
 //   kBlock = true   :508 `_mlp_block_bwd_kernel`  (pallas_call at :612)
 // Same arithmetic, per row tile, with a = x (or a = bf16(LN(x)) when kBlock):
 //   u = a . W1 + b1 (fp32), h = bf16(gelu(u)), gelu'(u) in fp32
@@ -58,6 +60,12 @@
 // allocates nothing and returns cudaGetLastError().
 
 #include "mlp_common.cuh"
+
+namespace mlp_sm90 {
+int bwd(const void* x, const void* dy, const void* w1, const void* b1, const void* w2, void* dx,
+        float* w_part, float* row_part, int rows, int f, int n_row_tiles, int groups, int approx,
+        cudaStream_t stream);
+}
 
 namespace {
 
@@ -497,6 +505,20 @@ mlp_bwd_dw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   }
 }
 
+// grads: dW1 (D, F) | dW2 (F, D) | db1 (F,) | db2 (D,) [| dgamma (D,) | dbeta (D,)], each
+// the sum of its partials in the order of their index.
+template <int D, bool kBlock>
+int sum_grads(void* grads, const void* w_part, const void* row_part, int f, int n_row_tiles,
+              int groups, cudaStream_t stream) {
+  const long long n_w = 2LL * D * f + f, n_row = (kBlock ? 3LL : 1LL) * D;
+  float* out = static_cast<float*>(grads);
+  sum_partials_kernel<float><<<static_cast<unsigned>((n_w + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(w_part), out, groups, n_w);
+  sum_partials_kernel<float><<<static_cast<unsigned>((n_row + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(row_part), out + n_w, n_row_tiles, n_row);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, bool kBlock>
 int launch(const void* x, const void* dy, const void* gamma, const void* beta, const void* w1,
            const void* b1, const void* w2, void* dx, void* grads, void* w_part, void* row_part,
@@ -536,15 +558,19 @@ int launch(const void* x, const void* dy, const void* gamma, const void* beta, c
       static_cast<float*>(w_part), rows, f, approx);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  return sum_grads<D, kBlock>(grads, w_part, row_part, f, n_row_tiles, groups, stream);
+}
 
-  // grads: dW1 (D, F) | dW2 (F, D) | db1 (F,) | db2 (D,) [| dgamma (D,) | dbeta (D,)]
-  const long long n_w = 2LL * D * f + f, n_row = (kBlock ? 3LL : 1LL) * D;
-  float* out = static_cast<float*>(grads);
-  sum_partials_kernel<float><<<static_cast<unsigned>((n_w + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(w_part), out, groups, n_w);
-  sum_partials_kernel<float><<<static_cast<unsigned>((n_row + 255) / 256), 256, 0, stream>>>(
-      static_cast<const float*>(row_part), out + n_w, n_row_tiles, n_row);
-  return static_cast<int>(cudaGetLastError());
+// K5b at D = 384: the kernels of mlp_sm90.cu, then the same sums.
+int launch_sm90(const void* x, const void* dy, const void* w1, const void* b1, const void* w2,
+                void* dx, void* grads, void* w_part, void* row_part, int rows, int f,
+                int n_row_tiles, int groups, int approx, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const int err = mlp_sm90::bwd(x, dy, w1, b1, w2, dx, static_cast<float*>(w_part),
+                                static_cast<float*>(row_part), rows, f, n_row_tiles, groups,
+                                approx, stream);
+  if (err != 0) return err;
+  return sum_grads<384, false>(grads, w_part, row_part, f, n_row_tiles, groups, stream);
 }
 
 template <bool kBlock>
@@ -553,9 +579,14 @@ int dispatch(const void* x, const void* dy, const void* gamma, const void* beta,
              void* row_part, void* ln_work, int rows, int d, int f, int n_row_tiles, int groups,
              float eps, int approx, void* stream) {
   if (rows < 1 || f < 64 || f % 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (d == 384)
-    return launch<384, kBlock>(x, dy, gamma, beta, w1, b1, w2, dx, grads, w_part, row_part,
-                               ln_work, rows, f, n_row_tiles, groups, eps, approx, stream);
+  if (d == 384) {
+    if constexpr (!kBlock)
+      return launch_sm90(x, dy, w1, b1, w2, dx, grads, w_part, row_part, rows, f, n_row_tiles,
+                         groups, approx, stream);
+    else
+      return launch<384, kBlock>(x, dy, gamma, beta, w1, b1, w2, dx, grads, w_part, row_part,
+                                 ln_work, rows, f, n_row_tiles, groups, eps, approx, stream);
+  }
   if (d == 768)
     return launch<768, kBlock>(x, dy, gamma, beta, w1, b1, w2, dx, grads, w_part, row_part,
                                ln_work, rows, f, n_row_tiles, groups, eps, approx, stream);
@@ -585,7 +616,8 @@ int tpuwsi_mlp_hidden_per_slice(int d) {
 // grads (out): 2 d f + f + d fp32 = dW1 (d, f) | dW2 (f, d) | db1 | db2.
 // Workspaces, fp32, contents undefined on entry: w_part (groups, 2 d f + f),
 // row_part (n_row_tiles, d), with n_row_tiles = ceil(rows / rows_per_tile(d))
-// and 1 <= groups <= n_row_tiles row groups in the weight-gradient grid.
+// and groups row groups in the weight-gradient grid: 1 <= groups <=
+// n_row_tiles at d = 768, 1 <= groups <= ceil(rows / 32) at d = 384.
 int tpuwsi_mlp_bwd(const void* x, const void* dy, const void* w1, const void* b1, const void* w2,
                    void* dx, void* grads, void* w_part, void* row_part, int rows, int d, int f,
                    int n_row_tiles, int groups, int approx, void* stream) {

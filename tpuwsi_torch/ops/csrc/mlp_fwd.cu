@@ -4,6 +4,7 @@
 // Replaces two TPU kernels of tpuwsi/ops/mlp.py:
 //   kBlock = false  :83  `_mlp_fwd_kernel`        (pallas_call at :160)
 //       y = gelu(x . W1 + b1) . W2 + b2
+//       (at D = 768 only: D = 384 takes the Hopper kernel of mlp_sm90.cu)
 //   kBlock = true   :485 `_mlp_block_fwd_kernel`  (pallas_call at :584)
 //       y = x + (gelu(LN(x) . W1 + b1) . W2 + b2)
 // x, y: (rows, D) bf16; W1: (D, F), W2: (F, D), b1: (F,), b2: (D,) bf16;
@@ -50,6 +51,11 @@
 // allocates nothing and returns cudaGetLastError().
 
 #include "mlp_common.cuh"
+
+namespace mlp_sm90 {
+int fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2, void* y,
+        int rows, int f, int approx, cudaStream_t stream);
+}
 
 namespace {
 
@@ -228,8 +234,13 @@ int dispatch(const void* x, const void* gamma, const void* beta, const void* w1,
              const void* w2, const void* b2, void* y, int rows, int d, int f, float eps,
              int approx, void* stream) {
   if (rows < 1 || f < 64 || f % 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (d == 384)
-    return launch<384, kBlock>(x, gamma, beta, w1, b1, w2, b2, y, rows, f, eps, approx, stream);
+  if (d == 384) {
+    if constexpr (!kBlock)
+      return mlp_sm90::fwd(x, w1, b1, w2, b2, y, rows, f, approx,
+                           static_cast<cudaStream_t>(stream));
+    else
+      return launch<384, kBlock>(x, gamma, beta, w1, b1, w2, b2, y, rows, f, eps, approx, stream);
+  }
   if (d == 768)
     return launch<768, kBlock>(x, gamma, beta, w1, b1, w2, b2, y, rows, f, eps, approx, stream);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -40,7 +40,11 @@ to the plain version. The kernels take bf16 and an embedding width of 384 or
 768; the MLP's hidden width and the LN+GEMM's output width are multiples of
 64, both widths of the GEMM+residual are 384 or 768; both GELU forms run
 in-kernel. The backward kernels sum the weight gradients in a fixed order: the
-same inputs give the same bits on every run.
+same inputs give the same bits on every run. At width 384, ``mlp_fwd`` and
+``mlp_bwd`` are ``csrc/mlp_sm90.cu`` (clusters of four blocks sharing the
+weight stream; the backward's row groups from ``mlp_dw_groups``); at 768 and
+for the other six, the row-tiled kernels of ``csrc/mlp_fwd.cu``,
+``csrc/mlp_bwd.cu`` and ``csrc/dense.cu``.
 
 As in the reference, the public functions cast the parameters to ``x.dtype``
 outside the differentiated op and the op returns weight and bias gradients in
@@ -59,6 +63,10 @@ import torch.nn.functional as F
 KERNEL_WIDTHS = (384, 768)   # embedding widths the kernels are built for
 KERNEL_HIDDEN_MULTIPLE = 64
 DW_WAVES = 4                 # weight-gradient blocks per SM that the row groups aim at
+# The weight-gradient passes of the D = 384 backward (csrc/mlp_sm90.cu): clusters
+# of this many blocks take neighbouring 64-unit hidden slices of one row group,
+# which they walk in stages of this many rows
+MLP_DW_CLUSTER, MLP_DW_SLICE, MLP_DW_STAGE_ROWS = 4, 64, 32
 # the same for one dense layer's weight gradient: its partials are written and
 # summed again, (K N + N) fp32 per row group, and with nothing to rebuild per
 # row the blocks are short, so fewer, longer row groups win (on an H100 at
@@ -285,6 +293,18 @@ def _launch_mlp_block_fwd(x2, g, be, w1, b1, w2, b2, approx, eps):
     return y
 
 
+def mlp_dw_groups(rows: int, f: int, sms: int) -> int:
+    """Row groups of the D = 384 backward's weight-gradient passes: as many as
+    fill the card with one block per SM (each group takes ``ceil(F / 256)``
+    clusters of four slices), at least one, at most one per 32-row stage.
+    A pure function of the shapes and the SM count, so the partial sums, and
+    the order in which they are added, are the same on every run."""
+    stages = -(-rows // MLP_DW_STAGE_ROWS)
+    slices = f // MLP_DW_SLICE
+    blocks_per_group = -(-slices // MLP_DW_CLUSTER) * MLP_DW_CLUSTER
+    return max(1, min(stages, sms // blocks_per_group))
+
+
 def _bwd_buffers(x2, f: int, row_sums: int):
     """Outputs and workspaces of a backward launch: dx, the fp32 gradients in
     one buffer ``dW1 | dW2 | db1 | db2 [| dgamma | dbeta]``, the per-row-group
@@ -299,7 +319,10 @@ def _bwd_buffers(x2, f: int, row_sums: int):
     n_tiles = -(-rows // lib.tpuwsi_mlp_rows_per_tile(d))
     slices = f // lib.tpuwsi_mlp_hidden_per_slice(d)  # the weight-gradient grid's other axis
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups = max(1, min(n_tiles, DW_WAVES * sms // slices))
+    if d == 384 and row_sums == 1:  # K5b's Hopper kernels (csrc/mlp_sm90.cu)
+        groups = mlp_dw_groups(rows, f, sms)
+    else:
+        groups = max(1, min(n_tiles, DW_WAVES * sms // slices))
     n_w = 2 * d * f + f
     grads = torch.empty(n_w + row_sums * d, dtype=torch.float32, device=dev)
     w_part = torch.empty((groups, n_w), dtype=torch.float32, device=dev)

@@ -21,10 +21,11 @@ Phases, each printing its own lines:
      the same bits from two launches of each; the four whole-sequence
      kernels also at 65,536 sequences of 16 tokens (past the old 65,535
      cap); the four fused-MLP kernels at the step's and the serving chunk's
-     row counts, at ViT-B width and at 7 rows, both GELU forms, and K5f and
-     K5b at both widths at the row counts where their tiles and clusters
-     end (1, 63-65, 127-129, 321), K5f and K5b also timed back to back
-     beside the unfused route at the step's two row counts; the
+     row counts, at ViT-B width and at 7 rows, both GELU forms, and all four
+     at both widths at the row counts where their tiles and clusters end (1,
+     63-65, 127-129, 321), K5f and K5b also timed back to back beside the
+     unfused route at the step's two row counts, K6f at the serving chunk's
+     and K6b at the step's global views; the
      five dense-layer kernels at the qkv and proj layers of the same row
      counts; the two attention sub-block kernels at the step's global and
      local views, a serving chunk, a batch of 8 tiles, one token and the
@@ -197,9 +198,10 @@ MLP_SHAPES = [
     (6304, 768, 3072),    # ViT-B/16, 32 x 197
     (7, 384, 1536),       # less than one row tile
 ]
-# K5f and K5b at both widths (F = 4 D) where their row tiles and clusters end:
-# one row, either side of one and two 64-row tiles, and five tiles and a row
-# (csrc/mlp_sm90.cu's second cluster of four tiles holds two, one of a row)
+# the four fused-MLP kernels at both widths (F = 4 D) where their row tiles
+# and clusters end: one row, either side of one and two 64-row tiles, and five
+# tiles and a row (csrc/mlp_sm90.cu's second cluster of four tiles holds two,
+# one of a row)
 MLP_EDGE_ROWS = [1, 63, 64, 65, 127, 128, 129, 5 * 64 + 1]
 MLP_TIMED_B2B = MLP_SHAPES[:2]  # K5f, K5b back to back beside the unfused route
 # bf16 outputs (y, dx): one bf16 ulp of a value below 8, where the rounding of
@@ -316,8 +318,8 @@ def phase_build() -> None:
             serialised.append(line.strip())
     if not spills or any(spills.values()) or serialised:
         raise RuntimeError(f"csrc/mlp_sm90.cu: spill bytes {spills}, serialised wgmma {serialised}")
-    print(f"[build] ptxas: csrc/mlp_sm90.cu's {len(spills)} kernels (K5f, K5b): 0 spill bytes, "
-          "no serialised wgmma (C7512-C7520)")
+    print(f"[build] ptxas: csrc/mlp_sm90.cu's {len(spills)} kernels (K5f, K5b, K6f, K6b): 0 spill "
+          "bytes, no serialised wgmma (C7512-C7520)")
 
 
 def heads_view(qkv, h):
@@ -847,12 +849,12 @@ def unfused_mlp(x, g, be, w1t, b1, w2t, b2, approx, block):
 
 
 def phase_mlp_kernels(smi: str) -> dict:
-    """K5f, K5b, K6f, K6b against their plain versions at MLP_SHAPES, and K5f
-    and K5b at both widths at MLP_EDGE_ROWS; times at the student's global
-    views (the sub-block forward at the serving chunk; K5f and K5b also at
-    the local views, and back to back at both), beside the plain version's,
-    the unfused route's and the bound. The backward kernels run twice on the
-    same inputs and must give the same bits."""
+    """K5f, K5b, K6f, K6b against their plain versions at MLP_SHAPES and at
+    both widths at MLP_EDGE_ROWS; times at the student's global views (the
+    sub-block forward at the serving chunk; K5f and K5b also at the local
+    views), single and back to back, beside the plain version's, the unfused
+    route's and the bound. The backward kernels run twice on the same inputs
+    and must give the same bits."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     names = ("mlp_fwd", "mlp_bwd", "mlp_block_fwd", "mlp_block_bwd")
     res = {name: {"max_abs_err": 0.0, "library_ms": None} for name in names}
@@ -911,7 +913,7 @@ def phase_mlp_kernels(smi: str) -> dict:
                          unfused_ms_runs=[u1, u2],
                          plain_ms=cuda_median_ms(fns[name][1], reps=5, warmup=1),
                          **mlp_bound(name.endswith("bwd"), block, rows, d, f))
-                if shape in MLP_TIMED_B2B and name in ("mlp_fwd", "mlp_bwd"):
+                if shape in MLP_TIMED_B2B or "block" in name:
                     # back to back in the order kernel, unfused, unfused, kernel
                     b2b = [back_to_back_ms(fns[name][0]), back_to_back_ms(unfused),
                            back_to_back_ms(unfused), back_to_back_ms(fns[name][0])]
@@ -939,6 +941,7 @@ def phase_mlp_kernels(smi: str) -> dict:
         torch.cuda.empty_cache()
     for d in (384, 768):
         f = 4 * d
+        g, be = 1.0 + randn((d,), 0.1, torch.float32), randn((d,), 0.1, torch.float32)
         w1, b1 = randn((d, f), d ** -0.5), randn((f,), 0.1)
         w2, b2 = randn((f, d), f ** -0.5), randn((d,), 0.1)
         for rows in MLP_EDGE_ROWS:
@@ -948,7 +951,15 @@ def phase_mlp_kernels(smi: str) -> dict:
                     "mlp_fwd": (lambda: mlp._launch_mlp_fwd(x, w1, b1, w2, b2, True),
                                 lambda: mlp._mlp_fwd_reference(x, w1, b1, w2, b2, True)),
                     "mlp_bwd": (lambda: mlp._launch_mlp_bwd(x, dy, w1, b1, w2, True),
-                                lambda: mlp._mlp_bwd_reference(x, dy, w1, b1, w2, True))}.items():
+                                lambda: mlp._mlp_bwd_reference(x, dy, w1, b1, w2, True)),
+                    "mlp_block_fwd": (
+                        lambda: mlp._launch_mlp_block_fwd(x, g, be, w1, b1, w2, b2, True, 1e-6),
+                        lambda: mlp._mlp_block_fwd_reference(x, g, be, w1, b1, w2, b2, True,
+                                                             1e-6)),
+                    "mlp_block_bwd": (
+                        lambda: mlp._launch_mlp_block_bwd(x, dy, g, be, w1, b1, w2, True, 1e-6),
+                        lambda: mlp._mlp_block_bwd_reference(x, dy, g, be, w1, b1, w2, True,
+                                                             1e-6))}.items():
                 res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
                                                check_kernel(name, case, *fns))
     print("[mlp_bwd, mlp_block_bwd] two runs on the same inputs gave the same bits at every shape")
@@ -1930,7 +1941,7 @@ def main() -> None:
     phase_profiles(smi)
     meta = {
         "mha_qkv_fwd": ("mha_qkv_fwd.cu", "tpuwsi/ops/attention.py:633"),
-        "mha_qkv_fwd_saved": ("mha_qkv_fwd.cu", "tpuwsi/ops/attention.py:850"),
+        "mha_qkv_fwd_saved": ("mha_qkv_fwd.cu", "tpuwsi/ops/attention.py:852"),
         "mha_qkv_bwd_saved": ("mha_qkv_bwd.cu", "tpuwsi/ops/attention.py:935"),
         "mha_qkv_bwd": ("mha_qkv_bwd.cu", "tpuwsi/ops/attention.py:732"),
         "flash_fwd": ("flash_fwd.cu", "tpuwsi/ops/attention.py:80"),
@@ -1939,8 +1950,8 @@ def main() -> None:
         "flash_bwd_dkv": ("flash_bwd.cu", "tpuwsi/ops/attention.py:303"),
         "mlp_fwd": ("mlp_sm90.cu", "tpuwsi/ops/mlp.py:83"),
         "mlp_bwd": ("mlp_sm90.cu", "tpuwsi/ops/mlp.py:100"),
-        "mlp_block_fwd": ("mlp_fwd.cu", "tpuwsi/ops/mlp.py:485"),
-        "mlp_block_bwd": ("mlp_bwd.cu", "tpuwsi/ops/mlp.py:508"),
+        "mlp_block_fwd": ("mlp_sm90.cu", "tpuwsi/ops/mlp.py:485"),
+        "mlp_block_bwd": ("mlp_sm90.cu", "tpuwsi/ops/mlp.py:508"),
         "dense_bwd": ("dense.cu", "tpuwsi/ops/dense.py:51"),
         "ln_gemm_fwd": ("dense.cu", "tpuwsi/ops/mlp.py:832"),
         "ln_gemm_bwd": ("dense.cu", "tpuwsi/ops/mlp.py:850"),
@@ -1949,6 +1960,9 @@ def main() -> None:
         "attn_block_fwd": ("attn_block.cu", "tpuwsi/ops/attention.py:1467"),
         "attn_block_bwd": ("attn_block.cu", "tpuwsi/ops/attention.py:1490"),
     }
+    # the fused-MLP kernels at D = 768 (ViT-B) keep the row-tiled sources
+    at_768 = {"mlp_fwd": "mlp_fwd.cu", "mlp_bwd": "mlp_bwd.cu", "mlp_block_fwd": "mlp_fwd.cu",
+              "mlp_block_bwd": "mlp_bwd.cu"}
     lines = []
     for name, (source, replaces) in meta.items():
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -1956,6 +1970,8 @@ def main() -> None:
             raise RuntimeError(f"{name} was launched on no main path")
         lines.append({"name": name, "route": "cuda",
                       "source": f"tpuwsi_torch/ops/csrc/{source}", "replaces": replaces,
+                      **({"source_d768": f"tpuwsi_torch/ops/csrc/{at_768[name]}"}
+                         if name in at_768 else {}),
                       "launches": sum(by_path.values()), "launches_by_path": by_path,
                       **kernels[name]})
     print(json.dumps({"kernels": lines}))

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """A/B of hand-written kernels against another kernel tree, on one card: the
 flash family (K4a, K4a', K4b, K4b'), the whole-sequence backward (K1b, K3) and
-the fused MLP (K5f, K5b).
+the fused MLP with its sub-block (K5f, K5b, K6f, K6b).
 
     python3 flash_fwd_ab.py [check] [ab] [bwd] [e2e] [mha_bwd] [mlp] [mlp_e2e]
         [ablate 'NAME:FIND=>REPLACE;...' ...] [cutout] [--old DIR] [--only SOURCE]
+        [--cuts A,B]
 
 ``DIR`` (default ``build/ab/csrc_v1``) holds another copy of
 ``tpuwsi_torch/ops/csrc`` (for instance the parent commit's, unpacked with
@@ -45,20 +46,24 @@ Modes, in the order given:
   then 1 + 6 steps a library, medians of the 6, launch counts checked), in
   the same order, and last one profiled step of each with each library
   (kernel time and busy share);
-- ``mlp``: K5f and K5b (``_launch_mlp_fwd``, ``_launch_mlp_bwd``) at the DINO
-  step's student rows (37,824 and 21,312), D 384, F 1,536, tanh GELU, in the
-  order new, old, old, new: medians of 20 single calls and medians of 5 runs
-  of 50 launches back to back, beside the unfused route (library GEMMs and
-  GELU, their autograd backward) read the same two ways, and the bound from
-  ``chip_smoke.mlp_bound``; the new kernels must repeat their bits in both
-  of their arms. The old arm's backward gets the row groups the old kernels
-  were launched with (``DW_WAVES`` x SMs / slices, 22 on 132 SMs);
+- ``mlp``: the four fused-MLP kernels at D 384, F 1,536, tanh GELU (``MLP_AB``:
+  K5f and K5b at the DINO step's student rows, 37,824 and 21,312; K6f at a
+  500-tile serving chunk's 128,500 rows and at 37,824; K6b at 37,824 and
+  21,312), in the order new, old, old, new: medians of 20 single calls and
+  medians of 5 runs of 50 launches back to back, beside the unfused route
+  (library GEMMs and GELU, with LayerNorm and the residual sum for the
+  sub-block, their autograd backward) read the same two ways, and the bound
+  from ``chip_smoke.mlp_bound``; the new kernels must repeat their bits in
+  both of their arms. An arm's backward gets the row groups its tree was
+  launched with (``use``);
 - ``mlp_e2e``: the DINO step with ``use_fused_mlp`` and with
   ``mlp_pallas_bwd``, full width and depth (one bundle each, 2 warm-up
   steps, then 1 + 6 steps a library, medians of the 6, the MLP kernels'
-  launch counts checked), in the order new, old, old, new; last, one
-  profiled step of each route with each library (kernel time by kind, busy
-  share);
+  launch counts checked, the sub-block's too), in the order new, old, old,
+  new; then serving at 256 px with ``use_fused_mlp`` beside the default
+  route (``extract_features`` over 8 chunks of 500 tiles, each route in each
+  arm, launch counts checked); last, one profiled step of each route with
+  each library (kernel time by kind, busy share);
 - ``cutout``: the kernels of a source timed beside copies of it with one
   part cut out (``CUTOUTS``): K4b and K4b' (flash_bwd.cu, at (192, 6, 785)),
   K1b and K3 (mha_qkv_bwd.cu, at (192, 197)), K5f and K5b (mlp_sm90.cu, at
@@ -66,7 +71,10 @@ Modes, in the order given:
   with a choice of the design undone (releases at cluster scope, a
   384-thread block with ``setmaxnreg``), whose ptxas lines are printed. The
   copies' outputs are not checked (a cut-out's are wrong by design).
-  ``--only SOURCE`` limits ``cutout`` to one source.
+  ``--only SOURCE`` limits ``cutout`` to one source, ``--cuts A,B`` to
+  those copies (for mlp_sm90.cu also ``no_ln_prologue``, ``no_ln_epilogue``:
+  the sub-block's in-tile LayerNorm, the dx pass's LayerNorm backward; and
+  ``dy_from_smem``, the dx pass holding its tile for the epilogue's dy).
 
 Every line names the card's name and power limit; the last line is a JSON
 summary.
@@ -97,30 +105,53 @@ BWD_SHAPES = [(192, 6, 785, True), (4, 6, 1024, False)]  # (B, H, S, strided)
 ABLATE_SOURCES = {"flash_fwd.cu": ("flash_fwd", "flash_fwd_stats"),
                   "flash_bwd.cu": ("flash_bwd_dq", "flash_bwd_dkv"),
                   "mha_qkv_bwd.cu": ("mha_qkv_bwd_saved", "mha_qkv_bwd"),
-                  "mlp_sm90.cu": ("mlp_fwd", "mlp_bwd")}
+                  "mlp_sm90.cu": ("mlp_fwd", "mlp_bwd", "mlp_block_fwd", "mlp_block_bwd")}
 MHA_SHAPES = [(192, 197, 384, 6), (576, 37, 384, 6)]  # (B, N, D, H)
 SERVE_CHUNKS, STEP_TIMED = 8, 6
+# the fused-MLP kernels timed by ``mlp`` at D 384, F 1,536: rows -> kernels
+MLP_AB = {128500: ("mlp_block_fwd",),
+          37824: ("mlp_fwd", "mlp_bwd", "mlp_block_fwd", "mlp_block_bwd"),
+          21312: ("mlp_fwd", "mlp_bwd", "mlp_block_bwd")}
 MLP_AB_SHAPES = cs.MLP_TIMED_B2B  # (37,824, 384, 1,536), (21,312, 384, 1,536)
 _NEW_DW_GROUPS = mlp.mlp_dw_groups
+_NEW_BWD_BUFFERS = mlp._bwd_buffers
 
 
 def _old_dw_groups(rows: int, f: int, sms: int) -> int:
-    """The row groups the parent's K5b was launched with (one per 64-row tile
-    at most, ``DW_WAVES`` blocks per SM over F / 64 slices)."""
+    """The row groups of the row-tiled backward kernels (csrc/mlp_bwd.cu) at
+    D = 384 (one per 64-row tile at most, ``DW_WAVES`` blocks per SM over F /
+    64 slices)."""
     return max(1, min(-(-rows // 64), mlp.DW_WAVES * sms // (f // 64)))
+
+
+def _bwd_buffers_of(old_for: set):
+    """``mlp._bwd_buffers`` as a tree computed it that launched the D = 384
+    backwards with ``row_sums`` in ``old_for`` (1: K5b, 3: K6b) on the
+    row-tiled kernels, and so with their row groups: ``w_part`` is sized by
+    them."""
+    def buffers(x2, f: int, row_sums: int):
+        mlp.mlp_dw_groups = _old_dw_groups if row_sums in old_for else _NEW_DW_GROUPS
+        try:
+            return _NEW_BWD_BUFFERS(x2, f, row_sums)
+        finally:
+            mlp.mlp_dw_groups = _NEW_DW_GROUPS
+    return buffers
 
 
 def use(csrc: Path) -> Path:
     """Make the kernels of ``csrc`` the ones every wrapper launches: the
     builder reads its tree from ``_build.CSRC`` and keys each library by the
     tree's hash, so the libraries of both trees sit side by side. A tree
-    without csrc/mlp_sm90.cu (the parent's) gets its K5b launched with the
-    row groups it was built for."""
+    without csrc/mlp_sm90.cu gets K5b and K6b launched with the row groups of
+    the row-tiled kernels, one whose mlp_sm90.cu has no sub-block K6b
+    alone."""
     _build.CSRC = Path(csrc)
     _build._lib = None
     _build.load()
-    mlp.mlp_dw_groups = (_NEW_DW_GROUPS if (Path(csrc) / "mlp_sm90.cu").exists()
-                         else _old_dw_groups)
+    sm90 = Path(csrc) / "mlp_sm90.cu"
+    text = sm90.read_text() if sm90.exists() else ""
+    old_for = {1, 3} if not text else set() if "block_bwd" in text else {3}
+    mlp._bwd_buffers = _bwd_buffers_of(old_for) if old_for else _NEW_BWD_BUFFERS
     return _build.library_path()
 
 
@@ -429,6 +460,24 @@ _ACC_FWD = ("            ss_n192<1, 1>(acc, sw128(opaque(ta) + k4 * 2048), sw128
 _ACC_DX = ("            ss_n192<1, 0>(acc, sw128(opaque(ta) + k4 * 2048), sw128(opaque(wb) + "
            "k4 * 32), 1);\n")
 _GELU = "            v[e] = mlp::gelu(x, kApprox);"
+# the sub-block's in-tile LayerNorm (K6f, K6b) and the dx pass's LayerNorm
+# backward epilogue (K6b; without it the pass stores dln with the residual)
+_LN_ROWS = ("      ln_rows<kBwd, kWg>(prm, base, row0, tid, base + L::kOffStats + (tc & 1) * "
+            "(kRows * 8));\n")
+_LN_EPILOGUE = ("      ln_backward_epilogue<kWg>(acc, prm, base, tc, tile, row0, tid);\n"
+                "      continue;\n")
+# and a choice of its design undone: the dx pass holds the x/dy tile until its
+# epilogue has read dy from shared memory, instead of releasing it at the
+# last chunk and reading dy from device memory
+_DY = "      const float2 xv = pair(prm.x, at_{0} + col), dyv = pair(prm.dy, at_{0} + col);"
+_DY_SMEM = ("      const float2 xv = pair(prm.x, at_{0} + col), dyv = mlp::unpack_bf16(__float_as_uint("
+            "ld_shared_f32(base + L::kOffDy + (col >> 6) * kBox + swz(r{0}, col & 63))));")
+_DY_FROM_SMEM = [
+    ("        warp_arrive(L::x_empty(base));\n      }\n",
+     "        if constexpr (!(kBwd && kBlock)) warp_arrive(L::x_empty(base));\n      }\n"),
+    (_LN_EPILOGUE, _LN_EPILOGUE.replace("      continue;", "      warp_arrive(L::x_empty(base));\n"
+                                                          "      continue;")),
+    (_DY.format("a"), _DY_SMEM.format("a")), (_DY.format("b"), _DY_SMEM.format("b"))]
 # and two choices of its design undone (valid kernels, slower): remote releases
 # at cluster scope, by each warp's lane 0 for all four blocks in turn (the
 # first version) or by lane r for block r; and a producer warpgroup with
@@ -476,6 +525,9 @@ CUTOUTS = {
         "release_cluster": [(_ARRIVE, _ARRIVE_CLUSTER.format("lane < kCluster", "lane", "lane + 1"))],
         "release_cluster_lane0": [(_ARRIVE, _ARRIVE_CLUSTER.format("lane == 0", "0", "kCluster"))],
         "t384_setmaxnreg": _T384,
+        "no_ln_prologue": [(_LN_ROWS, "")],
+        "no_ln_epilogue": [(_LN_EPILOGUE, "")],
+        "dy_from_smem": _DY_FROM_SMEM,
     },
     "mha_qkv_bwd.cu": {
         "no_step1": [_skip(_STEP1)],
@@ -487,7 +539,7 @@ CUTOUTS = {
 }
 
 
-def mode_cutout(smi: str, only: str | None = None) -> dict:
+def mode_cutout(smi: str, only: str | None = None, cuts: set | None = None) -> dict:
     """Each source's kernels with one part cut out (``CUTOUTS``) beside the
     whole kernels at the step's shape, order base, v1 .. vn, vn .. v1, base;
     unchecked. flash_bwd.cu: the elementwise work, the exponentials, S and
@@ -497,12 +549,13 @@ def mode_cutout(smi: str, only: str | None = None) -> dict:
     mlp_sm90.cu: the rebuild products, the GELU, the accumulating products,
     all of the arithmetic; and the design variants beside them."""
     res = {}
-    for source, cuts in CUTOUTS.items():
+    for source, cuts_of in CUTOUTS.items():
         if only not in (None, source):
             continue
         trees = {"base": NEW}
-        for name, edits in cuts.items():
-            trees[name], _ = variant_tree(name, [f"{find}=>{repl}" for find, repl in edits])
+        for name, edits in cuts_of.items():
+            if cuts is None or name in cuts:
+                trees[name], _ = variant_tree(name, [f"{find}=>{repl}" for find, repl in edits])
         res[source] = time_variants(smi, "cutout", trees, {source}, check=False)
     return res
 
@@ -586,30 +639,44 @@ def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) ->
     return res
 
 
-def mlp_operands(gen, rows, d, f):
-    """bf16 operands of K5f/K5b as chip_smoke makes them → (kernel functions,
-    the unfused route's functions, the plain versions, on the same operands)."""
-    def randn(shape, std=1.0):
-        return (std * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+def mlp_operands(gen, rows, d, f, names=ABLATE_SOURCES["mlp_sm90.cu"]):
+    """bf16 operands of the fused-MLP kernels as chip_smoke makes them →
+    (kernel functions, the unfused route's functions, the plain versions, on
+    the same operands), for the kernels in ``names``."""
+    def randn(shape, std=1.0, dtype=torch.bfloat16):
+        return (std * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
 
     x, dy = randn((rows, d)), randn((rows, d))
+    g, be = 1.0 + randn((d,), 0.1, torch.float32), randn((d,), 0.1, torch.float32)
     w1, b1 = randn((d, f), d ** -0.5), randn((f,), 0.1)
     w2, b2 = randn((f, d), f ** -0.5), randn((d,), 0.1)
     fns = {"mlp_fwd": lambda: (mlp._launch_mlp_fwd(x, w1, b1, w2, b2, True),),
-           "mlp_bwd": lambda: mlp._launch_mlp_bwd(x, dy, w1, b1, w2, True)}
-    leaves = [t.detach().requires_grad_() for t in
-              (x, None, None, w1.t().contiguous(), b1, w2.t().contiguous(), b2) if t is not None]
-    y = cs.unfused_mlp(leaves[0], None, None, *leaves[1:], True, False)
-
-    def unfused_fwd():
-        with torch.no_grad():
-            return cs.unfused_mlp(leaves[0], None, None, *leaves[1:], True, False)
-
-    unfused = {"mlp_fwd": unfused_fwd,
-               "mlp_bwd": lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)}
+           "mlp_bwd": lambda: mlp._launch_mlp_bwd(x, dy, w1, b1, w2, True),
+           "mlp_block_fwd": lambda: (mlp._launch_mlp_block_fwd(x, g, be, w1, b1, w2, b2, True,
+                                                               1e-6),),
+           "mlp_block_bwd": lambda: mlp._launch_mlp_block_bwd(x, dy, g, be, w1, b1, w2, True,
+                                                              1e-6)}
     plain = {"mlp_fwd": lambda: (mlp._mlp_fwd_reference(x, w1, b1, w2, b2, True),),
-             "mlp_bwd": lambda: mlp._mlp_bwd_reference(x, dy, w1, b1, w2, True)}
-    return fns, unfused, plain
+             "mlp_bwd": lambda: mlp._mlp_bwd_reference(x, dy, w1, b1, w2, True),
+             "mlp_block_fwd": lambda: (mlp._mlp_block_fwd_reference(x, g, be, w1, b1, w2, b2,
+                                                                    True, 1e-6),),
+             "mlp_block_bwd": lambda: mlp._mlp_block_bwd_reference(x, dy, g, be, w1, b1, w2, True,
+                                                                   1e-6)}
+    leaves = [t.detach().requires_grad_() for t in
+              (x, g, be, w1.t().contiguous(), b1, w2.t().contiguous(), b2)]
+    unfused = {}
+    for name in names:
+        block = "block" in name
+        if name.endswith("fwd"):
+            def unfused_fwd(block=block):
+                with torch.no_grad():
+                    return cs.unfused_mlp(*leaves, True, block)
+            unfused[name] = unfused_fwd
+        else:
+            y = cs.unfused_mlp(*leaves, True, block)
+            wrt = leaves if block else [leaves[0], *leaves[3:]]
+            unfused[name] = lambda y=y, wrt=wrt: torch.autograd.grad(y, wrt, dy, retain_graph=True)
+    return ({n: fns[n] for n in names}, unfused, {n: plain[n] for n in names})
 
 
 def mode_mlp(smi: str, old: Path) -> dict:
@@ -618,9 +685,10 @@ def mode_mlp(smi: str, old: Path) -> dict:
         use(csrc)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 12)
     out = {}
-    for rows, d, f in MLP_AB_SHAPES:
+    d, f = 384, 1536
+    for rows, names in MLP_AB.items():
         use(NEW)
-        fns, unfused, _ = mlp_operands(gen, rows, d, f)
+        fns, unfused, _ = mlp_operands(gen, rows, d, f, names)
         res = {name: {"single_ms": [], "b2b_ms": [], "arms": [a for a, _ in arms]}
                for name in fns}
         ref = {}
@@ -639,7 +707,7 @@ def mode_mlp(smi: str, old: Path) -> dict:
             lib = [cs.cuda_median_ms(unfused[name]) for _ in range(2)]
             lib_b2b = [cs.back_to_back_ms(unfused[name]) for _ in range(2)]
             row.update(unfused_ms=lib, unfused_b2b_ms=lib_b2b,
-                       **cs.mlp_bound(name == "mlp_bwd", False, rows, d, f))
+                       **cs.mlp_bound(name.endswith("bwd"), "block" in name, rows, d, f))
             out[f"{name} {rows}"] = row
             print(f"[mlp] {name} rows={rows} D={d} F={f} tanh, order {row['arms']}: single "
                   f"calls (medians of 20) {row['single_ms']} ms; 50 back to back (medians of "
@@ -657,8 +725,10 @@ def mode_mlp_e2e(smi: str, old: Path) -> dict:
         use(csrc)
     batch = cs.train_batch()
     routes = {"use_fused_mlp": lambda depth: {"mlp_fwd": 2 * (depth - 1),
-                                              "mlp_bwd": 2 * (depth - 1)},
-              "mlp_pallas_bwd": lambda depth: {"mlp_fwd": 0, "mlp_bwd": 2 * depth}}
+                                              "mlp_bwd": 2 * (depth - 1),
+                                              "mlp_block_fwd": depth + 2, "mlp_block_bwd": 2},
+              "mlp_pallas_bwd": lambda depth: {"mlp_fwd": 0, "mlp_bwd": 2 * depth,
+                                               "mlp_block_fwd": 0, "mlp_block_bwd": 0}}
     out, step_ms_by = {}, {}
     for flag, counts in routes.items():
         use(NEW)
@@ -683,6 +753,7 @@ def mode_mlp_e2e(smi: str, old: Path) -> dict:
               f"per step = {[round(views / ms * 1e3, 1) for ms in step_ms]} views/s; on {smi}")
         del bundle
         torch.cuda.empty_cache()
+    out["serving"] = mlp_serving(smi, arms)
     # last (a profiled process launches more slowly after): kernel time and busy share
     for flag in routes:
         for i, (arm, csrc) in enumerate(arms[:2]):
@@ -695,6 +766,40 @@ def mode_mlp_e2e(smi: str, old: Path) -> dict:
             torch.cuda.empty_cache()
     use(NEW)
     return out
+
+
+def mlp_serving(smi: str, arms) -> dict:
+    """Serving at 256 px with ``use_fused_mlp`` (K6f in every block) and by the
+    default route, each once in every arm: tiles/s of ``extract_features``
+    over ``SERVE_CHUNKS`` chunks of 500 tiles, launch counts checked."""
+    dev = torch.device("cuda")
+    models = {"use_fused_mlp": create_model(cs.MODEL, num_classes=2, img_size=cs.TILE,
+                                            use_fused_mlp=True),
+              "default": create_model(cs.MODEL, num_classes=2, img_size=cs.TILE)}
+    depth = models["default"].config.depth
+    params = params_from_flax(cs.flax_vit_tree(models["default"].config, cs.SEED))
+    valid = [cs.TILES_PER_ITER] * SERVE_CHUNKS
+    chunks = cs.make_chunks(cs.SEED, valid, cs.TILES_PER_ITER, cs.TILE)
+    want = {"use_fused_mlp": {"mha_qkv_fwd": depth * len(chunks),
+                              "mlp_block_fwd": depth * len(chunks)},
+            "default": {"mha_qkv_fwd": depth * len(chunks), "mlp_block_fwd": 0}}
+    out_dir = cs.OUT / "ab_serve"
+    res = {"arms": [a for a, _ in arms], **{route: [] for route in models}}
+    for i, (arm, csrc) in enumerate(arms):
+        use(csrc)
+        for route, model in models.items():
+            extract_features(chunks[:1], model, params, str(out_dir / "warmup"), dev)
+            cs.reset_launches()
+            _, secs = cs.timed_extract(chunks, model, params, out_dir / f"{i}_{arm}_{route}", dev)
+            got = {name: cs.all_launches()[name] for name in want[route]}
+            if got != want[route]:
+                raise RuntimeError(f"256-px serving, {route} ({arm}): launches {got}")
+            res[route].append(sum(valid) / secs)
+    print(f"[mlp_e2e] serving at 256 px, {SERVE_CHUNKS} chunks x {cs.TILES_PER_ITER} tiles "
+          f"through extract_features, order {res['arms']}: use_fused_mlp "
+          f"{[round(x, 1) for x in res['use_fused_mlp']]} tiles/s, default route "
+          f"{[round(x, 1) for x in res['default']]} tiles/s; on {smi}")
+    return res
 
 
 def mode_e2e(smi: str, old: Path) -> dict:
@@ -752,10 +857,14 @@ def main() -> None:
         i = args.index("--old")
         old = Path(args[i + 1])
         del args[i:i + 2]
-    only = None
+    only = cuts = None
     if "--only" in args:
         i = args.index("--only")
         only = args[i + 1]
+        del args[i:i + 2]
+    if "--cuts" in args:
+        i = args.index("--cuts")
+        cuts = set(args[i + 1].split(","))
         del args[i:i + 2]
     variants = [a for a in args if ":" in a]  # ablate's NAME:FIND=>REPLACE;...
     modes = [a for a in args if ":" not in a] or ["check"]
@@ -777,7 +886,7 @@ def main() -> None:
         elif mode == "mha_bwd":
             summary["mha_bwd"] = mode_mha_bwd(smi, old)
         elif mode == "cutout":
-            summary["cutout"] = mode_cutout(smi, only)
+            summary["cutout"] = mode_cutout(smi, only, cuts)
         elif mode == "mlp":
             summary["mlp"] = mode_mlp(smi, old)
         elif mode == "mlp_e2e":

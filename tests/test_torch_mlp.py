@@ -12,6 +12,7 @@ version, are in ``test_torch_mlp_card.py``.
 """
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -333,3 +334,99 @@ def test_dw_groups_cover_every_row_within_the_grid(rows, f, sms):
     assert groups * blocks_per_group <= max(sms, blocks_per_group) < 2 ** 31
     if (rows, f, sms) == (37824, 1536, 132):
         assert groups == 5  # 24 slices in 6 clusters of 4: 120 of 132 SMs
+
+
+class _FakeLib:
+    """The two shape queries of the kernel library, without a card: rows of a
+    row tile and hidden units of a weight-gradient slice, by width."""
+
+    @staticmethod
+    def tpuwsi_mlp_rows_per_tile(d):
+        return {384: 64, 768: 32}[d]
+
+    @staticmethod
+    def tpuwsi_mlp_hidden_per_slice(d):
+        return {384: 0, 768: 16}[d]
+
+
+@pytest.fixture
+def card_shapes(monkeypatch):
+    """The backward wrappers' buffers and launch arguments on meta tensors:
+    the library's shape queries and 132 SMs stand in for the card, and each
+    launch is recorded instead of made."""
+    from tpuwsi_torch.ops import _build
+
+    monkeypatch.setattr(_build, "load", lambda: _FakeLib)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(multi_processor_count=132))
+    calls = []
+    monkeypatch.setattr(tmlp, "_call",
+                        lambda name, like, args, counts=None: calls.append((name, args)))
+    return calls
+
+
+@pytest.mark.parametrize("rows", [1, 64, 5 * 64 + 1, 21312, 37824])
+@pytest.mark.parametrize("d", [384, 768])
+def test_backward_row_groups_by_width(card_shapes, rows, d):
+    """At D = 384 both backwards, K5b and the sub-block's K6b, take the row
+    groups of csrc/mlp_sm90.cu's weight-gradient passes (mlp_dw_groups); at
+    D = 768 both keep those of the row-tiled kernels. The partial buffers
+    are sized by them."""
+    f = 4 * d
+    x = torch.empty((rows, d), dtype=torch.bfloat16, device="meta")
+    want = (tmlp.mlp_dw_groups(rows, f, 132) if d == 384 else
+            max(1, min(-(-rows // 32), tmlp.DW_WAVES * 132 // (f // 16))))
+    n_tiles = -(-rows // _FakeLib.tpuwsi_mlp_rows_per_tile(d))
+    for row_sums in (1, 3):
+        dx, grads, w_part, row_part, tiles, groups = tmlp._bwd_buffers(x, f, row_sums)
+        assert (tiles, groups) == (n_tiles, want)
+        assert tuple(w_part.shape) == (groups, 2 * d * f + f)
+        assert tuple(row_part.shape) == (n_tiles, row_sums * d)
+        assert grads.numel() == 2 * d * f + f + row_sums * d and dx.shape == x.shape
+
+
+def _block_operands(rows, d, f, **changes):
+    shapes = {"x": ((rows, d), torch.bfloat16), "dy": ((rows, d), torch.bfloat16),
+              "g": ((d,), torch.float32), "be": ((d,), torch.float32),
+              "w1": ((d, f), torch.bfloat16), "b1": ((f,), torch.bfloat16),
+              "w2": ((f, d), torch.bfloat16), "b2": ((d,), torch.bfloat16)}
+    shapes.update(changes)
+    return {k: torch.empty(shape, dtype=dt, device="meta") for k, (shape, dt) in shapes.items()}
+
+
+def test_block_backward_launch_arguments(card_shapes):
+    """The sub-block backward at D = 384 hands its launch the Hopper row
+    groups and 64-row tiles, and returns its gradients in their shapes."""
+    rows, d, f = 37824, 384, 1536
+    o = _block_operands(rows, d, f)
+    dx, dg, dbe, dw1, db1, dw2, db2 = tmlp._launch_mlp_block_bwd(
+        o["x"], o["dy"], o["g"], o["be"], o["w1"], o["b1"], o["w2"], True, 1e-6)
+    (name, args), = card_shapes
+    assert name == "mlp_block_bwd"
+    assert args[12:17] == (rows, d, f, -(-rows // 64), tmlp.mlp_dw_groups(rows, f, 132)) == (
+        rows, d, f, 591, 5)
+    assert [tuple(t.shape) for t in (dx, dg, dbe, dw1, db1, dw2, db2)] == [
+        (rows, d), (d,), (d,), (d, f), (f,), (f, d), (d,)]
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"g": ((384,), torch.float16)}, "fp32"),                    # LayerNorm scale not fp32
+    ({"be": ((768,), torch.float32)}, "fp32"),                   # LayerNorm bias of another width
+    ({"x": ((5, 512), torch.bfloat16), "dy": ((5, 512), torch.bfloat16)}, r"widths \(384, 768\)"),
+    ({"w1": ((384, 100), torch.bfloat16)}, "multiple of 64"),
+    ({"x": ((2 ** 31 // 1536 + 1, 384), torch.bfloat16),
+      "dy": ((2 ** 31 // 1536 + 1, 384), torch.bfloat16)}, "2\\^31"),  # rows x F past int32
+    ({"dy": ((7, 384), torch.float32)}, "bf16"),
+])
+def test_block_wrappers_refuse_before_launching(card_shapes, change, match):
+    """What the sub-block kernels do not take raises in the wrapper, before
+    any launch. Shapes only: meta tensors hold no data."""
+    o = _block_operands(7, 384, 1536, **change)
+    with pytest.raises(ValueError, match=match):
+        if "dy" in change:
+            tmlp._launch_mlp_block_bwd(o["x"], o["dy"], o["g"], o["be"], o["w1"], o["b1"], o["w2"],
+                                       True, 1e-6)
+        else:
+            tmlp._launch_mlp_block_fwd(o["x"], o["g"], o["be"], o["w1"], o["b1"], o["w2"], o["b2"],
+                                       True, 1e-6)
+    assert card_shapes == []

@@ -90,20 +90,22 @@ def test_dense_bwd_matches_plain_version_on_the_card(shape):
         assert torch.equal(a, c)  # a fixed order of sums: the same bits twice
 
 
-# K5f and K5b at the row counts where their tiles and clusters end: one row,
-# either side of one and two 64-row tiles, a partial cluster (five tiles and
-# a row: the second cluster of four holds two tiles, one of a single row),
-# and the student's local views; D = 384 takes the Hopper kernels of
-# csrc/mlp_sm90.cu, D = 768 the row-tiled ones of mlp_fwd.cu / mlp_bwd.cu
+# The four fused-MLP kernels at the row counts where their tiles and clusters
+# end: one row, either side of one and two 64-row tiles, a partial cluster
+# (five tiles and a row: the second cluster of four holds two tiles, one of a
+# single row), and the student's local views; D = 384 takes the Hopper
+# kernels of csrc/mlp_sm90.cu, D = 768 the row-tiled ones of mlp_fwd.cu /
+# mlp_bwd.cu
 EDGE_ROWS = [1, 63, 64, 65, 127, 128, 129, 5 * 64 + 1, 21312]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("approx", [True, False], ids=["tanh", "erf"])
 @pytest.mark.parametrize("d", [384, 768], ids=["vit_s", "vit_b"])
 @pytest.mark.parametrize("rows", EDGE_ROWS)
-def test_mlp_kernels_at_edge_rows_on_the_card(rows, d):
-    """K5f and K5b against their plain versions; K5b launched twice on the
-    same inputs gives the same bits."""
+def test_mlp_kernels_at_edge_rows_on_the_card(rows, d, approx):
+    """K5f, K5b, K6f and K6b against their plain versions; each backward
+    launched twice on the same inputs gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     f = 4 * d
@@ -113,19 +115,29 @@ def test_mlp_kernels_at_edge_rows_on_the_card(rows, d):
         return (std * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
 
     x, dy = randn((rows, d)), randn((rows, d))
+    g = 1.0 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    be = 0.1 * torch.randn(d, generator=gen, device="cuda")
     w1, b1 = randn((d, f), d ** -0.5), randn((f,), 0.1)
     w2, b2 = randn((f, d), f ** -0.5), randn((d,), 0.1)
     before = dict(tmlp.LAUNCHES)
-    y = tmlp._launch_mlp_fwd(x, w1, b1, w2, b2, True)
-    got = tmlp._launch_mlp_bwd(x, dy, w1, b1, w2, True)
-    again = tmlp._launch_mlp_bwd(x, dy, w1, b1, w2, True)
+    y = tmlp._launch_mlp_fwd(x, w1, b1, w2, b2, approx)
+    got = tmlp._launch_mlp_bwd(x, dy, w1, b1, w2, approx)
+    again = tmlp._launch_mlp_bwd(x, dy, w1, b1, w2, approx)
+    y_block = tmlp._launch_mlp_block_fwd(x, g, be, w1, b1, w2, b2, approx, 1e-6)
+    got_block = tmlp._launch_mlp_block_bwd(x, dy, g, be, w1, b1, w2, approx, 1e-6)
+    again_block = tmlp._launch_mlp_block_bwd(x, dy, g, be, w1, b1, w2, approx, 1e-6)
     torch.cuda.synchronize()
-    assert tmlp.LAUNCHES["mlp_fwd"] == before["mlp_fwd"] + 1
-    assert tmlp.LAUNCHES["mlp_bwd"] == before["mlp_bwd"] + 2
-    pairs = [(y, tmlp._mlp_fwd_reference(x, w1, b1, w2, b2, True))]
-    pairs += list(zip(got, tmlp._mlp_bwd_reference(x, dy, w1, b1, w2, True)))
+    assert {name: tmlp.LAUNCHES[name] - before[name] for name in
+            ("mlp_fwd", "mlp_bwd", "mlp_block_fwd", "mlp_block_bwd")} == {
+        "mlp_fwd": 1, "mlp_bwd": 2, "mlp_block_fwd": 1, "mlp_block_bwd": 2}
+    pairs = [(y, tmlp._mlp_fwd_reference(x, w1, b1, w2, b2, approx)),
+             (y_block, tmlp._mlp_block_fwd_reference(x, g, be, w1, b1, w2, b2, approx, 1e-6))]
+    pairs += list(zip(got, tmlp._mlp_bwd_reference(x, dy, w1, b1, w2, approx)))
+    pairs += list(zip(got_block,
+                      tmlp._mlp_block_bwd_reference(x, dy, g, be, w1, b1, w2, approx, 1e-6)))
     for a, b in pairs:
         assert a.shape == b.shape and a.dtype == b.dtype and torch.isfinite(a.float()).all()
         scale = max(1.0, b.float().abs().max().item() / 4)
         assert (a.float() - b.float()).abs().max().item() <= CARD_MAX_ABS * scale
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert all(torch.equal(a, c) for a, c in zip(got_block, again_block))

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernels tpuwsi/ops/attention.py:633 `_mha_qkv_kernel`
 // (reached through `_mha_qkv_forward`) and, with kSaveP,
-// tpuwsi/ops/attention.py:850 `_mha_qkv_kernel_saved` (the training forward
+// tpuwsi/ops/attention.py:852 `_mha_qkv_kernel_saved` (the training forward
 // under attn_save_probs). Same contract:
 //   qkv (B, N, 3D) bf16, columns laid out [which(3), head, hd]  ->  o (B, N, D) bf16
 //   - q is scaled in fp32 and rounded back to bf16 before the dot product;

@@ -6,6 +6,7 @@
 //                   (at D = 768 only: D = 384 takes the Hopper kernels of
 //                   mlp_sm90.cu, whose partials the same sums add)
 //   kBlock = true   :508 `_mlp_block_bwd_kernel`  (pallas_call at :612)
+//                   (likewise at D = 768 only)
 // Same arithmetic, per row tile, with a = x (or a = bf16(LN(x)) when kBlock):
 //   u = a . W1 + b1 (fp32), h = bf16(gelu(u)), gelu'(u) in fp32
 //   dh = dy . W2^T,  du = dh * gelu'(u) (fp32),  du_c = bf16(du)
@@ -33,12 +34,11 @@
 //      writes dx, and per row tile the column sums that need whole rows of D:
 //      db2 and, for kBlock, dgamma and dbeta after the LayerNorm backward
 //      (row means across the four column warps go through shared memory);
-//   2. `mlp_bwd_dw_kernel`, a 2-D grid of (slice of 64 hidden units; 16 at
-//      D = 768) x (group of row tiles): the block keeps W1[:, slice] and
-//      W2[slice, :] in shared memory and dW1[:, slice], dW2[slice, :] in
-//      registers (128 fp32 a thread over 12 warps), loops over its rows 32 at
-//      a time (the next 32 rows of x and dy land in a second buffer
-//      meanwhile), rebuilds u, h, dh, du for its slice and adds a^T . du_c
+//   2. `mlp_bwd_dw_kernel`, a 2-D grid of (slice of 16 hidden units) x
+//      (group of row tiles): the block keeps W1[:, slice] and W2[slice, :]
+//      in shared memory and dW1[:, slice], dW2[slice, :] in registers (over
+//      16 warps), loops over its rows 32 at a time, rebuilds u, h, dh, du
+//      for its slice and adds a^T . du_c
 //      and h^T . dy; db1 comes from the same du. It writes one partial per
 //      row group. For kBlock its a is the bf16 LN(x) that the first kernel
 //      left in a (rows, D) workspace: every slice block would otherwise
@@ -65,6 +65,10 @@ namespace mlp_sm90 {
 int bwd(const void* x, const void* dy, const void* w1, const void* b1, const void* w2, void* dx,
         float* w_part, float* row_part, int rows, int f, int n_row_tiles, int groups, int approx,
         cudaStream_t stream);
+int block_bwd(const void* x, const void* dy, const void* gamma, const void* beta, const void* w1,
+              const void* b1, const void* w2, void* dx, float* w_part, float* row_part,
+              void* ln_work, int rows, int f, int n_row_tiles, int groups, float eps, int approx,
+              cudaStream_t stream);
 }
 
 namespace {
@@ -264,16 +268,15 @@ mlp_bwd_dx_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
 // 2. dW1, dW2, db1 per (slice of the hidden dimension, group of row tiles)
 // ---------------------------------------------------------------------------
 
+// The grid's blocks at D = 768 (D = 384 takes the dW passes of mlp_sm90.cu).
 template <int D>
 struct Slice {
+  static_assert(D == 768, "the row-tiled backward is built for D = 768");
   using T = Tile<D>;
-  static constexpr int kWarps = D <= 384 ? 12 : 16;
+  static constexpr int kWarps = 16;
   static constexpr int kThreads = kWarps * 32;
-  static constexpr int kFs = D <= 384 ? 64 : 16;       // hidden units per block
-  static constexpr int kRows = 32;                     // rows per step
-  // two buffers for the row tiles where they fit, so the next tile's copies
-  // run under this tile's products
-  static constexpr int kBufs = D <= 384 ? 2 : 1;
+  static constexpr int kFs = 16;    // hidden units per block
+  static constexpr int kRows = 32;  // rows per step
   static constexpr int kFStride = kFs + kPad;
   static constexpr int kXStride = D + kPad;
   static constexpr int kTilesM = kRows / 16, kTilesN = kFs / 8;  // m- and n-tiles of u, dh, du
@@ -284,8 +287,7 @@ struct Slice {
   static constexpr int kN2 = D / 8 / kWarps;   // n-tiles of dW2[slice, :] a warp owns
   static_assert(D / 16 % kWarps == 0 && kN2 % 2 == 0 && kTilesN % 2 == 0, "warp split");
   static constexpr int smem_bytes() {
-    return 2 * (D * kFStride + kFs * kXStride + kBufs * 2 * kRows * kXStride +
-                2 * kRows * kFStride) +
+    return 2 * (D * kFStride + kFs * kXStride + 2 * kRows * kXStride + 2 * kRows * kFStride) +
            4 * kTilesM * kFs;
   }
 };
@@ -303,9 +305,9 @@ mlp_bwd_dw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* w1_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [D][kFStride]
   __nv_bfloat16* w2_s = w1_s + D * S::kFStride;                      // [kFs][kXStride]
-  __nv_bfloat16* x_bufs = w2_s + S::kFs * S::kXStride;       // [kBufs][kRows][kXStride]
-  __nv_bfloat16* dy_bufs = x_bufs + S::kBufs * S::kRows * S::kXStride;  // the same
-  __nv_bfloat16* h_s = dy_bufs + S::kBufs * S::kRows * S::kXStride;  // [kRows][kFStride]
+  __nv_bfloat16* x_s = w2_s + S::kFs * S::kXStride;                 // [kRows][kXStride]
+  __nv_bfloat16* dy_s = x_s + S::kRows * S::kXStride;                // the same
+  __nv_bfloat16* h_s = dy_s + S::kRows * S::kXStride;                // [kRows][kFStride]
   __nv_bfloat16* du_s = h_s + S::kRows * S::kFStride;                // [kRows][kFStride]
   float* db1_s = reinterpret_cast<float*>(du_s + S::kRows * S::kFStride);  // [kTilesM][kFs]
 
@@ -318,15 +320,14 @@ mlp_bwd_dw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
   const int g = lane >> 2, t = lane & 3;
   const Lane L(lane);
 
-  auto stage_tile = [&](int tile, int buf) {
-    const int at = buf * S::kRows * S::kXStride;
-    stage_rows(x_bufs + at, S::kXStride, x, D, tile * S::kRows, rows, S::kRows, D);
-    stage_rows(dy_bufs + at, S::kXStride, dy, D, tile * S::kRows, rows, S::kRows, D);
+  auto stage_tile = [&](int tile) {
+    stage_rows(x_s, S::kXStride, x, D, tile * S::kRows, rows, S::kRows, D);
+    stage_rows(dy_s, S::kXStride, dy, D, tile * S::kRows, rows, S::kRows, D);
     cp_async_commit();
   };
   stage_rows(w1_s, S::kFStride, w1 + f0, f, 0, D, D, S::kFs);
   stage_rows(w2_s, S::kXStride, w2 + static_cast<size_t>(f0) * D, D, 0, S::kFs, S::kFs, D);
-  if (tile_lo < tile_hi) stage_tile(tile_lo, 0);  // one group with the weights
+  if (tile_lo < tile_hi) stage_tile(tile_lo);  // one group with the weights
   else cp_async_commit();
 
   float acc1[S::kM1][S::kTilesN][4];       // dW1[warp's rows of D, slice]
@@ -347,16 +348,8 @@ mlp_bwd_dw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     db1_acc[i][0][0] = db1_acc[i][0][1] = db1_acc[i][1][0] = db1_acc[i][1][1] = 0.f;
 
   for (int tile = tile_lo; tile < tile_hi; ++tile) {
-    const int buf = S::kBufs == 2 ? (tile - tile_lo) & 1 : 0;
-    if (S::kBufs == 2 && tile + 1 < tile_hi) {
-      stage_tile(tile + 1, buf ^ 1);  // free since the barrier that ended the last tile
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait<0>();
     __syncthreads();
-    const __nv_bfloat16* x_s = x_bufs + buf * S::kRows * S::kXStride;
-    const __nv_bfloat16* dy_s = dy_bufs + buf * S::kRows * S::kXStride;
 
     // u, dh, h, du of the slice: 16 x 16 pieces dealt to the warps in turn
 #pragma unroll
@@ -444,8 +437,8 @@ mlp_bwd_dw_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
         }
       }
     }
-    __syncthreads();  // the next tiles overwrite h, du and this buffer
-    if (S::kBufs == 1 && tile + 1 < tile_hi) stage_tile(tile + 1, 0);
+    __syncthreads();  // the next tiles overwrite h, du and the rows
+    if (tile + 1 < tile_hi) stage_tile(tile + 1);
   }
   cp_async_wait<0>();  // a group with no row tile still waits for its weight copies
 
@@ -561,16 +554,22 @@ int launch(const void* x, const void* dy, const void* gamma, const void* beta, c
   return sum_grads<D, kBlock>(grads, w_part, row_part, f, n_row_tiles, groups, stream);
 }
 
-// K5b at D = 384: the kernels of mlp_sm90.cu, then the same sums.
-int launch_sm90(const void* x, const void* dy, const void* w1, const void* b1, const void* w2,
-                void* dx, void* grads, void* w_part, void* row_part, int rows, int f,
-                int n_row_tiles, int groups, int approx, void* stream_) {
+// K5b and K6b at D = 384: the kernels of mlp_sm90.cu, then the same sums.
+template <bool kBlock>
+int launch_sm90(const void* x, const void* dy, const void* gamma, const void* beta, const void* w1,
+                const void* b1, const void* w2, void* dx, void* grads, void* w_part,
+                void* row_part, void* ln_work, int rows, int f, int n_row_tiles, int groups,
+                float eps, int approx, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int err = mlp_sm90::bwd(x, dy, w1, b1, w2, dx, static_cast<float*>(w_part),
-                                static_cast<float*>(row_part), rows, f, n_row_tiles, groups,
-                                approx, stream);
+  float* wp = static_cast<float*>(w_part);
+  float* rp = static_cast<float*>(row_part);
+  const int err =
+      kBlock ? mlp_sm90::block_bwd(x, dy, gamma, beta, w1, b1, w2, dx, wp, rp, ln_work, rows, f,
+                                   n_row_tiles, groups, eps, approx, stream)
+             : mlp_sm90::bwd(x, dy, w1, b1, w2, dx, wp, rp, rows, f, n_row_tiles, groups, approx,
+                             stream);
   if (err != 0) return err;
-  return sum_grads<384, false>(grads, w_part, row_part, f, n_row_tiles, groups, stream);
+  return sum_grads<384, kBlock>(grads, w_part, row_part, f, n_row_tiles, groups, stream);
 }
 
 template <bool kBlock>
@@ -579,14 +578,9 @@ int dispatch(const void* x, const void* dy, const void* gamma, const void* beta,
              void* row_part, void* ln_work, int rows, int d, int f, int n_row_tiles, int groups,
              float eps, int approx, void* stream) {
   if (rows < 1 || f < 64 || f % 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (d == 384) {
-    if constexpr (!kBlock)
-      return launch_sm90(x, dy, w1, b1, w2, dx, grads, w_part, row_part, rows, f, n_row_tiles,
-                         groups, approx, stream);
-    else
-      return launch<384, kBlock>(x, dy, gamma, beta, w1, b1, w2, dx, grads, w_part, row_part,
-                                 ln_work, rows, f, n_row_tiles, groups, eps, approx, stream);
-  }
+  if (d == 384)  // K5b, K6b: the Hopper kernels of mlp_sm90.cu
+    return launch_sm90<kBlock>(x, dy, gamma, beta, w1, b1, w2, dx, grads, w_part, row_part,
+                               ln_work, rows, f, n_row_tiles, groups, eps, approx, stream);
   if (d == 768)
     return launch<768, kBlock>(x, dy, gamma, beta, w1, b1, w2, dx, grads, w_part, row_part,
                                ln_work, rows, f, n_row_tiles, groups, eps, approx, stream);
@@ -604,11 +598,10 @@ int tpuwsi_mlp_rows_per_tile(int d) {
   return 0;
 }
 
-// Hidden units per block of the weight-gradient grid, likewise.
+// Hidden units per block of the weight-gradient grid, likewise (D = 384 has
+// none: its dW passes are mlp_sm90.cu's).
 int tpuwsi_mlp_hidden_per_slice(int d) {
-  if (d == 384) return Slice<384>::kFs;
-  if (d == 768) return Slice<768>::kFs;
-  return 0;
+  return d == 768 ? Slice<768>::kFs : 0;
 }
 
 // x, dy, dx: (rows, d) bf16; w1: (d, f), b1: (f,), w2: (f, d) bf16; all
@@ -617,7 +610,8 @@ int tpuwsi_mlp_hidden_per_slice(int d) {
 // Workspaces, fp32, contents undefined on entry: w_part (groups, 2 d f + f),
 // row_part (n_row_tiles, d), with n_row_tiles = ceil(rows / rows_per_tile(d))
 // and groups row groups in the weight-gradient grid: 1 <= groups <=
-// n_row_tiles at d = 768, 1 <= groups <= ceil(rows / 32) at d = 384.
+// n_row_tiles at d = 768, 1 <= groups <= ceil(rows / 32) at d = 384 (here
+// and in the sub-block's backward below).
 int tpuwsi_mlp_bwd(const void* x, const void* dy, const void* w1, const void* b1, const void* w2,
                    void* dx, void* grads, void* w_part, void* row_part, int rows, int d, int f,
                    int n_row_tiles, int groups, int approx, void* stream) {

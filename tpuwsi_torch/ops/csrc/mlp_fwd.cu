@@ -7,6 +7,7 @@
 //       (at D = 768 only: D = 384 takes the Hopper kernel of mlp_sm90.cu)
 //   kBlock = true   :485 `_mlp_block_fwd_kernel`  (pallas_call at :584)
 //       y = x + (gelu(LN(x) . W1 + b1) . W2 + b2)
+//       (at D = 768 only: D = 384 takes the Hopper kernel of mlp_sm90.cu)
 // x, y: (rows, D) bf16; W1: (D, F), W2: (F, D), b1: (F,), b2: (D,) bf16;
 // gamma, beta: (D,) fp32. Same arithmetic as the TPU kernels: both products
 // accumulate in fp32, the biases are added in fp32, h = gelu(u) (tanh or erf
@@ -55,6 +56,9 @@
 namespace mlp_sm90 {
 int fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2, void* y,
         int rows, int f, int approx, cudaStream_t stream);
+int block_fwd(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
+              const void* w2, const void* b2, void* y, int rows, int f, float eps, int approx,
+              cudaStream_t stream);
 }
 
 namespace {
@@ -234,12 +238,12 @@ int dispatch(const void* x, const void* gamma, const void* beta, const void* w1,
              const void* w2, const void* b2, void* y, int rows, int d, int f, float eps,
              int approx, void* stream) {
   if (rows < 1 || f < 64 || f % 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (d == 384) {
-    if constexpr (!kBlock)
-      return mlp_sm90::fwd(x, w1, b1, w2, b2, y, rows, f, approx,
-                           static_cast<cudaStream_t>(stream));
+  if (d == 384) {  // K5f, K6f: the Hopper kernels of mlp_sm90.cu
+    const auto s = static_cast<cudaStream_t>(stream);
+    if constexpr (kBlock)
+      return mlp_sm90::block_fwd(x, gamma, beta, w1, b1, w2, b2, y, rows, f, eps, approx, s);
     else
-      return launch<384, kBlock>(x, gamma, beta, w1, b1, w2, b2, y, rows, f, eps, approx, stream);
+      return mlp_sm90::fwd(x, w1, b1, w2, b2, y, rows, f, approx, s);
   }
   if (d == 768)
     return launch<768, kBlock>(x, gamma, beta, w1, b1, w2, b2, y, rows, f, eps, approx, stream);

@@ -1,33 +1,47 @@
-// Fused transformer MLP at D = 384 (ViT-S), forward and backward, written for
-// Hopper: every product a wgmma from 128-byte swizzled shared memory, every
-// load a TMA issued by a producer thread into mbarrier-tracked stages, the
-// operands that several blocks share multicast across a thread-block cluster,
-// and a grid of at most one block per SM that walks its work.
+// Fused transformer MLP at D = 384 (ViT-S), forward and backward, alone and
+// as the pre-norm sub-block, written for Hopper: every product a wgmma from
+// 128-byte swizzled shared memory, every load a TMA issued by a producer
+// thread into mbarrier-tracked stages, the operands that several blocks share
+// multicast across a thread-block cluster, and a grid of at most one block
+// per SM that walks its work.
 //
-// Replaces two TPU kernels of tpuwsi/ops/mlp.py (K5f and K5b):
-//   `mlp_row_kernel<false>`  :83  `_mlp_fwd_kernel`  (pallas_call at :160)
+// Replaces four TPU kernels of tpuwsi/ops/mlp.py (K5f, K5b, K6f, K6b):
+//   `mlp_row_kernel<false, false>`  :83  `_mlp_fwd_kernel`  (pallas_call at :160)
 //       y = bf16(bf16(gelu(x . W1 + b1)) . W2 + b2)
-//   `mlp_row_kernel<true>` (dx), `mlp_dw_kernel<1>`, `mlp_dw_kernel<2>` (dW)
-//                            :100 `_mlp_bwd_kernel`  (pallas_call at :185)
+//   `mlp_row_kernel<true, false>` (dx), `mlp_dw_kernel<1>`, `mlp_dw_kernel<2>` (dW)
+//                                   :100 `_mlp_bwd_kernel`  (pallas_call at :185)
 //       u = x . W1 + b1 (fp32), h = bf16(gelu(u)), du = (dy . W2^T) * gelu'(u),
 //       du_c = bf16(du); dx = bf16(du_c . W1^T); dW1 = x^T . du_c,
 //       dW2 = h^T . dy, db1 = sum du, db2 = sum dy (fp32, over all rows)
+//   `mlp_row_kernel<false, true>`   :485 `_mlp_block_fwd_kernel` (pallas_call at :584)
+//       y = bf16(x + bf16(bf16(gelu(a . W1 + b1)) . W2 + b2)), a = bf16(LN(x))
+//   `mlp_row_kernel<true, true>` (LN(x), dln, dx), `mlp_dw_kernel<1>`, `<2>` on a
+//                                   :508 `_mlp_block_bwd_kernel` (pallas_call at :612)
+//       K5b's arithmetic on a, whose dx is dln (fp32); with xhat = (x - mean)
+//       inv and dxhat = dln gamma: dx = bf16(dy + inv (dxhat - mean(dxhat) -
+//       xhat mean(dxhat xhat))), dgamma = sum dln xhat, dbeta = sum dln
 // with the arithmetic of mlp_fwd.cu / mlp_bwd.cu: fp32 accumulation, the
-// bias added in fp32, gelu in tanh or erf form (mlp_common.cuh). x, dy, y,
-// dx: (rows, 384) bf16; W1 (384, F), W2 (F, 384), b1, b2 bf16; F a multiple
-// of 64. Rows past the end read as zeros (TMA fills them) and are never
-// written; a zero row of x still gives h = gelu(b1), and it is dy = 0 there
-// that keeps the weight gradients clean. The sub-block forms (K6f, K6b) and
-// D = 768 keep the kernels of mlp_fwd.cu and mlp_bwd.cu.
+// bias added in fp32, gelu in tanh or erf form (mlp_common.cuh), LayerNorm in
+// fp32 with the fast variance E[x^2] - mean^2 clamped at 0. x, dy, y, dx:
+// (rows, 384) bf16; W1 (384, F), W2 (F, 384), b1, b2 bf16; gamma, beta (384,)
+// fp32; F a multiple of 64. Rows past the end read as zeros (TMA fills them)
+// and are never written; a zero row of x still gives h = gelu(b1) (LN(x) =
+// beta for the sub-block), and it is dy = 0 there that keeps the weight
+// gradients clean. D = 768 keeps the kernels of mlp_fwd.cu and mlp_bwd.cu.
 //
-// What bounds them on an H100 at the DINO step's student global views
+// What bounds them on an H100 (published peaks of the SXM part at 700 W:
+// 989 TFLOP/s dense bf16, 3.35 TB/s) at the DINO step's student global views
 // (rows, D, F) = (37,824, 384, 1,536): the forward's two products are
 // 89 GFLOP, 0.090 ms at the dense bf16 peak, against 61 MB to move (0.018
 // ms); the backward's five are 223 GFLOP, 0.226 ms, against 99 MB (0.030
-// ms). Both are bound by the tensor cores. What stands between a kernel and
-// that bound on this card is not device memory but three things the TPU
-// kernels never met: the register file, shared-memory bandwidth, and the L2
-// traffic of weights (or rows) that every block reads again.
+// ms). The sub-block's LayerNorm (~10 operations an element) and residual
+// (one more read of x, not counted: the bound counts x once) move neither:
+// K6b is 223 GFLOP against 99 MB as well, and K6f at a 500-tile serving
+// chunk (128,500 rows) 303 GFLOP, 0.307 ms, against 200 MB (0.060 ms). All
+// four are bound by the tensor cores. What stands between a kernel and that
+// bound on this card is not device memory but three things the TPU kernels
+// never met: the register file, shared-memory bandwidth, and the L2 traffic
+// of weights (or rows) that every block reads again.
 //
 // The reckoning behind the design:
 //   - Registers. A (64 rows, 384) fp32 accumulator is 24,576 values: 192 a
@@ -35,10 +49,12 @@
 //     block owns a row tile of 64 rows and two consumer warpgroups each own
 //     192 output columns (96 accumulators), with room left for the chunk's
 //     u^T and dh^T (16 each). A block is those two warpgroups and one
-//     producer warp, 288 threads, so the launch gives every thread 224
-//     registers; ptxas uses 162-168 and spills nothing. (A producer
-//     warpgroup with setmaxnreg 24/240 runs these kernels no faster and
-//     spills in one of them: PERF.md, PR 11.)
+//     producer warp, 288 threads, which ptxas gives at most 168 registers a
+//     thread (nine warps on the SM's four schedulers, three on one: 16,384
+//     / 96 = 170); it uses 161-168 and spills nothing, with no slack left:
+//     a value hoisted out of the tile loop spills (see ln_rows). (A
+//     producer warpgroup with setmaxnreg 24/240 runs these kernels no
+//     faster and spills in one of them: see PERF.md.)
 //   - The products that rebuild the hidden activation are written transposed,
 //     u^T = W1c^T . x^T (M = 64 hidden units, N = 32 rows of one warpgroup,
 //     K = 384), so that M is the 64 that a wgmma needs while each warpgroup
@@ -82,6 +98,19 @@
 //     in all of W1 and W2 (2.36 MB), every dW block all of x and dy, and
 //     the parts that remain run one after the other rather than under the
 //     loads.
+//   - The sub-block (K6f, K6b) is the row kernel with a prologue and an
+//     epilogue. Once the x tile has landed, each consumer warpgroup
+//     normalises, in place, the 32 rows it alone reads as the B operand
+//     (four threads a row, 16-byte chunks at their swizzled places), and
+//     fences the generic stores for the async proxy before its first wgmma.
+//     The forward's epilogue adds x, re-read from device memory: the tile
+//     holds LN(x) and is released before the epilogue, and a second copy
+//     does not fit beside the ring (208 of 227 KB). The dx pass also stores
+//     LN(x) to a (rows, D) workspace, which the dW passes read in place of
+//     x, and keeps each row's mean and 1/sigma; its epilogue turns dln (64
+//     rows x 192 columns a warpgroup) into dx. The two row means that needs
+//     meet across the warpgroups in shared memory, and dgamma, dbeta leave
+//     as column sums per row tile beside db2, for the same fixed-order sums.
 //
 // Plain C++ entry points for mlp_fwd.cu and mlp_bwd.cu, which keep the C
 // interface; they launch on the caller's stream, allocate nothing and return
@@ -153,6 +182,21 @@ __device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
   float v;
   asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
   return v;
+}
+
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 __device__ __forceinline__ float bf16_at(const __nv_bfloat16* p, int i) {
@@ -230,7 +274,8 @@ __device__ __forceinline__ void ss_n192(float (&d)[96], uint64_t desc_a, uint64_
 
 
 // ---------------------------------------------------------------------------
-// The row kernels: forward (K5f) and the dx pass of the backward
+// The row kernels: the forward (K5f; K6f with kBlock) and the dx pass of the
+// backward (K5b; K6b with kBlock)
 // ---------------------------------------------------------------------------
 // A block owns a tile of 64 rows at a time; its cluster takes four
 // neighbouring tiles and shares their weight stream. Per chunk of 64 hidden
@@ -245,13 +290,27 @@ __device__ __forceinline__ void ss_n192(float (&d)[96], uint64_t desc_a, uint64_
 // W2 first in the dx pass, so that W2 of the next chunk loads while this
 // chunk's last product still holds W1. Each block waits and releases every
 // half-stage, used or not, so that every stage's release counts are alike.
+// With kBlock the x tile is normalised in place first (x then stands for
+// LN(x) above), and the epilogue adds the residual (forward) or turns dln
+// into the LayerNorm's dx (dx pass).
 
 struct RowParams {
   const __nv_bfloat16* b1;  // (F,)
   const __nv_bfloat16* b2;  // (D,), forward
   __nv_bfloat16* out;       // y or dx, (rows, D)
-  float* db2_part;          // (n_tiles, D): column sums of dy per row tile, dx pass
+  // dx pass: per row tile, the column sums of dy (db2) and, for the
+  // sub-block, of dln xhat (dgamma) and dln (dbeta): (n_tiles, D) or
+  // (n_tiles, 3, D), part_stride floats a tile
+  float* row_part;
+  // the sub-block (kBlock)
+  const __nv_bfloat16* x;   // (rows, D), re-read by the epilogue
+  const __nv_bfloat16* dy;  // (rows, D), dx pass: the residual's gradient
+  const float* gamma;       // (D,)
+  const float* beta;        // (D,)
+  __nv_bfloat16* ln_out;    // dx pass: bf16 LN(x), (rows, D), for the dW passes
+  float eps;
   int rows, f, n_tiles, n_groups;  // n_groups = ceil(n_tiles / kCluster)
+  int part_stride;
 };
 
 template <bool kBwd>
@@ -261,7 +320,14 @@ struct RowLayout {
   static constexpr uint32_t kXBytes = (kBwd ? 12 : 6) * kBox;  // x (and dy) of a tile
   static constexpr uint32_t kOffT = kXBytes;                   // two h^T / du^T tiles
   static constexpr uint32_t kOffRing = kOffT + 2 * kBox;
-  static constexpr uint32_t kOffBar = kOffRing + kStages * kHalf;
+  // the sub-block's dx pass: each row's mean and 1/sigma (float pairs, for
+  // two tiles: one warpgroup may normalise the next tile while the other
+  // still reads this one's), the row sums of both warpgroups (pairs) and the
+  // column sums of their four warps (pairs, 192 columns a warpgroup)
+  static constexpr uint32_t kOffStats = kOffRing + kStages * kHalf;
+  static constexpr uint32_t kOffRowRed = kOffStats + (kBwd ? 2 * kRows * 8 : 0);
+  static constexpr uint32_t kOffColRed = kOffRowRed + (kBwd ? 2 * kRows * 8 : 0);
+  static constexpr uint32_t kOffBar = kOffColRed + (kBwd ? 2 * 4 * 192 * 8 : 0);
   // x full, x empty, stage full[kStages], stage empty[kStages]
   static constexpr uint32_t kSmem = kOffBar + 8 * (2 + 2 * kStages);
   static_assert(kSmem <= 232448, "227 KB of shared memory a block");
@@ -316,9 +382,178 @@ __device__ __forceinline__ void row_producer(const CUtensorMap* x_map, const CUt
   }
 }
 
+// LayerNorm, in place, of the 32 rows of the x tile that warpgroup kWg reads
+// as its B operand: four threads a row, each taking two 16-byte chunks of
+// each of the six 64-column boxes. Of a row's eight (swizzled) chunks in a
+// box, thread t takes the physical chunks t and t + 4, in the other order in
+// an odd row, so that the eight threads of a quarter-warp (two rows) meet
+// eight different chunks. The dx pass also stores the rows inside the batch
+// to ln_out and each row's mean and 1/sigma to `stats`. Rows past the end
+// hold TMA's zeros and normalise to beta. The thread's index passes through
+// opaque() here and in the epilogues: what is computed from it stays inside
+// the tile loop instead of being hoisted out of it into registers that the
+// chunk loop would have to carry (ptxas spilled them at 168 registers).
+template <bool kBwd, int kWg>
+__device__ __forceinline__ void ln_rows(const RowParams& prm, uint32_t base, int row0, int tid,
+                                        uint32_t stats) {
+  tid = static_cast<int>(opaque(static_cast<uint32_t>(tid)));
+  const int r = 32 * kWg + (tid >> 2), t = tid & 3;
+  auto chunk = [&](int k) { return t + 4 * ((k & 1) ^ (r & 1)); };  // of box k >> 1
+  float sum = 0.f, sq = 0.f;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    const uint4 v = ld_shared_v4(base + (k >> 1) * kBox + r * 128 + (chunk(k) << 4));
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = mlp::unpack_bf16(w[e]);
+      sum += f.x + f.y;
+      sq += f.x * f.x + f.y * f.y;
+    }
+  }
+  const float mean = quad_sum(sum) * (1.f / kD);
+  const float inv = rsqrtf(fmaxf(quad_sum(sq) * (1.f / kD) - mean * mean, 0.f) + prm.eps);
+  const bool store = kBwd && row0 + r < prm.rows;
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    const uint32_t at = base + (k >> 1) * kBox + r * 128 + (chunk(k) << 4);
+    const int col = 64 * (k >> 1) + 8 * (chunk(k) ^ (r & 7));
+    const uint4 v = ld_shared_v4(at);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = mlp::unpack_bf16(w[e]);
+      const float2 g = *reinterpret_cast<const float2*>(prm.gamma + col + 2 * e);
+      const float2 b = *reinterpret_cast<const float2*>(prm.beta + col + 2 * e);
+      o[e] = hopper::pack_bf16((f.x - mean) * inv * g.x + b.x, (f.y - mean) * inv * g.y + b.y);
+    }
+    const uint4 ln = make_uint4(o[0], o[1], o[2], o[3]);
+    st_shared_v4(at, ln);
+    if (store)
+      *reinterpret_cast<uint4*>(prm.ln_out + static_cast<size_t>(row0 + r) * kD + col) = ln;
+  }
+  if (kBwd && t == 0) {
+    st_shared_f32(stats + 8 * r, mean);
+    st_shared_f32(stats + 8 * r + 4, inv);
+  }
+}
+
+// The sub-block's dx pass, after the last chunk of the tc-th tile: acc holds
+// dln at rows ra = 16 warp + g and rb = ra + 8 of the tile, columns 192 kWg +
+// 8i + 2t and + 1. With xhat = (x - mean) inv (x re-read from device memory,
+// mean and inv kept by the prologue) and dxhat = dln gamma:
+//   dx = bf16(dy + inv (dxhat - mean(dxhat) - xhat mean(dxhat xhat)))
+// and the tile's column sums dgamma = sum dln xhat, dbeta = sum dln. A row's
+// two means need both warpgroups' columns: each sums its own over the quad's
+// four threads, and the two halves meet in shared memory, added in the order
+// warpgroup 0, 1. The column sums go over the warp's 16 rows by shuffles,
+// then over the warpgroup's four warps in shared memory, in order. A row
+// past the end has dln = 0 and reads the batch's last row of x in its place.
+template <int kWg>
+__device__ __forceinline__ void ln_backward_epilogue(const float (&acc)[96], const RowParams& prm,
+                                                     uint32_t base, int tc, int tile, int row0,
+                                                     int tid) {
+  using L = RowLayout<true>;
+  tid = static_cast<int>(opaque(static_cast<uint32_t>(tid)));
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int ra = warp * 16 + g, rb = ra + 8;
+  const uint32_t stats = base + L::kOffStats + (tc & 1) * (kRows * 8);
+  const float mean_a = ld_shared_f32(stats + 8 * ra), inv_a = ld_shared_f32(stats + 8 * ra + 4);
+  const float mean_b = ld_shared_f32(stats + 8 * rb), inv_b = ld_shared_f32(stats + 8 * rb + 4);
+  // element offsets of the two rows (rows x D < 2^31)
+  const int at_a = min(row0 + ra, prm.rows - 1) * kD, at_b = min(row0 + rb, prm.rows - 1) * kD;
+  auto pair = [](const __nv_bfloat16* p, int at) {
+    return mlp::unpack_bf16(*reinterpret_cast<const uint32_t*>(p + at));
+  };
+  const uint32_t col_red = base + L::kOffColRed + kWg * (4 * 192 * 8);
+  const uint32_t row_red = base + L::kOffRowRed;
+  float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
+#pragma unroll
+  for (int i = 0; i < 24; ++i) {
+    const int c = 8 * i + 2 * t, col = 192 * kWg + c;
+    const float2 gam = *reinterpret_cast<const float2*>(prm.gamma + col);
+    const float2 xa = pair(prm.x, at_a + col), xb = pair(prm.x, at_b + col);
+    const float ha0 = (xa.x - mean_a) * inv_a, ha1 = (xa.y - mean_a) * inv_a;
+    const float hb0 = (xb.x - mean_b) * inv_b, hb1 = (xb.y - mean_b) * inv_b;
+    const float da0 = acc[4 * i] * gam.x, da1 = acc[4 * i + 1] * gam.y;
+    const float db0 = acc[4 * i + 2] * gam.x, db1 = acc[4 * i + 3] * gam.y;
+    s1a += da0 + da1;
+    s2a += da0 * ha0 + da1 * ha1;
+    s1b += db0 + db1;
+    s2b += db0 * hb0 + db1 * hb1;
+    float pg0 = acc[4 * i] * ha0 + acc[4 * i + 2] * hb0;
+    float pg1 = acc[4 * i + 1] * ha1 + acc[4 * i + 3] * hb1;
+    float pb0 = acc[4 * i] + acc[4 * i + 2], pb1 = acc[4 * i + 1] + acc[4 * i + 3];
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      pg0 += __shfl_xor_sync(0xffffffffu, pg0, off);
+      pg1 += __shfl_xor_sync(0xffffffffu, pg1, off);
+      pb0 += __shfl_xor_sync(0xffffffffu, pb0, off);
+      pb1 += __shfl_xor_sync(0xffffffffu, pb1, off);
+    }
+    if (g == 0) {
+      const uint32_t dst = col_red + (warp * 192 + c) * 8;
+      st_shared_f32(dst, pg0);
+      st_shared_f32(dst + 4, pb0);
+      st_shared_f32(dst + 8, pg1);
+      st_shared_f32(dst + 12, pb1);
+    }
+  }
+  s1a = quad_sum(s1a);
+  s2a = quad_sum(s2a);
+  s1b = quad_sum(s1b);
+  s2b = quad_sum(s2b);
+  if (t == 0) {
+    st_shared_f32(row_red + (kWg * kRows + ra) * 8, s1a);
+    st_shared_f32(row_red + (kWg * kRows + ra) * 8 + 4, s2a);
+    st_shared_f32(row_red + (kWg * kRows + rb) * 8, s1b);
+    st_shared_f32(row_red + (kWg * kRows + rb) * 8 + 4, s2b);
+  }
+  named_sync(1, kConsumerThreads);  // both halves of every row; the four warps' column sums
+  auto row_mean = [&](int r, int k) {
+    const float half0 = ld_shared_f32(row_red + r * 8 + 4 * k);
+    return (half0 + ld_shared_f32(row_red + (kRows + r) * 8 + 4 * k)) * (1.f / kD);
+  };
+  const float m1a = row_mean(ra, 0), m2a = row_mean(ra, 1);
+  const float m1b = row_mean(rb, 0), m2b = row_mean(rb, 1);
+  if (tile < prm.n_tiles) {
+    float* part = prm.row_part + static_cast<size_t>(tile) * prm.part_stride + 192 * kWg;
+    for (int c = tid; c < 192; c += 128) {
+      float dg = 0.f, db = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        dg += ld_shared_f32(col_red + (w * 192 + c) * 8);
+        db += ld_shared_f32(col_red + (w * 192 + c) * 8 + 4);
+      }
+      part[kD + c] = dg;
+      part[2 * kD + c] = db;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 24; ++i) {
+    const int col = 192 * kWg + 8 * i + 2 * t;
+    const float2 gam = *reinterpret_cast<const float2*>(prm.gamma + col);
+    if (row0 + ra < prm.rows) {
+      const float2 xv = pair(prm.x, at_a + col), dyv = pair(prm.dy, at_a + col);
+      const float h0 = (xv.x - mean_a) * inv_a, h1 = (xv.y - mean_a) * inv_a;
+      *reinterpret_cast<uint32_t*>(prm.out + at_a + col) =
+          hopper::pack_bf16(dyv.x + inv_a * (acc[4 * i] * gam.x - m1a - h0 * m2a),
+                            dyv.y + inv_a * (acc[4 * i + 1] * gam.y - m1a - h1 * m2a));
+    }
+    if (row0 + rb < prm.rows) {
+      const float2 xv = pair(prm.x, at_b + col), dyv = pair(prm.dy, at_b + col);
+      const float h0 = (xv.x - mean_b) * inv_b, h1 = (xv.y - mean_b) * inv_b;
+      *reinterpret_cast<uint32_t*>(prm.out + at_b + col) =
+          hopper::pack_bf16(dyv.x + inv_b * (acc[4 * i + 2] * gam.x - m1b - h0 * m2b),
+                            dyv.y + inv_b * (acc[4 * i + 3] * gam.y - m1b - h1 * m2b));
+    }
+  }
+}
+
 // One consumer warpgroup of a row kernel; kWg (0 or 1) is a template argument
 // so that every branch around a wgmma is uniform by construction.
-template <bool kBwd, bool kApprox, int kWg>
+template <bool kBwd, bool kBlock, bool kApprox, int kWg>
 __device__ __forceinline__ void row_consumer(const RowParams& prm, uint32_t base, int rank,
                                              int tid) {
   using L = RowLayout<kBwd>;
@@ -336,9 +571,14 @@ __device__ __forceinline__ void row_consumer(const RowParams& prm, uint32_t base
   for (int grp = cluster; grp < prm.n_groups; grp += n_clusters, ++tc) {
     const int tile = grp * kCluster + rank;
     const int row0 = tile * kRows;
-    float acc[96];  // y or dx: the tile's 64 rows x columns 192 kWg .. + 191
-    zero(acc);
     mbar_wait(L::x_full(base), tc & 1);
+    if constexpr (kBlock) {
+      ln_rows<kBwd, kWg>(prm, base, row0, tid, base + L::kOffStats + (tc & 1) * (kRows * 8));
+      fence_proxy_async();         // the generic stores, before a wgmma reads the tile
+      named_sync(2 + kWg, 128);    // this warpgroup's 32 rows, whole
+    }
+    float acc[96];  // y or dx (dln): the tile's 64 rows x columns 192 kWg .. + 191
+    zero(acc);
     for (int c = 0; c < n_chunks; ++c, ++cc, it += 4) {
       const uint32_t tbuf = base + L::kOffT + (cc & 1) * kBox;
       // this warpgroup's 32 rows of x (and dy) as the K-major B operand: one
@@ -388,7 +628,7 @@ __device__ __forceinline__ void row_consumer(const RowParams& prm, uint32_t base
         // above. The dx pass first takes the tile's column sums of dy (db2):
         // consumer thread i < 192 sums columns 2i, 2i+1 over the 64 rows.
         if constexpr (kBwd) {
-          const int ct = kWg * 128 + tid;
+          const int ct = kWg * 128 + static_cast<int>(opaque(static_cast<uint32_t>(tid)));
           if (ct < 192 && tile < prm.n_tiles) {
             const int col = 2 * ct;
             const uint32_t src = base + L::kOffDy + (col >> 6) * kBox;
@@ -400,8 +640,8 @@ __device__ __forceinline__ void row_consumer(const RowParams& prm, uint32_t base
               s0 += f.x;
               s1 += f.y;
             }
-            *reinterpret_cast<float2*>(prm.db2_part + static_cast<size_t>(tile) * kD + col) =
-                make_float2(s0, s1);
+            *reinterpret_cast<float2*>(prm.row_part + static_cast<size_t>(tile) * prm.part_stride +
+                                       col) = make_float2(s0, s1);
           }
         }
         warp_arrive(L::x_empty(base));
@@ -458,24 +698,35 @@ __device__ __forceinline__ void row_consumer(const RowParams& prm, uint32_t base
       release(it + 3);
     }
 
-    // y = bf16(acc + b2) or dx = bf16(acc), rows past the end not written
+    if constexpr (kBwd && kBlock) {
+      ln_backward_epilogue<kWg>(acc, prm, base, tc, tile, row0, tid);
+      continue;
+    }
+    // y = bf16(acc + b2) (kBlock: bf16(x + bf16(acc + b2))) or dx = bf16(acc),
+    // rows past the end not written
     const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+    auto store = [&](int r, int col, float v0, float v1) {
+      if (r >= prm.rows) return;
+      const size_t at = static_cast<size_t>(r) * kD + col;
+      if constexpr (kBlock) {  // the residual sum in bf16
+        const float2 xv = mlp::unpack_bf16(*reinterpret_cast<const uint32_t*>(prm.x + at));
+        v0 = xv.x + mlp::round_bf16(v0);
+        v1 = xv.y + mlp::round_bf16(v1);
+      }
+      *reinterpret_cast<uint32_t*>(prm.out + at) = hopper::pack_bf16(v0, v1);
+    };
 #pragma unroll
     for (int i = 0; i < 24; ++i) {
       const int col = 192 * kWg + 8 * i + 2 * t;
       float2 b = make_float2(0.f, 0.f);
       if constexpr (!kBwd) b = mlp::unpack_bf16(*reinterpret_cast<const uint32_t*>(prm.b2 + col));
-      if (r0 < prm.rows)
-        *reinterpret_cast<uint32_t*>(prm.out + static_cast<size_t>(r0) * kD + col) =
-            hopper::pack_bf16(acc[4 * i] + b.x, acc[4 * i + 1] + b.y);
-      if (r1 < prm.rows)
-        *reinterpret_cast<uint32_t*>(prm.out + static_cast<size_t>(r1) * kD + col) =
-            hopper::pack_bf16(acc[4 * i + 2] + b.x, acc[4 * i + 3] + b.y);
+      store(r0, col, acc[4 * i] + b.x, acc[4 * i + 1] + b.y);
+      store(r1, col, acc[4 * i + 2] + b.x, acc[4 * i + 3] + b.y);
     }
   }
 }
 
-template <bool kBwd, bool kApprox>
+template <bool kBwd, bool kBlock, bool kApprox>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_row_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap dy_map,
            const __grid_constant__ CUtensorMap w1_map, const __grid_constant__ CUtensorMap w2_map,
@@ -502,9 +753,9 @@ mlp_row_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant_
     if (threadIdx.x == kConsumerThreads)
       row_producer<kBwd>(&x_map, &dy_map, &w1_map, &w2_map, prm, base, rank);
   } else if (role == 0) {
-    row_consumer<kBwd, kApprox, 0>(prm, base, rank, threadIdx.x);
+    row_consumer<kBwd, kBlock, kApprox, 0>(prm, base, rank, threadIdx.x);
   } else {
-    row_consumer<kBwd, kApprox, 1>(prm, base, rank, threadIdx.x - 128);
+    row_consumer<kBwd, kBlock, kApprox, 1>(prm, base, rank, threadIdx.x - 128);
   }
   cluster_sync();  // no block leaves while a peer may still arrive on its barriers
 }
@@ -814,11 +1065,11 @@ cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int blocks, int sme
 }
 
 // Clusters of a row kernel the card holds at once, asked once per kernel.
-template <bool kBwd, bool kApprox>
+template <bool kBwd, bool kBlock, bool kApprox>
 int row_clusters(int* clusters) {
   static int cached = 0;
   if (cached == 0) {
-    auto kernel = mlp_row_kernel<kBwd, kApprox>;
+    auto kernel = mlp_row_kernel<kBwd, kBlock, kApprox>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            RowLayout<kBwd>::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -832,20 +1083,28 @@ int row_clusters(int* clusters) {
   return 0;
 }
 
-template <bool kBwd, bool kApprox>
+template <bool kBwd, bool kBlock, bool kApprox>
 int launch_rows(const CUtensorMap& x_map, const CUtensorMap& dy_map, const CUtensorMap& w1_map,
                 const CUtensorMap& w2_map, const RowParams& prm, cudaStream_t stream) {
   int clusters = 0;
-  const int err0 = row_clusters<kBwd, kApprox>(&clusters);
+  const int err0 = row_clusters<kBwd, kBlock, kApprox>(&clusters);
   if (err0 != 0) return err0;
   if (clusters > prm.n_groups) clusters = prm.n_groups;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg =
       cluster_config(&attr, clusters * kCluster, RowLayout<kBwd>::kSmem, stream);
-  cudaError_t err =
-      cudaLaunchKernelEx(&cfg, mlp_row_kernel<kBwd, kApprox>, x_map, dy_map, w1_map, w2_map, prm);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, mlp_row_kernel<kBwd, kBlock, kApprox>, x_map, dy_map,
+                                       w1_map, w2_map, prm);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBwd, bool kBlock>
+int launch_rows(int approx, const CUtensorMap& x_map, const CUtensorMap& dy_map,
+                const CUtensorMap& w1_map, const CUtensorMap& w2_map, const RowParams& prm,
+                cudaStream_t stream) {
+  return approx ? launch_rows<kBwd, kBlock, true>(x_map, dy_map, w1_map, w2_map, prm, stream)
+                : launch_rows<kBwd, kBlock, false>(x_map, dy_map, w1_map, w2_map, prm, stream);
 }
 
 template <int kPart, bool kApprox>
@@ -864,43 +1123,41 @@ int launch_slices(const CUtensorMap& x_map, const CUtensorMap& dy_map, const CUt
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+template <int kPart>
+int launch_slices(int approx, const CUtensorMap& x_map, const CUtensorMap& dy_map,
+                  const CUtensorMap& w1_map, const CUtensorMap& w2_map, const SliceParams& prm,
+                  int groups, cudaStream_t stream) {
+  return approx ? launch_slices<kPart, true>(x_map, dy_map, w1_map, w2_map, prm, groups, stream)
+                : launch_slices<kPart, false>(x_map, dy_map, w1_map, w2_map, prm, groups, stream);
+}
 
-namespace mlp_sm90 {
-
-// y = bf16(bf16(gelu(x . w1 + b1)) . w2 + b2) at D = 384: x, y (rows, 384),
-// w1 (384, f), w2 (f, 384), b1 (f,), b2 (384,) bf16, contiguous, 16-byte
-// aligned; f a multiple of 64; approx: the tanh GELU, else erf.
-int fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2, void* y,
-        int rows, int f, int approx, cudaStream_t stream) {
-  if (rows < 1 || f < kH || f % kH) return static_cast<int>(cudaErrorInvalidValue);
+// The forward, K5f or (kBlock) K6f, of `prm` (out, b1, b2, and x, gamma,
+// beta, eps for the sub-block) at rows x f.
+template <bool kBlock>
+int forward(RowParams prm, const void* x, const void* w1, const void* w2, int approx,
+            cudaStream_t stream) {
+  if (prm.rows < 1 || prm.f < kH || prm.f % kH) return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap x_map, w1_map, w2_map;
-  if (!encode_2d(&x_map, encode, x, kD, rows, kRows) ||
-      !encode_2d(&w1_map, encode, w1, f, kD, kQuarter) ||
-      !encode_2d(&w2_map, encode, w2, kD, f, kQuarter))
+  if (!encode_2d(&x_map, encode, x, kD, prm.rows, kRows) ||
+      !encode_2d(&w1_map, encode, w1, prm.f, kD, kQuarter) ||
+      !encode_2d(&w2_map, encode, w2, kD, prm.f, kQuarter))
     return static_cast<int>(cudaErrorInvalidValue);
-  RowParams prm{};
-  prm.b1 = static_cast<const __nv_bfloat16*>(b1);
-  prm.b2 = static_cast<const __nv_bfloat16*>(b2);
-  prm.out = static_cast<__nv_bfloat16*>(y);
-  prm.rows = rows;
-  prm.f = f;
-  prm.n_tiles = (rows + kRows - 1) / kRows;
+  prm.n_tiles = (prm.rows + kRows - 1) / kRows;
   prm.n_groups = (prm.n_tiles + kCluster - 1) / kCluster;
-  return approx ? launch_rows<false, true>(x_map, x_map, w1_map, w2_map, prm, stream)
-                : launch_rows<false, false>(x_map, x_map, w1_map, w2_map, prm, stream);
+  return launch_rows<false, kBlock>(approx, x_map, x_map, w1_map, w2_map, prm, stream);
 }
 
-// The two passes of the backward at D = 384 (operands as above, dy and dx
-// like x): dx, and per row group the partial sums w_part (groups, 2 D f + f)
-// = dW1 | dW2 | db1, and per 64-row tile the column sums of dy, row_part
-// (n_row_tiles, D). The caller adds the partials in a fixed order.
-// 1 <= groups <= ceil(rows / 32), n_row_tiles = ceil(rows / 64).
-int bwd(const void* x, const void* dy, const void* w1, const void* b1, const void* w2, void* dx,
-        float* w_part, float* row_part, int rows, int f, int n_row_tiles, int groups, int approx,
-        cudaStream_t stream) {
+// The backward, K5b or (kBlock) K6b, of `prm` (out = dx, b1, row_part, and
+// x, dy, gamma, eps, ln_out for the sub-block): the dx pass, then the dW
+// passes on fc1's input `a` (x, or the LN(x) that the dx pass leaves in
+// ln_out), writing per row group into w_part.
+template <bool kBlock>
+int backward(RowParams prm, const void* x, const void* dy, const void* w1, const void* w2,
+             const void* a, float* w_part, int n_row_tiles, int groups, int approx,
+             cudaStream_t stream) {
+  const int rows = prm.rows, f = prm.f;
   const int n_stages = (rows + kStageRows - 1) / kStageRows;
   if (rows < 1 || f < kH || f % kH || n_row_tiles != (rows + kRows - 1) / kRows || groups < 1 ||
       groups > n_stages)
@@ -912,36 +1169,103 @@ int bwd(const void* x, const void* dy, const void* w1, const void* b1, const voi
       !encode_2d(&dy_map, encode, dy, kD, rows, kRows) ||
       !encode_2d(&w1_map, encode, w1, f, kD, kQuarter) ||
       !encode_2d(&w2_map, encode, w2, kD, f, kQuarter) ||
-      !encode_2d(&xs_map, encode, x, kD, rows, kStageRows) ||
+      !encode_2d(&xs_map, encode, a, kD, rows, kStageRows) ||
       !encode_2d(&dys_map, encode, dy, kD, rows, kStageRows) ||
       !encode_2d(&w1s_map, encode, w1, f, kD, 64) || !encode_2d(&w2s_map, encode, w2, kD, f, 64))
     return static_cast<int>(cudaErrorInvalidValue);
-
-  RowParams rp{};
-  rp.b1 = static_cast<const __nv_bfloat16*>(b1);
-  rp.out = static_cast<__nv_bfloat16*>(dx);
-  rp.db2_part = row_part;
-  rp.rows = rows;
-  rp.f = f;
-  rp.n_tiles = n_row_tiles;
-  rp.n_groups = (n_row_tiles + kCluster - 1) / kCluster;
-  int err = approx ? launch_rows<true, true>(x_map, dy_map, w1_map, w2_map, rp, stream)
-                   : launch_rows<true, false>(x_map, dy_map, w1_map, w2_map, rp, stream);
+  prm.n_tiles = n_row_tiles;
+  prm.n_groups = (n_row_tiles + kCluster - 1) / kCluster;
+  int err = launch_rows<true, kBlock>(approx, x_map, dy_map, w1_map, w2_map, prm, stream);
   if (err != 0) return err;
 
   SliceParams sp{};
-  sp.b1 = static_cast<const __nv_bfloat16*>(b1);
+  sp.b1 = prm.b1;
   sp.w_part = w_part;
   sp.f = f;
   sp.n_slices = f / kH;
   sp.n_sc = (sp.n_slices + kCluster - 1) / kCluster;
   sp.n_stages = n_stages;
   sp.per_group = (n_stages + groups - 1) / groups;
-  err = approx ? launch_slices<1, true>(xs_map, dys_map, w1s_map, w2s_map, sp, groups, stream)
-               : launch_slices<1, false>(xs_map, dys_map, w1s_map, w2s_map, sp, groups, stream);
+  err = launch_slices<1>(approx, xs_map, dys_map, w1s_map, w2s_map, sp, groups, stream);
   if (err != 0) return err;
-  return approx ? launch_slices<2, true>(xs_map, dys_map, w1s_map, w2s_map, sp, groups, stream)
-                : launch_slices<2, false>(xs_map, dys_map, w1s_map, w2s_map, sp, groups, stream);
+  return launch_slices<2>(approx, xs_map, dys_map, w1s_map, w2s_map, sp, groups, stream);
+}
+
+}  // namespace
+
+namespace mlp_sm90 {
+
+// y = bf16(bf16(gelu(x . w1 + b1)) . w2 + b2) at D = 384: x, y (rows, 384),
+// w1 (384, f), w2 (f, 384), b1 (f,), b2 (384,) bf16, contiguous, 16-byte
+// aligned; f a multiple of 64; approx: the tanh GELU, else erf.
+int fwd(const void* x, const void* w1, const void* b1, const void* w2, const void* b2, void* y,
+        int rows, int f, int approx, cudaStream_t stream) {
+  RowParams prm{};
+  prm.b1 = static_cast<const __nv_bfloat16*>(b1);
+  prm.b2 = static_cast<const __nv_bfloat16*>(b2);
+  prm.out = static_cast<__nv_bfloat16*>(y);
+  prm.rows = rows;
+  prm.f = f;
+  return forward<false>(prm, x, w1, w2, approx, stream);
+}
+
+// The pre-norm sub-block, y = bf16(x + bf16(... with bf16(LN(x)) as fc1's
+// input)), operands as above; gamma, beta (384,) fp32, 8-byte aligned.
+int block_fwd(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
+              const void* w2, const void* b2, void* y, int rows, int f, float eps, int approx,
+              cudaStream_t stream) {
+  RowParams prm{};
+  prm.b1 = static_cast<const __nv_bfloat16*>(b1);
+  prm.b2 = static_cast<const __nv_bfloat16*>(b2);
+  prm.out = static_cast<__nv_bfloat16*>(y);
+  prm.x = static_cast<const __nv_bfloat16*>(x);
+  prm.gamma = static_cast<const float*>(gamma);
+  prm.beta = static_cast<const float*>(beta);
+  prm.eps = eps;
+  prm.rows = rows;
+  prm.f = f;
+  return forward<true>(prm, x, w1, w2, approx, stream);
+}
+
+// The three passes of the backward at D = 384 (operands as above, dy and dx
+// like x): dx, and per row group the partial sums w_part (groups, 2 D f + f)
+// = dW1 | dW2 | db1, and per 64-row tile the column sums of dy, row_part
+// (n_row_tiles, D). The caller adds the partials in a fixed order.
+// 1 <= groups <= ceil(rows / 32), n_row_tiles = ceil(rows / 64).
+int bwd(const void* x, const void* dy, const void* w1, const void* b1, const void* w2, void* dx,
+        float* w_part, float* row_part, int rows, int f, int n_row_tiles, int groups, int approx,
+        cudaStream_t stream) {
+  RowParams prm{};
+  prm.b1 = static_cast<const __nv_bfloat16*>(b1);
+  prm.out = static_cast<__nv_bfloat16*>(dx);
+  prm.row_part = row_part;
+  prm.part_stride = kD;
+  prm.rows = rows;
+  prm.f = f;
+  return backward<false>(prm, x, dy, w1, w2, x, w_part, n_row_tiles, groups, approx, stream);
+}
+
+// The same for the pre-norm sub-block: row_part is (n_row_tiles, 3, D) =
+// db2 | dgamma | dbeta per tile; ln_work (rows, D) bf16 takes LN(x) from the
+// dx pass to the dW passes. gamma, beta (384,) fp32, 8-byte aligned.
+int block_bwd(const void* x, const void* dy, const void* gamma, const void* beta, const void* w1,
+              const void* b1, const void* w2, void* dx, float* w_part, float* row_part,
+              void* ln_work, int rows, int f, int n_row_tiles, int groups, float eps, int approx,
+              cudaStream_t stream) {
+  RowParams prm{};
+  prm.b1 = static_cast<const __nv_bfloat16*>(b1);
+  prm.out = static_cast<__nv_bfloat16*>(dx);
+  prm.row_part = row_part;
+  prm.part_stride = 3 * kD;
+  prm.x = static_cast<const __nv_bfloat16*>(x);
+  prm.dy = static_cast<const __nv_bfloat16*>(dy);
+  prm.gamma = static_cast<const float*>(gamma);
+  prm.beta = static_cast<const float*>(beta);
+  prm.ln_out = static_cast<__nv_bfloat16*>(ln_work);
+  prm.eps = eps;
+  prm.rows = rows;
+  prm.f = f;
+  return backward<true>(prm, x, dy, w1, w2, ln_work, w_part, n_row_tiles, groups, approx, stream);
 }
 
 }  // namespace mlp_sm90

@@ -40,11 +40,11 @@ to the plain version. The kernels take bf16 and an embedding width of 384 or
 768; the MLP's hidden width and the LN+GEMM's output width are multiples of
 64, both widths of the GEMM+residual are 384 or 768; both GELU forms run
 in-kernel. The backward kernels sum the weight gradients in a fixed order: the
-same inputs give the same bits on every run. At width 384, ``mlp_fwd`` and
-``mlp_bwd`` are ``csrc/mlp_sm90.cu`` (clusters of four blocks sharing the
-weight stream; the backward's row groups from ``mlp_dw_groups``); at 768 and
-for the other six, the row-tiled kernels of ``csrc/mlp_fwd.cu``,
-``csrc/mlp_bwd.cu`` and ``csrc/dense.cu``.
+same inputs give the same bits on every run. At width 384 the four MLP
+kernels are ``csrc/mlp_sm90.cu`` (clusters of four blocks sharing the weight
+stream; the sub-block's LayerNorm inside the row tile; the backward's row
+groups from ``mlp_dw_groups``); at 768, and for the other four, the row-tiled
+kernels of ``csrc/mlp_fwd.cu``, ``csrc/mlp_bwd.cu`` and ``csrc/dense.cu``.
 
 As in the reference, the public functions cast the parameters to ``x.dtype``
 outside the differentiated op and the op returns weight and bias gradients in
@@ -294,9 +294,10 @@ def _launch_mlp_block_fwd(x2, g, be, w1, b1, w2, b2, approx, eps):
 
 
 def mlp_dw_groups(rows: int, f: int, sms: int) -> int:
-    """Row groups of the D = 384 backward's weight-gradient passes: as many as
-    fill the card with one block per SM (each group takes ``ceil(F / 256)``
-    clusters of four slices), at least one, at most one per 32-row stage.
+    """Row groups of the D = 384 backwards' weight-gradient passes (K5b and
+    K6b alike, csrc/mlp_sm90.cu): as many as fill the card with one block per
+    SM (each group takes ``ceil(F / 256)`` clusters of four slices), at least
+    one, at most one per 32-row stage.
     A pure function of the shapes and the SM count, so the partial sums, and
     the order in which they are added, are the same on every run."""
     stages = -(-rows // MLP_DW_STAGE_ROWS)
@@ -317,11 +318,11 @@ def _bwd_buffers(x2, f: int, row_sums: int):
     dev = x2.device
     lib = _build.load()
     n_tiles = -(-rows // lib.tpuwsi_mlp_rows_per_tile(d))
-    slices = f // lib.tpuwsi_mlp_hidden_per_slice(d)  # the weight-gradient grid's other axis
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if d == 384 and row_sums == 1:  # K5b's Hopper kernels (csrc/mlp_sm90.cu)
+    if d == 384:  # the Hopper kernels of K5b and K6b (csrc/mlp_sm90.cu)
         groups = mlp_dw_groups(rows, f, sms)
-    else:
+    else:  # the row-tiled kernels: their grid's other axis is F in slices
+        slices = f // lib.tpuwsi_mlp_hidden_per_slice(d)
         groups = max(1, min(n_tiles, DW_WAVES * sms // slices))
     n_w = 2 * d * f + f
     grads = torch.empty(n_w + row_sums * d, dtype=torch.float32, device=dev)
@@ -352,7 +353,7 @@ def _launch_mlp_block_bwd(x2, dy2, g, be, w1, b1, w2, approx, eps):
     _check_operands(x2, w1, b1, w2, dy2=dy2, ln=(g, be))
     d, f = w1.shape
     dx, grads, w_part, row_part, n_tiles, groups = _bwd_buffers(x2, f, 3)
-    ln_work = torch.empty_like(x2)  # LN(x), from the launch's first kernel to its second
+    ln_work = torch.empty_like(x2)  # LN(x), from the launch's dx pass to its dW passes
     _call("mlp_block_bwd", x2,
           (x2.data_ptr(), dy2.data_ptr(), g.data_ptr(), be.data_ptr(), w1.data_ptr(),
            b1.data_ptr(), w2.data_ptr(), dx.data_ptr(), grads.data_ptr(), w_part.data_ptr(),

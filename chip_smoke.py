@@ -6,8 +6,8 @@
 Phases, each printing its own lines:
   1. the card's name and power limit (nvidia-smi);
   2. build the Hopper kernels from tpuwsi_torch/ops/csrc with nvcc (ptxas'
-     report of csrc/mlp_sm90.cu's kernels must show 0 spill bytes and no
-     serialised wgmma);
+     report of csrc/mlp_sm90.cu's and csrc/attn_block.cu's kernels must show
+     0 spill bytes and no serialised wgmma);
   3. each of the nineteen kernels against its plain PyTorch version on the
      card, at the shapes the paths give it (the four whole-sequence kernels
      at 37-257 tokens and at every branch edge of the forward kernel from 1
@@ -28,8 +28,10 @@ Phases, each printing its own lines:
      and K6b at the step's global views; the
      five dense-layer kernels at the qkv and proj layers of the same row
      counts; the two attention sub-block kernels at the step's global and
-     local views, a serving chunk, a batch of 8 tiles, one token and the
-     longest sequence they take, and the refusal of ViT-B width by name),
+     local views, a serving chunk, a batch of 8 tiles, one token, the
+     longest sequence they take, ViT-B at 197 and 257 tokens and 65,536
+     images of 16 tokens (past the old 65,535 cap), then the op itself at
+     ViT-B through autograd, against the plain version),
      plus median times (CUDA events) beside the plain version's and
      one PyTorch library call's (scaled_dot_product_attention, forward or
      its autograd backward; F.linear or its autograd backward, with
@@ -70,7 +72,8 @@ Phases, each printing its own lines:
   9. small-batch serving through a full-depth ViT-S/16 at 256 px whose every
      block takes its attention half as one fused_attention_block launch (12
      per forward, no other kernel): batches of 8 tiles and one 500-tile
-     chunk, held against forward_features and timed beside it;
+     chunk, held against forward_features and timed beside it; then a
+     full-depth ViT-B/16 at 256 px the same way at batch 8;
   10. the long-sequence slices, ViT-S/16 at 448 px (785 tokens), full width
      and depth: 2 chunks of 128 tiles through extract_features, and the same
      DINO step with --dino-global-size 448 for 2 + 4 steps, each with its
@@ -235,15 +238,21 @@ ATTN_BLOCK_SHAPES = [
     (576, 37, 384, 6, "both"),    # the student's local views
     (8, 257, 384, 6, "fwd"),      # small-batch serving (timed)
     (3, 1, 384, 6, "both"),       # one token
-    (2, attention.ATTN_BLOCK_MAX_SEQ, 384, 6, "both"),
+    (2, attention.ATTN_BLOCK_MAX_SEQ[384], 384, 6, "both"),
+    (16, 197, 768, 12, "both"),   # ViT-B/16 at 224 px (timed)
+    (64, 257, 768, 12, "fwd"),    # ViT-B/16 at 256 px (timed)
+    (2, attention.ATTN_BLOCK_MAX_SEQ[768], 768, 12, "both"),
+    (65536, 16, 384, 6, "both"),  # past the old 65,535 cap of the grid
 ]
-ATTN_BLOCK_TIMED = {ATTN_BLOCK_SHAPES[0][:2]: ("attn_block_fwd", "attn_block_bwd"),
-                    ATTN_BLOCK_SHAPES[1][:2]: ("attn_block_fwd",),
-                    ATTN_BLOCK_SHAPES[3][:2]: ("attn_block_fwd",)}
-ATTN_BLOCK_REFUSED = (16, 197, 768, 12)  # ViT-B/16: a cluster of 12 blocks is not built
+ATTN_BLOCK_TIMED = {(192, 197): ("attn_block_fwd", "attn_block_bwd"),
+                    (500, 257): ("attn_block_fwd",), (8, 257): ("attn_block_fwd",),
+                    (16, 197): ("attn_block_fwd", "attn_block_bwd"), (64, 257): ("attn_block_fwd",)}
+ATTN_BLOCK_OP = (16, 197, 768, 12)  # ViT-B/16 through fused_attention_block and autograd
+ATTN_BLOCK_REFUSED = (2, 5, 512, 8)  # a width no kernel is built for: refused by name
 SMALL_BATCH = 8                          # tiles per forward of the small-batch serving walk
 
 MODEL, TILE, TILES_PER_ITER, N_SLIDES = "vit_small_patch16_224", 256, 500, 4
+ATTN_BLOCK_MODELS = {384: MODEL, 768: "vit_base_patch16_224"}  # a tuned block of each width
 VALID = [500, 500, 437, 311]  # two slides end in a padded chunk
 MODEL_448, TILE_448, TILES_PER_ITER_448, VALID_448 = "vit_small_patch16_448", 448, 128, [128, 77]
 FEAT_COSINE_MIN, PROBS_MAX_DIFF = 0.999, 1e-2
@@ -304,22 +313,32 @@ def phase_build() -> None:
     print(f"[build] {verb} {lib_path.relative_to(OUT.parents[1])} in "
           f"{time.perf_counter() - t0:.2f} s")
     log = lib_path.with_suffix(".log")
-    fn, spills, serialised = None, {}, []
-    for line in log.read_text().splitlines() if log.exists() else ():
+    lines = log.read_text().splitlines() if log.exists() else []
+    for line in lines:
         if ("registers" in line or "spill" in line or "Performance Loss" in line) and "C7519" not in line:
             print(f"[build] ptxas: {line.strip()}")
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
-        if m:
-            fn = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and fn and "mlp_sm90" in fn:
-            spills[fn] = int(m.group(1)) + int(m.group(2))
-        if "Performance Loss" in line and "mlp_sm90" in line:
-            serialised.append(line.strip())
-    if not spills or any(spills.values()) or serialised:
-        raise RuntimeError(f"csrc/mlp_sm90.cu: spill bytes {spills}, serialised wgmma {serialised}")
-    print(f"[build] ptxas: csrc/mlp_sm90.cu's {len(spills)} kernels (K5f, K5b, K6f, K6b): 0 spill "
-          "bytes, no serialised wgmma (C7512-C7520)")
+    # the Hopper redesigns whose build refuses a spill or a serialised wgmma in
+    # any kernel compiled from them (the build log's "== <source>" parts)
+    for source, what in (("mlp_sm90.cu", "K5f, K5b, K6f, K6b"),
+                         ("attn_block.cu", "K8f, K8b's head kernel and tails, LN(x)")):
+        part, fn, spills, serialised = None, None, {}, []
+        for line in lines:
+            if line.startswith("== "):
+                part = line[3:].strip()
+            if part != source:
+                continue
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn:
+                spills[fn] = int(m.group(1)) + int(m.group(2))
+            if "Performance Loss" in line:
+                serialised.append(line.strip())
+        if not spills or any(spills.values()) or serialised:
+            raise RuntimeError(f"csrc/{source}: spill bytes {spills}, serialised wgmma {serialised}")
+        print(f"[build] ptxas: csrc/{source}'s {len(spills)} kernels ({what}): 0 spill bytes, no "
+              "serialised wgmma (C7512-C7520)")
 
 
 def heads_view(qkv, h):
@@ -1099,10 +1118,11 @@ def attn_block_bound(backward: bool, b, n, d) -> dict:
             "bound_bytes": nbytes, "bound_flops": flops}
 
 
-def tuned_block(gamma, beta, wqkv, bqkv, wp, bp):
-    """One block of the tuned ViT-S/16 on the card, its attention half holding
-    these parameters (the ops' ``(in, out)`` weights in nn.Linear's layout)."""
-    base = create_model(MODEL, num_classes=2, img_size=TILE).config
+def tuned_block(gamma, beta, wqkv, bqkv, wp, bp, model=MODEL):
+    """One block of the tuned ViT (``model``, ViT-S/16 by default) on the
+    card, its attention half holding these parameters (the ops' ``(in, out)``
+    weights in nn.Linear's layout)."""
+    base = create_model(model, num_classes=2, img_size=TILE).config
     blk = VisionTransformer(dataclasses.replace(base, depth=1, **tuned_vit_kwargs(True))).blocks[0]
     with torch.no_grad():
         for dst, src in ((blk.norm1.weight, gamma), (blk.norm1.bias, beta),
@@ -1167,7 +1187,7 @@ def phase_attn_block_kernels(smi: str) -> dict:
                                            check_kernel(name, case, *fns[name]))
         timed = ATTN_BLOCK_TIMED.get((b, n), ())
         if timed:
-            blk = tuned_block(g, be, wqkv, bqkv, wp, bp)
+            blk = tuned_block(g, be, wqkv, bqkv, wp, bp, ATTN_BLOCK_MODELS[d])
             xl = x.detach().requires_grad_()
             leaves = [xl, blk.norm1.weight, blk.norm1.bias, blk.attn.qkv.weight,
                       blk.attn.qkv.bias, blk.attn.proj.weight, blk.attn.proj.bias]
@@ -1210,7 +1230,40 @@ def phase_attn_block_kernels(smi: str) -> dict:
     print("[attn_block_bwd] two runs on the same inputs gave the same bits in all seven outputs "
           "at every shape")
 
-    # ViT-B/16: refused by name before any launch
+    # ViT-B/16 through the op and autograd: one launch of each kernel, values
+    # and all seven gradients against the plain versions
+    b, n, d, h = ATTN_BLOCK_OP
+    x, g, be, wqkv, bqkv, wp, bp = operands(b, n, d)
+    dy = randn((b, n, d))
+    params = [p.float().requires_grad_() for p in (g, be, wqkv, bqkv, wp, bp)]
+    xl = x.detach().requires_grad_()
+    reset_launches()
+    y = attention.fused_attention_block(xl, *params, h)
+    got = (y, *torch.autograd.grad(y, [xl, *params], dy))
+    torch.cuda.synchronize()
+    launches = {k: c for k, c in all_launches().items() if c}
+    if launches != {"attn_block_fwd": 1, "attn_block_bwd": 1}:
+        raise RuntimeError(f"fused_attention_block at ViT-B launched {launches}")
+    scale = (d // h) ** -0.5
+    want = (attention._attn_block_fwd_reference(x, g, be, wqkv, bqkv, wp, bp, h, scale, 1e-6),
+            *attention._attn_block_bwd_reference(x, dy, g, be, wqkv, bqkv, wp, h, scale, 1e-6))
+    got = tuple(a.detach() for a in got)
+    check_mlp("attn_block op", f"B={b} N={n} D={d} H={h} through autograd", got[:2], want[:2])
+    for i, (label, a, w) in enumerate(zip(("dgamma", "dbeta", "dWqkv", "dbqkv", "dWproj",
+                                           "dbproj"), got[2:], want[2:])):
+        # the op rounds the weights' gradients to their bf16 on the way to the
+        # fp32 parameters, as the reference's vjp does; LayerNorm's stay fp32
+        bound = MLP_GRAD_REL if i < 2 else ROUNDED_GRAD_REL
+        w = w if i < 2 else w.bfloat16().float()
+        rel = (a.float() - w.float()).abs().max().item() / max(w.float().abs().max().item(), 1e-30)
+        print(f"[attn_block op] B={b} N={n} D={d} H={h} {label} {tuple(a.shape)}: "
+              f"{rel:.3e} of the largest element (bound {bound})")
+        if not bool(torch.isfinite(a).all()) or rel > bound:
+            raise RuntimeError(f"fused_attention_block at ViT-B disagrees in {label}")
+    print(f"[attn_block op] B={b} N={n} D={d} H={h}: launches {launches}, values and gradients "
+          "against the plain versions")
+
+    # a width no kernel is built for: refused by name before any launch
     b, n, d, h = ATTN_BLOCK_REFUSED
     x, g, be, wqkv, bqkv, wp, bp = operands(b, n, d)
     before = dict(attention.LAUNCHES)
@@ -1219,7 +1272,7 @@ def phase_attn_block_kernels(smi: str) -> dict:
     except NotImplementedError as e:
         print(f"[attn_block_fwd] B={b} N={n} D={d} H={h}: refused before any launch: {e}")
     else:
-        raise RuntimeError("the sub-block op took ViT-B operands its kernels are not built for")
+        raise RuntimeError("the sub-block op took operands of a width its kernels lack")
     if attention.LAUNCHES != before:
         raise RuntimeError("a refused call counted a launch")
     return res
@@ -1809,57 +1862,64 @@ def phase_attn_block_serving(smi: str) -> dict:
     """Small-batch serving through a full-depth ViT-S/16 at 256 px (257
     tokens, tuned configuration, seeded weights) whose every block takes its
     attention half as one ``fused_attention_block`` launch: batches of 8
-    tiles, the use the reference keeps the op for, and one 500-tile chunk,
-    held against ``model.forward_features`` on the same tiles and timed
-    beside it. → launches per kernel."""
-    base = create_model(MODEL, num_classes=2, img_size=TILE).config
-    cfg = dataclasses.replace(base, **tuned_vit_kwargs(True))
-    model = VisionTransformer(cfg)
-    model.load_state_dict(params_from_flax(flax_vit_tree(cfg, SEED)))
-    model = model.cuda().eval()
+    tiles, the use the reference keeps the op for, and one 500-tile chunk;
+    then a full-depth ViT-B/16 at 256 px the same way at batch 8. Each held
+    against ``model.forward_features`` on the same tiles and timed beside it.
+    → launches per kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     zero = dict.fromkeys(all_launches(), 0)
     total = dict(zero)
-    print(f"[attn_block_serving] {MODEL} img {TILE} ({cfg.num_patches + 1} tokens) depth "
-          f"{cfg.depth} dim {cfg.embed_dim} {cfg.dtype}; normalised tiles ~ N(0, 1)")
-    with torch.inference_mode():
-        for batch, n_batches, reps in ((SMALL_BATCH, 3, 20), (TILES_PER_ITER, 1, 5)):
-            tiles = [torch.randn((batch, TILE, TILE, 3), generator=gen, device="cuda")
-                     for _ in range(n_batches)]
-            for i, images in enumerate(tiles):
-                reset_launches()
-                feats = walk_with_attn_block(model, images)
-                torch.cuda.synchronize()
-                launches = all_launches()
-                if launches != {**zero, "attn_block_fwd": cfg.depth}:
-                    raise RuntimeError(f"the walk's forward: launches {launches}, expected "
-                                       f"attn_block_fwd = {cfg.depth} and no other kernel")
-                for name, count in launches.items():
-                    total[name] += count
-                want = model.forward_features(images)
-                cos = torch.nn.functional.cosine_similarity(feats, want, dim=1).min().item()
-                ok = feats.shape == (batch, cfg.embed_dim) and bool(torch.isfinite(feats).all())
-                print(f"[attn_block_serving] batch {batch}, forward {i}: launches "
-                      f"attn_block_fwd = {launches['attn_block_fwd']}, no other kernel; min "
-                      f"per-tile feature cosine against forward_features {cos:.6f} "
-                      f"(>= {FEAT_COSINE_MIN})")
-                if not ok or not cos >= FEAT_COSINE_MIN:
-                    raise RuntimeError("the walk and forward_features disagree")
-            images = tiles[0]
-            k1 = cuda_median_ms(lambda: walk_with_attn_block(model, images), reps=reps)
-            m1 = cuda_median_ms(lambda: model.forward_features(images), reps=reps)
-            m2 = cuda_median_ms(lambda: model.forward_features(images), reps=reps)
-            k2 = cuda_median_ms(lambda: walk_with_attn_block(model, images), reps=reps)
+    for name, runs in ((MODEL, ((SMALL_BATCH, 3, 20), (TILES_PER_ITER, 1, 5))),
+                       (ATTN_BLOCK_MODELS[768], ((SMALL_BATCH, 2, 20),))):
+        base = create_model(name, num_classes=2, img_size=TILE).config
+        cfg = dataclasses.replace(base, **tuned_vit_kwargs(True))
+        model = VisionTransformer(cfg)
+        model.load_state_dict(params_from_flax(flax_vit_tree(cfg, SEED)))
+        model = model.cuda().eval()
+        print(f"[attn_block_serving] {name} img {TILE} ({cfg.num_patches + 1} tokens) depth "
+              f"{cfg.depth} dim {cfg.embed_dim} heads {cfg.num_heads} {cfg.dtype}; normalised "
+              "tiles ~ N(0, 1)")
+        with torch.inference_mode():
+            for batch, n_batches, reps in runs:
+                tiles = [torch.randn((batch, TILE, TILE, 3), generator=gen, device="cuda")
+                         for _ in range(n_batches)]
+                for i, images in enumerate(tiles):
+                    reset_launches()
+                    feats = walk_with_attn_block(model, images)
+                    torch.cuda.synchronize()
+                    launches = all_launches()
+                    if launches != {**zero, "attn_block_fwd": cfg.depth}:
+                        raise RuntimeError(f"the walk's forward: launches {launches}, expected "
+                                           f"attn_block_fwd = {cfg.depth} and no other kernel")
+                    for kname, count in launches.items():
+                        total[kname] += count
+                    want = model.forward_features(images)
+                    cos = torch.nn.functional.cosine_similarity(feats, want, dim=1).min().item()
+                    ok = feats.shape == (batch, cfg.embed_dim) and bool(torch.isfinite(feats).all())
+                    print(f"[attn_block_serving] {name} batch {batch}, forward {i}: launches "
+                          f"attn_block_fwd = {launches['attn_block_fwd']}, no other kernel; min "
+                          f"per-tile feature cosine against forward_features {cos:.6f} "
+                          f"(>= {FEAT_COSINE_MIN})")
+                    if not ok or not cos >= FEAT_COSINE_MIN:
+                        raise RuntimeError("the walk and forward_features disagree")
+                images = tiles[0]
+                k1 = cuda_median_ms(lambda: walk_with_attn_block(model, images), reps=reps)
+                m1 = cuda_median_ms(lambda: model.forward_features(images), reps=reps)
+                m2 = cuda_median_ms(lambda: model.forward_features(images), reps=reps)
+                k2 = cuda_median_ms(lambda: walk_with_attn_block(model, images), reps=reps)
 
-            def rate(ms):
-                return batch / ms * 1e3
+                def rate(ms):
+                    return batch / ms * 1e3
 
-            print(f"[attn_block_serving] batch {batch}, forward alone (normalised tiles on the "
-                  f"card to features), medians of {reps} in the order walk, model, model, walk: "
-                  f"walk with the one-op attention half {k1:.4f} / {k2:.4f} ms = {rate(k1):.1f} / "
-                  f"{rate(k2):.1f} tiles/s; model.forward_features {m1:.4f} / {m2:.4f} ms = "
-                  f"{rate(m1):.1f} / {rate(m2):.1f} tiles/s; on {smi}")
-            del tiles, images
+                print(f"[attn_block_serving] {name} batch {batch}, forward alone (normalised "
+                      f"tiles on the card to features), medians of {reps} in the order walk, "
+                      f"model, model, walk: walk with the one-op attention half {k1:.4f} / "
+                      f"{k2:.4f} ms = {rate(k1):.1f} / {rate(k2):.1f} tiles/s; "
+                      f"model.forward_features {m1:.4f} / {m2:.4f} ms = {rate(m1):.1f} / "
+                      f"{rate(m2):.1f} tiles/s; on {smi}")
+                del tiles, images
+        del model
+        torch.cuda.empty_cache()
     return total
 
 

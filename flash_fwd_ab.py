@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """A/B of hand-written kernels against another kernel tree, on one card: the
-flash family (K4a, K4a', K4b, K4b'), the whole-sequence backward (K1b, K3) and
-the fused MLP with its sub-block (K5f, K5b, K6f, K6b).
+flash family (K4a, K4a', K4b, K4b'), the whole-sequence backward (K1b, K3),
+the fused MLP with its sub-block (K5f, K5b, K6f, K6b) and the attention
+sub-block (K8f, K8b).
 
     python3 flash_fwd_ab.py [check] [ab] [bwd] [e2e] [mha_bwd] [mlp] [mlp_e2e]
-        [ablate 'NAME:FIND=>REPLACE;...' ...] [cutout] [--old DIR] [--only SOURCE]
-        [--cuts A,B]
+        [attn_block] [ablate 'NAME:FIND=>REPLACE;...' ...] [cutout] [--old DIR]
+        [--only SOURCE] [--cuts A,B] [--base DIR]
 
 ``DIR`` (default ``build/ab/csrc_v1``) holds another copy of
 ``tpuwsi_torch/ops/csrc`` (for instance the parent commit's, unpacked with
@@ -64,6 +65,14 @@ Modes, in the order given:
   route (``extract_features`` over 8 chunks of 500 tiles, each route in each
   arm, launch counts checked); last, one profiled step of each route with
   each library (kernel time by kind, busy share);
+- ``attn_block``: K8f and K8b at ``ATTN_AB`` (the step's global views, a
+  500-tile serving chunk, a batch of 8 tiles, ViT-B at 197 and 257 tokens),
+  in the order new, old, old, new (ViT-B: new only, the old kernels refuse
+  it): medians of 20 single calls and of 5 runs of 50 back to back, beside
+  the unfused route (the model's norm1 + attention + residual sum, its
+  autograd backward) read the same two ways, the plain version and the
+  bound; the new K8b must repeat its bits. A tree before PR 13 gets its own
+  forward launcher (``use``);
 - ``cutout``: the kernels of a source timed beside copies of it with one
   part cut out (``CUTOUTS``): K4b and K4b' (flash_bwd.cu, at (192, 6, 785)),
   K1b and K3 (mha_qkv_bwd.cu, at (192, 197)), K5f and K5b (mlp_sm90.cu, at
@@ -74,7 +83,13 @@ Modes, in the order given:
   ``--only SOURCE`` limits ``cutout`` to one source, ``--cuts A,B`` to
   those copies (for mlp_sm90.cu also ``no_ln_prologue``, ``no_ln_epilogue``:
   the sub-block's in-tile LayerNorm, the dx pass's LayerNorm backward; and
-  ``dy_from_smem``, the dx pass holding its tile for the epilogue's dy).
+  ``dy_from_smem``, the dx pass holding its tile for the epilogue's dy). For
+  attn_block.cu (K8f and K8b at (192, 197), K8f also at (8, 257)): the
+  attention walks, the remote o loads, each product, all arithmetic (with
+  half of every weight stage fetched too), the head kernel's phases, the dx
+  or dW tails; with ``--base DIR`` (the parent tree) and ``--cuts
+  pr6_no_head,...`` PR 6's K8b without its head kernel, dx tail, dW tails or
+  sums, or the head kernel alone.
 
 Every line names the card's name and power limit; the last line is a JSON
 summary.
@@ -82,6 +97,7 @@ summary.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import shutil
 import statistics
@@ -105,7 +121,8 @@ BWD_SHAPES = [(192, 6, 785, True), (4, 6, 1024, False)]  # (B, H, S, strided)
 ABLATE_SOURCES = {"flash_fwd.cu": ("flash_fwd", "flash_fwd_stats"),
                   "flash_bwd.cu": ("flash_bwd_dq", "flash_bwd_dkv"),
                   "mha_qkv_bwd.cu": ("mha_qkv_bwd_saved", "mha_qkv_bwd"),
-                  "mlp_sm90.cu": ("mlp_fwd", "mlp_bwd", "mlp_block_fwd", "mlp_block_bwd")}
+                  "mlp_sm90.cu": ("mlp_fwd", "mlp_bwd", "mlp_block_fwd", "mlp_block_bwd"),
+                  "attn_block.cu": ("attn_block_fwd", "attn_block_bwd")}
 MHA_SHAPES = [(192, 197, 384, 6), (576, 37, 384, 6)]  # (B, N, D, H)
 SERVE_CHUNKS, STEP_TIMED = 8, 6
 # the fused-MLP kernels timed by ``mlp`` at D 384, F 1,536: rows -> kernels
@@ -113,6 +130,13 @@ MLP_AB = {128500: ("mlp_block_fwd",),
           37824: ("mlp_fwd", "mlp_bwd", "mlp_block_fwd", "mlp_block_bwd"),
           21312: ("mlp_fwd", "mlp_bwd", "mlp_block_bwd")}
 MLP_AB_SHAPES = cs.MLP_TIMED_B2B  # (37,824, 384, 1,536), (21,312, 384, 1,536)
+# the attention sub-block timed by ``attn_block`` and ``cutout``: (B, N, D, H, kernels);
+# ViT-B has no old arm (PR 6's kernels refuse D = 768)
+ATTN_AB = [(192, 197, 384, 6, ("attn_block_fwd", "attn_block_bwd")),
+           (500, 257, 384, 6, ("attn_block_fwd",)),
+           (8, 257, 384, 6, ("attn_block_fwd",)),
+           (16, 197, 768, 12, ("attn_block_fwd", "attn_block_bwd")),
+           (64, 257, 768, 12, ("attn_block_fwd",))]
 _NEW_DW_GROUPS = mlp.mlp_dw_groups
 _NEW_BWD_BUFFERS = mlp._bwd_buffers
 
@@ -138,6 +162,22 @@ def _bwd_buffers_of(old_for: set):
     return buffers
 
 
+def _launch_attn_block_fwd_pr6(x, g, be, wqkv, bqkv, wp, bp, num_heads, scale, eps):
+    """K8f of a tree before PR 13 (no LN(x) workspace; clusters asked by
+    length alone): the same operands, that tree's C interface."""
+    attention.check_attn_block_operands(x, g, be, wqkv, bqkv, wp, bp, num_heads)
+    b, n, d = x.shape
+    y = torch.empty_like(x)
+    attention._call("attn_block_fwd", x,
+                    (x.data_ptr(), g.data_ptr(), be.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+                     wp.data_ptr(), bp.data_ptr(), y.data_ptr(), b, n, d, num_heads,
+                     float(scale), float(eps)))
+    return y
+
+
+_NEW_ATTN_BLOCK_FWD = attention._launch_attn_block_fwd
+
+
 def use(csrc: Path) -> Path:
     """Make the kernels of ``csrc`` the ones every wrapper launches: the
     builder reads its tree from ``_build.CSRC`` and keys each library by the
@@ -152,6 +192,12 @@ def use(csrc: Path) -> Path:
     text = sm90.read_text() if sm90.exists() else ""
     old_for = {1, 3} if not text else set() if "block_bwd" in text else {3}
     mlp._bwd_buffers = _bwd_buffers_of(old_for) if old_for else _NEW_BWD_BUFFERS
+    # a tree before PR 13 takes K8f without the LN(x) workspace
+    pr6 = "ln_rows_kernel" not in (Path(csrc) / "attn_block.cu").read_text()
+    attention._launch_attn_block_fwd = _launch_attn_block_fwd_pr6 if pr6 else _NEW_ATTN_BLOCK_FWD
+    if pr6:
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        _build._lib.tpuwsi_attn_block_fwd.argtypes = [ptr] * 8 + [i32] * 4 + [f32, f32, ptr]
     return _build.library_path()
 
 
@@ -382,13 +428,14 @@ def mode_mha_bwd(smi: str, old: Path) -> dict:
     return out
 
 
-def variant_tree(name: str, edits: list[str]) -> tuple[Path, str]:
-    """A copy of this tree under build/ab/ with each ``FIND=>REPLACE`` of
-    ``edits`` applied to the one of ``ABLATE_SOURCES`` that holds the first
-    FIND (each FIND must occur there) → (the tree, that source's name)."""
+def variant_tree(name: str, edits: list[str], base: Path = NEW) -> tuple[Path, str]:
+    """A copy of the tree ``base`` (this one by default) under build/ab/ with
+    each ``FIND=>REPLACE`` of ``edits`` applied to the one of
+    ``ABLATE_SOURCES`` that holds the first FIND (each FIND must occur there)
+    → (the tree, that source's name)."""
     dst = ROOT / "build" / "ab" / f"var_{name}"
     shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(NEW, dst)
+    shutil.copytree(base, dst)
     first = edits[0].partition("=>")[0]
     hits = [s for s in ABLATE_SOURCES if first in (dst / s).read_text()]
     if len(hits) != 1:
@@ -498,7 +545,64 @@ _T384 = [("constexpr int kThreads = 288;", "constexpr int kThreads = 384;"),
           '  } else {\n    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\\n");\n'
           "    slice_consumer")]
 
+# K8b as PR 6 built it (attn_block.cu of the parent tree, ``--base``): its
+# head kernel, the dx tail, the two dW tails, the four fixed-order sums
+_HEAD = "  attn_block_bwd_head_kernel<<<dim3(kHeads, batch), kBwdWarps * 32, head_smem, stream>>>("
+_DX = "  dx_kernel<<<n_row_tiles, T::kThreads, kDxSmem, stream>>>("
+_DW_QKV = "  dw_kernel<<<dim3(3 * kD / S::kNs, groups_qkv), S::kThreads, S::smem_bytes(), stream>>>("
+_DW_PROJ = "  dw_kernel<<<dim3(kD / S::kNs, groups_proj), S::kThreads, S::smem_bytes(), stream>>>("
+_SUMS = "  sum(w_part_qkv, out, groups_qkv, n_qkv);"
+
+
+def _never(launch: str) -> tuple[str, str]:
+    return launch, launch.replace("  ", "  if (false) ", 1)
+
+
+# K8f and K8b as this tree builds them: one part of the forward's or the head
+# kernel's work cut, every barrier kept
+_WALKS = "      for (int j = 0; j < T; ++j) {\n        float s[32];\n        wgmma_fence();"
+_REMOTE = "            const uint4 v = ld_cluster_v4(src + kk * 2048);"
+_KV_MMA = ("            ss_n128<0, 1>(acc, sw128(opaque(a) + 32 * (2 * half + kk)),\n"
+           "                          sw128(opaque(w) + kWg * kBox + 2048 * kk, kBox / 2), 1);")
+_Q_MMA = ("          ss_n64<0, 1>(qa, sw128(opaque(a) + 32 * kk), sw128(opaque(w) + kWg * kBox + "
+          "2048 * kk), 1);")
+_PROJ_MMA = "            wgmma_n64_mn(ya, af[j][kk], desc(w + kWg * kBox + 2048 * kk), 1);"
+_HALF_W = ["          tma_load_2d(dst + kBox / 2, wkv_map, bars.w_full(s), 2 * kD + 64 * h0, row);\n",
+           "          tma_load_2d(dst + 3 * kBox / 2, wkv_map, bars.w_full(s), 2 * kD + 64 * h1, row);\n",
+           "        tma_load_2d(dst + kBox, wq_map, bars.w_full(s), 64 * h1, 64 * kc);\n",
+           "        tma_load_2d(dst + kBox, wp_map, bars.w_full(s), 128 * rank + 64, 64 * kc);\n",
+           "    mbar_expect_tx(bars.w_full(s), kWStage);"]
+_DX_TAIL = "  attn_block_bwd_dx_kernel<<<dx_grid, kBwdThreads, kDxSmem, stream>>>(dqkv_map, w_map, dxp);"
+_DW_TAILS = ["  attn_block_bwd_dw_kernel<<<qkv.slices * groups_qkv, kDwThreads, kDwSmem, stream>>>(",
+             "  attn_block_bwd_dw_kernel<<<proj.slices * groups_proj, kDwThreads, kDwSmem, stream>>>("]
+_PHASE_A = "    for (int i = kWg; i < T; i += 2) {"
+_PHASE_B = "    for (int j = kWg; j < T; j += 2) {"
+
 CUTOUTS = {
+    "attn_block.cu": {
+        "no_attention": [(_WALKS, _WALKS.replace("j < T", "j < 0"))],
+        "no_remote_loads": [(_REMOTE, "            const uint4 v = make_uint4(src, kk, 0, 0);")],
+        "no_kv_products": [(_KV_MMA, "            ;")],
+        "no_q_products": [(_Q_MMA, "          ;")],
+        "no_proj_products": [(_PROJ_MMA, "            ;")],
+        "loads_only": [(_WALKS, _WALKS.replace("j < T", "j < 0")), (_KV_MMA, "            ;"),
+                       (_Q_MMA, "          ;"), (_PROJ_MMA, "            ;")],
+        "no_phases": [(_PHASE_A, _PHASE_A.replace("i < T", "i < 0")),
+                      (_PHASE_B, _PHASE_B.replace("j < T", "j < 0"))],
+        "no_dx_tail": [_never(_DX_TAIL)],
+        "no_dw_tails": [_never(_DW_TAILS[0]), _never(_DW_TAILS[1])],
+        # loads only, half of every weight stage fetched: bytes or latency?
+        "loads_only_half_w": [(_WALKS, _WALKS.replace("j < T", "j < 0")), (_KV_MMA, "            ;"),
+                              (_Q_MMA, "          ;"), (_PROJ_MMA, "            ;"),
+                              (_HALF_W[0], ""), (_HALF_W[1], ""), (_HALF_W[2], ""),
+                              (_HALF_W[3], ""), (_HALF_W[4], _HALF_W[4].replace("kWStage", "kWStage / 2"))],
+        "pr6_no_head": [_never(_HEAD)],
+        "pr6_no_dx": [_never(_DX)],
+        "pr6_no_dw": [_never(_DW_QKV), _never(_DW_PROJ)],
+        "pr6_no_sums": [(_SUMS, "  if (false) {\n" + _SUMS), ("  sum(dbqkv_part, out + n_qkv",
+                                                                "  }\n  if (false) sum(dbqkv_part, out + n_qkv")],
+        "pr6_head_only": [(_DX, "  return 0;\n" + _DX)],
+    },
     "flash_bwd.cu": {
         "no_elementwise": [(_ROWS, _KEEP), (_COL_STATS, ""), (_COLS, _KEEP)],
         "no_exp": [("exp2_approx(fmaf(s[4 * i + e], scale_log2, row_b ? r.nl_b : r.nl_a))",
@@ -539,7 +643,8 @@ CUTOUTS = {
 }
 
 
-def mode_cutout(smi: str, only: str | None = None, cuts: set | None = None) -> dict:
+def mode_cutout(smi: str, only: str | None = None, cuts: set | None = None,
+                base: Path = NEW) -> dict:
     """Each source's kernels with one part cut out (``CUTOUTS``) beside the
     whole kernels at the step's shape, order base, v1 .. vn, vn .. v1, base;
     unchecked. flash_bwd.cu: the elementwise work, the exponentials, S and
@@ -547,15 +652,19 @@ def mode_cutout(smi: str, only: str | None = None, cuts: set | None = None) -> d
     mha_qkv_bwd.cu: each of the three steps, step 2's elementwise work or
     its accumulating product (dV), and all of the arithmetic (loads only).
     mlp_sm90.cu: the rebuild products, the GELU, the accumulating products,
-    all of the arithmetic; and the design variants beside them."""
+    all of the arithmetic; and the design variants beside them.
+    attn_block.cu (``pr6_*``, with ``--base`` the parent tree of PR 13): K8b
+    as PR 6 built it with its head kernel, dx tail, dW tails or sums skipped,
+    or the head kernel alone, at (192, 197, 384, 6)."""
     res = {}
     for source, cuts_of in CUTOUTS.items():
         if only not in (None, source):
             continue
-        trees = {"base": NEW}
+        trees = {"base": base}
         for name, edits in cuts_of.items():
             if cuts is None or name in cuts:
-                trees[name], _ = variant_tree(name, [f"{find}=>{repl}" for find, repl in edits])
+                trees[name], _ = variant_tree(name, [f"{find}=>{repl}" for find, repl in edits],
+                                              base)
         res[source] = time_variants(smi, "cutout", trees, {source}, check=False)
     return res
 
@@ -567,11 +676,13 @@ def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) ->
     vn .. v1, base; with ``check``, each variant's outputs must agree with the
     plain version."""
     kernels = [k for s in ABLATE_SOURCES if s in sources for k in ABLATE_SOURCES[s]]
+    if "attn_block.cu" in sources:  # K8f also at a batch of 8 tiles
+        kernels = [*kernels, "attn_block_fwd 8"]
     for name, tree in trees.items():
         t0 = time.perf_counter()
         lib = use(tree)
         print(f"[{tag}] {name}: built in {time.perf_counter() - t0:.1f} s")
-        for needle in ("flash_", "mha_qkv_bwd", "mlp_sm90"):
+        for needle in ("flash_", "mha_qkv_bwd", "mlp_sm90", "attn_block"):
             for line in ptxas_lines(lib, needle):
                 if "registers" in line or "spill" in line or "Performance Loss" in line:
                     print(f"[{tag}] {name} ptxas: {line}")
@@ -612,6 +723,18 @@ def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) ->
             checks += [lambda name, kname=kname: cs.check_mlp(f"{kname} {name}", case, fns[kname](),
                                                               want_mlp[kname])
                        for kname in mlp_fns]
+    if "attn_block.cu" in sources:
+        shape = ATTN_AB[0][:4]
+        blk_fns, _, blk_plain = attn_block_operands(gen, *shape)
+        fns.update(blk_fns)
+        fns["attn_block_fwd 8"] = attn_block_operands(gen, *ATTN_AB[2][:4], ("attn_block_fwd",))[0][
+            "attn_block_fwd"]
+        case = "B={} N={} D={} H={}".format(*shape)
+        if check:
+            want_blk = {kname: fn() for kname, fn in blk_plain.items()}
+            checks += [lambda name, kname=kname: cs.check_mlp(f"{kname} {name}", case, fns[kname](),
+                                                              want_blk[kname])
+                       for kname in blk_fns]
     if "mha_qkv_bwd.cu" in sources:
         shape = MHA_SHAPES[0]
         _, mha, plain = mha_operands(gen, *shape)
@@ -677,6 +800,96 @@ def mlp_operands(gen, rows, d, f, names=ABLATE_SOURCES["mlp_sm90.cu"]):
             wrt = leaves if block else [leaves[0], *leaves[3:]]
             unfused[name] = lambda y=y, wrt=wrt: torch.autograd.grad(y, wrt, dy, retain_graph=True)
     return ({n: fns[n] for n in names}, unfused, {n: plain[n] for n in names})
+
+
+def attn_block_operands(gen, b, n, d, h, names=ABLATE_SOURCES["attn_block.cu"]):
+    """Operands of the sub-block kernels as chip_smoke makes them → (kernel
+    functions, the unfused route's functions, the plain versions), for the
+    kernels in ``names``. The unfused route is the model's own norm1 +
+    attention + residual sum on one block of the tuned ViT of width d (its
+    autograd backward for K8b)."""
+    def randn(shape, std=1.0, dtype=torch.bfloat16):
+        return (std * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+    scale, eps = (d // h) ** -0.5, 1e-6
+    x, dy = randn((b, n, d)), randn((b, n, d))
+    g, be = 1.0 + randn((d,), 0.1, torch.float32), randn((d,), 0.1, torch.float32)
+    wqkv, bqkv = randn((d, 3 * d), d ** -0.5), randn((3 * d,), 0.1)
+    wp, bp = randn((d, d), d ** -0.5), randn((d,), 0.1)
+    fns = {"attn_block_fwd": lambda: (attention._launch_attn_block_fwd(
+               x, g, be, wqkv, bqkv, wp, bp, h, scale, eps),),
+           "attn_block_bwd": lambda: attention._launch_attn_block_bwd(
+               x, dy, g, be, wqkv, bqkv, wp, h, scale, eps)}
+    plain = {"attn_block_fwd": lambda: (attention._attn_block_fwd_reference(
+                 x, g, be, wqkv, bqkv, wp, bp, h, scale, eps),),
+             "attn_block_bwd": lambda: attention._attn_block_bwd_reference(
+                 x, dy, g, be, wqkv, bqkv, wp, h, scale, eps)}
+    blk = cs.tuned_block(g, be, wqkv, bqkv, wp, bp, cs.ATTN_BLOCK_MODELS[d])
+    xl = x.detach().requires_grad_()
+    leaves = [xl, blk.norm1.weight, blk.norm1.bias, blk.attn.qkv.weight, blk.attn.qkv.bias,
+              blk.attn.proj.weight, blk.attn.proj.bias]
+    unfused = {}
+    for name in names:
+        if name.endswith("fwd"):
+            def unfused_fwd():
+                with torch.no_grad():
+                    return cs.unfused_attention_half(blk, x, False)
+            unfused[name] = unfused_fwd
+        else:
+            y = cs.unfused_attention_half(blk, xl, True)
+            unfused[name] = lambda y=y: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    return ({n: fns[n] for n in names}, unfused, {n: plain[n] for n in names})
+
+
+def mode_attn_block(smi: str, old: Path) -> dict:
+    """K8f and K8b at ``ATTN_AB`` in the order new, old, old, new (ViT-B: new
+    only): medians of 20 single calls and of 5 runs of 50 back to back,
+    beside the unfused route read the same two ways, the plain version once
+    and the bound from ``chip_smoke.attn_block_bound``; the new K8b must give
+    the same bits in both of its arms."""
+    arms = [("new", NEW), ("old", old), ("old", old), ("new", NEW)]
+    for _, csrc in arms[:2]:
+        use(csrc)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 13)
+    out = {}
+    for b, n, d, h, names in ATTN_AB:
+        use(NEW)
+        fns, unfused, plain = attn_block_operands(gen, b, n, d, h, names)
+        case = f"B={b} N={n} D={d} H={h}"
+        for name in names:
+            cs.check_mlp(name, case, fns[name](), plain[name]())
+        these = arms if d == 384 else [a for a in arms if a[0] == "new"]
+        res = {name: {"single_ms": [], "b2b_ms": [], "arms": [a for a, _ in these]}
+               for name in fns}
+        ref = {}
+        for arm, csrc in these:
+            use(csrc)
+            for name, fn in fns.items():
+                got = [t.clone() for t in fn()]
+                if arm == "new" and name.endswith("bwd"):
+                    if name not in ref:
+                        ref[name] = got
+                    elif not all(torch.equal(a, c) for a, c in zip(got, ref[name])):
+                        raise RuntimeError(f"{name}: the new kernels' bits changed between arms")
+                res[name]["single_ms"].append(cs.cuda_median_ms(fn))
+                res[name]["b2b_ms"].append(cs.back_to_back_ms(fn))
+        use(NEW)
+        for name, row in res.items():
+            lib = [cs.cuda_median_ms(unfused[name]) for _ in range(2)]
+            lib_b2b = [cs.back_to_back_ms(unfused[name]) for _ in range(2)]
+            row.update(unfused_ms=lib, unfused_b2b_ms=lib_b2b,
+                       plain_ms=cs.cuda_median_ms(plain[name], reps=5, warmup=1),
+                       **cs.attn_block_bound(name.endswith("bwd"), b, n, d))
+            out[f"{name} {b} {n} {d}"] = row
+            print(f"[attn_block] {name} {case}, order {row['arms']}: single calls (medians of "
+                  f"20) {row['single_ms']} ms; 50 back to back (medians of 5, per launch) "
+                  f"{row['b2b_ms']} ms; unfused route {lib} ms, back to back {lib_b2b} ms; "
+                  f"plain {row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms by "
+                  f"{row['bound_by']}; on {smi}")
+        del fns, unfused, plain, ref
+        torch.cuda.empty_cache()
+    use(NEW)
+    return out
 
 
 def mode_mlp(smi: str, old: Path) -> dict:
@@ -858,6 +1071,11 @@ def main() -> None:
         old = Path(args[i + 1])
         del args[i:i + 2]
     only = cuts = None
+    base = NEW
+    if "--base" in args:
+        i = args.index("--base")
+        base = Path(args[i + 1])
+        del args[i:i + 2]
     if "--only" in args:
         i = args.index("--only")
         only = args[i + 1]
@@ -886,14 +1104,16 @@ def main() -> None:
         elif mode == "mha_bwd":
             summary["mha_bwd"] = mode_mha_bwd(smi, old)
         elif mode == "cutout":
-            summary["cutout"] = mode_cutout(smi, only, cuts)
+            summary["cutout"] = mode_cutout(smi, only, cuts, base)
         elif mode == "mlp":
             summary["mlp"] = mode_mlp(smi, old)
         elif mode == "mlp_e2e":
             summary["mlp_e2e"] = mode_mlp_e2e(smi, old)
+        elif mode == "attn_block":
+            summary["attn_block"] = mode_attn_block(smi, old)
         else:
             raise SystemExit(f"unknown mode {mode!r}: check, ab, bwd, e2e, mha_bwd, mlp, "
-                             "mlp_e2e, ablate, cutout")
+                             "mlp_e2e, attn_block, ablate, cutout")
     print(f"[ab] done in {time.perf_counter() - t0:.1f} s; on {smi}")
     print(json.dumps(summary))
 

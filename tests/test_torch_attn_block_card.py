@@ -16,12 +16,15 @@ from tpuwsi_torch.ops import attention as tattn
 # o, do or dS falls the other way; the parameter gradients are fp32 sums over
 # the rows of bf16 operands that differ by such ulps
 CARD_MAX_ABS = 3e-2
-HEADS = tattn.ATTN_BLOCK_WIDTH // tattn.KERNEL_HEAD_DIM
+
+# (B, N, D): the step's global views and local views at ViT-S, ViT-B at 224
+# and 256 px, and 65,536 images of 16 tokens (past the old 65,535 cap)
+SHAPES = [(5, 197, 384), (7, 37, 384), (4, 197, 768), (3, 257, 768), (65536, 16, 384)]
+IDS = ["197", "37", "vit-b-197", "vit-b-257", "65536-images"]
 
 
-def _operands(b, n):
-    d = tattn.ATTN_BLOCK_WIDTH
-    gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n)
+def _operands(b, n, d=384):
+    gen = torch.Generator(device="cuda").manual_seed(b * 1000 + n + d)
 
     def randn(shape, std=1.0):
         return (std * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
@@ -40,31 +43,31 @@ def _close(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n", [(5, 197), (7, 37)], ids=["197", "37"])
-def test_forward_kernel_matches_plain_version_on_the_card(b, n):
+@pytest.mark.parametrize("b,n,d", SHAPES, ids=IDS)
+def test_forward_kernel_matches_plain_version_on_the_card(b, n, d):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    x, _, g, be, wqkv, bqkv, wp, bp = _operands(b, n)
-    scale = tattn.KERNEL_HEAD_DIM ** -0.5
+    x, _, g, be, wqkv, bqkv, wp, bp = _operands(b, n, d)
+    heads, scale = d // tattn.KERNEL_HEAD_DIM, tattn.KERNEL_HEAD_DIM ** -0.5
     before = dict(tattn.LAUNCHES)
-    got = tattn._launch_attn_block_fwd(x, g, be, wqkv, bqkv, wp, bp, HEADS, scale, 1e-6)
-    want = tattn._attn_block_fwd_reference(x, g, be, wqkv, bqkv, wp, bp, HEADS, scale, 1e-6)
+    got = tattn._launch_attn_block_fwd(x, g, be, wqkv, bqkv, wp, bp, heads, scale, 1e-6)
+    want = tattn._attn_block_fwd_reference(x, g, be, wqkv, bqkv, wp, bp, heads, scale, 1e-6)
     torch.cuda.synchronize()
     assert tattn.LAUNCHES == {**before, "attn_block_fwd": before["attn_block_fwd"] + 1}
     _close((got,), (want,))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n", [(5, 197), (7, 37)], ids=["197", "37"])
-def test_backward_kernel_matches_plain_version_and_repeats_its_bits(b, n):
+@pytest.mark.parametrize("b,n,d", SHAPES, ids=IDS)
+def test_backward_kernel_matches_plain_version_and_repeats_its_bits(b, n, d):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    x, dy, g, be, wqkv, bqkv, wp, _ = _operands(b, n)
-    scale = tattn.KERNEL_HEAD_DIM ** -0.5
+    x, dy, g, be, wqkv, bqkv, wp, _ = _operands(b, n, d)
+    heads, scale = d // tattn.KERNEL_HEAD_DIM, tattn.KERNEL_HEAD_DIM ** -0.5
     before = dict(tattn.LAUNCHES)
-    got = tattn._launch_attn_block_bwd(x, dy, g, be, wqkv, bqkv, wp, HEADS, scale, 1e-6)
-    again = tattn._launch_attn_block_bwd(x, dy, g, be, wqkv, bqkv, wp, HEADS, scale, 1e-6)
-    want = tattn._attn_block_bwd_reference(x, dy, g, be, wqkv, bqkv, wp, HEADS, scale, 1e-6)
+    got = tattn._launch_attn_block_bwd(x, dy, g, be, wqkv, bqkv, wp, heads, scale, 1e-6)
+    again = tattn._launch_attn_block_bwd(x, dy, g, be, wqkv, bqkv, wp, heads, scale, 1e-6)
+    want = tattn._attn_block_bwd_reference(x, dy, g, be, wqkv, bqkv, wp, heads, scale, 1e-6)
     torch.cuda.synchronize()
     assert tattn.LAUNCHES == {**before, "attn_block_bwd": before["attn_block_bwd"] + 2}
     assert len(got) == 7
@@ -88,15 +91,15 @@ def test_op_on_the_card_never_gives_way_to_the_plain_version(monkeypatch):
     x, dy, g, be, wqkv, bqkv, wp, bp = _operands(3, 50)
     params = [p.float().requires_grad_() for p in (g, be, wqkv, bqkv, wp, bp)]
     before = dict(tattn.LAUNCHES)
-    y = tattn.fused_attention_block(x.requires_grad_(), *params, HEADS)
+    y = tattn.fused_attention_block(x.requires_grad_(), *params, 6)
     y.backward(dy)
     torch.cuda.synchronize()
     assert tattn.LAUNCHES == {**before, "attn_block_fwd": before["attn_block_fwd"] + 1,
                               "attn_block_bwd": before["attn_block_bwd"] + 1}
     assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in params)
     with pytest.raises(ValueError, match="bf16"):
-        tattn.fused_attention_block(x.detach().float(), *params, HEADS)
+        tattn.fused_attention_block(x.detach().float(), *params, 6)
     with pytest.raises(ValueError, match="at most"):
-        long = torch.zeros(1, tattn.ATTN_BLOCK_MAX_SEQ + 1, x.shape[-1], device="cuda",
+        long = torch.zeros(1, tattn.ATTN_BLOCK_MAX_SEQ[384] + 1, x.shape[-1], device="cuda",
                            dtype=torch.bfloat16)
-        tattn.fused_attention_block(long, *params, HEADS)
+        tattn.fused_attention_block(long, *params, 6)

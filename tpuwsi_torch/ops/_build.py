@@ -62,7 +62,7 @@ def build() -> Path:
 
     Raises RuntimeError with nvcc's output when the compiler fails. The
     compiler's report (``-Xptxas -v``) is kept beside the library as
-    ``<library>.log``.
+    ``<library>.log``, each source's part under a line ``== <source>``.
     """
     out = library_path()
     if out.exists():
@@ -88,7 +88,7 @@ def build() -> Path:
             if code != 0:
                 raise RuntimeError(
                     f"nvcc failed ({code}): {' '.join(cmd)}\n{stderr}{stdout}")
-            log.append(stderr + stdout)
+            log.append(f"== {Path(cmd[-1]).name}\n{stderr}{stdout}")
         out.with_suffix(".log").write_text("".join(log))
         os.replace(tmp, out)  # atomic: a process loading concurrently sees a whole file
     finally:
@@ -145,10 +145,10 @@ def load() -> ctypes.CDLL:
         lib.tpuwsi_dense_cols_per_slice.argtypes = [i32]
         # attention sub-block: tensors, then batch, tokens, width, heads
         # (, the two numbers of row groups), scale, eps and the stream
-        lib.tpuwsi_attn_block_fwd.argtypes = [ptr] * 8 + [i32] * 4 + [f32, f32, ptr]
+        lib.tpuwsi_attn_block_fwd.argtypes = [ptr] * 9 + [i32] * 4 + [f32, f32, ptr]
         lib.tpuwsi_attn_block_bwd.argtypes = [ptr] * 16 + [i32] * 6 + [f32, f32, ptr]
         lib.tpuwsi_attn_block_max_seq.argtypes = [i32]
-        lib.tpuwsi_attn_block_max_clusters.argtypes = [i32]
+        lib.tpuwsi_attn_block_max_clusters.argtypes = [i32, i32]
         for fn in (lib.tpuwsi_mha_qkv_fwd, lib.tpuwsi_mha_qkv_fwd_saved,
                    lib.tpuwsi_mha_qkv_bwd_saved, lib.tpuwsi_mha_qkv_bwd,
                    lib.tpuwsi_flash_fwd, lib.tpuwsi_flash_fwd_stats,

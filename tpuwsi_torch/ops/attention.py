@@ -29,10 +29,12 @@ flash family tiles the sequence and takes any length. ``mha_from_qkv`` sends
 512+ tokens to the flash family, which reads q, k and v as strided views of
 qkv and writes ``(B, N, D)`` and ``(B, N, 3D)`` directly: nothing is
 transposed in device memory. The sub-block pair splits an image by head
-(``ATTN_BLOCK_MAX_SEQ`` tokens at most, width 384 with 6 heads): qkv, the
-scores and the probabilities stay on chip in both directions, and the backward
-works from ``x``, ``dy`` and the weights alone. No model calls it, as none
-does in the reference; it is an op of the library.
+(width 384 with 6 heads or 768 with 12, ``ATTN_BLOCK_MAX_SEQ[D]`` tokens at
+most, any number of images): the forward is a persistent grid of clusters of
+D / 128 blocks, two heads a block, that walk the images; qkv, the scores and
+the probabilities stay on chip in both directions, and the backward works
+from ``x``, ``dy`` and the weights alone. No model calls it, as none does in
+the reference; it is an op of the library.
 
 ``torch.autograd.Function``s pair them as the reference's custom VJPs do:
 ``_MhaQkvSaved`` (forward saves ``(qkv, p)``), ``_MhaQkv`` (forward saves
@@ -60,8 +62,11 @@ KERNEL_MAX_SEQ = 511  # the whole-sequence kernels; 512+ tokens go to the flash 
 KERNEL_MAX_ITEMS = 2 ** 31 - 1
 MIN_FLASH_SEQ = KERNEL_MAX_SEQ + 1
 FLASH_TILE_K = 64     # keys per step of the online softmax, in kernel and plain version
-ATTN_BLOCK_WIDTH = 384     # embedding width the sub-block kernels are built for (6 heads)
-ATTN_BLOCK_MAX_SEQ = 304   # five (N, 64) tiles of one head in a block's 227 KB (backward)
+# the sub-block kernels' widths and the longest sequence they take at each:
+# K and V of two heads (forward), q, k, v, do of one head (backward), 304 rows
+# of 128 bytes each, in a block's 227 KB
+ATTN_BLOCK_MAX_SEQ = {384: 304, 768: 304}
+ATTN_BLOCK_PAIR = 2        # heads a block of the forward: a cluster of D / 128 blocks an image
 
 LAUNCHES = {"mha_qkv_fwd": 0, "mha_qkv_fwd_saved": 0, "mha_qkv_bwd_saved": 0,
             "mha_qkv_bwd": 0, "flash_fwd": 0, "flash_fwd_stats": 0, "flash_bwd_dq": 0,
@@ -570,23 +575,31 @@ def _attn_block_bwd_reference(x, dy, g, be, wqkv, bqkv, wp, num_heads, scale, ep
 
 
 def check_attn_block_operands(x, g, be, wqkv, bqkv, wp, bp=None, num_heads=0, dy=None) -> None:
-    """Raise unless the sub-block kernels take these operands as they are."""
+    """Raise unless the sub-block kernels take these operands as they are
+    (``dy`` given: the backward's)."""
     if x.dim() != 3:
         raise ValueError(f"fused_attention_block takes x (B, N, D), got {tuple(x.shape)}")
     b, n, d = x.shape
     if d % max(num_heads, 1) or d // max(num_heads, 1) != KERNEL_HEAD_DIM:
         raise ValueError(f"attention sub-block kernels take head_dim {KERNEL_HEAD_DIM}: got "
                          f"D = {d} with {num_heads} heads")
-    if d != ATTN_BLOCK_WIDTH:
+    if d not in ATTN_BLOCK_MAX_SEQ:
         raise NotImplementedError(
-            f"attention sub-block kernels are built for D = {ATTN_BLOCK_WIDTH} "
-            f"({ATTN_BLOCK_WIDTH // KERNEL_HEAD_DIM} heads, one block of a cluster each): "
-            f"got D = {d}")
-    if not 1 <= n <= ATTN_BLOCK_MAX_SEQ:
-        raise ValueError(f"{n} tokens: the attention sub-block kernels hold one head of at most "
-                         f"{ATTN_BLOCK_MAX_SEQ} in a block's shared memory")
-    if not 1 <= b <= 65535:
-        raise NotImplementedError(f"batch {b} exceeds the launch grid (65535)")
+            "attention sub-block kernels are built for D = 384 (6 heads, clusters of 3 blocks) "
+            f"and D = 768 (12 heads, clusters of 6): got D = {d}")
+    if not 1 <= n <= ATTN_BLOCK_MAX_SEQ[d]:
+        raise ValueError(f"{n} tokens: the attention sub-block kernels hold at most "
+                         f"{ATTN_BLOCK_MAX_SEQ[d]} rows of two heads' K and V (one head's q, k, "
+                         "v, do) in a block's shared memory")
+    # the grids are persistent and the offsets 64-bit: what remains are the
+    # int counts of (image, head) items and, in the backward's row-tiled
+    # kernels, of elements of dqkv
+    if b < 1 or b * (d // KERNEL_HEAD_DIM) > KERNEL_MAX_ITEMS:
+        raise NotImplementedError(f"batch {b} x {d // KERNEL_HEAD_DIM} heads exceeds the "
+                                  f"kernels' item count ({KERNEL_MAX_ITEMS})")
+    if dy is not None and b * n * 3 * d >= 2 ** 31:
+        raise NotImplementedError(f"{b} x {n} x {3 * d} elements of dqkv exceed the backward's "
+                                  "int offsets (2^31)")
     tensors = {"x": (x, (b, n, d)), "wqkv": (wqkv, (d, 3 * d)), "bqkv": (bqkv, (3 * d,)),
                "wproj": (wp, (d, d)), "bproj": (bp, (d,)), "dy": (dy, (b, n, d))}
     for name, (t, shape) in tensors.items():
@@ -605,51 +618,87 @@ def check_attn_block_operands(x, g, be, wqkv, bqkv, wp, bp=None, num_heads=0, dy
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+# the kernels' shared-memory plans (csrc/attn_block.cu fwd_plan, bwd_plan)
+_SMEM_LIMIT = 232448
+_BOX = 64 * 128
+_FWD_A_STAGES, _FWD_MAX_W_STAGES, _FWD_W_STAGE = 3, 6, 2 * _BOX
+_FWD_BAR_BYTES = 8 * (2 * _FWD_A_STAGES + 2 * _FWD_MAX_W_STAGES + 2)
+_BWD_MAX_STAGES, _BWD_STAGE, _BWD_BAR_BYTES = 3, 6 * _BOX, 8 * 2 * 3
+
+
+def attn_block_geometry(b: int, n: int, d: int, sms: int, clusters: int) -> dict:
+    """The sub-block kernels' launch at (B, N, D) on a card of ``sms`` SMs that
+    holds ``clusters`` clusters of the forward at once, as csrc/attn_block.cu
+    computes it: the forward's cluster size (two heads a block); its query-tile
+    groups (more clusters than images: an image's 64-row query tiles are
+    split over several clusters, each running the image's K/V pass for its
+    own); its persistent grid (at most one cluster per item) and its ring of
+    weight stages; the backward head kernel's persistent grid over (image,
+    head) items and its ring; the shared memory of each."""
+    heads, rows, tiles = d // KERNEL_HEAD_DIM, -(-n // 16) * 16, -(-n // 64)
+    cluster = heads // ATTN_BLOCK_PAIR
+    groups = max(1, min(tiles, clusters // b))
+    off_w = 4 * rows * 128 + _FWD_A_STAGES * _BOX
+    tail = 2 * _BOX + _FWD_BAR_BYTES
+    w_stages = min(_FWD_MAX_W_STAGES, (_SMEM_LIMIT - off_w - tail) // _FWD_W_STAGE)
+    fixed = 4 * rows * 128 + 3 * 8 * 64 * 4 + 12 * 64 * tiles + _BWD_BAR_BYTES
+    stages = min(_BWD_MAX_STAGES, (_SMEM_LIMIT - fixed) // _BWD_STAGE)
+    return {"cluster": cluster, "groups": groups,
+            "fwd_grid": min(clusters, b * groups) * cluster,
+            "fwd_w_stages": w_stages, "fwd_smem": off_w + w_stages * _FWD_W_STAGE + tail,
+            "bwd_grid": min(b * heads, sms), "bwd_stages": stages,
+            "bwd_smem": fixed + stages * _BWD_STAGE}
+
+
 _clusters_checked = set()
 
 
 def _check_clusters(x: torch.Tensor, n: int) -> None:
-    """Raise if the card cannot hold one cluster of the forward at this length,
-    or if the library was built for another length limit than this module
-    states (asked once per device and padded length)."""
+    """Raise if the card cannot hold one cluster of the forward at this width
+    and length, or if the library was built for another length limit than
+    this module states (asked once per device, width and padded length)."""
     from tpuwsi_torch.ops import _build
 
-    key = (x.device, -(-n // 16))
+    d = x.shape[-1]
+    key = (x.device, d, -(-n // 16))
     if key in _clusters_checked:
         return
     lib = _build.load()
-    if lib.tpuwsi_attn_block_max_seq(ATTN_BLOCK_WIDTH) != ATTN_BLOCK_MAX_SEQ:
-        raise RuntimeError("ATTN_BLOCK_MAX_SEQ and the kernels' own limit differ: "
-                           f"{ATTN_BLOCK_MAX_SEQ}, {lib.tpuwsi_attn_block_max_seq(ATTN_BLOCK_WIDTH)}")
+    if lib.tpuwsi_attn_block_max_seq(d) != ATTN_BLOCK_MAX_SEQ[d]:
+        raise RuntimeError(f"ATTN_BLOCK_MAX_SEQ[{d}] and the kernels' own limit differ: "
+                           f"{ATTN_BLOCK_MAX_SEQ[d]}, {lib.tpuwsi_attn_block_max_seq(d)}")
     with torch.cuda.device(x.device):
-        clusters = lib.tpuwsi_attn_block_max_clusters(n)
+        clusters = lib.tpuwsi_attn_block_max_clusters(d, n)
     if clusters < 0:
         _build.check(lib, -clusters, "attn_block_fwd occupancy query")
     if clusters == 0:
         raise RuntimeError(
-            f"attn_block_fwd: the device can hold 0 clusters of "
-            f"{ATTN_BLOCK_WIDTH // KERNEL_HEAD_DIM} blocks at {n} tokens "
-            "(cudaOccupancyMaxActiveClusters)")
+            f"attn_block_fwd: the device can hold 0 clusters of {d // 128} blocks at D = {d}, "
+            f"{n} tokens (cudaOccupancyMaxActiveClusters)")
     _clusters_checked.add(key)
 
 
 def _launch_attn_block_fwd(x, g, be, wqkv, bqkv, wp, bp, num_heads, scale, eps):
+    """One launch of the forward: bf16 LN(x) into a workspace (once per
+    image, for all of its heads), then the clusters over the images."""
     check_attn_block_operands(x, g, be, wqkv, bqkv, wp, bp, num_heads)
     b, n, d = x.shape
     _check_clusters(x, n)
     y = torch.empty_like(x)
+    ln_work = torch.empty_like(x)
     _call("attn_block_fwd", x,
           (x.data_ptr(), g.data_ptr(), be.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-           wp.data_ptr(), bp.data_ptr(), y.data_ptr(), b, n, d, num_heads, float(scale),
-           float(eps)))
+           wp.data_ptr(), bp.data_ptr(), y.data_ptr(), ln_work.data_ptr(), b, n, d, num_heads,
+           float(scale), float(eps)))
     return y
 
 
 def _launch_attn_block_bwd(x, dy, g, be, wqkv, bqkv, wp, num_heads, scale, eps):
-    """One launch of the backward: the per-head kernel, then the row-tiled
-    ones over the three workspaces it shares with them (dqkv, o and LN(x),
-    5 B N D bf16 in all). The numbers of row groups follow from the shapes
-    and the card alone, so the order of every sum is the same on every run."""
+    """One launch of the backward: LN(x), the per-head kernel, then the
+    row-tiled ones over the three workspaces it shares with them (dqkv, o and
+    LN(x), 5 B N D bf16 in all). The numbers of row groups follow from the
+    shapes and the card alone, so the order of every sum is the same on every
+    run."""
     from tpuwsi_torch.ops import _build
 
     check_attn_block_operands(x, g, be, wqkv, bqkv, wp, None, num_heads, dy)
@@ -718,8 +767,9 @@ def fused_attention_block(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, num_he
     cast to x's dtype outside the op, so with bf16 compute their gradients
     are rounded to bf16 on the way to fp32 parameters while the LayerNorm
     gradients stay fp32. On a CUDA tensor the two sub-block kernels run (bf16,
-    D = 384 with 6 heads, at most ``ATTN_BLOCK_MAX_SEQ`` tokens, a contiguous
-    x) or the call raises; a CPU tensor, or ``plain``, takes their plain
+    D = 384 with 6 heads or D = 768 with 12, at most ``ATTN_BLOCK_MAX_SEQ[D]``
+    tokens, any number of images within the int item counts, a contiguous x)
+    or the call raises; a CPU tensor, or ``plain``, takes their plain
     versions. Short sequences are not packed several to a program as the
     reference packs them: packing is exact, so the values are the same."""
     if x.dim() != 3 or x.shape[-1] % num_heads:

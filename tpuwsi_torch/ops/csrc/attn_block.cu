@@ -6,760 +6,1969 @@
 //   :1490 `_attn_block_bwd_kernel` (pallas_call at :1647)  -> tpuwsi_attn_block_bwd
 // Same arithmetic. LayerNorm in fp32 with the fast variance E[x^2] - mean^2
 // clamped at 0, rounded to bf16 before the qkv product; every product sums in
-// fp32; qkv = product + bias, rounded; the attention is that of
-// mha_qkv_fwd.cu / mha_qkv_bwd.cu (q scaled in fp32 and rounded, fp32 softmax
-// over the whole row, p rounded before p.V, o rounded before the projection);
-// the projection with its bias is rounded BEFORE x is added. Backward, from x,
-// dy and the weights alone: LN(x), qkv, p and o are rebuilt; dWproj = o^T . dy,
-// dbproj = sum dy; do = bf16(dy . Wproj^T); dqkv as in mha_qkv_bwd.cu (p fp32
-// in t and dS, rounded for dV only, dS rounded); dWqkv = bf16(LN)^T . bf16(dqkv)
-// but dbqkv = sum of the fp32, unrounded dqkv; dln = bf16(dqkv) . Wqkv^T;
-// LayerNorm backward; dx = bf16(dy + dx_ln); dgamma, dbeta. The six parameter
-// gradients are fp32 sums over all images.
+// fp32; qkv = product + bias, rounded; q scaled in fp32 and rounded, an fp32
+// softmax over the whole row (exact row max and sum), p rounded before p.V, o
+// rounded before the projection; the projection with its bias is rounded
+// BEFORE x is added. Backward, from x, dy and the weights alone: LN(x), qkv, p
+// and o are rebuilt; dWproj = o^T . dy, dbproj = sum dy; do = bf16(dy .
+// Wproj^T); dqkv as in mha_qkv_bwd.cu (p fp32 in t and dS, rounded for dV
+// only, dS rounded); dWqkv = bf16(LN)^T . bf16(dqkv) but dbqkv = sum of the
+// fp32, unrounded dqkv; dln = bf16(dqkv) . Wqkv^T; LayerNorm backward; dx =
+// bf16(dy + dx_ln); dgamma, dbeta. The six parameter gradients are fp32 sums
+// over all images. Widths D = 384 (6 heads) and 768 (12 heads), head_dim 64,
+// 1 <= N <= kMaxSeq tokens at both, any number of images; rows past N are
+// neither read nor written (the tensor maps give zeros there).
 //
 // What bounds it on an H100. At (B, N, D) = (192, 197, 384) the forward must
 // read x and write y (58 MB, 0.017 ms at 3.35 TB/s) for 56 GFLOP (0.057 ms at
 // the dense bf16 peak): bound by operations, as is the backward (157 GFLOP).
-// The unfused route moves qkv, o and the projection through device memory
-// (five more tensors); what this op saves is those bytes and six launches.
+// The unfused route moves qkv, o and the projection through device memory;
+// what the op saves is those bytes and the launches. What stands between the
+// kernels and that bound on this card: one image's qkv (454 KB at 197 tokens)
+// fits no SM, so the work is split by head, and every 64-row tile of an image
+// takes in its heads' columns of the weights again (L2 traffic); the softmax
+// runs between the products; the heads of an image must meet for the
+// projection.
 //
-// What this design does about it. The TPU program holds one image's qkv and
-// all heads' (S, S) fp32 scores in VMEM; one image's qkv (454 KB at 197
-// tokens) fits no SM. So an image is split by head:
-//   - forward, ONE kernel, a thread-block cluster of 6 blocks (16 warps each)
-//     per image, block h = head h. The block normalises x in row tiles of 64 (all six repeat
-//     that: cheap), multiplies each tile with its 192 columns of Wqkv (streamed
-//     from L2 in chunks of 32 rows through two buffers) and leaves q (scaled),
-//     k, v of its head as three (N, 64) tiles in shared memory; runs K2's two
-//     passes on them, a warp per 16 queries, scores in registers, and puts o
-//     over q; cluster.sync(); then computes ITS 64 columns of y: every head's
-//     o, read from the other blocks' shared memory, times Wproj[:, 64h..],
-//     plus bias, rounded, plus x. One writer per element of y and one order
-//     of summation. qkv, the scores, p and o never reach device memory;
-//   - backward, one entry point, four kinds of device kernel. `attn_block_bwd_
-//     head_kernel`, a block per (image, head), rebuilds q, k, v as above, o
-//     (to a workspace, for dWproj), its 64 columns of do from dy and 64 rows
-//     of Wproj, and runs K3's two phases on five (N, 64) tiles in shared
-//     memory; it leaves bf16 dqkv in a workspace and the fp32 column sums of
-//     its dqkv as one partial per image. Scores, p and dP never leave the
-//     chip. What crosses heads is finished by the row-tiled kernels of
-//     dense_common.cuh over all B N rows: dln = dqkv . Wqkv^T with the
-//     LayerNorm backward and dy added (it also rebuilds LN(x) into a
-//     workspace), dWqkv = LN(x)^T . dqkv and dWproj, dbproj = o^T . dy, sum dy
-//     per group of row tiles; `sum_partials_kernel` adds every partial in a
-//     fixed order. No atomics: two launches on the same inputs give the same
-//     bits. The price is three workspaces written and read once each (dqkv,
-//     o, LN(x): 5 B N D bf16) and the forward half done a second time.
-// Built for D = 384 with 6 heads of 64 and 1 <= N <= 304 (five tiles of the
-// backward in 227 KB); rows past N are neither read nor written.
+// LayerNorm, once per image: `ln_rows_kernel` writes bf16(LN(x)) (B N D,
+// one warp a row) to a workspace, and both kernels below take it as TMA
+// boxes, so neither normalises anything (in-kernel LayerNorm, with the row
+// statistics shared through distributed shared memory, cost K8f 22% of its
+// time and the head kernel, which ran it for every head, 16% of K8b's:
+// PERF.md, PR 13).
+//
+// The forward (K8f): a persistent grid of thread-block clusters, D / 128
+// blocks each (3 at ViT-S, 6 at ViT-B), that walk the items; an item is an
+// image, or at small batch (more clusters than images) one of several groups
+// of an image's 64-row query tiles. Block r of a cluster owns heads 2r and
+// 2r+1 and the 128 columns 128r.. of y. A block is two consumer warpgroups,
+// one head each, and a producer warp whose one thread keeps two rings full
+// by TMA (128-byte swizzled boxes, mbarriers): LN(x) in 64 x 64 boxes, and
+// 16 KB stages of the weights (as many as fit: 2 at 304 tokens, 5 at 197).
+// Per item:
+//   1. K and V of the block's two heads for every 64-row tile, resident (4 R x
+//      128 B, R = N rounded up to 16: 152 KB at 304 tokens): each LN(x) box
+//      is the A operand of m64n128k16 wgmma (k and v of the warpgroup's head:
+//      two 64-column weight boxes read MN-major);
+//   2. per 64-row query tile of the item: q = LN(x) . Wq (m64n64) + bias,
+//      rounded, scaled, rounded, kept in registers as the A operand of S =
+//      q . K^T (m64n64k16 per 64-key chunk, A from registers); the exact row
+//      max and sum in a first walk over the keys, p = exp(s - m) / l rounded
+//      and o += p . V (V MN-major) in a second (S is computed twice: no 64 x
+//      304 score row fits a thread's registers); o leaves as bf16 A
+//      fragments into the block's shared memory; every warp of the cluster
+//      releases its tile to every block (mbarrier, release/acquire at
+//      cluster scope); then each warpgroup computes 64 of the block's
+//      columns of y, o of every head read from the owner block's shared
+//      memory (ld.shared::cluster, 16 bytes a thread a k16 step, three heads
+//      at a time) as the register A operand and Wproj's columns streamed
+//      MN-major: one writer per element of y, one order of summation. A
+//      second arrival per warp frees the tile's fragments for the next one.
+// qkv, the scores, p and o never reach device memory.
+//
+// The backward (K8b): LN(x) as above, a head kernel, then the row-tiled
+// kernels that finish what crosses heads. `attn_block_bwd_head_kernel` is a
+// persistent grid of 384-thread blocks (two consumer warpgroups with
+// setmaxnreg 232, a producer warpgroup whose one thread issues the TMA loads)
+// over the (image, head) items. Per item: q (unscaled), k, v and do (=
+// bf16(dy . Wproj[64h.., :]^T)) rebuilt into four resident R-row tiles by
+// wgmma from 48 KB ring stages (LN(x) and dy boxes; Wq, Wk, Wv boxes
+// MN-major, Wproj's 64 rows K-major): warpgroup 0 takes q|k (m64n128),
+// warpgroup 1 v and do (two m64n64); then K3's two phases of mha_qkv_bwd.cu
+// on the resident tiles, every product an m64n64 wgmma: query tiles (S = q
+// k^T scale, dP = do V^T: row max, sum and t in a first walk; then dS, dQ +=
+// dS K and the forward's o += bf16(p) V, for dWproj), then key tiles (S^T,
+// dP^T from the saved row statistics; dV += p^T do, dK += dS^T q). The scale
+// is head_dim^-1/2 = 1/8, a power of two, so bf16(q scale) = q scale exactly
+// and one q tile serves both the scores and dK. The item leaves o and bf16
+// dqkv in two workspaces and the fp32 column sums of its dqkv (warps in a
+// fixed order) as its part of dbqkv. What crosses heads is finished over all
+// B N rows by the tails: dln = dqkv . Wqkv^T with the LayerNorm backward and
+// dy added, per 64-row tile with its dgamma, dbeta column sums; dWqkv =
+// LN(x)^T . dqkv and dWproj, dbproj = o^T . dy, sum dy per group of row
+// steps. At D = 384 they are wgmma kernels of this file
+// (`attn_block_bwd_dx_kernel`, `attn_block_bwd_dw_kernel`); at D = 768 they
+// are the row-tiled kernels of dense_common.cuh (K7's; the dx one rebuilds
+// LN(x) into the workspace with the same arithmetic). `sum_partials_kernel`
+// adds every partial in a fixed order. No atomics: two launches on the same
+// inputs give the same bits. (PR 6's head kernel held 1.2 of the backward's
+// 1.8 ms at (192, 197), the tails the rest: PERF.md, PR 13.)
 //
 // Plain C interface (loaded with ctypes); launches on the caller's stream,
-// allocates nothing and returns cudaGetLastError().
+// allocates nothing and returns cudaGetLastError(). The tensor maps are
+// encoded on the host at each launch (hopper.cuh).
 
-#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
 #include "dense_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace mlp;
-namespace cg = cooperative_groups;
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 384;                     // embedding width
 constexpr int kHeadDim = 64;
-constexpr int kHeads = kD / kHeadDim;       // and blocks per cluster in the forward
-constexpr int kHeadCols = 3 * kHeadDim;     // columns of qkv that belong to one head
-constexpr int kMaxSeq = 304;
-constexpr int kKc = 16;                     // keys (or queries) per step of the attention loops
-constexpr float kNegInf = -1e30f;           // finite, as in the TPU kernel
+constexpr int kTile = 64;                     // rows of an x tile, a query tile, a key chunk
+constexpr uint32_t kRowBytes = 128;           // one head row (64 bf16), 128-byte swizzled
+constexpr uint32_t kBox = kTile * kRowBytes;  // 8 KB
+constexpr int kMaxSeq = 304;                  // K and V of two heads (forward), four tiles (backward)
+constexpr uint32_t kSmemLimit = 232448;       // 227 KB a block
+constexpr float kNegInf = -1e30f;             // finite, as in the TPU kernel
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int kTStride = kHeadDim + kPad;   // bf16 per row of an (N, 64) tile
-constexpr int kARows = 64;                  // rows of x per LN(x) tile
-constexpr int kAStride = kD + kPad;
-constexpr int kWChunk = 32;                 // rows of Wqkv per streamed chunk
-constexpr int kWChunks = kD / kWChunk;
-constexpr int kWStride = kHeadCols + kPad;
-constexpr int kGemmBytes = 2 * (kARows * kAStride + 2 * kWChunk * kWStride);
-constexpr int kWpSliceBytes = 2 * kHeadDim * kAStride;  // 64 rows of Wproj (backward)
-static_assert(2 * kD * kTStride <= kGemmBytes, "Wproj[:, 64 columns] takes the GEMM's room");
-static_assert(kWChunks % 2 == 0, "the chunk buffers keep their turn across row tiles");
+// ---- small helpers --------------------------------------------------------
 
-constexpr int kFwdWarps = 16;               // 4 row groups x 4 column groups in the qkv product
-constexpr int kBwdWarps = 9;                // 8 in the GEMM (4 x 2); 16 queries each after it
-constexpr int kBwdGemmColGroups = 2;
-
-constexpr int tile_bytes(int n_pad) { return n_pad * kTStride * 2; }
-constexpr int fwd_smem_bytes(int n_pad) { return 3 * tile_bytes(n_pad) + kGemmBytes; }
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
-constexpr int bwd_smem_bytes(int n_pad) {
-  return cmax(cmax(3 * tile_bytes(n_pad) + kGemmBytes, 4 * tile_bytes(n_pad) + kWpSliceBytes),
-              5 * tile_bytes(n_pad) + 4 * (3 * n_pad + kBwdWarps * kHeadCols));
-}
-constexpr int kSmemLimit = 232448;          // 227 KB a block
-static_assert(fwd_smem_bytes(kMaxSeq) <= kSmemLimit && bwd_smem_bytes(kMaxSeq) <= kSmemLimit,
-              "kMaxSeq tokens must fit a block's shared memory");
-static_assert(kMaxSeq % kKc == 0, "kMaxSeq is its own padded length");
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+// Descriptor of a 128-byte swizzled operand: 8-row groups 1,024 bytes apart
+// (SBO); `lbo` bytes between 64-wide blocks of an MN-major operand wider than
+// 64 (unused for K-major ones).
+__device__ __forceinline__ uint64_t sw128(uint32_t addr, uint32_t lbo = 16) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (64ull << 32) | (1ull << 62);
 }
 
-// Fragment ownership (PTX ISA, mma.m16n8k16): lane = 4*g + t. A thread holds
-// rows g and g+8 of the 16-row tile; of an 8-column accumulator tile it holds
-// columns 2t and 2t+1 (regs 0,1 for row g; regs 2,3 for row g+8).
+__device__ __forceinline__ uint64_t desc(uint32_t addr) { return sw128(opaque(addr)); }
 
-// Rows r0 .. r0 + 15 of an (N, 64) tile in shared memory as the four k-steps
-// of an mma A operand.
-__device__ __forceinline__ void tile_a_frags(uint32_t (&f)[kHeadDim / 16][4], const bf16* tile,
-                                             int r0, const Lane& L) {
+// Byte offset of the bf16 pair at (row, col) of a 128-byte swizzled tile of
+// 64 columns that starts on a 1,024-byte boundary: 16-byte chunk c of row r
+// sits at chunk c ^ (r & 7).
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  return static_cast<uint32_t>(row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2);
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_f32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+// ---- thread-block clusters --------------------------------------------------
+
+// This block's shared-memory address `addr` in the cluster's block of rank `cta`.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(cta));
+  return r;
+}
+
+__device__ __forceinline__ uint4 ld_cluster_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Arrive on the mbarrier at offset `bar` of the cluster's block `cta`,
+// releasing at cluster scope what this thread wrote before (its shared memory
+// read by the peers, or their shared memory written by it).
+__device__ __forceinline__ void arrive_release_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: what the peers released before
+// their arrivals is visible after.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 24)) __trap();
+  }
+}
+
+// Each warp's lane 0 arrives once for the warp, after the warp's reads.
+__device__ __forceinline__ void warp_arrive(uint32_t bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk)
-    ldmatrix_x4(f[kk], L.a_rows(tile + r0 * kTStride + kk * 16, kTStride));
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
-// The same fragments times `scale` in fp32, rounded back to bf16.
-__device__ __forceinline__ void scale_frags(uint32_t (&f)[kHeadDim / 16][4], float scale) {
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// ---- wgmma -------------------------------------------------------------------
+// Fragment ownership of an m64nN fp32 result (PTX ISA): warp w of the
+// warpgroup holds rows 16w..16w+15; lane 4g + t4 holds rows 16w+g (a) and
+// 16w+g+8 (b) and, of each 8-column group i, columns 8i+2t4 and 8i+2t4+1
+// (regs 4i, 4i+1 of row a; 4i+2, 4i+3 of row b). Packed to bf16 pairs
+// (pack_a), 16 columns are the register A fragment of one k16 step.
+
+// D(64 x 64) (+)= A(64 x 16) . B(16 x 64), both from shared memory;
+// kTransA / kTransB = 1 reads that operand MN-major.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// D(64 x 64) (+)= A(64 x 16, registers) . B(16 x 64), B K-major in shared
+// memory (the scores: q from registers against 64 rows of K).
+__device__ __forceinline__ void rk_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                       int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// acc += A (register fragments, four k16 steps) . B (64 rows read MN-major
+// from b_addr, 2,048 bytes a step), the steps below `steps` only: rows past a
+// tile's R are never read as K.
+__device__ __forceinline__ void rn_steps(float (&acc)[32], const uint32_t (&a)[4][4],
+                                         uint32_t b_addr, int steps) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    if (s < steps) wgmma_n64_mn(acc, a[s], desc(b_addr + 2048 * s), 1);
+}
+
+// ---- LayerNorm -----------------------------------------------------------------
+
+// bf16(LN(x)) of every row of x (rows x kD) into `ln`: fp32 statistics with
+// the fast variance E[x^2] - mean^2 clamped at 0, then bf16((x - mean) inv
+// gamma + beta). One warp a row, 16-byte loads and stores, eight rows a
+// block. It runs once per image, for all of its heads: both kernels take
+// LN(x) as TMA boxes from `ln`, so neither normalises anything.
+template <int kD>
+__global__ void __launch_bounds__(256) ln_rows_kernel(const bf16* __restrict__ x,
+                                                      const float* __restrict__ gamma,
+                                                      const float* __restrict__ beta, float eps,
+                                                      long long rows, bf16* __restrict__ ln) {
+  constexpr int kPer = (kD / 8 + 31) / 32;  // 16-byte chunks a lane
+  const long long row = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  uint4 v[kPer];
+  float sum = 0.f, sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int c = lane + 32 * j;
+    v[j] = c < kD / 8 ? *reinterpret_cast<const uint4*>(x + row * kD + 8 * c) : make_uint4(0, 0, 0, 0);
+    const uint32_t w[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float2 v = unpack_bf16(f[kk][e]);
-      f[kk][e] = pack_bf16(v.x * scale, v.y * scale);
+      const float2 f = mlp::unpack_bf16(w[e]);
+      sum += f.x + f.y;
+      sq += f.x * f.x + f.y * f.y;
     }
   }
+  const float mean = warp_sum(sum) * (1.f / kD);
+  const float inv = rsqrtf(fmaxf(warp_sum(sq) * (1.f / kD) - mean * mean, 0.f) + eps);
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int c = lane + 32 * j;
+    if (c >= kD / 8) continue;
+    const uint32_t w[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+    uint32_t o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // gamma, beta: 8-byte aligned
+      const float2 f = mlp::unpack_bf16(w[e]);
+      const float2 gm = *reinterpret_cast<const float2*>(gamma + 8 * c + 2 * e);
+      const float2 bt = *reinterpret_cast<const float2*>(beta + 8 * c + 2 * e);
+      o[e] = pack_bf16((f.x - mean) * inv * gm.x + bt.x, (f.y - mean) * inv * gm.y + bt.y);
+    }
+    *reinterpret_cast<uint4*>(ln + row * kD + 8 * c) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
 }
 
-// acc (16 x kKc, fp32) = A (16 x 64, fragments) . tile[c0 .. c0 + kKc)^T,
-// the tile holding one row of 64 bf16 per output column.
-__device__ __forceinline__ void mma_a_tile_t(float (&acc)[kKc / 8][4],
-                                             const uint32_t (&a)[kHeadDim / 16][4],
-                                             const bf16* tile, int c0, int g, int t) {
+// mean and 1 / sigma (fast variance, clamped at 0) of four rows of x (kD
+// wide, rows[r] an offset from x) by one warp, 16-byte loads; a row at or
+// past n gives (0, 0).
+template <int kD>
+__device__ __forceinline__ void row_stats4(const bf16* __restrict__ x, const int (&rows)[4], int n,
+                                           float eps, int lane, float (&mean)[4],
+                                           float (&inv)[4]) {
+  float sum[4], sq[4];
 #pragma unroll
-  for (int nt = 0; nt < kKc / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int r = 0; r < 4; ++r) {
+    sum[r] = 0.f;
+    sq[r] = 0.f;
+    if (rows[r] < n) {
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+      for (int c = lane; c < kD / 8; c += 32) {
+        const uint4 v =
+            *reinterpret_cast<const uint4*>(x + static_cast<size_t>(rows[r]) * kD + 8 * c);
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-    for (int nt = 0; nt < kKc / 8; ++nt) {
-      const bf16* p = tile + (c0 + nt * 8 + g) * kTStride + kk * 16 + 2 * t;
-      mma_16816(acc[nt], a[kk], *reinterpret_cast<const uint32_t*>(p),
-                *reinterpret_cast<const uint32_t*>(p + 8));
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = mlp::unpack_bf16(w[e]);
+          sum[r] += f.x + f.y;
+          sq[r] += f.x * f.x + f.y * f.y;
+        }
+      }
     }
   }
-}
-
-// acc (16 x 64, fp32) += bf16(x) (16 x kKc) . tile[c0 .. c0 + kKc), the
-// accumulator layout of x being the A-operand layout of the product.
-__device__ __forceinline__ void mma_acc_tile(float (&acc)[kHeadDim / 8][4],
-                                             const float (&x)[kKc / 8][4], const bf16* tile,
-                                             int c0, const Lane& L) {
-  const uint32_t a[4] = {pack_bf16(x[0][0], x[0][1]), pack_bf16(x[0][2], x[0][3]),
-                         pack_bf16(x[1][0], x[1][1]), pack_bf16(x[1][2], x[1][3])};
-  const bf16* src = L.b_kn(tile + c0 * kTStride, kTStride);
 #pragma unroll
-  for (int nd = 0; nd < kHeadDim / 8; nd += 2) {
-    uint32_t b[4];  // b0, b1 of n-tile nd, then of nd + 1
-    ldmatrix_x4_trans(b, src + nd * 8);
-    mma_16816(acc[nd], a, b[0], b[1]);
-    mma_16816(acc[nd + 1], a, b[2], b[3]);
+  for (int r = 0; r < 4; ++r) {
+    const float m = warp_sum(sum[r]) * (1.f / kD);
+    const float var = warp_sum(sq[r]) * (1.f / kD) - m * m;
+    const bool ok = rows[r] < n;
+    mean[r] = ok ? m : 0.f;
+    inv[r] = ok ? rsqrtf(fmaxf(var, 0.f) + eps) : 0.f;
   }
 }
 
-__device__ __forceinline__ void zero_acc(float (&acc)[kHeadDim / 8][4]) {
-#pragma unroll
-  for (int nd = 0; nd < kHeadDim / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+__device__ __forceinline__ void st_shared_f2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
 }
 
-// fp32 scores of 16 queries against keys [c0, c0 + kKc); keys at or past n
-// get the finite kNegInf.
-__device__ __forceinline__ void masked_scores(float (&s)[kKc / 8][4],
-                                              const uint32_t (&qf)[kHeadDim / 16][4],
-                                              const bf16* k_s, int c0, int n, int g, int t) {
-  mma_a_tile_t(s, qf, k_s, c0, g, t);
+// This thread's eight bias pairs of a head's 64 columns (8i + 2t4, + 1),
+// loaded ahead of the products that they follow; zeros without a bias.
+__device__ __forceinline__ void load_bias(float2 (&b)[8], const bf16* bias, int t4) {
 #pragma unroll
-  for (int nt = 0; nt < kKc / 8; ++nt) {
+  for (int i = 0; i < 8; ++i)
+    b[i] = bias != nullptr
+               ? mlp::unpack_bf16(*reinterpret_cast<const uint32_t*>(bias + 8 * i + 2 * t4))
+               : make_float2(0.f, 0.f);
+}
+
+// An m64n64 result (rows a, b of this thread, head columns 8i + 2t4, + 1)
+// plus its bias, rounded, into rows of a 128-byte swizzled R-row tile at
+// `tile`; rows at or past R are not written.
+__device__ __forceinline__ void store_tile(uint32_t tile, const float* acc, const float2 (&b)[8],
+                                           int row_a, int R, int t4) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (c0 + nt * 8 + 2 * t + (e & 1) >= n) s[nt][e] = kNegInf;
+  for (int i = 0; i < 8; ++i) {
+    const int col = 8 * i + 2 * t4;
+    if (row_a < R)
+      st_shared_u32(tile + swz(row_a, col), pack_bf16(acc[4 * i] + b[i].x, acc[4 * i + 1] + b[i].y));
+    if (row_a + 8 < R)
+      st_shared_u32(tile + swz(row_a + 8, col),
+                    pack_bf16(acc[4 * i + 2] + b[i].x, acc[4 * i + 3] + b[i].y));
   }
 }
 
-// Softmax attention of 16 queries (their scaled q as A fragments) over the n
-// keys of k_s, v_s, in the two passes of mha_qkv_fwd.cu: exact row max and
-// sum first, then p = exp(s - m) / l rounded to bf16 and o += p . V.
-__device__ __forceinline__ void attention_rows(float (&o)[kHeadDim / 8][4],
-                                               const uint32_t (&qf)[kHeadDim / 16][4],
-                                               const bf16* k_s, const bf16* v_s, int n, int n_pad,
-                                               int g, int t, const Lane& L) {
-  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
-  for (int c0 = 0; c0 < n_pad; c0 += kKc) {
-    float s[kKc / 8][4];
-    masked_scores(s, qf, k_s, c0, n, g, t);
-    float cm_a = kNegInf, cm_b = kNegInf;
-#pragma unroll
-    for (int nt = 0; nt < kKc / 8; ++nt) {
-      cm_a = fmaxf(cm_a, fmaxf(s[nt][0], s[nt][1]));
-      cm_b = fmaxf(cm_b, fmaxf(s[nt][2], s[nt][3]));
-    }
-    const float nm_a = fmaxf(m_a, quad_max(cm_a));
-    const float nm_b = fmaxf(m_b, quad_max(cm_b));
-    float sa = 0.f, sb = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kKc / 8; ++nt) {
-      sa += __expf(s[nt][0] - nm_a) + __expf(s[nt][1] - nm_a);
-      sb += __expf(s[nt][2] - nm_b) + __expf(s[nt][3] - nm_b);
-    }
-    l_a = l_a * __expf(m_a - nm_a) + sa;
-    l_b = l_b * __expf(m_b - nm_b) + sb;
-    m_a = nm_a;
-    m_b = nm_b;
-  }
-  const float inv_a = 1.f / quad_sum(l_a);
-  const float inv_b = 1.f / quad_sum(l_b);
-  zero_acc(o);
-  for (int c0 = 0; c0 < n_pad; c0 += kKc) {
-    float s[kKc / 8][4];
-    masked_scores(s, qf, k_s, c0, n, g, t);
-#pragma unroll
-    for (int nt = 0; nt < kKc / 8; ++nt) {
-      s[nt][0] = __expf(s[nt][0] - m_a) * inv_a;
-      s[nt][1] = __expf(s[nt][1] - m_a) * inv_a;
-      s[nt][2] = __expf(s[nt][2] - m_b) * inv_b;
-      s[nt][3] = __expf(s[nt][3] - m_b) * inv_b;
-    }
-    mma_acc_tile(o, s, v_s, c0, L);
-  }
+// ---------------------------------------------------------------------------
+// forward: a cluster of D / 128 blocks per image, two heads a block
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdThreads = 288;  // two consumer warpgroups and one producer warp
+constexpr int kAStages = 3;       // LN(x) boxes (two cost 9% at 197 tokens, four the weight stages)
+constexpr int kMaxWStages = 6;    // weight stages
+constexpr uint32_t kWStage = 2 * kBox;
+constexpr uint32_t kOBytes = 2 * kBox;  // the block's o tile as A fragments, two heads
+
+struct FwdParams {
+  const bf16* x;
+  const bf16* bqkv;
+  const bf16* bp;
+  bf16* y;
+  float scale;
+  // tokens, query-tile groups an image (items = images x groups, each item a
+  // cluster's: the image's K/V pass and the query tiles t = group, group +
+  // groups, ...), 64-row tiles, rows of a K/V region
+  int n, groups, items, T, R, w_stages;
+  uint32_t off_a, off_w, off_o, off_bar;  // byte offsets in shared memory
+};
+
+// x full / empty, weight stage full / empty, the o tile full / free (remote
+// arrivals)
+struct FwdBars {
+  uint32_t at;
+  __device__ uint32_t a_full(int i) const { return at + 8u * i; }
+  __device__ uint32_t a_empty(int i) const { return at + 8u * (kAStages + i); }
+  __device__ uint32_t w_full(int i) const { return at + 8u * (2 * kAStages + i); }
+  __device__ uint32_t w_empty(int i) const { return at + 8u * (2 * kAStages + kMaxWStages + i); }
+  __device__ uint32_t o_full() const { return at + 8u * (2 * kAStages + 2 * kMaxWStages); }
+  __device__ uint32_t o_empty() const { return o_full() + 8u; }
+};
+constexpr uint32_t kFwdBarBytes = 8u * (2 * kAStages + 2 * kMaxWStages + 2);
+
+// Shared memory: K and V of the two heads ([K0 | V0 | K1 | V1], R rows each),
+// the LN(x) ring, the weight ring (as many 16 KB stages as fit, at most six),
+// the o tile, the mbarriers. The score products read whole 64-row chunks of
+// K, up to 48 rows past R: those land in the next region (V of the head, or
+// the LN(x) ring after V1) and only feed masked columns.
+uint32_t fwd_plan(FwdParams& prm) {
+  prm.off_a = 4u * prm.R * kRowBytes;
+  prm.off_w = prm.off_a + kAStages * kBox;
+  const uint32_t tail = kOBytes + kFwdBarBytes;
+  if (prm.off_w + 2 * kWStage + tail > kSmemLimit) return 0;
+  int stages = static_cast<int>((kSmemLimit - prm.off_w - tail) / kWStage);
+  prm.w_stages = stages < kMaxWStages ? stages : kMaxWStages;
+  prm.off_o = prm.off_w + prm.w_stages * kWStage;
+  prm.off_bar = prm.off_o + kOBytes;
+  return prm.off_bar + kFwdBarBytes;
 }
 
-// Rows r0 + g and r0 + g + 8 of a 16 x 64 fp32 accumulator -> bf16, row stride
-// `stride`; rows at or past `limit` are not written.
-__device__ __forceinline__ void store_rows(bf16* dst, int stride,
-                                           const float (&acc)[kHeadDim / 8][4], int r0, int limit,
-                                           int g, int t) {
-#pragma unroll
-  for (int nd = 0; nd < kHeadDim / 8; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    if (r0 + g < limit)
-      *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(r0 + g) * stride + col) =
-          pack_bf16(acc[nd][0], acc[nd][1]);
-    if (r0 + g + 8 < limit)
-      *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(r0 + g + 8) * stride + col) =
-          pack_bf16(acc[nd][2], acc[nd][3]);
-  }
-}
-
-// q, k, v of head h for the n rows of one image:
-//   bf16(bf16(LN(x)) . Wqkv[:, the head's 3 x 64 columns] + bias)
-// into three (n_pad, 64) tiles in shared memory, rows [n, n_pad) zero. With
-// kScaleQ the stored q is bf16(q * q_scale), the operand of the score product.
-// Row tiles of kARows rows are normalised into a_s ([kARows][kAStride]); the
-// weight columns stream through w_bufs ([2][kWChunk][kWStride]). The first
-// 4 * kColGroups warps each own 16 rows x 192 / kColGroups columns of a tile's
-// product; the others only help with the staging. `ln_copy` (device memory,
-// the image's (n, D) rows), where not null, takes bf16 LN(x). Ends with a
-// block barrier: the tiles are whole and a_s, w_bufs are free.
-template <int kColGroups, bool kScaleQ>
-__device__ __forceinline__ void qkv_head_gemm(
-    const bf16* __restrict__ x_img, const float* __restrict__ gamma,
-    const float* __restrict__ beta, const bf16* __restrict__ wqkv, const bf16* __restrict__ bqkv,
-    int h, int n, int n_pad, float eps, float q_scale, bf16* a_s, bf16* w_bufs, bf16* q_s,
-    bf16* k_s, bf16* v_s, bf16* ln_copy) {
-  constexpr int kColsPerWarp = kHeadCols / kColGroups;
-  constexpr int kNt = kColsPerWarp / 8;
-  static_assert(kNt % 2 == 0, "n-tiles are loaded in pairs");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int rg = warp / kColGroups, cgp = warp % kColGroups;
-  const bool in_gemm = warp < 4 * kColGroups;
-  const Lane L(lane);
-  const int n_tiles = (n + kARows - 1) / kARows;
-  const int total = n_tiles * kWChunks;
-
-  auto stage_w = [&](int chunk) {  // chunks count on across the row tiles
-    const int k0 = (chunk % kWChunks) * kWChunk;
-    bf16* dst = w_bufs + (chunk & 1) * kWChunk * kWStride;
-    constexpr int kPieces = kHeadCols / 8;  // 16-byte pieces per row
-    for (int idx = threadIdx.x; idx < kWChunk * kPieces; idx += blockDim.x) {
-      const int r = idx / kPieces, piece = idx % kPieces;
-      const int which = piece / (kHeadDim / 8), c8 = piece % (kHeadDim / 8) * 8;
-      cp_async_16(dst + r * kWStride + which * kHeadDim + c8,
-                  wqkv + static_cast<size_t>(k0 + r) * (3 * kD) + which * kD + h * kHeadDim + c8,
-                  true);
-    }
-    cp_async_commit();
+// The producer: per item, the image's K/V pass then per query tile of the
+// item the q pass and the projection, in the order the consumers take them. Weight stages: K/V pass,
+// 32 rows of Wqkv x [k h0 | v h0 | k h1 | v h1] (four 4 KB boxes); q pass, 64
+// rows x [q h0 | q h1]; projection, 64 rows of Wproj x the block's 128
+// columns.
+template <int kD>
+__device__ __forceinline__ void fwd_producer(const CUtensorMap* ln_map, const CUtensorMap* wkv_map,
+                                             const CUtensorMap* wq_map, const CUtensorMap* wp_map,
+                                             const FwdParams& prm, uint32_t base, int rank) {
+  constexpr int kC = kD / 128, kChunks = kD / 64;
+  const FwdBars bars{base + prm.off_bar};
+  const int h0 = 2 * rank, h1 = h0 + 1;
+  uint32_t ia = 0, iw = 0;
+  auto a_slot = [&]() {
+    const int s = static_cast<int>(ia % kAStages);
+    if (ia >= kAStages) mbar_wait(bars.a_empty(s), ((ia / kAStages) - 1) & 1);
+    mbar_expect_tx(bars.a_full(s), kBox);
+    ++ia;
+    return s;
   };
-  stage_w(0);
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int row0 = tile * kARows;
-    for (int r = warp; r < kARows; r += n_warps) {
-      const int row = row0 + r;
-      const bool ok = row < n;
-      float mean, inv;
-      layer_norm_row<kD>(ok ? x_img + static_cast<size_t>(row) * kD : nullptr, gamma, beta, eps,
-                         a_s + r * kAStride,
-                         ok && ln_copy != nullptr ? ln_copy + static_cast<size_t>(row) * kD
-                                                  : nullptr,
-                         lane, &mean, &inv);
+  auto w_slot = [&]() {
+    const int s = static_cast<int>(iw % prm.w_stages);
+    if (iw >= static_cast<uint32_t>(prm.w_stages))
+      mbar_wait(bars.w_empty(s), ((iw / prm.w_stages) - 1) & 1);
+    mbar_expect_tx(bars.w_full(s), kWStage);
+    ++iw;
+    return s;
+  };
+  for (int item = blockIdx.x / kC; item < prm.items; item += gridDim.x / kC) {
+    const int img = item / prm.groups;
+    for (int t = 0; t < prm.T; ++t) {
+      for (int kc = 0; kc < kChunks; ++kc) {
+        const int a = a_slot();
+        tma_load(base + prm.off_a + a * kBox, ln_map, bars.a_full(a), 64 * kc, kTile * t, img);
+        for (int half = 0; half < 2; ++half) {
+          const int s = w_slot();
+          const uint32_t dst = base + prm.off_w + s * kWStage;
+          const int row = 64 * kc + 32 * half;
+          tma_load_2d(dst, wkv_map, bars.w_full(s), kD + 64 * h0, row);
+          tma_load_2d(dst + kBox / 2, wkv_map, bars.w_full(s), 2 * kD + 64 * h0, row);
+          tma_load_2d(dst + kBox, wkv_map, bars.w_full(s), kD + 64 * h1, row);
+          tma_load_2d(dst + 3 * kBox / 2, wkv_map, bars.w_full(s), 2 * kD + 64 * h1, row);
+        }
+      }
     }
-    float acc[kNt][4];
+    for (int t = item % prm.groups; t < prm.T; t += prm.groups) {
+      for (int kc = 0; kc < kChunks; ++kc) {
+        const int a = a_slot();
+        tma_load(base + prm.off_a + a * kBox, ln_map, bars.a_full(a), 64 * kc, kTile * t, img);
+        const int s = w_slot();
+        const uint32_t dst = base + prm.off_w + s * kWStage;
+        tma_load_2d(dst, wq_map, bars.w_full(s), 64 * h0, 64 * kc);
+        tma_load_2d(dst + kBox, wq_map, bars.w_full(s), 64 * h1, 64 * kc);
+      }
+      for (int kc = 0; kc < kChunks; ++kc) {
+        const int s = w_slot();
+        const uint32_t dst = base + prm.off_w + s * kWStage;
+        tma_load_2d(dst, wp_map, bars.w_full(s), 128 * rank, 64 * kc);
+        tma_load_2d(dst + kBox, wp_map, bars.w_full(s), 128 * rank + 64, 64 * kc);
+      }
+    }
+  }
+}
+
+template <int kD, int kWg>
+__device__ __forceinline__ void fwd_consumer(const FwdParams& prm, uint32_t base, int rank,
+                                             int tid) {
+  constexpr int kC = kD / 128, kChunks = kD / 64;
+  const FwdBars bars{base + prm.off_bar};
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int h = 2 * rank + kWg;  // this warpgroup's head
+  const int n = prm.n, T = prm.T, R = prm.R;
+  const uint32_t kb = base + 2 * kWg * R * kRowBytes;  // K of the head, then V
+  const uint32_t vb = kb + R * kRowBytes;
+  const bf16* bq = prm.bqkv + kHeadDim * h;
+  uint32_t ia = 0, iw = 0, u = 0;  // LN(x) boxes, weight stages and query tiles taken so far
+  auto a_box = [&](uint32_t i) {
+    mbar_wait(bars.a_full(i % kAStages), (i / kAStages) & 1);
+    return base + prm.off_a + (i % kAStages) * kBox;
+  };
+  auto w_stage = [&](uint32_t i) {
+    mbar_wait(bars.w_full(i % prm.w_stages), (i / prm.w_stages) & 1);
+    return base + prm.off_w + (i % prm.w_stages) * kWStage;
+  };
+  auto release_w = [&](uint32_t i) { warp_arrive(bars.w_empty(i % prm.w_stages)); };
+  auto release_a = [&](uint32_t i) { warp_arrive(bars.a_empty(i % kAStages)); };
+  float2 bk[8], bv[8];  // the head's k and v biases, for every tile
+  load_bias(bk, prm.bqkv + kD + kHeadDim * h, t4);
+  load_bias(bv, prm.bqkv + 2 * kD + kHeadDim * h, t4);
+
+  for (int item = blockIdx.x / kC; item < prm.items; item += gridDim.x / kC) {
+    const int img = item / prm.groups;
+
+    // K and V of this warpgroup's head, tile by tile. Each weight stage's
+    // products are issued one group ahead of the wait that frees the stage
+    // before it (and, with its first stage, the box before): two slots of
+    // each ring are all that this needs.
+    for (int t = 0; t < T; ++t) {
+      float acc[64];  // k | v
+      zero(acc);
 #pragma unroll
-    for (int nt = 0; nt < kNt; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    for (int kc = 0; kc < kWChunks; ++kc) {
-      const int chunk = tile * kWChunks + kc;
-      cp_async_wait<0>();  // this chunk
-      __syncthreads();     // ... is whole, as is a_s; nobody reads the other buffer any more
-      if (chunk + 1 < total) stage_w(chunk + 1);
-      if (in_gemm) {
-        const bf16* aa = a_s + rg * 16 * kAStride + kc * kWChunk;
-        const bf16* wb = w_bufs + (chunk & 1) * kWChunk * kWStride + cgp * kColsPerWarp;
+      for (int kc = 0; kc < kChunks; ++kc) {
+        const uint32_t a = a_box(ia + kc);
 #pragma unroll
-        for (int kk = 0; kk < kWChunk / 16; ++kk) {
-          uint32_t af[4];
-          ldmatrix_x4(af, L.a_rows(aa + kk * 16, kAStride));
+        for (int half = 0; half < 2; ++half) {
+          const int st = 2 * kc + half;
+          const uint32_t w = w_stage(iw + st);
+          wgmma_fence();
 #pragma unroll
-          for (int nt = 0; nt < kNt; nt += 2) {
-            uint32_t b[4];
-            ldmatrix_x4_trans(b, L.b_kn(wb + kk * 16 * kWStride + nt * 8, kWStride));
-            mma_16816(acc[nt], af, b[0], b[1]);
-            mma_16816(acc[nt + 1], af, b[2], b[3]);
+          for (int kk = 0; kk < 2; ++kk)
+            ss_n128<0, 1>(acc, sw128(opaque(a) + 32 * (2 * half + kk)),
+                          sw128(opaque(w) + kWg * kBox + 2048 * kk, kBox / 2), 1);
+          wgmma_commit();
+          if (st > 0) {
+            wgmma_wait<1>();
+            release_w(iw + st - 1);
+            if (half == 0) release_a(ia + kc - 1);
+          }
+        }
+      }
+      wgmma_wait<0>();
+      reg_fence(acc);
+      release_w(iw + 2 * kChunks - 1);
+      release_a(ia + kChunks - 1);
+      ia += kChunks;
+      iw += 2 * kChunks;
+      const int row_a = kTile * t + 16 * warp + g;
+      store_tile(kb, acc, bk, row_a, R, t4);
+      store_tile(vb, acc + 32, bv, row_a, R, t4);
+    }
+    fence_proxy_async();
+    named_sync(2 + kWg, 128);  // the head's K and V are whole
+
+    for (int t = item % prm.groups; t < T; t += prm.groups, ++u) {
+      // q = bf16(bf16(LN(x) . Wq + bq) * scale) as A fragments
+      float qa[32];
+      zero(qa);
+      float2 b[8];
+      load_bias(b, bq, t4);
+#pragma unroll
+      for (int kc = 0; kc < kChunks; ++kc) {
+        const uint32_t a = a_box(ia + kc);
+        const uint32_t w = w_stage(iw + kc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          ss_n64<0, 1>(qa, sw128(opaque(a) + 32 * kk), sw128(opaque(w) + kWg * kBox + 2048 * kk), 1);
+        wgmma_commit();
+        if (kc > 0) {
+          wgmma_wait<1>();
+          release_w(iw + kc - 1);
+          release_a(ia + kc - 1);
+        }
+      }
+      wgmma_wait<0>();
+      reg_fence(qa);
+      release_w(iw + kChunks - 1);
+      release_a(ia + kChunks - 1);
+      ia += kChunks;
+      iw += kChunks;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          qa[4 * i + e] = mlp::round_bf16(qa[4 * i + e] + ((e & 1) ? b[i].y : b[i].x)) * prm.scale;
+      uint32_t qf[4][4];
+      pack_a(qa, qf);
+
+      // softmax(q K^T) over the n keys, two walks of 64-key chunks
+      float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+      for (int j = 0; j < T; ++j) {
+        float s[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) rk_n64(s, qf[kk], desc(kb + j * kBox + 32 * kk), kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(s);
+        float cm_a = kNegInf, cm_b = kNegInf;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& v = s[4 * i + e];
+            v = kTile * j + 8 * i + 2 * t4 + (e & 1) < n ? v : kNegInf;
+            if (e & 2) cm_b = fmaxf(cm_b, v); else cm_a = fmaxf(cm_a, v);
+          }
+        const float nm_a = fmaxf(m_a, quad_max(cm_a)), nm_b = fmaxf(m_b, quad_max(cm_b));
+        const float ml_a = nm_a * kLog2e, ml_b = nm_b * kLog2e;
+        float sa = 0.f, sb = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float v = s[4 * i + e];
+            const float x = v == kNegInf ? 0.f : exp2_approx(fmaf(v, kLog2e, (e & 2) ? -ml_b : -ml_a));
+            if (e & 2) sb += x; else sa += x;
+          }
+        l_a = l_a * exp2_approx((m_a - nm_a) * kLog2e) + sa;
+        l_b = l_b * exp2_approx((m_b - nm_b) * kLog2e) + sb;
+        m_a = nm_a;
+        m_b = nm_b;
+      }
+      const float il_a = 1.f / quad_sum(l_a), il_b = 1.f / quad_sum(l_b);
+      const float ml_a = m_a * kLog2e, ml_b = m_b * kLog2e;
+      float o[32];
+      zero(o);
+      for (int j = 0; j < T; ++j) {
+        float s[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) rk_n64(s, qf[kk], desc(kb + j * kBox + 32 * kk), kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(s);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& v = s[4 * i + e];
+            const float pv = exp2_approx(fmaf(v, kLog2e, (e & 2) ? -ml_b : -ml_a)) * ((e & 2) ? il_b : il_a);
+            v = kTile * j + 8 * i + 2 * t4 + (e & 1) < n ? pv : 0.f;
+          }
+        uint32_t pa[4][4];
+        pack_a(s, pa);
+        const int steps = min(4, (R - kTile * j) / 16);
+        wgmma_fence();
+        rn_steps(o, pa, vb + j * kBox, steps);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(o);
+        reg_fence(pa);
+      }
+
+      // o (bf16 A fragments) to the cluster; slot kWg of the block's o tile,
+      // 16 bytes a thread a k16 step
+      uint32_t of[4][4];
+      pack_a(o, of);
+      const uint32_t ob = base + prm.off_o + (kWg * 4 * 128 + tid) * 16;
+      if (u > 0) mbar_wait_cluster(bars.o_empty(), (u - 1) & 1);  // every peer read the last
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        st_shared_v4(ob + kk * 2048, make_uint4(of[kk][0], of[kk][1], of[kk][2], of[kk][3]));
+      __syncwarp();
+      if (lane < kC) arrive_release_cluster(bars.o_full(), lane);
+      mbar_wait_cluster(bars.o_full(), u & 1);
+
+      // x and bproj of the epilogue, loaded while the projection runs
+      const int row_a = kTile * t + 16 * warp + g;
+      const size_t img_at = static_cast<size_t>(img) * n * kD;
+      const int col0 = 128 * rank + 64 * kWg + 2 * t4;
+      uint32_t xr[8][2];
+      float2 bpr[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        bpr[i] = mlp::unpack_bf16(*reinterpret_cast<const uint32_t*>(prm.bp + col0 + 8 * i));
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = row_a + 8 * half;
+          xr[i][half] = row < n ? *reinterpret_cast<const uint32_t*>(
+                                      prm.x + img_at + static_cast<size_t>(row) * kD + col0 + 8 * i)
+                                : 0u;
+        }
+      }
+
+      // y[:, 128 rank + 64 kWg ..] = o (all heads) . Wproj[:, those columns]
+      float ya[32];
+      zero(ya);
+      for (int kc0 = 0; kc0 < kChunks; kc0 += 3) {  // chunk kc = head kc of the image
+        uint32_t af[3][4][4];  // three heads' fragments, loaded together
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int kc = kc0 + j;
+          const uint32_t src =
+              mapa(base + prm.off_o + ((kc & 1) * 4 * 128 + opaque(tid)) * 16, kc >> 1);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint4 v = ld_cluster_v4(src + kk * 2048);
+            af[j][kk][0] = v.x;
+            af[j][kk][1] = v.y;
+            af[j][kk][2] = v.z;
+            af[j][kk][3] = v.w;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const uint32_t w = w_stage(iw + j);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_n64_mn(ya, af[j][kk], desc(w + kWg * kBox + 2048 * kk), 1);
+          wgmma_commit();
+          if (j > 0) {
+            wgmma_wait<1>();
+            release_w(iw + j - 1);
+          }
+        }
+        wgmma_wait<0>();
+        reg_fence(ya);
+        reg_fence(af[0]);
+        reg_fence(af[1]);
+        reg_fence(af[2]);
+        release_w(iw + 2);
+        iw += 3;
+      }
+      // the reads are done (their values fed completed products): the default
+      // release orders them before the owner's next stores, as in a ring
+      __syncwarp();
+      if (lane < kC) mbar_arrive_cluster(bars.o_empty(), lane);
+
+      // y = x + bf16(acc + bproj), the sum rounded to bf16; rows past n not written
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = row_a + 8 * half;
+          if (row < n) {
+            const size_t at = img_at + static_cast<size_t>(row) * kD + col0 + 8 * i;
+            const float2 xv = mlp::unpack_bf16(xr[i][half]);
+            *reinterpret_cast<uint32_t*>(prm.y + at) =
+                pack_bf16(xv.x + mlp::round_bf16(ya[4 * i + 2 * half] + bpr[i].x),
+                          xv.y + mlp::round_bf16(ya[4 * i + 2 * half + 1] + bpr[i].y));
           }
         }
       }
     }
-    if (in_gemm) {
-      const int ra = row0 + rg * 16 + g, rb = ra + 8;
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+attn_block_fwd_kernel(const __grid_constant__ CUtensorMap ln_map,
+                      const __grid_constant__ CUtensorMap wkv_map,
+                      const __grid_constant__ CUtensorMap wq_map,
+                      const __grid_constant__ CUtensorMap wp_map, const FwdParams prm) {
+  constexpr int kC = kD / 128;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const int rank = static_cast<int>(cluster_ctarank());
+  const FwdBars bars{base + prm.off_bar};
+  if (threadIdx.x == 0) {
+    if (base & 1023u) __trap();  // the swizzled tiles need 1024-byte alignment
+    for (int i = 0; i < kAStages; ++i) {
+      mbar_init(bars.a_full(i), 1);
+      mbar_init(bars.a_empty(i), 8);  // every consumer warp
+    }
+    for (int i = 0; i < prm.w_stages; ++i) {
+      mbar_init(bars.w_full(i), 1);
+      mbar_init(bars.w_empty(i), 8);
+    }
+    mbar_init(bars.o_full(), 8 * kC);  // every consumer warp of the cluster
+    mbar_init(bars.o_empty(), 8 * kC);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // the peers' barriers exist before any remote store or arrival
+
+  // warp 8 produces (one thread), warpgroups 0 and 1 consume
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 2) {
+    if (threadIdx.x == 256) fwd_producer<kD>(&ln_map, &wkv_map, &wq_map, &wp_map, prm, base, rank);
+  } else if (role == 0) {
+    fwd_consumer<kD, 0>(prm, base, rank, threadIdx.x);
+  } else {
+    fwd_consumer<kD, 1>(prm, base, rank, threadIdx.x - 128);
+  }
+  cluster_sync();  // no block leaves while a peer may still read or arrive on it
+}
+
+// ---------------------------------------------------------------------------
+// backward 1: a block per (image, head) item -> o, dqkv (bf16), column sums of dqkv
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 384;  // two consumer warpgroups + one producer warpgroup
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // setmaxnreg: 128 x 40 + 256 x 232
+constexpr int kMaxStages = 3;
+constexpr uint32_t kStage = 6 * kBox;  // x, dy, Wq, Wk, Wv boxes of the head, Wproj's 64 rows
+
+struct BwdParams {
+  const bf16* bqkv;
+  bf16* o_work;
+  bf16* dqkv;
+  float* dbqkv_part;
+  float scale;
+  int n, heads, items, T, R, stages;
+  uint32_t off_ring, off_red, off_att, off_bar;
+};
+
+struct BwdBars {
+  uint32_t at;
+  __device__ uint32_t full(int i) const { return at + 8u * i; }
+  __device__ uint32_t empty(int i) const { return at + 8u * (kMaxStages + i); }
+};
+constexpr uint32_t kBwdBarBytes = 8u * 2 * kMaxStages;
+
+// Shared memory: q, k, v, do of the item (R rows each), the ring, the warps'
+// column sums of dqkv, t, m log2 e and 1 / l per query row, the mbarriers.
+// The 64-row products read up to 48 rows past a tile's R: those land in the
+// next tile or the ring and only feed masked rows and columns.
+constexpr uint32_t kRedBytes = 3u * 8u * kHeadDim * 4u;  // [q, k, v][8 warps][64] fp32
+uint32_t bwd_plan(BwdParams& prm) {
+  prm.off_ring = 4u * prm.R * kRowBytes;
+  const uint32_t fixed = prm.off_ring + kRedBytes + 12u * kTile * prm.T + kBwdBarBytes;
+  if (fixed + kStage > kSmemLimit) return 0;
+  const int stages = static_cast<int>((kSmemLimit - fixed) / kStage);
+  prm.stages = stages < kMaxStages ? stages : kMaxStages;
+  prm.off_red = prm.off_ring + prm.stages * kStage;
+  prm.off_att = prm.off_red + kRedBytes;
+  prm.off_bar = prm.off_att + 12u * kTile * prm.T;
+  return prm.off_bar + kBwdBarBytes;
+}
+
+template <int kD>
+__device__ __forceinline__ void bwd_producer(const CUtensorMap* ln_map, const CUtensorMap* dy_map,
+                                             const CUtensorMap* w_map, const CUtensorMap* wp_map,
+                                             const BwdParams& prm, uint32_t base) {
+  constexpr int kChunks = kD / 64;
+  const BwdBars bars{base + prm.off_bar};
+  uint32_t ic = 0;
+  for (int item = blockIdx.x; item < prm.items; item += gridDim.x) {
+    const int b = item / prm.heads, h = item - b * prm.heads;
+    for (int t = 0; t < prm.T; ++t) {
+      for (int kc = 0; kc < kChunks; ++kc, ++ic) {
+        const int s = static_cast<int>(ic % prm.stages);
+        if (ic >= static_cast<uint32_t>(prm.stages))
+          mbar_wait(bars.empty(s), ((ic / prm.stages) - 1) & 1);
+        mbar_expect_tx(bars.full(s), kStage);
+        const uint32_t dst = base + prm.off_ring + s * kStage;
+        tma_load(dst, ln_map, bars.full(s), 64 * kc, kTile * t, b);
+        tma_load(dst + kBox, dy_map, bars.full(s), 64 * kc, kTile * t, b);
+        tma_load_2d(dst + 2 * kBox, w_map, bars.full(s), kHeadDim * h, 64 * kc);
+        tma_load_2d(dst + 3 * kBox, w_map, bars.full(s), kD + kHeadDim * h, 64 * kc);
+        tma_load_2d(dst + 4 * kBox, w_map, bars.full(s), 2 * kD + kHeadDim * h, 64 * kc);
+        tma_load_2d(dst + 5 * kBox, wp_map, bars.full(s), 64 * kc, kHeadDim * h);
+      }
+    }
+  }
+}
+
+// Adds the two rows a thread holds of an m64n64 fp32 result to its column sums.
+__device__ __forceinline__ void add_cols(float (&cs)[16], const float (&acc)[32]) {
 #pragma unroll
-      for (int nt = 0; nt < kNt; ++nt) {
-        const int c = cgp * kColsPerWarp + nt * 8 + 2 * t;  // within the head's 192
-        const int which = c / kHeadDim, hd = c % kHeadDim;
-        const float2 bv = unpack_bf16(
-            *reinterpret_cast<const uint32_t*>(bqkv + which * kD + h * kHeadDim + hd));
-        float a0 = round_bf16(acc[nt][0] + bv.x), a1 = round_bf16(acc[nt][1] + bv.y);
-        float b0 = round_bf16(acc[nt][2] + bv.x), b1 = round_bf16(acc[nt][3] + bv.y);
-        if (kScaleQ && which == 0) {
-          a0 *= q_scale; a1 *= q_scale; b0 *= q_scale; b1 *= q_scale;
+  for (int i = 0; i < 8; ++i) {
+    cs[2 * i] += acc[4 * i] + acc[4 * i + 2];
+    cs[2 * i + 1] += acc[4 * i + 1] + acc[4 * i + 3];
+  }
+}
+
+// A warp's column sums (over its 16 rows: the eight row lanes) -> dst[64],
+// the item's sums laid out [q, k, v][8 warps][64].
+__device__ __forceinline__ void store_cols(uint32_t dst, float (&cs)[16], int g, int t4) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    float v = cs[i];
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (g == 0) st_shared_f32(dst + 4 * (8 * (i >> 1) + 2 * t4 + (i & 1)), v);
+  }
+}
+
+// Rows row_a, row_a + 8 of an m64n64 fp32 result -> bf16 at `dst` (this
+// thread's first column), row stride `stride`; rows at or past n not stored.
+__device__ __forceinline__ void store_rows(bf16* dst, int stride, const float (&acc)[32],
+                                           int row_a, int n) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (row_a < n)
+      *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(row_a) * stride + 8 * i) =
+          pack_bf16(acc[4 * i], acc[4 * i + 1]);
+    if (row_a + 8 < n)
+      *reinterpret_cast<uint32_t*>(dst + static_cast<size_t>(row_a + 8) * stride + 8 * i) =
+          pack_bf16(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+}
+
+template <int kD, int kWg>
+__device__ __forceinline__ void bwd_consumer(const BwdParams& prm, uint32_t base, int tid) {
+  constexpr int kChunks = kD / 64;
+  const BwdBars bars{base + prm.off_bar};
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int n = prm.n, T = prm.T, R = prm.R;
+  const uint32_t qt = base, kt = qt + R * kRowBytes, vt = kt + R * kRowBytes,
+                 gt = vt + R * kRowBytes;
+  const uint32_t att = base + prm.off_att;  // t | m log2 e | 1 / l, 64 T floats each
+  const int span = kTile * T;
+  const float scale = prm.scale;
+  uint32_t ic = 0;
+
+  for (int item = blockIdx.x; item < prm.items; item += gridDim.x) {
+    const int b = item / prm.heads, h = item - b * prm.heads;
+
+    // q, k, v and do of the head: warpgroup 0 q | k, warpgroup 1 v and do
+    // (the ring may hold one stage only: each is freed before the next wait)
+    float2 b0[8], b1[8];
+    load_bias(b0, prm.bqkv + (kWg == 0 ? 0 : 2 * kD) + kHeadDim * h, t4);
+    load_bias(b1, kWg == 0 ? prm.bqkv + kD + kHeadDim * h : nullptr, t4);
+    for (int t = 0; t < T; ++t) {
+      float acc[64];
+      zero(acc);
+      for (int kc = 0; kc < kChunks; ++kc, ++ic) {
+        const int s = static_cast<int>(ic % prm.stages);
+        mbar_wait(bars.full(s), (ic / prm.stages) & 1);
+        const uint32_t st = base + prm.off_ring + s * kStage;
+        wgmma_fence();
+        if constexpr (kWg == 0) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            ss_n128<0, 1>(acc, sw128(opaque(st) + 32 * kk), sw128(opaque(st) + 2 * kBox + 2048 * kk, kBox), 1);
+          wgmma_commit();
+        } else {
+          float(&va)[32] = *reinterpret_cast<float(*)[32]>(acc);
+          float(&ga)[32] = *reinterpret_cast<float(*)[32]>(acc + 32);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            ss_n64<0, 1>(va, sw128(opaque(st) + 32 * kk), sw128(opaque(st) + 4 * kBox + 2048 * kk), 1);
+          wgmma_commit();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            ss_n64<0, 0>(ga, sw128(opaque(st) + kBox + 32 * kk), sw128(opaque(st) + 5 * kBox + 32 * kk), 1);
+          wgmma_commit();
         }
-        bf16* dst = (which == 0 ? q_s : which == 1 ? k_s : v_s) + hd;
-        if (ra < n_pad)
-          *reinterpret_cast<uint32_t*>(dst + ra * kTStride) = ra < n ? pack_bf16(a0, a1) : 0u;
-        if (rb < n_pad)
-          *reinterpret_cast<uint32_t*>(dst + rb * kTStride) = rb < n ? pack_bf16(b0, b1) : 0u;
+        wgmma_wait<0>();
+        reg_fence(acc);
+        warp_arrive(bars.empty(s));
       }
+      const int row_a = kTile * t + 16 * warp + g;
+      store_tile(kWg == 0 ? qt : vt, acc, b0, row_a, R, t4);
+      store_tile(kWg == 0 ? kt : gt, acc + 32, b1, row_a, R, t4);
     }
-    __syncthreads();  // a_s is free for the next tile
-  }
-}
+    fence_proxy_async();
+    named_sync(1, 256);  // q, k, v, do whole
 
-// ---------------------------------------------------------------------------
-// forward: a cluster of kHeads blocks per image
-// ---------------------------------------------------------------------------
+    bf16* dst = prm.dqkv + static_cast<size_t>(b) * n * (3 * kD) + kHeadDim * h + 2 * t4;
+    const uint32_t col_red = base + prm.off_red;
+    const int wid = 4 * kWg + warp;
 
-__global__ void __launch_bounds__(kFwdWarps * 32, 1)
-attn_block_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                      const float* __restrict__ beta, const bf16* __restrict__ wqkv,
-                      const bf16* __restrict__ bqkv, const bf16* __restrict__ wp,
-                      const bf16* __restrict__ bp, bf16* __restrict__ y, int n, int n_pad,
-                      float scale, float eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // [n_pad][kTStride]: scaled q, then o
-  bf16* k_s = q_s + n_pad * kTStride;
-  bf16* v_s = k_s + n_pad * kTStride;
-  bf16* work = v_s + n_pad * kTStride;
-  bf16* a_s = work;                               // the qkv product's row tile
-  bf16* w_bufs = a_s + kARows * kAStride;         // ... and weight chunks
-  bf16* wp_s = work;                              // then Wproj[:, 64h ..]: [kD][kTStride]
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int h = blockIdx.x;                       // the block's rank in its cluster
-  const size_t img = blockIdx.y;
-  const bf16* x_img = x + img * n * kD;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const Lane L(lane);
-
-  qkv_head_gemm<kFwdWarps / 4, true>(x_img, gamma, beta, wqkv, bqkv, h, n, n_pad, eps, scale, a_s,
-                                     w_bufs, q_s, k_s, v_s, nullptr);
-  // Wproj's 64 columns land while the attention runs
-  stage_rows(wp_s, kTStride, wp + h * kHeadDim, kD, 0, kD, kD, kHeadDim);
-  cp_async_commit();
-
-  for (int r0 = warp * 16; r0 < n; r0 += kFwdWarps * 16) {
-    uint32_t qf[kHeadDim / 16][4];
-    tile_a_frags(qf, q_s, r0, L);
-    float o[kHeadDim / 8][4];
-    attention_rows(o, qf, k_s, v_s, n, n_pad, g, t, L);
-    __syncwarp();
-    store_rows(q_s, kTStride, o, r0, n_pad, g, t);  // only this warp read these rows of q
-  }
-  cp_async_wait<0>();
-  cluster.sync();  // every head's o is whole in its block's q tile, and wp_s in this one
-
-  for (int r0 = warp * 16; r0 < n; r0 += kFwdWarps * 16) {
-    float acc[kHeadDim / 8][4];
-    zero_acc(acc);
-    for (int hh = 0; hh < kHeads; ++hh) {
-      const bf16* o_r = cluster.map_shared_rank(q_s, hh) + (r0 + g) * kTStride + 2 * t;
+    // phase A: query tiles -> t, m, 1/l of every row; dQ and o
+    float cs[16];
+    zero(cs);
+    for (int i = kWg; i < T; i += 2) {
+      const int row_a = kTile * i + 16 * warp + g, row_b = row_a + 8;
+      float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f, u_a = 0.f, u_b = 0.f;
+      for (int j = 0; j < T; ++j) {
+        float s[32], dp[32];
+        wgmma_fence();
+        wgmma_nt_k64(s, desc(qt + i * kBox), desc(kt + j * kBox));
+        wgmma_nt_k64(dp, desc(gt + i * kBox), desc(vt + j * kBox));
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(s);
+        reg_fence(dp);
+        float cm_a = kNegInf, cm_b = kNegInf;
 #pragma unroll
-      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-        const uint32_t af[4] = {
-            *reinterpret_cast<const uint32_t*>(o_r + kk * 16),
-            *reinterpret_cast<const uint32_t*>(o_r + 8 * kTStride + kk * 16),
-            *reinterpret_cast<const uint32_t*>(o_r + kk * 16 + 8),
-            *reinterpret_cast<const uint32_t*>(o_r + 8 * kTStride + kk * 16 + 8)};
-        const bf16* wb = L.b_kn(wp_s + (hh * kHeadDim + kk * 16) * kTStride, kTStride);
+        for (int ii = 0; ii < 8; ++ii)
 #pragma unroll
-        for (int nd = 0; nd < kHeadDim / 8; nd += 2) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, wb + nd * 8);
-          mma_16816(acc[nd], af, b[0], b[1]);
-          mma_16816(acc[nd + 1], af, b[2], b[3]);
+          for (int e = 0; e < 4; ++e) {
+            const bool ok = ((e & 2) ? row_b : row_a) < n && kTile * j + 8 * ii + 2 * t4 + (e & 1) < n;
+            float& v = s[4 * ii + e];
+            v = ok ? v * scale : kNegInf;
+            dp[4 * ii + e] = ok ? dp[4 * ii + e] : 0.f;
+            if (e & 2) cm_b = fmaxf(cm_b, v); else cm_a = fmaxf(cm_a, v);
+          }
+        const float nm_a = fmaxf(m_a, quad_max(cm_a)), nm_b = fmaxf(m_b, quad_max(cm_b));
+        const float ml_a = nm_a * kLog2e, ml_b = nm_b * kLog2e;
+        float sa = 0.f, sb = 0.f, ua = 0.f, ub = 0.f;
+#pragma unroll
+        for (int ii = 0; ii < 8; ++ii)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float v = s[4 * ii + e];
+            // a masked entry adds nothing (a row of only masked keys keeps m = kNegInf)
+            const float x = v == kNegInf ? 0.f : exp2_approx(fmaf(v, kLog2e, (e & 2) ? -ml_b : -ml_a));
+            if (e & 2) {
+              sb += x;
+              ub += x * dp[4 * ii + e];
+            } else {
+              sa += x;
+              ua += x * dp[4 * ii + e];
+            }
+          }
+        const float f_a = exp2_approx((m_a - nm_a) * kLog2e), f_b = exp2_approx((m_b - nm_b) * kLog2e);
+        l_a = l_a * f_a + sa;
+        l_b = l_b * f_b + sb;
+        u_a = u_a * f_a + ua;
+        u_b = u_b * f_b + ub;
+        m_a = nm_a;
+        m_b = nm_b;
+      }
+      l_a = quad_sum(l_a);
+      l_b = quad_sum(l_b);
+      const bool ok_a = row_a < n, ok_b = row_b < n;
+      const float il_a = ok_a ? 1.f / l_a : 0.f, il_b = ok_b ? 1.f / l_b : 0.f;
+      const float t_a = quad_sum(u_a) * il_a, t_b = quad_sum(u_b) * il_b;
+      const float ml_a = ok_a ? m_a * kLog2e : 0.f, ml_b = ok_b ? m_b * kLog2e : 0.f;
+      if (t4 == 0) {
+        st_shared_f32(att + 4 * row_a, t_a);
+        st_shared_f32(att + 4 * row_b, t_b);
+        st_shared_f32(att + 4 * (span + row_a), ml_a);
+        st_shared_f32(att + 4 * (span + row_b), ml_b);
+        st_shared_f32(att + 4 * (2 * span + row_a), il_a);
+        st_shared_f32(att + 4 * (2 * span + row_b), il_b);
+      }
+
+      float dq[32], o[32];
+      zero(dq);
+      zero(o);
+      for (int j = 0; j < T; ++j) {
+        float s[32], dp[32];
+        wgmma_fence();
+        wgmma_nt_k64(s, desc(qt + i * kBox), desc(kt + j * kBox));
+        wgmma_nt_k64(dp, desc(gt + i * kBox), desc(vt + j * kBox));
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(s);
+        reg_fence(dp);
+#pragma unroll
+        for (int ii = 0; ii < 8; ++ii)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool rb = e & 2;
+            const bool ok = (rb ? ok_b : ok_a) && kTile * j + 8 * ii + 2 * t4 + (e & 1) < n;
+            const float p = exp2_approx(fmaf(s[4 * ii + e] * scale, kLog2e, rb ? -ml_b : -ml_a)) *
+                            (rb ? il_b : il_a);
+            const float d = p * (dp[4 * ii + e] - (rb ? t_b : t_a)) * scale;
+            s[4 * ii + e] = ok ? p : 0.f;
+            dp[4 * ii + e] = ok ? d : 0.f;
+          }
+        uint32_t pa[4][4], ds[4][4];
+        pack_a(s, pa);
+        pack_a(dp, ds);
+        const int steps = min(4, (R - kTile * j) / 16);
+        wgmma_fence();
+        rn_steps(o, pa, vt + j * kBox, steps);
+        rn_steps(dq, ds, kt + j * kBox, steps);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(o);
+        reg_fence(dq);
+        reg_fence(pa);
+        reg_fence(ds);
+      }
+      store_rows(dst, 3 * kD, dq, row_a, n);
+      store_rows(prm.o_work + static_cast<size_t>(b) * n * kD + kHeadDim * h + 2 * t4, kD, o,
+                 row_a, n);
+      add_cols(cs, dq);  // rows at or past n hold exact zeros
+    }
+    store_cols(col_red + 4 * (64 * wid), cs, g, t4);
+    named_sync(1, 256);  // t, m, 1/l of every query row
+
+    // phase B: key tiles -> dK, dV
+    float csk[16], csv[16];
+    zero(csk);
+    zero(csv);
+    for (int j = kWg; j < T; j += 2) {
+      const int key_a = kTile * j + 16 * warp + g, key_b = key_a + 8;
+      float dk[32], dv[32];
+      zero(dk);
+      zero(dv);
+      for (int i = 0; i < T; ++i) {
+        float s[32], dp[32];
+        wgmma_fence();
+        wgmma_nt_k64(s, desc(kt + j * kBox), desc(qt + i * kBox));
+        wgmma_nt_k64(dp, desc(vt + j * kBox), desc(gt + i * kBox));
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(s);
+        reg_fence(dp);
+#pragma unroll
+        for (int ii = 0; ii < 8; ++ii) {
+          const int c = kTile * i + 8 * ii + 2 * t4;  // this thread's two query columns
+          const float2 tq = ld_shared_f2(att + 4 * c);
+          const float2 mq = ld_shared_f2(att + 4 * (span + c));
+          const float2 iq = ld_shared_f2(att + 4 * (2 * span + c));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool odd = e & 1;
+            const bool ok = ((e & 2) ? key_b : key_a) < n && c + odd < n;
+            const float p = exp2_approx(fmaf(s[4 * ii + e] * scale, kLog2e, -(odd ? mq.y : mq.x))) *
+                            (odd ? iq.y : iq.x);
+            const float d = p * (dp[4 * ii + e] - (odd ? tq.y : tq.x)) * scale;
+            s[4 * ii + e] = ok ? p : 0.f;
+            dp[4 * ii + e] = ok ? d : 0.f;
+          }
         }
+        uint32_t pt[4][4], dst_t[4][4];
+        pack_a(s, pt);
+        pack_a(dp, dst_t);
+        const int steps = min(4, (R - kTile * i) / 16);
+        wgmma_fence();
+        rn_steps(dv, pt, gt + i * kBox, steps);
+        rn_steps(dk, dst_t, qt + i * kBox, steps);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(dv);
+        reg_fence(dk);
+        reg_fence(pt);
+        reg_fence(dst_t);
       }
+      store_rows(dst + kD, 3 * kD, dk, key_a, n);
+      store_rows(dst + 2 * kD, 3 * kD, dv, key_a, n);
+      add_cols(csk, dk);  // keys at or past n hold exact zeros
+      add_cols(csv, dv);
     }
-    // y = x + bf16(o . Wproj + bproj), the sum in bf16
+    store_cols(col_red + 4 * (512 + 64 * wid), csk, g, t4);
+    store_cols(col_red + 4 * (1024 + 64 * wid), csv, g, t4);
+    named_sync(1, 256);
+
+    // dbqkv of this image and head from the fp32, unrounded dqkv: warps in order
+    const int c = kWg * 128 + static_cast<int>(opaque(static_cast<uint32_t>(tid)));
+    if (c < 192) {
+      float sum = 0.f;
 #pragma unroll
-    for (int nd = 0; nd < kHeadDim / 8; ++nd) {
-      const int col = h * kHeadDim + nd * 8 + 2 * t;
-      const float2 bv = unpack_bf16(*reinterpret_cast<const uint32_t*>(bp + col));
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = r0 + g + 8 * half;
-        if (row < n) {
-          const size_t at = (img * n + row) * kD + col;
-          const float2 xv = unpack_bf16(*reinterpret_cast<const uint32_t*>(x + at));
-          *reinterpret_cast<uint32_t*>(y + at) =
-              pack_bf16(xv.x + round_bf16(acc[nd][2 * half] + bv.x),
-                        xv.y + round_bf16(acc[nd][2 * half + 1] + bv.y));
-        }
-      }
+      for (int w = 0; w < 8; ++w)
+        sum += ld_shared_f32(col_red + 4 * (512 * (c / kHeadDim) + 64 * w + c % kHeadDim));
+      prm.dbqkv_part[static_cast<size_t>(b) * (3 * kD) + (c / kHeadDim) * kD + kHeadDim * h +
+                     c % kHeadDim] = sum;
     }
-  }
-  cluster.sync();  // no block leaves while a neighbour still reads its o
-}
-
-cudaError_t fwd_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int batch, int n_pad,
-                       cudaStream_t stream) {
-  const int smem = fwd_smem_bytes(n_pad);
-  cudaError_t err = cudaFuncSetAttribute(attn_block_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(kHeads, batch);
-  cfg->blockDim = dim3(kFwdWarps * 32);
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kHeads;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
-}
-
-// ---------------------------------------------------------------------------
-// backward 1: a block per (image, head) -> o, dqkv (bf16), column sums of dqkv
-// ---------------------------------------------------------------------------
-
-// Adds the two rows a thread holds of a 16 x 64 accumulator to its column sums.
-__device__ __forceinline__ void add_cols(float (&cs)[kHeadDim / 8][2],
-                                         const float (&acc)[kHeadDim / 8][4]) {
-#pragma unroll
-  for (int nd = 0; nd < kHeadDim / 8; ++nd) {
-    cs[nd][0] += acc[nd][0] + acc[nd][2];
-    cs[nd][1] += acc[nd][1] + acc[nd][3];
+    named_sync(1, 256);  // the sums are read before the next item's
   }
 }
 
-// A warp's column sums -> dst[64]: over the eight row lanes, then one writer.
-__device__ __forceinline__ void store_cols(float* dst, float (&cs)[kHeadDim / 8][2], int g,
-                                           int t) {
-#pragma unroll
-  for (int nd = 0; nd < kHeadDim / 8; ++nd) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = cs[nd][e];
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (g == 0) dst[nd * 8 + 2 * t + e] = v;
+template <int kD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_block_bwd_head_kernel(const __grid_constant__ CUtensorMap ln_map,
+                           const __grid_constant__ CUtensorMap dy_map,
+                           const __grid_constant__ CUtensorMap w_map,
+                           const __grid_constant__ CUtensorMap wp_map, const BwdParams prm) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const BwdBars bars{base + prm.off_bar};
+  if (threadIdx.x == 0) {
+    if (base & 1023u) __trap();
+    for (int i = 0; i < prm.stages; ++i) {
+      mbar_init(bars.full(i), 1);
+      mbar_init(bars.empty(i), 8);  // every consumer warp
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
-
-__global__ void __launch_bounds__(kBwdWarps * 32, 1)
-attn_block_bwd_head_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                           const float* __restrict__ gamma, const float* __restrict__ beta,
-                           const bf16* __restrict__ wqkv, const bf16* __restrict__ bqkv,
-                           const bf16* __restrict__ wp, bf16* __restrict__ o_work,
-                           bf16* __restrict__ dqkv_work, float* __restrict__ dbqkv_part, int n,
-                           int n_pad, float scale, float eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tile = n_pad * kTStride;
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // unscaled q
-  bf16* k_s = q_s + tile;
-  bf16* v_s = k_s + tile;
-  bf16* work = v_s + tile;
-  bf16* a_s = work;                        // step 1: the qkv product's row tile
-  bf16* w_bufs = a_s + kARows * kAStride;  // ... and weight chunks
-  bf16* g_s = work;                        // from step 3: do of this head
-  bf16* wp_s = g_s + tile;                 // step 3: Wproj[64h .. 64h + 63, :], [64][kAStride]
-  bf16* qs_s = g_s + tile;                 // after it: scaled q
-  float* t_s = reinterpret_cast<float*>(qs_s + tile);  // [n_pad] t_i
-  float* m_s = t_s + n_pad;                            // [n_pad] row max
-  float* il_s = m_s + n_pad;                           // [n_pad] 1 / row sum
-  float* col_s = il_s + n_pad;                         // [kBwdWarps][kHeadCols] column sums
-
-  const int h = blockIdx.x;
-  const size_t img = blockIdx.y;
-  const bf16* x_img = x + img * n * kD;
-  const bf16* dy_img = dy + img * n * kD;
-  bf16* dq_dst = dqkv_work + img * n * (3 * kD) + h * kHeadDim;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const Lane L(lane);
-
-  // ---- step 1: q, k, v of this head ----
-  qkv_head_gemm<kBwdGemmColGroups, false>(x_img, gamma, beta, wqkv, bqkv, h, n, n_pad, eps, 1.f,
-                                          a_s, w_bufs, q_s, k_s, v_s, nullptr);
-
-  // ---- step 2: o of this head, for dWproj; 64 rows of Wproj land meanwhile ----
-  stage_rows(wp_s, kAStride, wp + static_cast<size_t>(h) * kHeadDim * kD, kD, 0, kHeadDim,
-             kHeadDim, kD);
-  cp_async_commit();
-  for (int r0 = warp * 16; r0 < n; r0 += kBwdWarps * 16) {
-    uint32_t qf[kHeadDim / 16][4];
-    tile_a_frags(qf, q_s, r0, L);
-    scale_frags(qf, scale);
-    float o[kHeadDim / 8][4];
-    attention_rows(o, qf, k_s, v_s, n, n_pad, g, t, L);
-    store_rows(o_work + img * n * kD + h * kHeadDim, kD, o, r0, n, g, t);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // wp_s is whole (g_s's room was free since step 1 ended)
-
-  // ---- step 3: do[:, 64h ..] = bf16(dy . Wproj[64h .., :]^T), dy rows from device memory ----
-  for (int r0 = warp * 16; r0 < n_pad; r0 += kBwdWarps * 16) {
-    float acc[kHeadDim / 8][4];
-    zero_acc(acc);
-    const int row_a = r0 + g, row_b = row_a + 8;
-    const bf16* pa = dy_img + static_cast<size_t>(row_a) * kD + 2 * t;
-    const bf16* pb = dy_img + static_cast<size_t>(row_b) * kD + 2 * t;
-#pragma unroll 4
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      uint32_t af[4] = {0u, 0u, 0u, 0u};
-      if (row_a < n) {
-        af[0] = *reinterpret_cast<const uint32_t*>(pa + kk * 16);
-        af[2] = *reinterpret_cast<const uint32_t*>(pa + kk * 16 + 8);
-      }
-      if (row_b < n) {
-        af[1] = *reinterpret_cast<const uint32_t*>(pb + kk * 16);
-        af[3] = *reinterpret_cast<const uint32_t*>(pb + kk * 16 + 8);
-      }
-#pragma unroll
-      for (int nd = 0; nd < kHeadDim / 8; nd += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, L.b_nk(wp_s + nd * 8 * kAStride + kk * 16, kAStride));
-        mma_16816(acc[nd], af, b[0], b[1]);
-        mma_16816(acc[nd + 1], af, b[2], b[3]);
-      }
-    }
-    store_rows(g_s, kTStride, acc, r0, n_pad, g, t);  // rows at or past n are zero
-  }
-  __syncthreads();  // g_s is whole; wp_s has been read: its room takes scaled q and the sums
-
-  for (int idx = threadIdx.x; idx < n_pad * (kHeadDim / 2); idx += blockDim.x) {
-    const int at = idx / (kHeadDim / 2) * kTStride + idx % (kHeadDim / 2) * 2;
-    const float2 v = unpack_bf16(*reinterpret_cast<const uint32_t*>(q_s + at));
-    *reinterpret_cast<uint32_t*>(qs_s + at) = pack_bf16(v.x * scale, v.y * scale);
-  }
-  for (int i = threadIdx.x; i < 3 * n_pad; i += blockDim.x) t_s[i] = 0.f;
   __syncthreads();
 
-  // ---- phase A of mha_qkv_bwd.cu: 16 queries per warp against all keys -> t, m, 1/l, dQ ----
-  float cs_q[kHeadDim / 8][2];
-#pragma unroll
-  for (int nd = 0; nd < kHeadDim / 8; ++nd) cs_q[nd][0] = cs_q[nd][1] = 0.f;
-  for (int r0 = warp * 16; r0 < n; r0 += kBwdWarps * 16) {
-    const int row_a = r0 + g, row_b = row_a + 8;
-    uint32_t gf[kHeadDim / 16][4], qf[kHeadDim / 16][4];
-    tile_a_frags(gf, g_s, r0, L);
-    tile_a_frags(qf, qs_s, r0, L);
-
-    // Walk 1: the row max and sum, and t_i = sum_j p_ij dP_ij carried under the running max.
-    float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f, u_a = 0.f, u_b = 0.f;
-    for (int c0 = 0; c0 < n_pad; c0 += kKc) {
-      float p[kKc / 8][4], dp[kKc / 8][4];
-      mma_a_tile_t(dp, gf, v_s, c0, g, t);
-      masked_scores(p, qf, k_s, c0, n, g, t);
-      float cm_a = kNegInf, cm_b = kNegInf;
-#pragma unroll
-      for (int nt = 0; nt < kKc / 8; ++nt) {
-        cm_a = fmaxf(cm_a, fmaxf(p[nt][0], p[nt][1]));
-        cm_b = fmaxf(cm_b, fmaxf(p[nt][2], p[nt][3]));
-      }
-      const float nm_a = fmaxf(m_a, quad_max(cm_a));
-      const float nm_b = fmaxf(m_b, quad_max(cm_b));
-      float sa = 0.f, sb = 0.f, ua = 0.f, ub = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kKc / 8; ++nt) {
-        const float e0 = __expf(p[nt][0] - nm_a), e1 = __expf(p[nt][1] - nm_a);
-        const float e2 = __expf(p[nt][2] - nm_b), e3 = __expf(p[nt][3] - nm_b);
-        sa += e0 + e1;
-        sb += e2 + e3;
-        ua += e0 * dp[nt][0] + e1 * dp[nt][1];
-        ub += e2 * dp[nt][2] + e3 * dp[nt][3];
-      }
-      const float f_a = __expf(m_a - nm_a), f_b = __expf(m_b - nm_b);
-      l_a = l_a * f_a + sa;
-      l_b = l_b * f_b + sb;
-      u_a = u_a * f_a + ua;
-      u_b = u_b * f_b + ub;
-      m_a = nm_a;
-      m_b = nm_b;
-    }
-    const float il_a = 1.f / quad_sum(l_a), il_b = 1.f / quad_sum(l_b);
-    const float t_a = quad_sum(u_a) * il_a, t_b = quad_sum(u_b) * il_b;
-    if (t == 0) {  // row_a, row_b < n_pad always
-      t_s[row_a] = t_a;
-      t_s[row_b] = t_b;
-      m_s[row_a] = m_a;
-      m_s[row_b] = m_b;
-      il_s[row_a] = il_a;
-      il_s[row_b] = il_b;
-    }
-
-    // Walk 2: dS = p (dP - t) scale, dQ += dS . K.
-    float dq[kHeadDim / 8][4];
-    zero_acc(dq);
-    for (int c0 = 0; c0 < n_pad; c0 += kKc) {
-      float p[kKc / 8][4], dp[kKc / 8][4];
-      mma_a_tile_t(dp, gf, v_s, c0, g, t);
-      masked_scores(p, qf, k_s, c0, n, g, t);
-#pragma unroll
-      for (int nt = 0; nt < kKc / 8; ++nt) {
-        p[nt][0] = __expf(p[nt][0] - m_a) * il_a * (dp[nt][0] - t_a) * scale;
-        p[nt][1] = __expf(p[nt][1] - m_a) * il_a * (dp[nt][1] - t_a) * scale;
-        p[nt][2] = __expf(p[nt][2] - m_b) * il_b * (dp[nt][2] - t_b) * scale;
-        p[nt][3] = __expf(p[nt][3] - m_b) * il_b * (dp[nt][3] - t_b) * scale;
-      }
-      mma_acc_tile(dq, p, k_s, c0, L);
-    }
-    store_rows(dq_dst, 3 * kD, dq, r0, n, g, t);
-    add_cols(cs_q, dq);  // rows at or past n hold exact zeros: their do is zero
-  }
-  store_cols(col_s + warp * kHeadCols, cs_q, g, t);
-  __syncthreads();  // t, m, 1/l of every row
-
-  // ---- phase B: 16 keys per warp against all queries -> dK, dV ----
-  float cs_k[kHeadDim / 8][2], cs_v[kHeadDim / 8][2];
-#pragma unroll
-  for (int nd = 0; nd < kHeadDim / 8; ++nd)
-    cs_k[nd][0] = cs_k[nd][1] = cs_v[nd][0] = cs_v[nd][1] = 0.f;
-  for (int j0 = warp * 16; j0 < n; j0 += kBwdWarps * 16) {
-    const int key_a = j0 + g, key_b = key_a + 8;
-    uint32_t vf[kHeadDim / 16][4], kf[kHeadDim / 16][4];
-    tile_a_frags(vf, v_s, j0, L);
-    tile_a_frags(kf, k_s, j0, L);
-    float dk[kHeadDim / 8][4], dv[kHeadDim / 8][4];
-    zero_acc(dk);
-    zero_acc(dv);
-    for (int i0 = 0; i0 < n_pad; i0 += kKc) {
-      // transposed tiles: rows are this warp's keys, columns the queries
-      float pt[kKc / 8][4], dpt[kKc / 8][4];
-      mma_a_tile_t(dpt, vf, g_s, i0, g, t);
-      mma_a_tile_t(pt, kf, qs_s, i0, g, t);
-#pragma unroll
-      for (int nt = 0; nt < kKc / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = i0 + nt * 8 + 2 * t + (e & 1);
-          const int key = e < 2 ? key_a : key_b;
-          float p = 0.f;
-          if (i < n && key < n) p = __expf(pt[nt][e] - m_s[i]) * il_s[i];
-          pt[nt][e] = p;
-          dpt[nt][e] = p * (dpt[nt][e] - t_s[i]) * scale;  // dS^T
-        }
-      }
-      mma_acc_tile(dv, pt, g_s, i0, L);
-      mma_acc_tile(dk, dpt, q_s, i0, L);
-    }
-    store_rows(dq_dst + kD, 3 * kD, dk, j0, n, g, t);
-    store_rows(dq_dst + 2 * kD, 3 * kD, dv, j0, n, g, t);
-    add_cols(cs_k, dk);  // keys at or past n hold exact zeros: their p is zero
-    add_cols(cs_v, dv);
-  }
-  store_cols(col_s + warp * kHeadCols + kHeadDim, cs_k, g, t);
-  store_cols(col_s + warp * kHeadCols + 2 * kHeadDim, cs_v, g, t);
-  __syncthreads();
-
-  // dbqkv of this image and head from the fp32, unrounded dqkv: warps in order
-  if (threadIdx.x < kHeadCols) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kBwdWarps; ++w) s += col_s[w * kHeadCols + threadIdx.x];
-    const int which = threadIdx.x / kHeadDim, hd = threadIdx.x % kHeadDim;
-    dbqkv_part[img * (3 * kD) + which * kD + h * kHeadDim + hd] = s;
+  // The role of this thread's warpgroup, broadcast from lane 0 so that the
+  // compiler sees a warp-uniform branch into each role's setmaxnreg region.
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 256) bwd_producer<kD>(&ln_map, &dy_map, &w_map, &wp_map, prm, base);
+  } else if (role == 0) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    bwd_consumer<kD, 0>(prm, base, threadIdx.x);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    bwd_consumer<kD, 1>(prm, base, threadIdx.x - 128);
   }
 }
+
+// ---------------------------------------------------------------------------
+// backward 2, at D = 384: the tails on wgmma (D = 768 keeps dense_common.cuh's)
+// ---------------------------------------------------------------------------
+// dx: per 64-row tile of the B N rows, dln = dqkv . Wqkv^T (K = 1,152 in 18
+// chunks; each warpgroup 192 output columns, m64n192), then the LayerNorm
+// backward with dy added in the epilogue: dx = bf16(dy + inv (dln gamma -
+// mean(dln gamma) - xhat mean(dln gamma xhat))) and the tile's dgamma, dbeta
+// column sums (row_part, as the row-tiled kernel wrote them). dW: per (slice
+// of 64 output columns, group of 64-row steps), dW[:, slice] = A^T . G with A
+// = LN(x) (or o) and G = dqkv (or dy) both read MN-major (each warpgroup
+// 192 rows of dW, three m64n64 accumulators), and db = the column sums of G;
+// the partials go to w_part in the fixed-order layout of the row-tiled
+// kernels. A producer warp's one thread fills rings of three stages by TMA.
+
+constexpr int kTailD = 384;
+constexpr int kDwThreads = 288;
+constexpr int kTailStages = 3;
+constexpr int kDxChunks = 3 * kTailD / 64;                       // 18
+constexpr uint32_t kDxStage = kBox + 2 * 192 * kRowBytes;         // dqkv box + Wqkv 384 x 64
+constexpr uint32_t kDxOffStats = kTailStages * kDxStage;          // (mean, inv) of 64 rows
+constexpr uint32_t kDxOffRowRed = kDxOffStats + kTile * 8;        // [2 wg][64 rows] float pairs
+constexpr uint32_t kDxOffColRed = kDxOffRowRed + 2 * kTile * 8;   // [2 wg][4 warps][192] pairs
+constexpr uint32_t kDxOffBar = kDxOffColRed + 2 * 4 * 192 * 8;
+constexpr uint32_t kDxSmem = kDxOffBar + 8 * 2 * kTailStages;
+constexpr uint32_t kDwStage = 7 * kBox;                           // A 64 rows x 384, G 64 x 64
+constexpr uint32_t kDwOffRed = kTailStages * kDwStage;          // db partials [8 warps][32] pairs
+constexpr uint32_t kDwOffBar = kDwOffRed + 8 * 32 * 8;
+constexpr uint32_t kDwSmem = kDwOffBar + 8 * 2 * kTailStages;
+static_assert(kDxSmem <= kSmemLimit && kDwSmem <= kSmemLimit, "227 KB a block");
+
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void ss_n192(float (&d)[96], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, %99, %100;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+struct TailBars {
+  uint32_t at;
+  __device__ uint32_t full(int i) const { return at + 8u * i; }
+  __device__ uint32_t empty(int i) const { return at + 8u * (kTailStages + i); }
+};
+
+struct DxParams {
+  const bf16* x;
+  const bf16* dy;
+  const float* gamma;
+  bf16* dx;
+  float* row_part;  // (n_tiles, 2, D): dgamma | dbeta per 64-row tile
+  float eps;
+  int rows, n_tiles;
+};
+
+// The LayerNorm backward of the tile's rows row0 + ra, + rb (this thread's),
+// columns 192 kWg + 8i + 2t4, + 1, from dln in acc; the two warpgroups' row
+// halves meet in shared memory (warpgroup 0's first), the warps' column sums
+// in a fixed order. Rows past the end hold dln = 0 and read the last row's
+// x in their place; they are not written.
+template <int kWg>
+__device__ __forceinline__ void dx_epilogue(const float (&acc)[96], const DxParams& prm,
+                                            uint32_t base, int tile, int tid) {
+  tid = static_cast<int>(opaque(static_cast<uint32_t>(tid)));
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ra = 16 * warp + g, rb = ra + 8, row0 = kTile * tile;
+  const float2 sa = ld_shared_f2(base + kDxOffStats + 8 * ra);
+  const float2 sb = ld_shared_f2(base + kDxOffStats + 8 * rb);
+  // element offsets of the two rows (rows x 3 D < 2^31)
+  const int at_a = min(row0 + ra, prm.rows - 1) * kTailD, at_b = min(row0 + rb, prm.rows - 1) * kTailD;
+  auto pair = [](const bf16* p, int at) {
+    return mlp::unpack_bf16(*reinterpret_cast<const uint32_t*>(p + at));
+  };
+  const uint32_t col_red = base + kDxOffColRed + kWg * (4 * 192 * 8);
+  const uint32_t row_red = base + kDxOffRowRed;
+  float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
+#pragma unroll
+  for (int i = 0; i < 24; ++i) {
+    const int c = 8 * i + 2 * t4, col = 192 * kWg + c;
+    const float2 gam = *reinterpret_cast<const float2*>(prm.gamma + col);
+    const float2 xa = pair(prm.x, at_a + col), xb = pair(prm.x, at_b + col);
+    const float ha0 = (xa.x - sa.x) * sa.y, ha1 = (xa.y - sa.x) * sa.y;
+    const float hb0 = (xb.x - sb.x) * sb.y, hb1 = (xb.y - sb.x) * sb.y;
+    const float da0 = acc[4 * i] * gam.x, da1 = acc[4 * i + 1] * gam.y;
+    const float db0 = acc[4 * i + 2] * gam.x, db1 = acc[4 * i + 3] * gam.y;
+    s1a += da0 + da1;
+    s2a += da0 * ha0 + da1 * ha1;
+    s1b += db0 + db1;
+    s2b += db0 * hb0 + db1 * hb1;
+    float pg0 = acc[4 * i] * ha0 + acc[4 * i + 2] * hb0;
+    float pg1 = acc[4 * i + 1] * ha1 + acc[4 * i + 3] * hb1;
+    float pb0 = acc[4 * i] + acc[4 * i + 2], pb1 = acc[4 * i + 1] + acc[4 * i + 3];
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      pg0 += __shfl_xor_sync(0xffffffffu, pg0, off);
+      pg1 += __shfl_xor_sync(0xffffffffu, pg1, off);
+      pb0 += __shfl_xor_sync(0xffffffffu, pb0, off);
+      pb1 += __shfl_xor_sync(0xffffffffu, pb1, off);
+    }
+    if (g == 0) {
+      const uint32_t dst = col_red + (warp * 192 + c) * 8;
+      st_shared_f32(dst, pg0);
+      st_shared_f32(dst + 4, pb0);
+      st_shared_f32(dst + 8, pg1);
+      st_shared_f32(dst + 12, pb1);
+    }
+  }
+  s1a = quad_sum(s1a);
+  s2a = quad_sum(s2a);
+  s1b = quad_sum(s1b);
+  s2b = quad_sum(s2b);
+  if (t4 == 0) {
+    st_shared_f32(row_red + (kWg * kTile + ra) * 8, s1a);
+    st_shared_f32(row_red + (kWg * kTile + ra) * 8 + 4, s2a);
+    st_shared_f32(row_red + (kWg * kTile + rb) * 8, s1b);
+    st_shared_f32(row_red + (kWg * kTile + rb) * 8 + 4, s2b);
+  }
+  named_sync(1, 256);  // both halves of every row; the four warps' column sums
+  auto row_mean = [&](int r, int k) {
+    return (ld_shared_f32(row_red + r * 8 + 4 * k) +
+            ld_shared_f32(row_red + (kTile + r) * 8 + 4 * k)) * (1.f / kTailD);
+  };
+  const float m1a = row_mean(ra, 0), m2a = row_mean(ra, 1);
+  const float m1b = row_mean(rb, 0), m2b = row_mean(rb, 1);
+  float* part = prm.row_part + static_cast<size_t>(tile) * 2 * kTailD + 192 * kWg;
+  for (int c = tid; c < 192; c += 128) {
+    float dg = 0.f, db = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      dg += ld_shared_f32(col_red + (w * 192 + c) * 8);
+      db += ld_shared_f32(col_red + (w * 192 + c) * 8 + 4);
+    }
+    part[c] = dg;
+    part[kTailD + c] = db;
+  }
+#pragma unroll
+  for (int i = 0; i < 24; ++i) {
+    const int col = 192 * kWg + 8 * i + 2 * t4;
+    const float2 gam = *reinterpret_cast<const float2*>(prm.gamma + col);
+    if (row0 + ra < prm.rows) {
+      const float2 xv = pair(prm.x, at_a + col), dyv = pair(prm.dy, at_a + col);
+      const float h0 = (xv.x - sa.x) * sa.y, h1 = (xv.y - sa.x) * sa.y;
+      *reinterpret_cast<uint32_t*>(prm.dx + at_a + col) =
+          pack_bf16(dyv.x + sa.y * (acc[4 * i] * gam.x - m1a - h0 * m2a),
+                    dyv.y + sa.y * (acc[4 * i + 1] * gam.y - m1a - h1 * m2a));
+    }
+    if (row0 + rb < prm.rows) {
+      const float2 xv = pair(prm.x, at_b + col), dyv = pair(prm.dy, at_b + col);
+      const float h0 = (xv.x - sb.x) * sb.y, h1 = (xv.y - sb.x) * sb.y;
+      *reinterpret_cast<uint32_t*>(prm.dx + at_b + col) =
+          pack_bf16(dyv.x + sb.y * (acc[4 * i + 2] * gam.x - m1b - h0 * m2b),
+                    dyv.y + sb.y * (acc[4 * i + 3] * gam.y - m1b - h1 * m2b));
+    }
+  }
+  named_sync(1, 256);  // the sums are read before the next tile's
+}
+
+template <int kWg>
+__device__ __forceinline__ void dx_consumer(const DxParams& prm, uint32_t base, int tid) {
+  const TailBars bars{base + kDxOffBar};
+  const int warp = tid >> 5, lane = tid & 31;
+  uint32_t it = 0;
+  for (int tile = blockIdx.x; tile < prm.n_tiles; tile += gridDim.x) {
+    // this warpgroup's 32 rows' LayerNorm statistics while the first chunks land
+    const int r0 = 32 * kWg + 8 * warp;
+    const bf16* x_tile = prm.x + static_cast<size_t>(kTile) * tile * kTailD;
+    for (int j = 0; j < 8; j += 4) {
+      int rows[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) rows[r] = r0 + j + r;
+      float mean[4], inv[4];
+      row_stats4<kTailD>(x_tile, rows, prm.rows - kTile * tile, prm.eps, lane, mean, inv);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        if (lane == r) st_shared_f2(base + kDxOffStats + 8 * (r0 + j + r), mean[r], inv[r]);
+    }
+    float acc[96];
+    zero(acc);
+    // each chunk's products issued one group ahead of the wait that frees
+    // the chunk before it (three stages)
+#pragma unroll 1
+    for (int c = 0; c < kDxChunks; ++c) {
+      const uint32_t i = it + c;
+      mbar_wait(bars.full(i % kTailStages), (i / kTailStages) & 1);
+      const uint32_t st = base + (i % kTailStages) * kDxStage;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        ss_n192<0, 0>(acc, sw128(opaque(st) + 32 * kk),
+                      sw128(opaque(st) + kBox + kWg * 192 * kRowBytes + 32 * kk), 1);
+      wgmma_commit();
+      if (c > 0) {
+        wgmma_wait<1>();
+        warp_arrive(bars.empty((i - 1) % kTailStages));
+      }
+    }
+    wgmma_wait<0>();
+    reg_fence(acc);
+    warp_arrive(bars.empty((it + kDxChunks - 1) % kTailStages));
+    it += kDxChunks;
+    named_sync(1, 256);  // every row's statistics
+    dx_epilogue<kWg>(acc, prm, base, tile, tid);
+  }
+}
+
+// 384 threads: the LayerNorm-backward epilogue next to 96 accumulators needs
+// more than the 168 registers a thread of a 288-thread block (it spilled
+// there); the producer warpgroup gives its registers to the consumers.
+__global__ void __launch_bounds__(kBwdThreads, 1)
+attn_block_bwd_dx_kernel(const __grid_constant__ CUtensorMap dqkv_map,
+                         const __grid_constant__ CUtensorMap w_map, const DxParams prm) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const TailBars bars{base + kDxOffBar};
+  if (threadIdx.x == 0) {
+    if (base & 1023u) __trap();
+    for (int i = 0; i < kTailStages; ++i) {
+      mbar_init(bars.full(i), 1);
+      mbar_init(bars.empty(i), 8);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x != 256) return;
+    uint32_t it = 0;
+    for (int tile = blockIdx.x; tile < prm.n_tiles; tile += gridDim.x) {
+      for (int c = 0; c < kDxChunks; ++c, ++it) {
+        const int s = static_cast<int>(it % kTailStages);
+        if (it >= kTailStages) mbar_wait(bars.empty(s), ((it / kTailStages) - 1) & 1);
+        mbar_expect_tx(bars.full(s), kDxStage);
+        const uint32_t dst = base + s * kDxStage;
+        tma_load_2d(dst, &dqkv_map, bars.full(s), 64 * c, kTile * tile);
+        tma_load_2d(dst + kBox, &w_map, bars.full(s), 64 * c, 0);
+        tma_load_2d(dst + kBox + 192 * kRowBytes, &w_map, bars.full(s), 64 * c, 192);
+      }
+    }
+  } else if (role == 0) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    dx_consumer<0>(prm, base, threadIdx.x);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    dx_consumer<1>(prm, base, threadIdx.x - 128);
+  }
+}
+
+struct DwParams {
+  float* w_part;  // (groups, D n + n): dW (D, n) | db (n,) of each group of rows
+  int n, n_steps, per_group, slices;
+};
+
+struct DwWork {
+  int slice, grp, st0, steps;
+};
+
+__device__ __forceinline__ DwWork dw_work(const DwParams& prm) {
+  DwWork w;
+  w.slice = blockIdx.x % prm.slices;
+  w.grp = blockIdx.x / prm.slices;
+  w.st0 = w.grp * prm.per_group;
+  w.steps = max(0, min(prm.per_group, prm.n_steps - w.st0));
+  return w;
+}
+
+// Warpgroup kWg: rows 192 kWg .. + 191 of dW[:, slice], three m64n64 tiles.
+template <int kWg>
+__device__ __forceinline__ void dw_consumer(const DwParams& prm, uint32_t base, int tid) {
+  const TailBars bars{base + kDwOffBar};
+  const DwWork wk = dw_work(prm);
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  float acc0[32], acc1[32], acc2[32];
+  zero(acc0);
+  zero(acc1);
+  zero(acc2);
+  // db: this thread's column pair 2 lane, + 1 of the slice over the 8 rows
+  // 32 kWg + 8 warp .. of each stage
+  float db0 = 0.f, db1 = 0.f;
+  for (int j = 0; j < wk.steps; ++j) {
+    const int s = j % kTailStages;
+    mbar_wait(bars.full(s), (j / kTailStages) & 1);
+    const uint32_t st = base + s * kDwStage;
+    const uint32_t gb = opaque(st) + 6 * kBox;
+    // A = the stage's rows of LN(x) (or o) read MN-major: 64 values of D a
+    // box row; B = G's 64 columns, MN-major; 16 rows (2,048 bytes) a k16 step
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ss_n64<1, 1>(acc0, sw128(opaque(st) + (3 * kWg) * kBox + 2048 * kk), sw128(gb + 2048 * kk), 1);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ss_n64<1, 1>(acc1, sw128(opaque(st) + (3 * kWg + 1) * kBox + 2048 * kk), sw128(gb + 2048 * kk),
+                   1);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      ss_n64<1, 1>(acc2, sw128(opaque(st) + (3 * kWg + 2) * kBox + 2048 * kk), sw128(gb + 2048 * kk),
+                   1);
+    wgmma_commit();
+#pragma unroll
+    for (int r = 32 * kWg + 8 * warp; r < 32 * kWg + 8 * warp + 8; ++r) {
+      uint32_t v;
+      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(gb + swz(r, 2 * lane)));
+      const float2 f = mlp::unpack_bf16(v);
+      db0 += f.x;
+      db1 += f.y;
+    }
+    wgmma_wait<0>();
+    reg_fence(acc0);
+    reg_fence(acc1);
+    reg_fence(acc2);
+    warp_arrive(bars.empty(s));
+  }
+  float* part =
+      prm.w_part + static_cast<size_t>(wk.grp) * (static_cast<size_t>(kTailD) * prm.n + prm.n);
+  const int col0 = kHeadDim * wk.slice + 2 * t4;
+  auto store = [&](const float (&acc)[32], int mt) {
+    const int k = 192 * kWg + 64 * mt + 16 * warp + g;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      *reinterpret_cast<float2*>(part + static_cast<size_t>(k) * prm.n + col0 + 8 * i) =
+          make_float2(acc[4 * i], acc[4 * i + 1]);
+      *reinterpret_cast<float2*>(part + static_cast<size_t>(k + 8) * prm.n + col0 + 8 * i) =
+          make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+    }
+  };
+  store(acc0, 0);
+  store(acc1, 1);
+  store(acc2, 2);
+  // db: the eight warps' partials of each column pair, added in warp order
+  const uint32_t red = base + kDwOffRed;
+  st_shared_f2(red + 8 * (32 * (4 * kWg + warp) + lane), db0, db1);
+  named_sync(1, 256);
+  if (kWg == 0 && warp == 0) {
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) {
+      const float2 v = ld_shared_f2(red + 8 * (32 * w + lane));
+      s0 += v.x;
+      s1 += v.y;
+    }
+    *reinterpret_cast<float2*>(part + static_cast<size_t>(kTailD) * prm.n + kHeadDim * wk.slice +
+                               2 * lane) = make_float2(s0, s1);
+  }
+}
+
+__global__ void __launch_bounds__(kDwThreads, 1)
+attn_block_bwd_dw_kernel(const __grid_constant__ CUtensorMap a_map,
+                         const __grid_constant__ CUtensorMap g_map, const DwParams prm) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = smem_u32(smem);
+  const TailBars bars{base + kDwOffBar};
+  if (threadIdx.x == 0) {
+    if (base & 1023u) __trap();
+    for (int i = 0; i < kTailStages; ++i) {
+      mbar_init(bars.full(i), 1);
+      mbar_init(bars.empty(i), 8);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 2) {
+    if (threadIdx.x != 256) return;
+    const DwWork wk = dw_work(prm);
+    for (int j = 0; j < wk.steps; ++j) {
+      const int s = j % kTailStages;
+      if (j >= kTailStages) mbar_wait(bars.empty(s), ((j / kTailStages) - 1) & 1);
+      mbar_expect_tx(bars.full(s), kDwStage);
+      const uint32_t dst = base + s * kDwStage;
+      const int row = kTile * (wk.st0 + j);
+      for (int b = 0; b < 6; ++b) tma_load_2d(dst + b * kBox, &a_map, bars.full(s), 64 * b, row);
+      tma_load_2d(dst + 6 * kBox, &g_map, bars.full(s), kHeadDim * wk.slice, row);
+    }
+  } else if (role == 0) {
+    dw_consumer<0>(prm, base, threadIdx.x);
+  } else {
+    dw_consumer<1>(prm, base, threadIdx.x - 128);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
 
 bool shape_ok(int batch, int n, int d, int num_heads) {
-  return batch >= 1 && batch <= 65535 && n >= 1 && n <= kMaxSeq && d == kD &&
-         num_heads == kHeads;
+  return batch >= 1 && n >= 1 && n <= kMaxSeq && (d == 384 || d == 768) &&
+         num_heads * kHeadDim == d;
 }
 
-int pad_seq(int n) { return (n + kKc - 1) / kKc * kKc; }
+// A 3-D map (cols, rows, images) over bf16 rows of `cols` values, boxes of
+// 64 columns x 64 rows, 128-byte swizzled; rows past `rows` arrive as zeros.
+bool encode_3d(CUtensorMap* map, EncodeTiledFn encode, const void* ptr, int cols, int rows,
+               int images) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(images)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(cols) * 2 * rows};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(kTile), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int blocks, int cluster, int smem,
+                                  cudaStream_t stream) {
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// The forward's plan at n tokens, and how many of its clusters the card holds
+// at once (asked once per shared-memory size); 0 clusters: it cannot launch.
+template <int kD>
+int fwd_setup(FwdParams& prm, int n, int* clusters) {
+  prm.n = n;
+  prm.T = (n + kTile - 1) / kTile;
+  prm.R = (n + 15) / 16 * 16;
+  const uint32_t smem = fwd_plan(prm);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  static uint32_t cached_smem[8] = {};
+  static int cached_clusters[8] = {};
+  for (int i = 0; i < 8; ++i) {
+    if (cached_smem[i] == smem) {
+      *clusters = cached_clusters[i];
+      return 0;
+    }
+  }
+  auto kernel = attn_block_fwd_kernel<kD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(&attr, kD / 128, kD / 128, smem, nullptr);
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int i = 0; i < 8; ++i) {
+    if (cached_smem[i] == 0) {
+      cached_smem[i] = smem;
+      cached_clusters[i] = count;
+      break;
+    }
+  }
+  *clusters = count;
+  return 0;
+}
+
+// bf16(LN(x)) of the rows into `ln` (rows x kD).
+template <int kD>
+int ln_launch(const void* x, const void* gamma, const void* beta, void* ln, long long rows,
+              float eps, cudaStream_t stream) {
+  ln_rows_kernel<kD><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), eps, rows, static_cast<bf16*>(ln));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kD>
+int fwd_launch(const void* x, const void* gamma, const void* beta, const void* wqkv,
+               const void* bqkv, const void* wp, const void* bp, void* y, void* ln, int batch,
+               int n, float scale, float eps, cudaStream_t stream) {
+  constexpr int kC = kD / 128;
+  FwdParams prm{};
+  int clusters = 0;
+  int err = fwd_setup<kD>(prm, n, &clusters);
+  if (err != 0) return err;
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  prm.x = static_cast<const bf16*>(x);
+  prm.bqkv = static_cast<const bf16*>(bqkv);
+  prm.bp = static_cast<const bf16*>(bp);
+  prm.y = static_cast<bf16*>(y);
+  prm.scale = scale;
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap ln_map, wkv_map, wq_map, wp_map;
+  if (!encode_3d(&ln_map, encode, ln, kD, n, batch) ||
+      !encode_2d(&wkv_map, encode, wqkv, 3 * kD, kD, 32) ||
+      !encode_2d(&wq_map, encode, wqkv, 3 * kD, kD, 64) ||
+      !encode_2d(&wp_map, encode, wp, kD, kD, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = ln_launch<kD>(x, gamma, beta, ln, static_cast<long long>(batch) * n, eps, stream);
+  if (err != 0) return err;
+  // the kernel's shared-memory ceiling is set at every launch: the last one
+  // set may have been another length's, smaller
+  const uint32_t smem = prm.off_bar + kFwdBarBytes;
+  cudaError_t e = cudaFuncSetAttribute(attn_block_fwd_kernel<kD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // more clusters than images: an image's query tiles are split over several
+  // clusters, each of which runs the image's K/V pass for its own group
+  prm.groups = clusters / batch < 1 ? 1 : clusters / batch < prm.T ? clusters / batch : prm.T;
+  prm.items = batch * prm.groups;
+  if (clusters > prm.items) clusters = prm.items;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(&attr, clusters * kC, kC, smem, stream);
+  e = cudaLaunchKernelEx(&cfg, attn_block_fwd_kernel<kD>, ln_map, wkv_map, wq_map, wp_map, prm);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The head kernel on LN(x) in `ln` (which the caller filled).
+template <int kD>
+int head_launch(const void* ln, const void* dy, const void* wqkv, const void* bqkv,
+                const void* wp, void* o_work, void* dqkv, void* dbqkv_part, int batch, int n,
+                float scale, cudaStream_t stream) {
+  BwdParams prm{};
+  prm.bqkv = static_cast<const bf16*>(bqkv);
+  prm.o_work = static_cast<bf16*>(o_work);
+  prm.dqkv = static_cast<bf16*>(dqkv);
+  prm.dbqkv_part = static_cast<float*>(dbqkv_part);
+  prm.scale = scale;
+  prm.n = n;
+  prm.heads = kD / kHeadDim;
+  prm.items = batch * prm.heads;
+  prm.T = (n + kTile - 1) / kTile;
+  prm.R = (n + 15) / 16 * 16;
+  const uint32_t smem = bwd_plan(prm);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap ln_map, dy_map, w_map, wp_map;
+  if (!encode_3d(&ln_map, encode, ln, kD, n, batch) ||
+      !encode_3d(&dy_map, encode, dy, kD, n, batch) ||
+      !encode_2d(&w_map, encode, wqkv, 3 * kD, kD, 64) ||
+      !encode_2d(&wp_map, encode, wp, kD, kD, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = attn_block_bwd_head_kernel<kD>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = prm.items < sms ? prm.items : sms;
+  kernel<<<grid, kBwdThreads, smem, stream>>>(ln_map, dy_map, w_map, wp_map, prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The D = 384 tails on wgmma: dx (with the LayerNorm backward) and the two
+// dW products, into row_part and the w_parts.
+int tails_384(const bf16* xp, const bf16* dyp, const float* gp, const bf16* wq, bf16* dqkv,
+              bf16* o, bf16* ln, bf16* dx, float* w_part_qkv, float* w_part_proj,
+              float* row_part, int rows, int groups_qkv, int groups_proj, float eps,
+              cudaStream_t stream) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap dqkv_map, w_map, ln_map, o_map, dy_map;
+  if (!encode_2d(&dqkv_map, encode, dqkv, 3 * kTailD, rows, kTile) ||
+      !encode_2d(&w_map, encode, wq, 3 * kTailD, kTailD, 192) ||
+      !encode_2d(&ln_map, encode, ln, kTailD, rows, kTile) ||
+      !encode_2d(&o_map, encode, o, kTailD, rows, kTile) ||
+      !encode_2d(&dy_map, encode, dyp, kTailD, rows, kTile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_block_bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDxSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_block_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDwSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  DxParams dxp{xp, dyp, gp, dx, row_part, eps, rows, (rows + kTile - 1) / kTile};
+  const int dx_grid = dxp.n_tiles < sms ? dxp.n_tiles : sms;
+  attn_block_bwd_dx_kernel<<<dx_grid, kBwdThreads, kDxSmem, stream>>>(dqkv_map, w_map, dxp);
+  const int n_steps = (rows + kTile - 1) / kTile;
+  DwParams qkv{w_part_qkv, 3 * kTailD, n_steps, (n_steps + groups_qkv - 1) / groups_qkv,
+               3 * kTailD / kHeadDim};
+  attn_block_bwd_dw_kernel<<<qkv.slices * groups_qkv, kDwThreads, kDwSmem, stream>>>(
+      ln_map, dqkv_map, qkv);
+  DwParams proj{w_part_proj, kTailD, n_steps, (n_steps + groups_proj - 1) / groups_proj,
+                kTailD / kHeadDim};
+  attn_block_bwd_dw_kernel<<<proj.slices * groups_proj, kDwThreads, kDwSmem, stream>>>(
+      o_map, dy_map, proj);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The row-tiled tails of dense_common.cuh (K7's kernels) at D = 768: dx with
+// the LayerNorm backward (rebuilding LN(x) into ln_work), the two dW products.
+template <int kD>
+int tails_dense(const bf16* xp, const bf16* dyp, const float* gp, const float* bep,
+                const bf16* wq, bf16* dqkv, bf16* o, bf16* ln, bf16* dx, float* w_part_qkv,
+                float* w_part_proj, float* row_part, int rows, int n_row_tiles, int groups_qkv,
+                int groups_proj, float eps, cudaStream_t stream) {
+  using T = mlp::Tile<kD>;
+  using S = mlp::DwSlice<kD>;
+  auto dx_kernel = mlp::dense_bwd_dx_kernel<kD, true, true>;
+  constexpr int kSmem = mlp::dx_smem_bytes<kD, true>();
+  cudaError_t err = cudaFuncSetAttribute(dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dx_kernel<<<n_row_tiles, T::kThreads, kSmem, stream>>>(xp, dqkv, gp, bep, wq, dyp, dx, ln,
+                                                         row_part, rows, 3 * kD, eps);
+  auto dw_kernel = mlp::dense_bwd_dw_kernel<kD>;
+  err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             S::smem_bytes());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dw_kernel<<<dim3(3 * kD / S::kNs, groups_qkv), S::kThreads, S::smem_bytes(), stream>>>(
+      ln, dqkv, w_part_qkv, rows, 3 * kD);
+  dw_kernel<<<dim3(kD / S::kNs, groups_proj), S::kThreads, S::smem_bytes(), stream>>>(
+      o, dyp, w_part_proj, rows, kD);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's tails at width kD, after the head kernel: dx with the
+// LayerNorm backward and the dW partials (on wgmma at D = 384, on
+// dense_common.cuh's kernels at 768), then every partial summed in a fixed
+// order: see tpuwsi_attn_block_bwd.
+template <int kD>
+int tails_launch(const bf16* xp, const bf16* dyp, const float* gp, const float* bep,
+                 const bf16* wq, bf16* dqkv, bf16* o, bf16* ln, bf16* dx, float* out,
+                 const float* dbqkv_part, float* w_part_qkv, float* w_part_proj, float* row_part,
+                 int batch, int rows, int groups_qkv, int groups_proj, float eps,
+                 cudaStream_t stream) {
+  const int n_row_tiles = (rows + mlp::Tile<kD>::kRows - 1) / mlp::Tile<kD>::kRows;
+  int err;
+  if constexpr (kD == kTailD)
+    err = tails_384(xp, dyp, gp, wq, dqkv, o, ln, dx, w_part_qkv, w_part_proj, row_part, rows,
+                    groups_qkv, groups_proj, eps, stream);
+  else
+    err = tails_dense<kD>(xp, dyp, gp, bep, wq, dqkv, o, ln, dx, w_part_qkv, w_part_proj,
+                          row_part, rows, n_row_tiles, groups_qkv, groups_proj, eps, stream);
+  if (err != 0) return err;
+  const long long n_qkv = static_cast<long long>(kD) * 3 * kD + 3 * kD;
+  const long long n_proj = static_cast<long long>(kD) * kD + kD;
+  auto sum = [&](const float* part, float* dst, int n_parts, long long count) {
+    mlp::sum_partials_kernel<float><<<static_cast<unsigned>((count + 255) / 256), 256, 0, stream>>>(
+        part, dst, n_parts, count);
+  };
+  sum(w_part_qkv, out, groups_qkv, n_qkv);
+  sum(w_part_proj, out + n_qkv, groups_proj, n_proj);
+  sum(row_part, out + n_qkv + n_proj, n_row_tiles, 2LL * kD);
+  sum(dbqkv_part, out + n_qkv + n_proj + 2 * kD, batch, 3LL * kD);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scale = head_dim^-1/2 = 1/8 for the kernels' head_dim: a power of two (see
+// the backward's note above)
+bool power_of_two(float scale) {
+  int e = 0;
+  return scale > 0.f && frexpf(scale, &e) == 0.5f;
+}
 
 }  // namespace
 
 extern "C" {
 
-// The longest sequence the two kernels take at embedding width d with
-// d / 64 heads; 0 for a width they are not built for.
-int tpuwsi_attn_block_max_seq(int d) { return d == kD ? kMaxSeq : 0; }
+// The longest sequence the two kernels take at embedding width d with d / 64
+// heads; 0 for a width they are not built for.
+int tpuwsi_attn_block_max_seq(int d) { return d == 384 || d == 768 ? kMaxSeq : 0; }
 
-// How many clusters of the forward (d / 64 blocks, one image of n tokens each)
-// the card can hold at once; 0 means the forward cannot launch. Negative: a
-// CUDA error code, negated.
-int tpuwsi_attn_block_max_clusters(int n) {
-  if (n < 1 || n > kMaxSeq) return -static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  cudaError_t err = fwd_config(&cfg, &attr, 1, pad_seq(n), nullptr);
-  if (err != cudaSuccess) return -static_cast<int>(err);
+// How many clusters of the forward (d / 128 blocks) the card can hold at once
+// at n tokens; 0 means the forward cannot launch. Negative: a CUDA error code,
+// negated.
+int tpuwsi_attn_block_max_clusters(int d, int n) {
+  if (n < 1 || n > kMaxSeq || (d != 384 && d != 768))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  FwdParams prm{};
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, attn_block_fwd_kernel, &cfg);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  return clusters;
+  const int err = d == 384 ? fwd_setup<384>(prm, n, &clusters) : fwd_setup<768>(prm, n, &clusters);
+  return err != 0 ? -err : clusters;
 }
 
-// Every tensor is contiguous and 16-byte aligned (fp32 vectors 8-byte), bf16
-// unless said otherwise. x, y, dy, dx: (batch, n, d); gamma, beta: (d,) fp32;
-// wqkv: (d, 3 d), columns [which(3), head, 64]; bqkv: (3 d,); wp: (d, d);
-// bp: (d,). d = 384, num_heads = 6, 1 <= n <= tpuwsi_attn_block_max_seq(d).
+// Every tensor is contiguous and 16-byte aligned, bf16 unless said otherwise.
+// x, y, dy, dx: (batch, n, d); gamma, beta: (d,) fp32; wqkv: (d, 3 d),
+// columns [which(3), head, 64]; bqkv: (3 d,); wp: (d, d); bp: (d,); ln_work:
+// (batch, n, d), contents undefined on entry (bf16 LN(x), from the first of
+// the two launches to the second). d = 384 or 768 with d / 64 heads, 1 <= n
+// <= tpuwsi_attn_block_max_seq(d), any batch of at most 2^31 / (d / 64)
+// images.
 int tpuwsi_attn_block_fwd(const void* x, const void* gamma, const void* beta, const void* wqkv,
-                          const void* bqkv, const void* wp, const void* bp, void* y, int batch,
-                          int n, int d, int num_heads, float scale, float eps, void* stream) {
+                          const void* bqkv, const void* wp, const void* bp, void* y,
+                          void* ln_work, int batch, int n, int d, int num_heads, float scale,
+                          float eps, void* stream) {
   if (!shape_ok(batch, n, d, num_heads)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  const int n_pad = pad_seq(n);
-  cudaError_t err = fwd_config(&cfg, &attr, batch, n_pad, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaLaunchKernelEx(&cfg, attn_block_fwd_kernel, static_cast<const bf16*>(x),
-                           static_cast<const float*>(gamma), static_cast<const float*>(beta),
-                           static_cast<const bf16*>(wqkv), static_cast<const bf16*>(bqkv),
-                           static_cast<const bf16*>(wp), static_cast<const bf16*>(bp),
-                           static_cast<bf16*>(y), n, n_pad, scale, eps);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  return d == 384 ? fwd_launch<384>(x, gamma, beta, wqkv, bqkv, wp, bp, y, ln_work, batch, n,
+                                    scale, eps, s)
+                  : fwd_launch<768>(x, gamma, beta, wqkv, bqkv, wp, bp, y, ln_work, batch, n,
+                                    scale, eps, s);
 }
 
 // Gradients of the above at the cotangent dy. grads (out), fp32:
@@ -767,84 +1976,57 @@ int tpuwsi_attn_block_fwd(const void* x, const void* gamma, const void* beta, co
 //   dgamma (d) | dbeta (d) | dbqkv (3 d)
 // (the weight-gradient kernel also sums the ROUNDED dqkv; dbqkv, the last
 // piece, is the sum of the unrounded one). Workspaces, contents undefined on
-// entry: dqkv_work (batch, n, 3 d), o_work and ln_work (batch, n, d) bf16;
+// entry: dqkv_work (batch, n, 3 d), o_work and ln_work (batch, n, d) bf16
+// (ln_work carries LN(x) to the head kernel, and again, rebuilt by the dx
+// tail with the same arithmetic, to the dW tails);
 // dbqkv_part (batch, 3 d), w_part_qkv (groups_qkv, d 3 d + 3 d), w_part_proj
 // (groups_proj, d d + d) and row_part (ceil(batch n / tpuwsi_mlp_rows_per_tile
 // (d)), 2 d) fp32; each number of row groups between 1 and
-// ceil(batch n / tpuwsi_dense_rows_per_step(d)).
+// ceil(batch n / tpuwsi_dense_rows_per_step(d)); batch n 3 d < 2^31; scale a
+// power of two.
 int tpuwsi_attn_block_bwd(const void* x, const void* dy, const void* gamma, const void* beta,
                           const void* wqkv, const void* bqkv, const void* wp, void* dx,
                           void* grads, void* dqkv_work, void* o_work, void* ln_work,
                           void* dbqkv_part, void* w_part_qkv, void* w_part_proj, void* row_part,
                           int batch, int n, int d, int num_heads, int groups_qkv,
                           int groups_proj, float scale, float eps, void* stream_) {
-  using T = Tile<kD>;
-  using S = DwSlice<kD>;
-  if (!shape_ok(batch, n, d, num_heads)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!shape_ok(batch, n, d, num_heads) || !power_of_two(scale))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long rows_ll = static_cast<long long>(batch) * n;
-  if (rows_ll * 3 * kD >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows_ll * 3 * d >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = static_cast<int>(rows_ll);
-  const int max_groups = (rows + S::kRows - 1) / S::kRows;
+  const int rows_per_step = d == 384 ? mlp::DwSlice<384>::kRows : mlp::DwSlice<768>::kRows;
+  const int max_groups = (rows + rows_per_step - 1) / rows_per_step;
   if (groups_qkv < 1 || groups_qkv > max_groups || groups_proj < 1 || groups_proj > max_groups ||
       groups_qkv > 65535 || groups_proj > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  int err = d == 384 ? ln_launch<384>(x, gamma, beta, ln_work, rows_ll, eps, stream)
+                     : ln_launch<768>(x, gamma, beta, ln_work, rows_ll, eps, stream);
+  if (err != 0) return err;
+  err = d == 384 ? head_launch<384>(ln_work, dy, wqkv, bqkv, wp, o_work, dqkv_work, dbqkv_part,
+                                    batch, n, scale, stream)
+                 : head_launch<768>(ln_work, dy, wqkv, bqkv, wp, o_work, dqkv_work, dbqkv_part,
+                                    batch, n, scale, stream);
+  if (err != 0) return err;
   const auto* xp = static_cast<const bf16*>(x);
   const auto* dyp = static_cast<const bf16*>(dy);
   const auto* gp = static_cast<const float*>(gamma);
   const auto* bep = static_cast<const float*>(beta);
   const auto* wq = static_cast<const bf16*>(wqkv);
-  auto* dqkv = static_cast<bf16*>(dqkv_work);
+  auto* dq = static_cast<bf16*>(dqkv_work);
   auto* o = static_cast<bf16*>(o_work);
   auto* ln = static_cast<bf16*>(ln_work);
-  float* out = static_cast<float*>(grads);
-
-  const int n_pad = pad_seq(n);
-  const int head_smem = bwd_smem_bytes(n_pad);
-  cudaError_t err = cudaFuncSetAttribute(attn_block_bwd_head_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, head_smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_block_bwd_head_kernel<<<dim3(kHeads, batch), kBwdWarps * 32, head_smem, stream>>>(
-      xp, dyp, gp, bep, wq, static_cast<const bf16*>(bqkv), static_cast<const bf16*>(wp), o, dqkv,
-      static_cast<float*>(dbqkv_part), n, n_pad, scale, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  // dln = dqkv . Wqkv^T, LayerNorm backward, dx = bf16(dy + dx_ln); LN(x) -> ln_work
-  auto dx_kernel = dense_bwd_dx_kernel<kD, true, true>;
-  constexpr int kDxSmem = dx_smem_bytes<kD, true>();
-  err = cudaFuncSetAttribute(dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDxSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_row_tiles = (rows + T::kRows - 1) / T::kRows;
-  dx_kernel<<<n_row_tiles, T::kThreads, kDxSmem, stream>>>(
-      xp, dqkv, gp, bep, wq, dyp, static_cast<bf16*>(dx), ln, static_cast<float*>(row_part), rows,
-      3 * kD, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  // dWqkv = LN(x)^T . dqkv;  dWproj = o^T . dy, dbproj = sum dy
-  auto dw_kernel = dense_bwd_dw_kernel<kD>;
-  err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             S::smem_bytes());
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dw_kernel<<<dim3(3 * kD / S::kNs, groups_qkv), S::kThreads, S::smem_bytes(), stream>>>(
-      ln, dqkv, static_cast<float*>(w_part_qkv), rows, 3 * kD);
-  dw_kernel<<<dim3(kD / S::kNs, groups_proj), S::kThreads, S::smem_bytes(), stream>>>(
-      o, dyp, static_cast<float*>(w_part_proj), rows, kD);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const long long n_qkv = static_cast<long long>(kD) * 3 * kD + 3 * kD;
-  const long long n_proj = static_cast<long long>(kD) * kD + kD;
-  auto sum = [&](const void* part, float* dst, int n_parts, long long count) {
-    sum_partials_kernel<float><<<static_cast<unsigned>((count + 255) / 256), 256, 0, stream>>>(
-        static_cast<const float*>(part), dst, n_parts, count);
-  };
-  sum(w_part_qkv, out, groups_qkv, n_qkv);
-  sum(w_part_proj, out + n_qkv, groups_proj, n_proj);
-  sum(row_part, out + n_qkv + n_proj, n_row_tiles, 2LL * kD);
-  sum(dbqkv_part, out + n_qkv + n_proj + 2 * kD, batch, 3LL * kD);
-  return static_cast<int>(cudaGetLastError());
+  auto* dxp = static_cast<bf16*>(dx);
+  auto* out = static_cast<float*>(grads);
+  const auto* dbp = static_cast<const float*>(dbqkv_part);
+  auto* wpq = static_cast<float*>(w_part_qkv);
+  auto* wpp = static_cast<float*>(w_part_proj);
+  auto* rp = static_cast<float*>(row_part);
+  return d == 384 ? tails_launch<384>(xp, dyp, gp, bep, wq, dq, o, ln, dxp, out, dbp, wpq, wpp, rp,
+                                      batch, rows, groups_qkv, groups_proj, eps, stream)
+                  : tails_launch<768>(xp, dyp, gp, bep, wq, dq, o, ln, dxp, out, dbp, wpq, wpp, rp,
+                                      batch, rows, groups_qkv, groups_proj, eps, stream);
 }
 
 }  // extern "C"

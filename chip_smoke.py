@@ -6,8 +6,9 @@
 Phases, each printing its own lines:
   1. the card's name and power limit (nvidia-smi);
   2. build the Hopper kernels from tpuwsi_torch/ops/csrc with nvcc (ptxas'
-     report of csrc/mlp_sm90.cu's and csrc/attn_block.cu's kernels must show
-     0 spill bytes and no serialised wgmma);
+     report of csrc/mlp_sm90.cu's, csrc/attn_block.cu's and
+     csrc/dense_sm90.cu's kernels must show 0 spill bytes and no serialised
+     wgmma);
   3. each of the nineteen kernels against its plain PyTorch version on the
      card, at the shapes the paths give it (the four whole-sequence kernels
      at 37-257 tokens and at every branch edge of the forward kernel from 1
@@ -27,7 +28,9 @@ Phases, each printing its own lines:
      unfused route at the step's two row counts, K6f at the serving chunk's
      and K6b at the step's global views; the
      five dense-layer kernels at the qkv and proj layers of the same row
-     counts; the two attention sub-block kernels at the step's global and
+     counts, K7 also on nn.Linear's weight layout, and K7, K9c, K9d at the
+     row counts where dense_sm90.cu's tiles and clusters end (1-129), both of
+     K9c's input and K9d's output widths; the two attention sub-block kernels at the step's global and
      local views, a serving chunk, a batch of 8 tiles, one token, the
      longest sequence they take, ViT-B at 197 and 257 tokens and 65,536
      images of 16 tokens (past the old 65,535 cap), then the op itself at
@@ -226,6 +229,13 @@ DENSE_SHAPES = [
     (6304, 768, 768),     # ViT-B/16, proj layer
     (7, 384, 384),        # less than one row tile
 ]
+# K7, K9c and K9d at width 384 (csrc/dense_sm90.cu) where its row tiles and
+# clusters of four tiles end: one row, less than a tile, either side of one
+# tile, two tiles and a row (three past the end in the one cluster), four
+# tiles and a row (the second cluster: a tile of one row, three past the end);
+# K7 with the qkv and proj layers' output widths, K9c with both input widths,
+# K9d with both output widths
+DENSE_EDGE_ROWS = [1, 7, 63, 64, 65, 129, 257]
 # parameter gradients that both routes round to bf16 on their way to the fp32
 # parameters: one bf16 ulp of the largest element, 2^-7 of it
 ROUNDED_GRAD_REL = 8e-3
@@ -320,7 +330,8 @@ def phase_build() -> None:
     # the Hopper redesigns whose build refuses a spill or a serialised wgmma in
     # any kernel compiled from them (the build log's "== <source>" parts)
     for source, what in (("mlp_sm90.cu", "K5f, K5b, K6f, K6b"),
-                         ("attn_block.cu", "K8f, K8b's head kernel and tails, LN(x)")):
+                         ("attn_block.cu", "K8f, K8b's head kernel and tails, LN(x)"),
+                         ("dense_sm90.cu", "K7, K9c, K9d at width 384: row and dW kernels")):
         part, fn, spills, serialised = None, None, {}, []
         for line in lines:
             if line.startswith("== "):
@@ -1008,9 +1019,12 @@ def dense_bound(name: str, rows, k, n) -> dict:
 def phase_dense_kernels(smi: str) -> dict:
     """K7 and K9a-d against their plain versions; times at the student's
     global views with the qkv layer (K7, K9a, K9b; K7 with the proj layer
-    too) and the proj layer (K9c, K9d), beside one library route for the same
-    function, the plain version's and the bound. The three backward kernels
-    run twice on the same inputs and must give the same bits."""
+    too) and the proj layer (K9c, K9d), single calls and back to back, beside
+    one library route for the same function, the plain version's and the
+    bound. The three backward kernels run twice on the same inputs and must
+    give the same bits; K7 also takes W as nn.Linear keeps it (a transposed
+    view: at width 384 read in place), with the same dW and db bits. Then K7,
+    K9c and K9d at ``DENSE_EDGE_ROWS``."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     F = torch.nn.functional
     names = ("dense_bwd", "ln_gemm_fwd", "ln_gemm_bwd", "gemm_res_fwd", "gemm_res_bwd")
@@ -1052,6 +1066,9 @@ def phase_dense_kernels(smi: str) -> dict:
         for name in here:
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
                                            check_kernel(name, case, *fns[name]))
+        if dy is not None:
+            res["dense_bwd"]["max_abs_err"] = max(res["dense_bwd"]["max_abs_err"],
+                                                  check_linear_layout(case, x, dy, w))
         timed = {DENSE_SHAPES[0]: ("dense_bwd", "ln_gemm_fwd", "ln_gemm_bwd"),
                  DENSE_SHAPES[1]: ("dense_bwd", "gemm_res_fwd", "gemm_res_bwd")}.get(shape, ())
         if timed:
@@ -1080,13 +1097,22 @@ def phase_dense_kernels(smi: str) -> dict:
             }
             for name in timed:
                 t = timed_ab(fns[name][0], lib_fns[name], fns[name][1])
-                t.update(dense_bound(name, rows, k, n), shape=list(shape), library=library[name])
+                t.update(dense_bound(name, rows, k, n), shape=list(shape), library=library[name],
+                         back_to_back_ms=back_to_back_ms(fns[name][0]),
+                         library_back_to_back_ms=back_to_back_ms(lib_fns[name]))
+                if name == "dense_bwd":  # on nn.Linear's weight, as the model passes it
+                    t["linear_layout_ms"] = cuda_median_ms(
+                        lambda: dense._launch_dense_bwd(x, dy, wl.detach().t()))
                 print(f"[{name}] {case}, medians of 20 in the order kernel, library, library, "
-                      f"kernel: kernel {t['ms_runs']} ms, library ({library[name]}) "
-                      f"{t['library_ms_runs']} ms, plain {t['plain_ms']:.4f} ms, bound "
-                      f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
-                      f"({t['bound_bytes'] / 1e6:.1f} MB, {t['bound_flops'] / 1e9:.1f} GFLOP); "
-                      f"on {smi}")
+                      f"kernel: kernel {t['ms_runs']} ms"
+                      + (f" (nn.Linear's layout {t['linear_layout_ms']:.4f})"
+                         if name == "dense_bwd" else "")
+                      + f", library ({library[name]}) {t['library_ms_runs']} ms; 50 back to "
+                      f"back (median of 5, per launch): kernel {t['back_to_back_ms']:.4f} ms, "
+                      f"library {t['library_back_to_back_ms']:.4f} ms; plain "
+                      f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+                      f"{t['bound_by']} ({t['bound_bytes'] / 1e6:.1f} MB, "
+                      f"{t['bound_flops'] / 1e9:.1f} GFLOP); on {smi}")
                 if "ms" in res[name]:  # K7's second shape, the proj layer
                     res[name]["proj_layer"] = t
                 else:
@@ -1094,9 +1120,48 @@ def phase_dense_kernels(smi: str) -> dict:
             del xl, gl, bel, wl, bl, y_linear, y_ln, lib_fns
         del x, resid, dy, g, be, w, b, fns
         torch.cuda.empty_cache()
+    for rows in DENSE_EDGE_ROWS:
+        k = 384
+        for n in (3 * k, k):  # K7 at the qkv and proj layers
+            x, dy, w = randn((rows, k)), randn((rows, n)), randn((k, n), k ** -0.5)
+            case = f"rows={rows} K={k} N={n}"
+            res["dense_bwd"]["max_abs_err"] = max(
+                res["dense_bwd"]["max_abs_err"],
+                check_kernel("dense_bwd", case, lambda: dense._launch_dense_bwd(x, dy, w),
+                             lambda: dense._dense_bwd_reference(x, dy, w)),
+                check_linear_layout(case, x, dy, w))
+        for f in (384, 768):  # K9c by its input width, K9d by its output width
+            a, resid, dy = randn((rows, f)), randn((rows, k)), randn((rows, f))
+            w, b, wd = randn((f, k), f ** -0.5), randn((k,), 0.1), randn((k, f), k ** -0.5)
+            xk = randn((rows, k))
+            res["gemm_res_fwd"]["max_abs_err"] = max(
+                res["gemm_res_fwd"]["max_abs_err"],
+                check_kernel("gemm_res_fwd", f"rows={rows} f={f} d={k}",
+                             lambda: mlp._launch_gemm_res_fwd(resid, a, w, b),
+                             lambda: mlp._gemm_res_fwd_reference(resid, a, w, b)))
+            res["gemm_res_bwd"]["max_abs_err"] = max(
+                res["gemm_res_bwd"]["max_abs_err"],
+                check_kernel("gemm_res_bwd", f"rows={rows} f={k} d={f}",
+                             lambda: mlp._launch_gemm_res_bwd(xk, dy, wd),
+                             lambda: mlp._gemm_res_bwd_reference(xk, dy, wd)))
     print("[dense_bwd, ln_gemm_bwd, gemm_res_bwd] two runs on the same inputs gave the same "
-          "bits at every shape")
+          f"bits at every shape; K7, K9c, K9d also at rows {DENSE_EDGE_ROWS}")
     return res
+
+
+def check_linear_layout(case, x, dy, w) -> float:
+    """K7 on nn.Linear's (N, K) weight, passed as its transposed view, as the
+    ViT passes it: against the plain version, and dW, db with the same bits as
+    from the (K, N) weight (they do not read W)."""
+    wl = w.t().contiguous()
+    got = dense._launch_dense_bwd(x, dy, wl.t())
+    want = dense._dense_bwd_reference(x, dy, w)
+    kn = dense._launch_dense_bwd(x, dy, w)
+    torch.cuda.synchronize()
+    worst = check_mlp("dense_bwd", f"{case}, nn.Linear's layout", got, want)
+    if not all(torch.equal(a, b) for a, b in zip(got[1:], kn[1:])):
+        raise RuntimeError(f"dense_bwd at {case}: dW, db differ between the two weight layouts")
+    return worst
 
 
 def attn_block_bound(backward: bool, b, n, d) -> dict:
@@ -1450,7 +1515,8 @@ PROFILE_KINDS = [
     ("attention kernels (hand-written)", ("mha_qkv", "flash_fwd_kernel", "flash_bwd_d")),
     ("fused MLP kernels (hand-written)", ("mlp_fwd_kernel", "mlp_bwd_d", "mlp_row_kernel",
                                           "mlp_dw_kernel")),
-    ("dense-layer kernels (hand-written)", ("dense_bwd_d", "row_gemm_fwd")),
+    ("dense-layer kernels (hand-written)", ("dense_bwd_d", "row_gemm_fwd", "dense_row_kernel",
+                                            "dense_dw_kernel")),
     ("fixed-order sums of partial gradients (hand-written)", ("sum_partials",)),
     ("GEMMs (cuBLAS)", ("nvjet", "gemm", "cutlass", "cublas", "gemv")),
     ("LayerNorm, forward and backward", ("layer_norm", "LayerNorm", "GammaBeta")),
@@ -1480,10 +1546,10 @@ def phase_profiles(smi: str) -> None:
         torch.cuda.empty_cache()
 
 
-def profile_step(tag: str, bundle, batch, step_ms: float, smi: str) -> None:
+def profile_step(tag: str, bundle, batch, step_ms: float, smi: str) -> dict:
     """Two steps under torch.profiler, the second reported (the first pays
     for the profiler's start): device time by kernel kind, from the kernels'
-    own trace events."""
+    own trace events. → ms by kind (empty if the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1498,7 +1564,7 @@ def profile_step(tag: str, bundle, batch, step_ms: float, smi: str) -> None:
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not kernels:
         print("[profile] torch.profiler recorded no device time")
-        return
+        return {}
     totals, counts = {}, {}
     for evt in kernels:
         kind = next((k for k, pats in PROFILE_KINDS if any(p in evt.key for p in pats)),
@@ -1515,6 +1581,7 @@ def profile_step(tag: str, bundle, batch, step_ms: float, smi: str) -> None:
               f"{counts[kind]} launches")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[profile]   top: {e.self_device_time_total / 1e3:.2f} ms x{e.count} {e.key[:100]}")
+    return totals
 
 
 def phase_train(smi: str) -> dict:
@@ -2012,17 +2079,19 @@ def main() -> None:
         "mlp_bwd": ("mlp_sm90.cu", "tpuwsi/ops/mlp.py:100"),
         "mlp_block_fwd": ("mlp_sm90.cu", "tpuwsi/ops/mlp.py:485"),
         "mlp_block_bwd": ("mlp_sm90.cu", "tpuwsi/ops/mlp.py:508"),
-        "dense_bwd": ("dense.cu", "tpuwsi/ops/dense.py:51"),
+        "dense_bwd": ("dense_sm90.cu", "tpuwsi/ops/dense.py:51"),
         "ln_gemm_fwd": ("dense.cu", "tpuwsi/ops/mlp.py:832"),
         "ln_gemm_bwd": ("dense.cu", "tpuwsi/ops/mlp.py:850"),
-        "gemm_res_fwd": ("dense.cu", "tpuwsi/ops/mlp.py:1079"),
-        "gemm_res_bwd": ("dense.cu", "tpuwsi/ops/mlp.py:1092"),
+        "gemm_res_fwd": ("dense_sm90.cu", "tpuwsi/ops/mlp.py:1079"),
+        "gemm_res_bwd": ("dense_sm90.cu", "tpuwsi/ops/mlp.py:1092"),
         "attn_block_fwd": ("attn_block.cu", "tpuwsi/ops/attention.py:1467"),
         "attn_block_bwd": ("attn_block.cu", "tpuwsi/ops/attention.py:1490"),
     }
-    # the fused-MLP kernels at D = 768 (ViT-B) keep the row-tiled sources
+    # the fused-MLP kernels at D = 768 (ViT-B) keep the row-tiled sources, as
+    # do K7 and K9d at input width 768 and K9c at output width 768
     at_768 = {"mlp_fwd": "mlp_fwd.cu", "mlp_bwd": "mlp_bwd.cu", "mlp_block_fwd": "mlp_fwd.cu",
-              "mlp_block_bwd": "mlp_bwd.cu"}
+              "mlp_block_bwd": "mlp_bwd.cu", "dense_bwd": "dense.cu", "gemm_res_fwd": "dense.cu",
+              "gemm_res_bwd": "dense.cu"}
     lines = []
     for name, (source, replaces) in meta.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

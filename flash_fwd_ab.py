@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """A/B of hand-written kernels against another kernel tree, on one card: the
 flash family (K4a, K4a', K4b, K4b'), the whole-sequence backward (K1b, K3),
-the fused MLP with its sub-block (K5f, K5b, K6f, K6b) and the attention
-sub-block (K8f, K8b).
+the fused MLP with its sub-block (K5f, K5b, K6f, K6b), the attention
+sub-block (K8f, K8b) and the dense layers at width 384 (K7, K9c, K9d).
 
     python3 flash_fwd_ab.py [check] [ab] [bwd] [e2e] [mha_bwd] [mlp] [mlp_e2e]
-        [attn_block] [ablate 'NAME:FIND=>REPLACE;...' ...] [cutout] [--old DIR]
-        [--only SOURCE] [--cuts A,B] [--base DIR]
+        [attn_block] [dense] [ablate 'NAME:FIND=>REPLACE;...' ...] [cutout]
+        [--old DIR] [--only SOURCE] [--cuts A,B] [--base DIR]
 
 ``DIR`` (default ``build/ab/csrc_v1``) holds another copy of
 ``tpuwsi_torch/ops/csrc`` (for instance the parent commit's, unpacked with
@@ -73,6 +73,16 @@ Modes, in the order given:
   autograd backward) read the same two ways, the plain version and the
   bound; the new K8b must repeat its bits. A tree before PR 13 gets its own
   forward launcher (``use``);
+- ``dense``: K7 at the step's qkv and proj layers and its local views, K9c
+  at (37,824, 384, 384) and a serving chunk's 128,500 rows, K9d, in the
+  order new, old, old, new (K7 also on nn.Linear's layout in the new arms):
+  single calls and back to back beside ``F.linear`` (with the residual sum;
+  or its autograd backward), the plain version and the bound; K8b at (192,
+  197) and ViT-B (16, 197), the same bits in every arm; the DINO step with
+  ``dense_pallas_bwd`` beside the default route, with K7's kernel time per
+  profiled step; last each case's device time (``torch.profiler``). It
+  profiles, so run it last or alone. A tree whose K7 takes no weight-layout
+  argument gets a launcher of its own (``use``);
 - ``cutout``: the kernels of a source timed beside copies of it with one
   part cut out (``CUTOUTS``): K4b and K4b' (flash_bwd.cu, at (192, 6, 785)),
   K1b and K3 (mha_qkv_bwd.cu, at (192, 197)), K5f and K5b (mlp_sm90.cu, at
@@ -89,7 +99,11 @@ Modes, in the order given:
   half of every weight stage fetched too), the head kernel's phases, the dx
   or dW tails; with ``--base DIR`` (the parent tree) and ``--cuts
   pr6_no_head,...`` PR 6's K8b without its head kernel, dx tail, dW tails or
-  sums, or the head kernel alone.
+  sums, or the head kernel alone. For dense_sm90.cu (K7, K9c, K9d and K8b
+  at the step's shapes): clusters of 1 or 2 in place of 4, three ring
+  stages, no products, no TMA stores, the row pass alone (``dx_only``,
+  also with clusters of 1 or 2). Every cutout also reads each copy's device
+  time (``torch.profiler``) last.
 
 Every line names the card's name and power limit; the last line is a JSON
 summary.
@@ -112,7 +126,7 @@ import chip_smoke as cs
 from tpuwsi_torch.cli.train import extract_features
 from tpuwsi_torch.models.convert import params_from_flax
 from tpuwsi_torch.models.registry import create_model
-from tpuwsi_torch.ops import _build, attention, mlp
+from tpuwsi_torch.ops import _build, attention, dense, mlp
 
 ROOT = Path(__file__).resolve().parent
 NEW = _build.CSRC
@@ -122,7 +136,9 @@ ABLATE_SOURCES = {"flash_fwd.cu": ("flash_fwd", "flash_fwd_stats"),
                   "flash_bwd.cu": ("flash_bwd_dq", "flash_bwd_dkv"),
                   "mha_qkv_bwd.cu": ("mha_qkv_bwd_saved", "mha_qkv_bwd"),
                   "mlp_sm90.cu": ("mlp_fwd", "mlp_bwd", "mlp_block_fwd", "mlp_block_bwd"),
-                  "attn_block.cu": ("attn_block_fwd", "attn_block_bwd")}
+                  "attn_block.cu": ("attn_block_fwd", "attn_block_bwd"),
+                  "dense_sm90.cu": ("dense_bwd", "dense_bwd proj", "gemm_res_fwd",
+                                    "gemm_res_bwd", "attn_block_bwd")}
 MHA_SHAPES = [(192, 197, 384, 6), (576, 37, 384, 6)]  # (B, N, D, H)
 SERVE_CHUNKS, STEP_TIMED = 8, 6
 # the fused-MLP kernels timed by ``mlp`` at D 384, F 1,536: rows -> kernels
@@ -137,6 +153,15 @@ ATTN_AB = [(192, 197, 384, 6, ("attn_block_fwd", "attn_block_bwd")),
            (8, 257, 384, 6, ("attn_block_fwd",)),
            (16, 197, 768, 12, ("attn_block_fwd", "attn_block_bwd")),
            (64, 257, 768, 12, ("attn_block_fwd",))]
+# the dense-layer kernels timed by ``dense``: (kernel, rows, K, N), K the
+# input width and N the output width (K9c: f and d); ``cutout`` times the
+# first two of K7 and the first of K9c and K9d
+DENSE_AB = [("dense_bwd", 37824, 384, 1152), ("dense_bwd", 37824, 384, 384),
+            ("dense_bwd", 21312, 384, 1152), ("gemm_res_fwd", 37824, 384, 384),
+            ("gemm_res_fwd", 128500, 384, 384), ("gemm_res_bwd", 37824, 384, 384)]
+DENSE_CUT = [DENSE_AB[0], DENSE_AB[1], DENSE_AB[3], DENSE_AB[5]]
+# K8b, whose tails at D = 384 are K7's kernels: (B, N, D, H)
+DENSE_K8B = [(192, 197, 384, 6), (16, 197, 768, 12)]
 _NEW_DW_GROUPS = mlp.mlp_dw_groups
 _NEW_BWD_BUFFERS = mlp._bwd_buffers
 
@@ -178,13 +203,25 @@ def _launch_attn_block_fwd_pr6(x, g, be, wqkv, bqkv, wp, bp, num_heads, scale, e
 _NEW_ATTN_BLOCK_FWD = attention._launch_attn_block_fwd
 
 
+def _launch_dense_bwd_no_layout(x2, dy2, w):
+    """K7 of a tree whose C function takes no weight layout: W as (D, N)
+    only, a copy of a transposed view."""
+    w = w.contiguous()
+    dense._check_operands(x2, dy2, w)
+    return mlp._launch_dense_grads("dense_bwd", dense.LAUNCHES, x2, dy2, w)
+
+
+_NEW_DENSE_BWD = dense._launch_dense_bwd
+
+
 def use(csrc: Path) -> Path:
     """Make the kernels of ``csrc`` the ones every wrapper launches: the
     builder reads its tree from ``_build.CSRC`` and keys each library by the
     tree's hash, so the libraries of both trees sit side by side. A tree
     without csrc/mlp_sm90.cu gets K5b and K6b launched with the row groups of
     the row-tiled kernels, one whose mlp_sm90.cu has no sub-block K6b
-    alone."""
+    alone; a tree whose K8f takes no LN(x) workspace, or whose K7 takes no
+    weight layout, a launcher of its own for it."""
     _build.CSRC = Path(csrc)
     _build._lib = None
     _build.load()
@@ -195,9 +232,14 @@ def use(csrc: Path) -> Path:
     # a tree before PR 13 takes K8f without the LN(x) workspace
     pr6 = "ln_rows_kernel" not in (Path(csrc) / "attn_block.cu").read_text()
     attention._launch_attn_block_fwd = _launch_attn_block_fwd_pr6 if pr6 else _NEW_ATTN_BLOCK_FWD
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if pr6:
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         _build._lib.tpuwsi_attn_block_fwd.argtypes = [ptr] * 8 + [i32] * 4 + [f32, f32, ptr]
+    # a tree whose K7 takes W as (D, N) only, with no layout argument
+    no_layout = "w_layout" not in (Path(csrc) / "dense.cu").read_text()
+    dense._launch_dense_bwd = _launch_dense_bwd_no_layout if no_layout else _NEW_DENSE_BWD
+    if no_layout:
+        _build._lib.tpuwsi_dense_bwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     return _build.library_path()
 
 
@@ -430,26 +472,25 @@ def mode_mha_bwd(smi: str, old: Path) -> dict:
 
 def variant_tree(name: str, edits: list[str], base: Path = NEW) -> tuple[Path, str]:
     """A copy of the tree ``base`` (this one by default) under build/ab/ with
-    each ``FIND=>REPLACE`` of ``edits`` applied to the one of
-    ``ABLATE_SOURCES`` that holds the first FIND (each FIND must occur there)
-    → (the tree, that source's name)."""
+    each ``FIND=>REPLACE`` of ``edits`` applied to the one source or header
+    that holds its FIND (exactly one must) → (the tree, the source of
+    ``ABLATE_SOURCES`` whose kernels the first edit changes: a header
+    ``X.cuh`` stands for ``X.cu``)."""
     dst = ROOT / "build" / "ab" / f"var_{name}"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(base, dst)
-    first = edits[0].partition("=>")[0]
-    hits = [s for s in ABLATE_SOURCES if first in (dst / s).read_text()]
-    if len(hits) != 1:
-        raise SystemExit(f"ablate {name}: {first!r} is in {hits or 'none'} of "
-                         f"{list(ABLATE_SOURCES)}")
-    src = dst / hits[0]
-    text = src.read_text()
+    files = sorted([*dst.glob("*.cu"), *dst.glob("*.cuh")])
+    first = None
     for edit in edits:
         find, _, repl = edit.partition("=>")
-        if find not in text:
-            raise SystemExit(f"ablate {name}: {find!r} is not in {hits[0]}")
-        text = text.replace(find, repl)
-    src.write_text(text)
-    return dst, hits[0]
+        hits = [f for f in files if find in f.read_text()]
+        if len(hits) != 1:
+            raise SystemExit(f"ablate {name}: {find!r} is in {[f.name for f in hits] or 'none'}")
+        hits[0].write_text(hits[0].read_text().replace(find, repl))
+        first = first or hits[0].name.replace(".cuh", ".cu")
+    if first not in ABLATE_SOURCES:
+        raise SystemExit(f"ablate {name}: {first} is none of {list(ABLATE_SOURCES)}")
+    return dst, first
 
 
 def mode_ablate(smi: str, specs: list[str]) -> dict:
@@ -572,13 +613,37 @@ _HALF_W = ["          tma_load_2d(dst + kBox / 2, wkv_map, bars.w_full(s), 2 * k
            "        tma_load_2d(dst + kBox, wq_map, bars.w_full(s), 64 * h1, 64 * kc);\n",
            "        tma_load_2d(dst + kBox, wp_map, bars.w_full(s), 128 * rank + 64, 64 * kc);\n",
            "    mbar_expect_tx(bars.w_full(s), kWStage);"]
-_DX_TAIL = "  attn_block_bwd_dx_kernel<<<dx_grid, kBwdThreads, kDxSmem, stream>>>(dqkv_map, w_map, dxp);"
-_DW_TAILS = ["  attn_block_bwd_dw_kernel<<<qkv.slices * groups_qkv, kDwThreads, kDwSmem, stream>>>(",
-             "  attn_block_bwd_dw_kernel<<<proj.slices * groups_proj, kDwThreads, kDwSmem, stream>>>("]
+_DX_TAIL = "  const int err = launch_rows<LnBackward, false>("
+_DW_TAILS = ["  const int e = dw(ln, dqkv, w_part_qkv, rows, 3 * kTailD, groups_qkv, stream);",
+             "  return dw(o, dyp, w_part_proj, rows, kTailD, groups_proj, stream);"]
 _PHASE_A = "    for (int i = kWg; i < T; i += 2) {"
 _PHASE_B = "    for (int j = kWg; j < T; j += 2) {"
 
+# dense_sm90.cu's row kernel: the cluster that shares W (4) undone or halved,
+# three ring stages, the products, the TMA stores of the epilogue
+_ROW_CLUSTER = "constexpr int kRowCluster = 4;"
+_ROW_MMA = ("        if constexpr (kTransB)\n"
+            "          ss_n192<0, 1>(acc, sw128(opaque(st) + 32 * kk), sw128(wb + 2048 * kk, kBox), 1);\n"
+            "        else\n"
+            "          ss_n192<0, 0>(acc, sw128(opaque(st) + 32 * kk), sw128(wb + 32 * kk), 1);")
+_ROW_STORE = ("        tma_store_2d(out_map, io + (3 * kWg + j) * kBox, kTile * (3 * kWg + j), "
+              "kTile * tile);")
+# K7's and K9d's launch without its dW kernel and sums: the row pass alone
+_DX_ONLY = [("  err = dw(x, dy, static_cast<float*>(w_part), rows, n, groups, stream);", "  err = 0;"),
+            ("  mlp::sum_partials_kernel<float><<<static_cast<unsigned>((n_w + 255) / 256)",
+             "  if (false) mlp::sum_partials_kernel<float><<<static_cast<unsigned>((n_w + 255) / 256)")]
+
 CUTOUTS = {
+    "dense_sm90.cu": {
+        "cluster1": [(_ROW_CLUSTER, _ROW_CLUSTER.replace("4", "1"))],
+        "cluster2": [(_ROW_CLUSTER, _ROW_CLUSTER.replace("4", "2"))],
+        "stages3": [("constexpr int kRowStages = 4;", "constexpr int kRowStages = 3;")],
+        "no_products": [(_ROW_MMA, "        (void)wb;")],
+        "no_stores": [(_ROW_STORE, "        (void)out_map;")],
+        "dx_only": _DX_ONLY,
+        "dx_only_cluster1": [*_DX_ONLY, (_ROW_CLUSTER, _ROW_CLUSTER.replace("4", "1"))],
+        "dx_only_cluster2": [*_DX_ONLY, (_ROW_CLUSTER, _ROW_CLUSTER.replace("4", "2"))],
+    },
     "attn_block.cu": {
         "no_attention": [(_WALKS, _WALKS.replace("j < T", "j < 0"))],
         "no_remote_loads": [(_REMOTE, "            const uint4 v = make_uint4(src, kk, 0, 0);")],
@@ -589,8 +654,8 @@ CUTOUTS = {
                        (_Q_MMA, "          ;"), (_PROJ_MMA, "            ;")],
         "no_phases": [(_PHASE_A, _PHASE_A.replace("i < T", "i < 0")),
                       (_PHASE_B, _PHASE_B.replace("j < T", "j < 0"))],
-        "no_dx_tail": [_never(_DX_TAIL)],
-        "no_dw_tails": [_never(_DW_TAILS[0]), _never(_DW_TAILS[1])],
+        "no_dx_tail": [(_DX_TAIL, "  const int err = 0;\n  if (false) launch_rows<LnBackward, false>(")],
+        "no_dw_tails": [(_DW_TAILS[0], "  const int e = 0;"), (_DW_TAILS[1], "  return 0;")],
         # loads only, half of every weight stage fetched: bytes or latency?
         "loads_only_half_w": [(_WALKS, _WALKS.replace("j < T", "j < 0")), (_KV_MMA, "            ;"),
                               (_Q_MMA, "          ;"), (_PROJ_MMA, "            ;"),
@@ -673,8 +738,8 @@ def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) ->
     """Build each tree, then time the kernels of ``sources`` of each at the
     step's shape (the flash kernels at (192, 6, 785), K1b and K3 at (192,
     197), K5f and K5b at (37,824, 384, 1,536)) in the order base, v1 .. vn,
-    vn .. v1, base; with ``check``, each variant's outputs must agree with the
-    plain version."""
+    vn .. v1, base (then, in the same order, each call's device time); with
+    ``check``, each variant's outputs must agree with the plain version."""
     kernels = [k for s in ABLATE_SOURCES if s in sources for k in ABLATE_SOURCES[s]]
     if "attn_block.cu" in sources:  # K8f also at a batch of 8 tiles
         kernels = [*kernels, "attn_block_fwd 8"]
@@ -682,9 +747,10 @@ def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) ->
         t0 = time.perf_counter()
         lib = use(tree)
         print(f"[{tag}] {name}: built in {time.perf_counter() - t0:.1f} s")
-        for needle in ("flash_", "mha_qkv_bwd", "mlp_sm90", "attn_block"):
+        for needle in ("flash_", "mha_qkv_bwd", "mlp_sm90", "attn_block", "dense_sm90"):
             for line in ptxas_lines(lib, needle):
-                if "registers" in line or "spill" in line or "Performance Loss" in line:
+                if ("registers" in line or "spill" in line or "Performance Loss" in line) and (
+                        "C7519" not in line):
                     print(f"[{tag}] {name} ptxas: {line}")
     use(NEW)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 9)
@@ -735,6 +801,19 @@ def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) ->
             checks += [lambda name, kname=kname: cs.check_mlp(f"{kname} {name}", case, fns[kname](),
                                                               want_blk[kname])
                        for kname in blk_fns]
+    if "dense_sm90.cu" in sources:
+        dense_fns, _, dense_plain, _ = dense_operands(gen, DENSE_CUT)
+        names = ABLATE_SOURCES["dense_sm90.cu"][:4]
+        fns.update({kname: dense_fns[key] for kname, key in zip(names, DENSE_CUT)})
+        # K8b at (192, 197), whose dx tail is the row pass and dW tails the dW kernel
+        fns["attn_block_bwd"] = attn_block_operands(gen, *ATTN_AB[0][:4], ("attn_block_bwd",))[0][
+            "attn_block_bwd"]
+        case = "K7 at (37,824, 384, 1,152) and (37,824, 384, 384), K9c and K9d at the latter"
+        if check:
+            want_dense = {kname: dense_plain[key]() for kname, key in zip(names, DENSE_CUT)}
+            checks += [lambda name, kname=kname: cs.check_mlp(f"{kname} {name}", case, fns[kname](),
+                                                              want_dense[kname])
+                       for kname in names]
     if "mha_qkv_bwd.cu" in sources:
         shape = MHA_SHAPES[0]
         _, mha, plain = mha_operands(gen, *shape)
@@ -758,8 +837,38 @@ def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) ->
         print(f"[{tag}] {name}: (single, back to back) ms, order {order}: "
               + ", ".join(f"{kname} {r[kname]}" for kname in kernels)
               + f"; {case}; on {smi}")
+    # last (a profiled process launches more slowly after): the device time of
+    # each call's kernels alone, which back-to-back readings of calls as short
+    # as the host's launch work cannot separate from it
+    for name in order:
+        use(trees[name])
+        for kname in kernels:
+            res[name].setdefault(f"{kname} device", []).append(device_ms(fns[kname]))
+    for name, r in res.items():
+        print(f"[{tag}] {name}: device ms a call (torch.profiler, {DEVICE_CALLS} calls), order "
+              f"{order}: " + ", ".join(f"{kname} {r[kname + ' device']}" for kname in kernels)
+              + f"; on {smi}")
     use(NEW)
     return res
+
+
+DEVICE_CALLS = 10
+
+
+def device_ms(fn, calls: int = DEVICE_CALLS) -> float:
+    """The device time of ``calls`` calls of ``fn`` under torch.profiler (the
+    CUDA kernels' own trace events, summed) per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / calls
 
 
 def mlp_operands(gen, rows, d, f, names=ABLATE_SOURCES["mlp_sm90.cu"]):
@@ -839,6 +948,198 @@ def attn_block_operands(gen, b, n, d, h, names=ABLATE_SOURCES["attn_block.cu"]):
             y = cs.unfused_attention_half(blk, xl, True)
             unfused[name] = lambda y=y: torch.autograd.grad(y, leaves, dy, retain_graph=True)
     return ({n: fns[n] for n in names}, unfused, {n: plain[n] for n in names})
+
+
+def dense_operands(gen, cases):
+    """bf16 operands of the dense-layer kernels as chip_smoke makes them, per
+    case of ``cases`` → (kernel functions, library functions, plain versions,
+    and for K7 the kernel on nn.Linear's layout: W passed as ``weight.t()``);
+    the kernel and plain functions return tuples.
+    The kernel functions give K7 W as a contiguous (K, N) tensor, which every
+    tree takes as it is; the library is one PyTorch call on nn.Linear's
+    weight (``F.linear``, with the residual sum; or its autograd backward)."""
+    F = torch.nn.functional
+
+    def randn(shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+
+    fns, library, plain, linear = {}, {}, {}, {}
+    for case in cases:
+        name, rows, k, n = case
+        a, w, b = randn((rows, k)), randn((k, n), k ** -0.5), randn((n,), 0.1)
+        wl = w.t().contiguous()  # nn.Linear's (N, K) weight
+        if name == "gemm_res_fwd":
+            res = randn((rows, n))
+            fns[case] = lambda a=a, w=w, b=b, res=res: (mlp._launch_gemm_res_fwd(res, a, w, b),)
+            plain[case] = lambda a=a, w=w, b=b, res=res: (
+                mlp._gemm_res_fwd_reference(res, a, w, b),)
+
+            def linear_add(a=a, wl=wl, b=b, res=res):
+                with torch.no_grad():
+                    return res + F.linear(a, wl, b)
+            library[case] = linear_add
+            continue
+        dy = randn((rows, n))
+        ref = dense._dense_bwd_reference if name == "dense_bwd" else mlp._gemm_res_bwd_reference
+        # the wrappers are looked up at each call: ``use`` swaps K7's for an old tree
+        fns[case] = lambda a=a, dy=dy, w=w, name=name: (
+            dense._launch_dense_bwd if name == "dense_bwd" else mlp._launch_gemm_res_bwd)(a, dy, w)
+        plain[case] = lambda a=a, dy=dy, w=w, ref=ref: ref(a, dy, w)
+        if name == "dense_bwd":
+            linear[case] = lambda a=a, dy=dy, wl=wl: dense._launch_dense_bwd(a, dy, wl.t())
+        leaves = [t.detach().requires_grad_() for t in (a, wl, b)]
+        y = F.linear(*leaves)
+        library[case] = lambda y=y, leaves=leaves, dy=dy: torch.autograd.grad(y, leaves, dy,
+                                                                             retain_graph=True)
+    return fns, library, plain, linear
+
+
+def mode_dense(smi: str, old: Path) -> dict:
+    """K7, K9c and K9d at ``DENSE_AB`` in the order new, old, old, new (K7 also
+    on nn.Linear's layout, new arms only): medians of 20 single calls and of 5
+    runs of 50 back to back, beside the library call read the same two ways,
+    the plain version once and the bound from ``chip_smoke.dense_bound``; the
+    new backwards must repeat their bits. Then K8b at ``DENSE_K8B`` the same
+    way (its D = 384 tails are K7's kernels: the same bits in every arm), the
+    DINO step with ``dense_pallas_bwd`` beside the default route
+    (``dense_step``), and last each case's device time alone (``device_ms``)."""
+    arms = [("new", NEW), ("old", old), ("old", old), ("new", NEW)]
+    for _, csrc in arms[:2]:
+        use(csrc)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 14)
+    out = {}
+    use(NEW)
+    fns, library, plain, linear = dense_operands(gen, DENSE_AB)
+    for case in DENSE_AB:
+        cs.check_mlp(case[0], "rows={} K={} N={}".format(*case[1:]), fns[case](), plain[case]())
+    res = {case: {"single_ms": [], "b2b_ms": [], "arms": [a for a, _ in arms]} for case in DENSE_AB}
+    ref = {}
+    for arm, csrc in arms:
+        use(csrc)
+        for case, fn in fns.items():
+            got = [t.clone() for t in fn()]
+            if arm == "new" and case[0].endswith("bwd"):
+                if case not in ref:
+                    ref[case] = got
+                elif not all(torch.equal(a, c) for a, c in zip(got, ref[case])):
+                    raise RuntimeError(f"{case}: the new kernels' bits changed between arms")
+            res[case]["single_ms"].append(cs.cuda_median_ms(fn))
+            res[case]["b2b_ms"].append(cs.back_to_back_ms(fn))
+            if arm == "new" and case in linear:
+                if not all(torch.equal(a, c) for a, c in zip(linear[case](), ref[case])):
+                    raise RuntimeError(f"{case}: nn.Linear's layout gave other bits")
+                res[case].setdefault("linear_layout_ms", []).append(
+                    (cs.cuda_median_ms(linear[case]), cs.back_to_back_ms(linear[case])))
+    use(NEW)
+    for case, row in res.items():
+        name, rows, k, n = case
+        lib = [cs.cuda_median_ms(library[case]) for _ in range(2)]
+        lib_b2b = [cs.back_to_back_ms(library[case]) for _ in range(2)]
+        row.update(library_ms=lib, library_b2b_ms=lib_b2b,
+                   plain_ms=cs.cuda_median_ms(plain[case], reps=5, warmup=1),
+                   **cs.dense_bound(name, rows, k, n))
+        out[f"{name} {rows} {k} {n}"] = row
+        print(f"[dense] {name} rows={rows} K={k} N={n}, order {row['arms']}: single calls "
+              f"(medians of 20) {row['single_ms']} ms; 50 back to back (medians of 5, per "
+              f"launch) {row['b2b_ms']} ms; nn.Linear's layout (single, b2b, new arms) "
+              f"{row.get('linear_layout_ms', '-')}; library {lib} ms, back to back {lib_b2b} "
+              f"ms; plain {row['plain_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms by "
+              f"{row['bound_by']}; on {smi}")
+    del fns, library, plain, linear, ref
+    torch.cuda.empty_cache()
+    out["attn_block_bwd"] = dense_k8b(smi, arms)
+    out["step"] = dense_step(smi, arms)
+    # last, after the step's profiles: each call's kernels alone on the device
+    fns = dense_operands(gen, DENSE_AB)[0]
+    for arm, csrc in arms:
+        use(csrc)
+        for case, fn in fns.items():
+            out[" ".join(map(str, case))].setdefault("device_ms", []).append(device_ms(fn))
+    for case in DENSE_AB:
+        key = " ".join(map(str, case))
+        print(f"[dense] {key}: device ms a call (torch.profiler, {DEVICE_CALLS} calls), order "
+              f"{[a for a, _ in arms]}: {out[key]['device_ms']}; on {smi}")
+    use(NEW)
+    return out
+
+
+def dense_k8b(smi: str, arms) -> dict:
+    """K8b at ``DENSE_K8B`` in the order of ``arms``, single calls and back to
+    back; its bits the same in every arm (new and old tails compute alike)."""
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 15)
+    out = {}
+    for b, n, d, h in DENSE_K8B:
+        use(NEW)
+        fn = attn_block_operands(gen, b, n, d, h, ("attn_block_bwd",))[0]["attn_block_bwd"]
+        row = {"single_ms": [], "b2b_ms": [], "arms": [a for a, _ in arms]}
+        ref = None
+        for arm, csrc in arms:
+            use(csrc)
+            got = [t.clone() for t in fn()]
+            if ref is None:
+                ref = got
+            elif not all(torch.equal(a, c) for a, c in zip(got, ref)):
+                raise RuntimeError(f"K8b ({b}, {n}, {d}): the {arm} kernels gave other bits")
+            row["single_ms"].append(cs.cuda_median_ms(fn))
+            row["b2b_ms"].append(cs.back_to_back_ms(fn))
+        out[f"{b} {n} {d}"] = row
+        print(f"[dense] attn_block_bwd B={b} N={n} D={d} H={h}, order {row['arms']}: single "
+              f"calls {row['single_ms']} ms; back to back {row['b2b_ms']} ms; the same bits in "
+              f"every arm; on {smi}")
+        del fn
+        torch.cuda.empty_cache()
+    use(NEW)
+    return out
+
+
+def dense_step(smi: str, arms) -> dict:
+    """The DINO step with ``dense_pallas_bwd`` and by the default route, full
+    width and depth, one bundle each after 2 warm-up steps: in each arm 1 + 6
+    steps of both routes, the route first in the first and third arm and
+    second in the others (so each route reads in the order of ``arms`` and
+    sits on both sides of the other), medians of the 6, launch counts checked;
+    last, one profiled step of each route with each library: kernel time by
+    kind, K7's kernels and their sums per step."""
+    batch = cs.train_batch()
+    flag = "dense_pallas_bwd"
+    use(NEW)
+    bundles = {flag: cs.train_bundle({flag: True}), "default": cs.train_bundle(None)}
+    depth = bundles[flag].model.backbone.config.depth
+    views = cs.TRAIN_BATCH * (bundles[flag].dcfg.n_global + bundles[flag].dcfg.n_local)
+    want = {flag: 4 * depth, "default": 0}
+    for bundle in bundles.values():
+        cs.run_steps(bundle, batch, cs.WARMUP_STEPS)
+    step_ms = {route: [] for route in bundles}
+    for i, (arm, csrc) in enumerate(arms):
+        use(csrc)
+        for route in (flag, "default") if i % 2 == 0 else ("default", flag):
+            steps = cs.run_steps(bundles[route], batch, 1 + STEP_TIMED)
+            for r in steps:
+                if r["launches"]["dense_bwd"] != want[route] or not np.isfinite(r["loss"]):
+                    raise RuntimeError(f"the {route} step ({arm}): launches {r['launches']}, "
+                                       f"loss {r['loss']}")
+            step_ms[route].append(statistics.median(r["ms"] for r in steps[1:]))
+    out = {"arms": [a for a, _ in arms], "step_ms": step_ms}
+    print(f"[dense] the DINO step, full depth, order {out['arms']} (route first in arms 1 and "
+          f"3), medians of {STEP_TIMED} steps after {cs.WARMUP_STEPS} warm-up: {flag} "
+          f"{step_ms[flag]} ms = {[round(views / ms * 1e3, 1) for ms in step_ms[flag]]} "
+          f"views/s; default route {step_ms['default']} ms; on {smi}")
+    # last (a profiled process launches more slowly after): kernel time by kind
+    kinds = ("dense-layer kernels (hand-written)",
+             "fixed-order sums of partial gradients (hand-written)")
+    out["k7_ms_per_step"] = {}
+    for i, (arm, csrc) in enumerate(arms[:2]):
+        use(csrc)
+        for route, bundle in bundles.items():
+            totals = cs.profile_step(f"the step by the {route} route, {arm} kernels", bundle,
+                                     batch, step_ms[route][i], smi)
+            out["k7_ms_per_step"][f"{route} {arm}"] = sum(totals.get(k, 0.0) for k in kinds)
+    print(f"[dense] K7's kernels and their fixed-order sums per profiled step: "
+          f"{out['k7_ms_per_step']} ms; on {smi}")
+    del bundles
+    torch.cuda.empty_cache()
+    use(NEW)
+    return out
 
 
 def mode_attn_block(smi: str, old: Path) -> dict:
@@ -1111,9 +1412,11 @@ def main() -> None:
             summary["mlp_e2e"] = mode_mlp_e2e(smi, old)
         elif mode == "attn_block":
             summary["attn_block"] = mode_attn_block(smi, old)
+        elif mode == "dense":
+            summary["dense"] = mode_dense(smi, old)
         else:
             raise SystemExit(f"unknown mode {mode!r}: check, ab, bwd, e2e, mha_bwd, mlp, "
-                             "mlp_e2e, attn_block, ablate, cutout")
+                             "mlp_e2e, attn_block, dense, ablate, cutout")
     print(f"[ab] done in {time.perf_counter() - t0:.1f} s; on {smi}")
     print(json.dumps(summary))
 

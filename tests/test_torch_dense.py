@@ -383,3 +383,170 @@ def test_dense_step_bundle_trajectory_matches_jax(shared_drop_path, dense_calls)
             if key.endswith("attn/qkv/bias"):  # the key bias: see test_torch_dino.py
                 a, c = np.delete(a, np.s_[64:128]), np.delete(c, np.s_[64:128])
             np.testing.assert_allclose(a, c, atol=1e-4, rtol=1e-4, err_msg=f"{name} {key}")
+
+
+# -- the kernels' launches, shapes and arguments only ---------------------------
+
+
+class _FakeLib:
+    """The library's shape queries as csrc/ builds them, for tests of the
+    launch arguments."""
+    tpuwsi_dense_rows_per_step = staticmethod(lambda k: 64 if k <= 384 else 32)
+    tpuwsi_dense_cols_per_slice = staticmethod(lambda k: 64 if k <= 384 else 32)
+    tpuwsi_mlp_rows_per_tile = staticmethod(lambda k: 64 if k <= 384 else 32)
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """The dense wrappers with the library's shape queries and 132 SMs standing
+    in for the card; each launch is recorded, ``(name, args)``, not made."""
+    import types
+
+    from tpuwsi_torch.ops import _build
+
+    calls = []
+    monkeypatch.setattr(_build, "load", lambda: _FakeLib)
+    monkeypatch.setattr(_build, "launch", lambda name, like, args: calls.append((name, args)))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(multi_processor_count=132))
+    return calls
+
+
+def _bf16(*shape, device="cpu"):
+    return torch.zeros(shape, dtype=torch.bfloat16, device=device)
+
+
+@pytest.mark.parametrize("layout", ["kn", "nk"], ids=["w_kn", "w_nk"])
+@pytest.mark.parametrize("k", [384, 768])
+def test_dense_bwd_passes_the_weight_as_stored(launches, k, layout):
+    """K7's launch by input width: a (K, N) weight goes as it is (layout 0);
+    the transposed view of nn.Linear's (N, K) weight goes as that weight's own
+    storage at K = 384 (layout 1, csrc/dense_sm90.cu reads it in place) and as
+    a (K, N) copy at K = 768 (layout 0: dense.cu's row-tiled kernel reads W
+    only so)."""
+    n, rows = 3 * k, 5
+    x, dy = _bf16(rows, k), _bf16(rows, n)
+    stored = _bf16(k, n) if layout == "kn" else _bf16(n, k)
+    w = stored if layout == "kn" else stored.t()
+    dx, dw, db = tdense._launch_dense_bwd(x, dy, w)
+    ((name, args),) = launches
+    assert name == "dense_bwd" and len(args) == 11
+    assert args[6:9] == (rows, k, n) and args[10] == (1 if (layout, k) == ("nk", 384) else 0)
+    copied = layout == "nk" and k == 768
+    assert (args[2] == stored.data_ptr()) != copied
+    assert dx.shape == (rows, k) and dw.shape == (k, n) and db.shape == (n,)
+
+
+@pytest.mark.parametrize("f", [384, 768])
+@pytest.mark.parametrize("d", [384, 768])
+def test_gemm_residual_launches_by_width(launches, d, f):
+    """K9c (output width d) and K9d (input width f) at every pair of widths:
+    the weight's own storage, the widths in the C functions' order, and K9d's
+    row groups; dense.cu sends d = 384 (K9c) and f = 384 (K9d) to
+    csrc/dense_sm90.cu, the others to its row-tiled kernels."""
+    rows = 70
+    res, a, dy, w, b = _bf16(rows, d), _bf16(rows, f), _bf16(rows, d), _bf16(f, d), _bf16(d)
+    y = tmlp._launch_gemm_res_fwd(res, a, w, b)
+    da, dw, db = tmlp._launch_gemm_res_bwd(a, dy, w)
+    (fwd_name, fwd), (bwd_name, bwd) = launches
+    assert fwd_name == "gemm_res_fwd" and fwd[2] == w.data_ptr() and fwd[5:] == (rows, f, d)
+    assert bwd_name == "gemm_res_bwd" and len(bwd) == 10 and bwd[2] == w.data_ptr()
+    steps = -(-rows // _FakeLib.tpuwsi_dense_rows_per_step(f))
+    assert bwd[6:9] == (rows, f, d) and 1 <= bwd[9] <= steps
+    assert y.shape == (rows, d) and da.shape == (rows, f) and dw.shape == (f, d)
+
+
+@pytest.mark.parametrize("rows", [1, 64, 65, 21312, 37824, 128500])
+@pytest.mark.parametrize("k,n", [(384, 1152), (384, 384), (768, 2304), (768, 768)],
+                         ids=["s_qkv", "s_proj", "b_qkv", "b_proj"])
+def test_dense_row_groups_follow_the_shapes_and_the_card(monkeypatch, launches, rows, k, n):
+    """K7's row groups, on meta tensors: between 1 and one per row step, about
+    DENSE_DW_WAVES blocks per SM over the output columns' slices, the same on
+    every launch and for any contents, and at the step's global views the
+    same as the attention sub-block's dW tails take (one dW kernel at width
+    384)."""
+    import types
+
+    def groups(sms):
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda dev: types.SimpleNamespace(multi_processor_count=sms))
+        x, dy, w = _bf16(rows, k, device="meta"), _bf16(rows, n, device="meta"), _bf16(
+            k, n, device="meta")
+        tdense._launch_dense_bwd(x, dy, w)
+        return launches[-1][1][9]
+
+    steps = -(-rows // _FakeLib.tpuwsi_dense_rows_per_step(k))
+    slices = n // _FakeLib.tpuwsi_dense_cols_per_slice(k)
+    for sms in (132, 114, 16):
+        got = groups(sms)
+        assert got == groups(sms) and 1 <= got <= steps
+        blocks = tmlp.DENSE_DW_WAVES * sms  # the grid the groups aim at: at least one group
+        assert got == steps or got * slices <= max(blocks, slices) < (got + 1) * slices
+    if (rows, k) == (37824, 384):  # the K8b tails' numbers at (192, 197, 384)
+        assert groups(132) == {1152: 14, 384: 44}[n]
+
+
+@pytest.mark.parametrize("d", [384, 768])
+def test_hybrid_dense_backward_reads_nn_linear_weight_in_place(monkeypatch, launches, d):
+    """The ViT hands ``hybrid_dense`` its nn.Linear's ``weight.t()``. At
+    D = 384 the backward passes that weight's own storage with layout 1 and
+    copies nothing out of it; at D = 768 it makes the one (D, N) copy the
+    row-tiled kernel needs."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+
+    class Copies(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (aten.clone.default, aten._to_copy.default, aten.copy_.default):
+                src = args[1] if func is aten.copy_.default else args[0]
+                self.seen.append(src.untyped_storage().data_ptr())
+            return func(*args, **(kwargs or {}))
+
+    monkeypatch.setattr(tdense, "_use_plain", lambda x: False)  # the kernel's path, faked launch
+    layer = torch.nn.Linear(d, 3 * d).to(torch.bfloat16)
+    x = torch.zeros(2, 3, d, dtype=torch.bfloat16, requires_grad=True)
+    y = tdense.hybrid_dense(x, layer.weight.t(), layer.bias)
+    with Copies() as mode:
+        y.backward(torch.zeros_like(y))
+    ((name, args),) = launches
+    copies = mode.seen.count(layer.weight.untyped_storage().data_ptr())
+    if d == 384:
+        assert args[2] == layer.weight.data_ptr() and args[10] == 1 and copies == 0
+    else:
+        assert args[2] != layer.weight.data_ptr() and args[10] == 0 and copies == 1
+    assert layer.weight.grad.shape == (3 * d, d) and x.grad.shape == x.shape
+
+
+def test_dense_refusals_come_before_any_launch(launches):
+    """What the dense-layer kernels do not take raises before a launch: widths
+    they are not built for, an output width K7 does not serve, fp32, a weight
+    that is neither (K, N) nor nn.Linear's layout where it is read in place,
+    a misaligned tensor, rows x width past 2^31."""
+    bf, k = torch.bfloat16, 384
+    x, dy, w = _bf16(5, k), _bf16(5, 3 * k), _bf16(k, 3 * k)
+    with pytest.raises(ValueError, match=r"widths \(384, 768\)"):
+        tdense._launch_dense_bwd(_bf16(5, 512), _bf16(5, 1536), _bf16(512, 1536))
+    with pytest.raises(ValueError, match=r"output width in \(384, 1152\)"):
+        tdense._launch_dense_bwd(x, _bf16(5, 768), _bf16(k, 768))
+    with pytest.raises(ValueError, match="bf16"):
+        tdense._launch_dense_bwd(x.float(), dy, w)
+    with pytest.raises(ValueError, match=r"\(N, D\) weight at D in \(384,\) only"):
+        tdense._check_operands(_bf16(5, 768), _bf16(5, 2304), _bf16(2304, 768), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tdense._check_operands(x, dy, _bf16(3 * k, k).t(), 0)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tdense._launch_dense_bwd(_bf16(5 * k + 1)[1:].view(5, k), dy, w)
+    big = 2 ** 31 // (3 * k) + 1
+    with pytest.raises(ValueError, match="2\\^31"):
+        tdense._launch_dense_bwd(_bf16(big, k, device="meta"), _bf16(big, 3 * k, device="meta"),
+                                 _bf16(k, 3 * k, device="meta"))
+    with pytest.raises(ValueError, match=r"output width in \(384, 768\)"):
+        tmlp._launch_gemm_res_fwd(_bf16(5, 512), x, _bf16(k, 512), _bf16(512))
+    with pytest.raises(ValueError, match=r"widths \(384, 768\)"):
+        tmlp._launch_gemm_res_bwd(_bf16(5, 512), _bf16(5, k), _bf16(512, k))
+    assert launches == [] and bf == torch.bfloat16

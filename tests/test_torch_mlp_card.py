@@ -90,6 +90,73 @@ def test_dense_bwd_matches_plain_version_on_the_card(shape):
         assert torch.equal(a, c)  # a fixed order of sums: the same bits twice
 
 
+# K7, K9c and K9d at the row counts where the tiles and clusters of four
+# tiles of csrc/dense_sm90.cu end (one row, less than a tile, either side of
+# one tile, two tiles and a row, four tiles and a row) and at the step's
+# global views
+DENSE_EDGE_ROWS = [1, 7, 63, 64, 65, 129, 257, 37824]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["kn", "nk"], ids=["w_kn", "w_nk"])
+@pytest.mark.parametrize("rows", DENSE_EDGE_ROWS)
+def test_dense_bwd_at_edge_rows_on_the_card(rows, layout):
+    """K7 at width 384 with the qkv and proj layers' output widths, the weight
+    stored (K, N) or as nn.Linear keeps it (N, K) and passed as its transposed
+    view, against the plain version; launched twice, the same bits, and dW,
+    db the same bits in both layouts (they do not read W)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    k = 384
+    for n in (3 * k, k):
+        x, dy, w = ((std * torch.randn(s, generator=gen, device="cuda")).bfloat16()
+                    for s, std in (((rows, k), 1.0), ((rows, n), 1.0), ((k, n), k ** -0.5)))
+        w_in = w if layout == "kn" else w.t().contiguous().t()
+        before = tdense.LAUNCHES["dense_bwd"]
+        got, again = tdense._launch_dense_bwd(x, dy, w_in), tdense._launch_dense_bwd(x, dy, w_in)
+        other = tdense._launch_dense_bwd(x, dy, w)
+        want = tdense._dense_bwd_reference(x, dy, w)
+        torch.cuda.synchronize()
+        assert tdense.LAUNCHES["dense_bwd"] == before + 3
+        for a, b, c in zip(got, want, again):
+            assert a.shape == b.shape and a.dtype == b.dtype and torch.isfinite(a.float()).all()
+            scale = max(1.0, b.float().abs().max().item() / 4)
+            assert (a.float() - b.float()).abs().max().item() <= CARD_MAX_ABS * scale
+            assert torch.equal(a, c)
+        assert all(torch.equal(a, c) for a, c in zip(got[1:], other[1:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", DENSE_EDGE_ROWS)
+def test_gemm_residual_at_edge_rows_on_the_card(rows):
+    """K9c with output width 384 from both input widths, K9d with input width
+    384 to both output widths, against their plain versions; K9d launched
+    twice, the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator(device="cuda").manual_seed(rows + 1)
+
+    def randn(shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+
+    d = 384
+    for f in (384, 768):
+        res, a, w, b = randn((rows, d)), randn((rows, f)), randn((f, d), f ** -0.5), randn((d,), 0.1)
+        x, dy, wd = randn((rows, d)), randn((rows, f)), randn((d, f), d ** -0.5)
+        pairs = [(tmlp._launch_gemm_res_fwd(res, a, w, b),
+                  tmlp._gemm_res_fwd_reference(res, a, w, b))]
+        got, again = tmlp._launch_gemm_res_bwd(x, dy, wd), tmlp._launch_gemm_res_bwd(x, dy, wd)
+        pairs += list(zip(got, tmlp._gemm_res_bwd_reference(x, dy, wd)))
+        torch.cuda.synchronize()
+        for a_, b_ in pairs:
+            assert a_.shape == b_.shape and a_.dtype == b_.dtype
+            assert torch.isfinite(a_.float()).all()
+            scale = max(1.0, b_.float().abs().max().item() / 4)
+            assert (a_.float() - b_.float()).abs().max().item() <= CARD_MAX_ABS * scale
+        assert all(torch.equal(a_, c) for a_, c in zip(got, again))
+
+
 # The four fused-MLP kernels at the row counts where their tiles and clusters
 # end: one row, either side of one and two 64-row tiles, a partial cluster
 # (five tiles and a row: the second cluster of four holds two tiles, one of a

@@ -135,8 +135,8 @@ def load() -> ctypes.CDLL:
         lib.tpuwsi_mlp_rows_per_tile.argtypes = [i32]
         lib.tpuwsi_mlp_hidden_per_slice.argtypes = [i32]
         # dense layers: tensors, then rows and the two widths (, row groups)
-        # (, eps) and the stream
-        lib.tpuwsi_dense_bwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        # (, eps) (, the weight's layout) and the stream
+        lib.tpuwsi_dense_bwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib.tpuwsi_gemm_res_bwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
         lib.tpuwsi_ln_gemm_fwd.argtypes = [ptr] * 6 + [i32, i32, i32, f32, ptr]
         lib.tpuwsi_ln_gemm_bwd.argtypes = [ptr] * 10 + [i32] * 4 + [f32, ptr]

@@ -86,10 +86,11 @@
 // B N rows by the tails: dln = dqkv . Wqkv^T with the LayerNorm backward and
 // dy added, per 64-row tile with its dgamma, dbeta column sums; dWqkv =
 // LN(x)^T . dqkv and dWproj, dbproj = o^T . dy, sum dy per group of row
-// steps. At D = 384 they are wgmma kernels of this file
-// (`attn_block_bwd_dx_kernel`, `attn_block_bwd_dw_kernel`); at D = 768 they
-// are the row-tiled kernels of dense_common.cuh (K7's; the dx one rebuilds
-// LN(x) into the workspace with the same arithmetic). `sum_partials_kernel`
+// steps. At D = 384 they are K7's wgmma kernels (dense_sm90.cuh): its row
+// pass with this file's LayerNorm-backward epilogue (`LnBackward`), and its
+// dW kernel; at D = 768 the row-tiled kernels of dense_common.cuh (K7's at
+// 768; the dx one rebuilds LN(x) into the workspace with the same
+// arithmetic). `sum_partials_kernel`
 // adds every partial in a fixed order. No atomics: two launches on the same
 // inputs give the same bits. (PR 6's head kernel held 1.2 of the backward's
 // 1.8 ms at (192, 197), the tails the rest: PERF.md, PR 13.)
@@ -105,44 +106,26 @@
 #include <stdint.h>
 
 #include "dense_common.cuh"
+#include "dense_sm90.cuh"
 #include "hopper.cuh"
 
 namespace {
 
+// kTile (64: rows of an x tile, a query tile, a key chunk), kRowBytes (one
+// head row, 64 bf16, 128-byte swizzled), kBox (8 KB), kSmemLimit, the
+// swizzle, descriptor and wgmma helpers and the dW kernel: dense_sm90.cuh
 using namespace hopper;
+using namespace dense_sm90;
 using bf16 = __nv_bfloat16;
 
 constexpr int kHeadDim = 64;
-constexpr int kTile = 64;                     // rows of an x tile, a query tile, a key chunk
-constexpr uint32_t kRowBytes = 128;           // one head row (64 bf16), 128-byte swizzled
-constexpr uint32_t kBox = kTile * kRowBytes;  // 8 KB
 constexpr int kMaxSeq = 304;                  // K and V of two heads (forward), four tiles (backward)
-constexpr uint32_t kSmemLimit = 232448;       // 227 KB a block
 constexpr float kNegInf = -1e30f;             // finite, as in the TPU kernel
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---- small helpers --------------------------------------------------------
 
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Descriptor of a 128-byte swizzled operand: 8-row groups 1,024 bytes apart
-// (SBO); `lbo` bytes between 64-wide blocks of an MN-major operand wider than
-// 64 (unused for K-major ones).
-__device__ __forceinline__ uint64_t sw128(uint32_t addr, uint32_t lbo = 16) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (64ull << 32) | (1ull << 62);
-}
-
 __device__ __forceinline__ uint64_t desc(uint32_t addr) { return sw128(opaque(addr)); }
-
-// Byte offset of the bf16 pair at (row, col) of a 128-byte swizzled tile of
-// 64 columns that starts on a 1,024-byte boundary: 16-byte chunk c of row r
-// sits at chunk c ^ (r & 7).
-__device__ __forceinline__ uint32_t swz(int row, int col) {
-  return static_cast<uint32_t>(row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2);
-}
 
 __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
@@ -150,21 +133,6 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
                : "memory");
 }
 
-__device__ __forceinline__ float2 ld_shared_f2(uint32_t addr) {
-  float2 v;
-  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_shared_f32(uint32_t addr, float v) {
-  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
-}
 
 // ---- thread-block clusters --------------------------------------------------
 
@@ -217,18 +185,6 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity)
   }
 }
 
-// Each warp's lane 0 arrives once for the warp, after the warp's reads.
-__device__ __forceinline__ void warp_arrive(uint32_t bar) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.f;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -236,34 +192,9 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---- wgmma -------------------------------------------------------------------
-// Fragment ownership of an m64nN fp32 result (PTX ISA): warp w of the
-// warpgroup holds rows 16w..16w+15; lane 4g + t4 holds rows 16w+g (a) and
-// 16w+g+8 (b) and, of each 8-column group i, columns 8i+2t4 and 8i+2t4+1
-// (regs 4i, 4i+1 of row a; 4i+2, 4i+3 of row b). Packed to bf16 pairs
-// (pack_a), 16 columns are the register A fragment of one k16 step.
-
-// D(64 x 64) (+)= A(64 x 16) . B(16 x 64), both from shared memory;
-// kTransA / kTransB = 1 reads that operand MN-major.
-template <int kTransA, int kTransB>
-__device__ __forceinline__ void ss_n64(float (&d)[32], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
-}
+// (fragment ownership of an m64nN result: dense_sm90.cuh.) Packed to bf16
+// pairs (pack_a), 16 columns of a result are the register A fragment of one
+// k16 step.
 
 template <int kTransA, int kTransB>
 __device__ __forceinline__ void ss_n128(float (&d)[64], uint64_t da, uint64_t db, int accumulate) {
@@ -410,10 +341,6 @@ __device__ __forceinline__ void row_stats4(const bf16* __restrict__ x, const int
     mean[r] = ok ? m : 0.f;
     inv[r] = ok ? rsqrtf(fmaxf(var, 0.f) + eps) : 0.f;
   }
-}
-
-__device__ __forceinline__ void st_shared_f2(uint32_t addr, float a, float b) {
-  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
 }
 
 // This thread's eight bias pairs of a head's 64 columns (8i + 2t4, + 1),
@@ -867,8 +794,7 @@ attn_block_fwd_kernel(const __grid_constant__ CUtensorMap ln_map,
 // backward 1: a block per (image, head) item -> o, dqkv (bf16), column sums of dqkv
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdThreads = 384;  // two consumer warpgroups + one producer warpgroup
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // setmaxnreg: 128 x 40 + 256 x 232
+constexpr int kBwdThreads = 384;  // two consumer warpgroups + one producer warpgroup (setmaxnreg)
 constexpr int kMaxStages = 3;
 constexpr uint32_t kStage = 6 * kBox;  // x, dy, Wq, Wk, Wv boxes of the head, Wproj's 64 rows
 
@@ -1252,74 +1178,17 @@ attn_block_bwd_head_kernel(const __grid_constant__ CUtensorMap ln_map,
 // ---------------------------------------------------------------------------
 // backward 2, at D = 384: the tails on wgmma (D = 768 keeps dense_common.cuh's)
 // ---------------------------------------------------------------------------
-// dx: per 64-row tile of the B N rows, dln = dqkv . Wqkv^T (K = 1,152 in 18
-// chunks; each warpgroup 192 output columns, m64n192), then the LayerNorm
-// backward with dy added in the epilogue: dx = bf16(dy + inv (dln gamma -
-// mean(dln gamma) - xhat mean(dln gamma xhat))) and the tile's dgamma, dbeta
-// column sums (row_part, as the row-tiled kernel wrote them). dW: per (slice
-// of 64 output columns, group of 64-row steps), dW[:, slice] = A^T . G with A
-// = LN(x) (or o) and G = dqkv (or dy) both read MN-major (each warpgroup
-// 192 rows of dW, three m64n64 accumulators), and db = the column sums of G;
-// the partials go to w_part in the fixed-order layout of the row-tiled
-// kernels. A producer warp's one thread fills rings of three stages by TMA.
+// Both are dense_sm90.cuh's kernels, K7's at input width 384. dx: its row
+// pass, per 64-row tile of the B N rows dln = dqkv . Wqkv^T (18 chunks of
+// 64; Wqkv (384, 1,152) read K-major, multicast to the cluster), with the
+// LayerNorm backward and dy added as its epilogue: dx = bf16(dy + inv (dln
+// gamma - mean(dln gamma) - xhat mean(dln gamma xhat))) and the tile's
+// dgamma, dbeta column sums (row_part, as the row-tiled kernel wrote them).
+// dW: dWqkv = LN(x)^T . dqkv and dWproj = o^T . dy with their column sums,
+// per (slice of 64 output columns, group of 64-row steps) into w_part in the
+// fixed-order layout of the row-tiled kernels.
 
 constexpr int kTailD = 384;
-constexpr int kDwThreads = 288;
-constexpr int kTailStages = 3;
-constexpr int kDxChunks = 3 * kTailD / 64;                       // 18
-constexpr uint32_t kDxStage = kBox + 2 * 192 * kRowBytes;         // dqkv box + Wqkv 384 x 64
-constexpr uint32_t kDxOffStats = kTailStages * kDxStage;          // (mean, inv) of 64 rows
-constexpr uint32_t kDxOffRowRed = kDxOffStats + kTile * 8;        // [2 wg][64 rows] float pairs
-constexpr uint32_t kDxOffColRed = kDxOffRowRed + 2 * kTile * 8;   // [2 wg][4 warps][192] pairs
-constexpr uint32_t kDxOffBar = kDxOffColRed + 2 * 4 * 192 * 8;
-constexpr uint32_t kDxSmem = kDxOffBar + 8 * 2 * kTailStages;
-constexpr uint32_t kDwStage = 7 * kBox;                           // A 64 rows x 384, G 64 x 64
-constexpr uint32_t kDwOffRed = kTailStages * kDwStage;          // db partials [8 warps][32] pairs
-constexpr uint32_t kDwOffBar = kDwOffRed + 8 * 32 * 8;
-constexpr uint32_t kDwSmem = kDwOffBar + 8 * 2 * kTailStages;
-static_assert(kDxSmem <= kSmemLimit && kDwSmem <= kSmemLimit, "227 KB a block");
-
-template <int kTransA, int kTransB>
-__device__ __forceinline__ void ss_n192(float (&d)[96], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, %99, %100;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
-}
-
-struct TailBars {
-  uint32_t at;
-  __device__ uint32_t full(int i) const { return at + 8u * i; }
-  __device__ uint32_t empty(int i) const { return at + 8u * (kTailStages + i); }
-};
 
 struct DxParams {
   const bf16* x;
@@ -1332,25 +1201,26 @@ struct DxParams {
 };
 
 // The LayerNorm backward of the tile's rows row0 + ra, + rb (this thread's),
-// columns 192 kWg + 8i + 2t4, + 1, from dln in acc; the two warpgroups' row
-// halves meet in shared memory (warpgroup 0's first), the warps' column sums
-// in a fixed order. Rows past the end hold dln = 0 and read the last row's
-// x in their place; they are not written.
+// columns 192 kWg + 8i + 2t4, + 1, from dln in acc; each row's mean and
+// 1 / sigma at `stats`; the two warpgroups' row halves meet in shared memory
+// at `row_red` (warpgroup 0's first), the warps' column sums at `col_red` in
+// a fixed order. Rows past the end hold dln = 0 and read the last row's x in
+// their place; they are not written, nor are a tile's sums past the last.
 template <int kWg>
 __device__ __forceinline__ void dx_epilogue(const float (&acc)[96], const DxParams& prm,
-                                            uint32_t base, int tile, int tid) {
+                                            uint32_t stats, uint32_t row_red, uint32_t col_red,
+                                            int tile, int tid) {
   tid = static_cast<int>(opaque(static_cast<uint32_t>(tid)));
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int ra = 16 * warp + g, rb = ra + 8, row0 = kTile * tile;
-  const float2 sa = ld_shared_f2(base + kDxOffStats + 8 * ra);
-  const float2 sb = ld_shared_f2(base + kDxOffStats + 8 * rb);
+  const float2 sa = ld_shared_f2(stats + 8 * ra);
+  const float2 sb = ld_shared_f2(stats + 8 * rb);
   // element offsets of the two rows (rows x 3 D < 2^31)
   const int at_a = min(row0 + ra, prm.rows - 1) * kTailD, at_b = min(row0 + rb, prm.rows - 1) * kTailD;
   auto pair = [](const bf16* p, int at) {
     return mlp::unpack_bf16(*reinterpret_cast<const uint32_t*>(p + at));
   };
-  const uint32_t col_red = base + kDxOffColRed + kWg * (4 * 192 * 8);
-  const uint32_t row_red = base + kDxOffRowRed;
+  col_red += kWg * (4 * 192 * 8);
   float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
 #pragma unroll
   for (int i = 0; i < 24; ++i) {
@@ -1401,7 +1271,7 @@ __device__ __forceinline__ void dx_epilogue(const float (&acc)[96], const DxPara
   const float m1a = row_mean(ra, 0), m2a = row_mean(ra, 1);
   const float m1b = row_mean(rb, 0), m2b = row_mean(rb, 1);
   float* part = prm.row_part + static_cast<size_t>(tile) * 2 * kTailD + 192 * kWg;
-  for (int c = tid; c < 192; c += 128) {
+  for (int c = tid; c < 192 && tile < prm.n_tiles; c += 128) {
     float dg = 0.f, db = 0.f;
 #pragma unroll
     for (int w = 0; w < 4; ++w) {
@@ -1433,13 +1303,18 @@ __device__ __forceinline__ void dx_epilogue(const float (&acc)[96], const DxPara
   named_sync(1, 256);  // the sums are read before the next tile's
 }
 
-template <int kWg>
-__device__ __forceinline__ void dx_consumer(const DxParams& prm, uint32_t base, int tid) {
-  const TailBars bars{base + kDxOffBar};
-  const int warp = tid >> 5, lane = tid & 31;
-  uint32_t it = 0;
-  for (int tile = blockIdx.x; tile < prm.n_tiles; tile += gridDim.x) {
-    // this warpgroup's 32 rows' LayerNorm statistics while the first chunks land
+// The dx tail's hooks on the row pass: each warpgroup takes its 32 rows'
+// LayerNorm statistics while the tile's first chunks land; the epilogue
+// reduces through the epilogue's stage (row sums at its start, column sums
+// after them: 13 KB of its 48).
+struct LnBackward {
+  using Params = DxParams;
+  static constexpr bool kLoadsRes = false;
+  static constexpr uint32_t kSmem = kTile * 8;  // (mean, inv) of the tile's rows
+
+  template <int kWg>
+  __device__ static void prologue(const DxParams& prm, uint32_t base, int tile, int tid) {
+    const int warp = tid >> 5, lane = tid & 31;
     const int r0 = 32 * kWg + 8 * warp;
     const bf16* x_tile = prm.x + static_cast<size_t>(kTile) * tile * kTailD;
     for (int j = 0; j < 8; j += 4) {
@@ -1450,214 +1325,17 @@ __device__ __forceinline__ void dx_consumer(const DxParams& prm, uint32_t base, 
       row_stats4<kTailD>(x_tile, rows, prm.rows - kTile * tile, prm.eps, lane, mean, inv);
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        if (lane == r) st_shared_f2(base + kDxOffStats + 8 * (r0 + j + r), mean[r], inv[r]);
+        if (lane == r) st_shared_f2(base + kRowOffEpi + 8 * (r0 + j + r), mean[r], inv[r]);
     }
-    float acc[96];
-    zero(acc);
-    // each chunk's products issued one group ahead of the wait that frees
-    // the chunk before it (three stages)
-#pragma unroll 1
-    for (int c = 0; c < kDxChunks; ++c) {
-      const uint32_t i = it + c;
-      mbar_wait(bars.full(i % kTailStages), (i / kTailStages) & 1);
-      const uint32_t st = base + (i % kTailStages) * kDxStage;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        ss_n192<0, 0>(acc, sw128(opaque(st) + 32 * kk),
-                      sw128(opaque(st) + kBox + kWg * 192 * kRowBytes + 32 * kk), 1);
-      wgmma_commit();
-      if (c > 0) {
-        wgmma_wait<1>();
-        warp_arrive(bars.empty((i - 1) % kTailStages));
-      }
-    }
-    wgmma_wait<0>();
-    reg_fence(acc);
-    warp_arrive(bars.empty((it + kDxChunks - 1) % kTailStages));
-    it += kDxChunks;
+  }
+
+  template <int kWg>
+  __device__ static void epilogue(const float (&acc)[96], const DxParams& prm, const CUtensorMap*,
+                                  uint32_t io, uint32_t base, int tile, const RowShape&, int tid) {
     named_sync(1, 256);  // every row's statistics
-    dx_epilogue<kWg>(acc, prm, base, tile, tid);
+    dx_epilogue<kWg>(acc, prm, base + kRowOffEpi, io, io + 2 * kTile * 8, tile, tid);
   }
-}
-
-// 384 threads: the LayerNorm-backward epilogue next to 96 accumulators needs
-// more than the 168 registers a thread of a 288-thread block (it spilled
-// there); the producer warpgroup gives its registers to the consumers.
-__global__ void __launch_bounds__(kBwdThreads, 1)
-attn_block_bwd_dx_kernel(const __grid_constant__ CUtensorMap dqkv_map,
-                         const __grid_constant__ CUtensorMap w_map, const DxParams prm) {
-  extern __shared__ __align__(1024) unsigned char smem[];
-  const uint32_t base = smem_u32(smem);
-  const TailBars bars{base + kDxOffBar};
-  if (threadIdx.x == 0) {
-    if (base & 1023u) __trap();
-    for (int i = 0; i < kTailStages; ++i) {
-      mbar_init(bars.full(i), 1);
-      mbar_init(bars.empty(i), 8);  // every consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
-  if (role == 2) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (threadIdx.x != 256) return;
-    uint32_t it = 0;
-    for (int tile = blockIdx.x; tile < prm.n_tiles; tile += gridDim.x) {
-      for (int c = 0; c < kDxChunks; ++c, ++it) {
-        const int s = static_cast<int>(it % kTailStages);
-        if (it >= kTailStages) mbar_wait(bars.empty(s), ((it / kTailStages) - 1) & 1);
-        mbar_expect_tx(bars.full(s), kDxStage);
-        const uint32_t dst = base + s * kDxStage;
-        tma_load_2d(dst, &dqkv_map, bars.full(s), 64 * c, kTile * tile);
-        tma_load_2d(dst + kBox, &w_map, bars.full(s), 64 * c, 0);
-        tma_load_2d(dst + kBox + 192 * kRowBytes, &w_map, bars.full(s), 64 * c, 192);
-      }
-    }
-  } else if (role == 0) {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    dx_consumer<0>(prm, base, threadIdx.x);
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    dx_consumer<1>(prm, base, threadIdx.x - 128);
-  }
-}
-
-struct DwParams {
-  float* w_part;  // (groups, D n + n): dW (D, n) | db (n,) of each group of rows
-  int n, n_steps, per_group, slices;
 };
-
-struct DwWork {
-  int slice, grp, st0, steps;
-};
-
-__device__ __forceinline__ DwWork dw_work(const DwParams& prm) {
-  DwWork w;
-  w.slice = blockIdx.x % prm.slices;
-  w.grp = blockIdx.x / prm.slices;
-  w.st0 = w.grp * prm.per_group;
-  w.steps = max(0, min(prm.per_group, prm.n_steps - w.st0));
-  return w;
-}
-
-// Warpgroup kWg: rows 192 kWg .. + 191 of dW[:, slice], three m64n64 tiles.
-template <int kWg>
-__device__ __forceinline__ void dw_consumer(const DwParams& prm, uint32_t base, int tid) {
-  const TailBars bars{base + kDwOffBar};
-  const DwWork wk = dw_work(prm);
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  float acc0[32], acc1[32], acc2[32];
-  zero(acc0);
-  zero(acc1);
-  zero(acc2);
-  // db: this thread's column pair 2 lane, + 1 of the slice over the 8 rows
-  // 32 kWg + 8 warp .. of each stage
-  float db0 = 0.f, db1 = 0.f;
-  for (int j = 0; j < wk.steps; ++j) {
-    const int s = j % kTailStages;
-    mbar_wait(bars.full(s), (j / kTailStages) & 1);
-    const uint32_t st = base + s * kDwStage;
-    const uint32_t gb = opaque(st) + 6 * kBox;
-    // A = the stage's rows of LN(x) (or o) read MN-major: 64 values of D a
-    // box row; B = G's 64 columns, MN-major; 16 rows (2,048 bytes) a k16 step
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      ss_n64<1, 1>(acc0, sw128(opaque(st) + (3 * kWg) * kBox + 2048 * kk), sw128(gb + 2048 * kk), 1);
-    wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      ss_n64<1, 1>(acc1, sw128(opaque(st) + (3 * kWg + 1) * kBox + 2048 * kk), sw128(gb + 2048 * kk),
-                   1);
-    wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      ss_n64<1, 1>(acc2, sw128(opaque(st) + (3 * kWg + 2) * kBox + 2048 * kk), sw128(gb + 2048 * kk),
-                   1);
-    wgmma_commit();
-#pragma unroll
-    for (int r = 32 * kWg + 8 * warp; r < 32 * kWg + 8 * warp + 8; ++r) {
-      uint32_t v;
-      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(gb + swz(r, 2 * lane)));
-      const float2 f = mlp::unpack_bf16(v);
-      db0 += f.x;
-      db1 += f.y;
-    }
-    wgmma_wait<0>();
-    reg_fence(acc0);
-    reg_fence(acc1);
-    reg_fence(acc2);
-    warp_arrive(bars.empty(s));
-  }
-  float* part =
-      prm.w_part + static_cast<size_t>(wk.grp) * (static_cast<size_t>(kTailD) * prm.n + prm.n);
-  const int col0 = kHeadDim * wk.slice + 2 * t4;
-  auto store = [&](const float (&acc)[32], int mt) {
-    const int k = 192 * kWg + 64 * mt + 16 * warp + g;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      *reinterpret_cast<float2*>(part + static_cast<size_t>(k) * prm.n + col0 + 8 * i) =
-          make_float2(acc[4 * i], acc[4 * i + 1]);
-      *reinterpret_cast<float2*>(part + static_cast<size_t>(k + 8) * prm.n + col0 + 8 * i) =
-          make_float2(acc[4 * i + 2], acc[4 * i + 3]);
-    }
-  };
-  store(acc0, 0);
-  store(acc1, 1);
-  store(acc2, 2);
-  // db: the eight warps' partials of each column pair, added in warp order
-  const uint32_t red = base + kDwOffRed;
-  st_shared_f2(red + 8 * (32 * (4 * kWg + warp) + lane), db0, db1);
-  named_sync(1, 256);
-  if (kWg == 0 && warp == 0) {
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      const float2 v = ld_shared_f2(red + 8 * (32 * w + lane));
-      s0 += v.x;
-      s1 += v.y;
-    }
-    *reinterpret_cast<float2*>(part + static_cast<size_t>(kTailD) * prm.n + kHeadDim * wk.slice +
-                               2 * lane) = make_float2(s0, s1);
-  }
-}
-
-__global__ void __launch_bounds__(kDwThreads, 1)
-attn_block_bwd_dw_kernel(const __grid_constant__ CUtensorMap a_map,
-                         const __grid_constant__ CUtensorMap g_map, const DwParams prm) {
-  extern __shared__ __align__(1024) unsigned char smem[];
-  const uint32_t base = smem_u32(smem);
-  const TailBars bars{base + kDwOffBar};
-  if (threadIdx.x == 0) {
-    if (base & 1023u) __trap();
-    for (int i = 0; i < kTailStages; ++i) {
-      mbar_init(bars.full(i), 1);
-      mbar_init(bars.empty(i), 8);  // every consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
-  if (role == 2) {
-    if (threadIdx.x != 256) return;
-    const DwWork wk = dw_work(prm);
-    for (int j = 0; j < wk.steps; ++j) {
-      const int s = j % kTailStages;
-      if (j >= kTailStages) mbar_wait(bars.empty(s), ((j / kTailStages) - 1) & 1);
-      mbar_expect_tx(bars.full(s), kDwStage);
-      const uint32_t dst = base + s * kDwStage;
-      const int row = kTile * (wk.st0 + j);
-      for (int b = 0; b < 6; ++b) tma_load_2d(dst + b * kBox, &a_map, bars.full(s), 64 * b, row);
-      tma_load_2d(dst + 6 * kBox, &g_map, bars.full(s), kHeadDim * wk.slice, row);
-    }
-  } else if (role == 0) {
-    dw_consumer<0>(prm, base, threadIdx.x);
-  } else {
-    dw_consumer<1>(prm, base, threadIdx.x - 128);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // host side
@@ -1835,36 +1513,17 @@ int tails_384(const bf16* xp, const bf16* dyp, const float* gp, const bf16* wq, 
               cudaStream_t stream) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap dqkv_map, w_map, ln_map, o_map, dy_map;
-  if (!encode_2d(&dqkv_map, encode, dqkv, 3 * kTailD, rows, kTile) ||
-      !encode_2d(&w_map, encode, wq, 3 * kTailD, kTailD, 192) ||
-      !encode_2d(&ln_map, encode, ln, kTailD, rows, kTile) ||
-      !encode_2d(&o_map, encode, o, kTailD, rows, kTile) ||
-      !encode_2d(&dy_map, encode, dyp, kTailD, rows, kTile))
+  CUtensorMap w_map;  // Wqkv (384, 1,152): 64 output rows of 64 reduction values a box, K-major
+  if (!encode_2d(&w_map, encode, wq, 3 * kTailD, kTailD, kTile))
     return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attn_block_bwd_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kDxSmem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(attn_block_bwd_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kDwSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  DxParams dxp{xp, dyp, gp, dx, row_part, eps, rows, (rows + kTile - 1) / kTile};
-  const int dx_grid = dxp.n_tiles < sms ? dxp.n_tiles : sms;
-  attn_block_bwd_dx_kernel<<<dx_grid, kBwdThreads, kDxSmem, stream>>>(dqkv_map, w_map, dxp);
-  const int n_steps = (rows + kTile - 1) / kTile;
-  DwParams qkv{w_part_qkv, 3 * kTailD, n_steps, (n_steps + groups_qkv - 1) / groups_qkv,
-               3 * kTailD / kHeadDim};
-  attn_block_bwd_dw_kernel<<<qkv.slices * groups_qkv, kDwThreads, kDwSmem, stream>>>(
-      ln_map, dqkv_map, qkv);
-  DwParams proj{w_part_proj, kTailD, n_steps, (n_steps + groups_proj - 1) / groups_proj,
-                kTailD / kHeadDim};
-  attn_block_bwd_dw_kernel<<<proj.slices * groups_proj, kDwThreads, kDwSmem, stream>>>(
-      o_map, dy_map, proj);
-  return static_cast<int>(cudaGetLastError());
+  const DxParams dxp{xp, dyp, gp, dx, row_part, eps, rows, (rows + kTile - 1) / kTile};
+  const int err = launch_rows<LnBackward, false>(dqkv, w_map, nullptr, dx, rows, 3 * kTailD / kTile,
+                                                 dxp, stream);
+  if (err != 0) return err;
+  // dWqkv = LN(x)^T . dqkv and dWproj = o^T . dy with their column sums
+  const int e = dw(ln, dqkv, w_part_qkv, rows, 3 * kTailD, groups_qkv, stream);
+  if (e != 0) return e;
+  return dw(o, dyp, w_part_proj, rows, kTailD, groups_proj, stream);
 }
 
 // The row-tiled tails of dense_common.cuh (K7's kernels) at D = 768: dx with

@@ -2,7 +2,9 @@
 // (LayerNorm in front, bias and residual sum behind) forward, and the three
 // gradients of a dense layer from one op backward.
 //
-// Replaces five TPU kernels:
+// Replaces five TPU kernels (three of them only at width 768: at 384 the
+// entry points below dispatch K7 and K9d by their input width and K9c by its
+// output width to the Hopper kernels of dense_sm90.cu):
 //   tpuwsi/ops/dense.py:51  `_dense_bwd_kernel`     (pallas_call at :87)
 //       dx = dy . W^T, dW = x^T . dy, db = sum dy
 //   tpuwsi/ops/mlp.py:832   `_ln_gemm_fwd_kernel`   (pallas_call at :904)
@@ -67,6 +69,7 @@
 // allocates nothing and returns cudaGetLastError().
 
 #include "dense_common.cuh"
+#include "dense_sm90.cuh"
 
 namespace {
 
@@ -241,6 +244,8 @@ bool widths_ok(int rows, int k, int n) {
   return rows >= 1 && (k == 384 || k == 768) && n >= 64 && n % 64 == 0;
 }
 
+// y (rows, n) = LN(x) . W + b (kLn) or res + bf16(a . W + b) with the
+// row-tiled kernel; a (rows, k).
 template <bool kLn>
 int dispatch_fwd(const void* a, const void* gamma, const void* beta, const void* w,
                  const void* bias, const void* res, void* y, int rows, int k, int n, float eps,
@@ -251,16 +256,19 @@ int dispatch_fwd(const void* a, const void* gamma, const void* beta, const void*
   return launch_fwd<768, kLn>(a, gamma, beta, w, bias, res, y, rows, n, eps, stream);
 }
 
-template <bool kLn>
-int dispatch_bwd(const void* x, const void* dy, const void* gamma, const void* beta, const void* w,
-                 void* dx, void* grads, void* w_part, void* row_part, void* ln_work, int rows,
-                 int k, int n, int groups, float eps, void* stream) {
-  if (!widths_ok(rows, k, n)) return static_cast<int>(cudaErrorInvalidValue);
+// The three gradients of a dense layer with input width k, K7's and K9d's:
+// at 384 dense_sm90.cu's kernels, which take W (k, n) (w_layout 0) or (n, k)
+// (1); at 768 the row-tiled kernels, which read W as (k, n) only.
+int dense_grads(const void* x, const void* dy, const void* w, int w_layout, void* dx, void* grads,
+                void* w_part, int rows, int k, int n, int groups, void* stream) {
+  if (!widths_ok(rows, k, n) || (w_layout != 0 && w_layout != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (k == 384)
-    return launch_bwd<384, kLn>(x, dy, gamma, beta, w, dx, grads, w_part, row_part, ln_work, rows,
-                                n, groups, eps, stream);
-  return launch_bwd<768, kLn>(x, dy, gamma, beta, w, dx, grads, w_part, row_part, ln_work, rows,
-                              n, groups, eps, stream);
+    return dense_sm90::bwd(x, dy, w, w_layout, dx, grads, w_part, rows, n, groups,
+                           static_cast<cudaStream_t>(stream));
+  if (w_layout != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd<768, false>(x, dy, nullptr, nullptr, w, dx, grads, w_part, nullptr, nullptr,
+                                rows, n, groups, 0.f, stream);
 }
 
 }  // namespace
@@ -269,15 +277,19 @@ extern "C" {
 
 // Rows per step and output columns per block of the weight-gradient grid for
 // input width k (0 for a width that is not built). The number of row groups
-// may not exceed ceil(rows / rows_per_step).
+// may not exceed ceil(rows / rows_per_step). At 384 dense_sm90.cuh's kernel
+// (K7, K9d) and the LN+GEMM's DwSlice<384> (K9b) walk the same grid.
+static_assert(DwSlice<384>::kRows == dense_sm90::kTile && DwSlice<384>::kNs == dense_sm90::kTile,
+              "one weight-gradient grid at input width 384");
+
 int tpuwsi_dense_rows_per_step(int k) {
-  if (k == 384) return DwSlice<384>::kRows;
+  if (k == 384) return dense_sm90::kTile;
   if (k == 768) return DwSlice<768>::kRows;
   return 0;
 }
 
 int tpuwsi_dense_cols_per_slice(int k) {
-  if (k == 384) return DwSlice<384>::kNs;
+  if (k == 384) return dense_sm90::kTile;
   if (k == 768) return DwSlice<768>::kNs;
   return 0;
 }
@@ -285,15 +297,17 @@ int tpuwsi_dense_cols_per_slice(int k) {
 // Every tensor is contiguous and 16-byte aligned (fp32 vectors 8-byte), bf16
 // unless said otherwise.
 //
-// Gradients of y = x . w + b. x, dx: (rows, d); dy: (rows, n); w: (d, n);
-// d is 384 or 768, n is d or 3 d. grads (out): d n + n fp32 = dW (d, n) | db.
-// Workspace, fp32, contents undefined on entry: w_part (groups, d n + n), with
-// 1 <= groups <= ceil(rows / rows_per_step(d)) row groups.
+// Gradients of y = x . w + b. x, dx: (rows, d); dy: (rows, n); w: (d, n)
+// with w_layout 0, or nn.Linear's (n, d) with w_layout 1 (at d = 384 only: the
+// caller makes a (d, n) copy for d = 768); d is 384 or 768, n is d or 3 d.
+// grads (out): d n + n fp32 = dW (d, n) | db. Workspace, fp32, contents
+// undefined on entry: w_part (groups, d n + n), with 1 <= groups <= ceil(rows
+// / rows_per_step(d)) row groups.
 int tpuwsi_dense_bwd(const void* x, const void* dy, const void* w, void* dx, void* grads,
-                     void* w_part, int rows, int d, int n, int groups, void* stream) {
+                     void* w_part, int rows, int d, int n, int groups, int w_layout,
+                     void* stream) {
   if (n != d && n != 3 * d) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_bwd<false>(x, dy, nullptr, nullptr, w, dx, grads, w_part, nullptr, nullptr,
-                             rows, d, n, groups, 0.f, stream);
+  return dense_grads(x, dy, w, w_layout, dx, grads, w_part, rows, d, n, groups, stream);
 }
 
 // Gradients of y = res + a . w + b but for d(res) = dy. a, da: (rows, f);
@@ -302,8 +316,7 @@ int tpuwsi_dense_bwd(const void* x, const void* dy, const void* w, void* dx, voi
 int tpuwsi_gemm_res_bwd(const void* a, const void* dy, const void* w, void* da, void* grads,
                         void* w_part, int rows, int f, int d, int groups, void* stream) {
   if (d != 384 && d != 768) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_bwd<false>(a, dy, nullptr, nullptr, w, da, grads, w_part, nullptr, nullptr,
-                             rows, f, d, groups, 0.f, stream);
+  return dense_grads(a, dy, w, 0, da, grads, w_part, rows, f, d, groups, stream);
 }
 
 // y = LN(x) . w + b. x: (rows, d); gamma, beta: (d,) fp32; w: (d, f); b: (f,);
@@ -322,15 +335,21 @@ int tpuwsi_ln_gemm_bwd(const void* x, const void* dy, const void* gamma, const v
                        const void* w, void* dx, void* grads, void* w_part, void* row_part,
                        void* ln_work, int rows, int d, int f, int groups, float eps,
                        void* stream) {
-  return dispatch_bwd<true>(x, dy, gamma, beta, w, dx, grads, w_part, row_part, ln_work, rows, d,
-                            f, groups, eps, stream);
+  if (!widths_ok(rows, d, f)) return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 384)
+    return launch_bwd<384, true>(x, dy, gamma, beta, w, dx, grads, w_part, row_part, ln_work,
+                                 rows, f, groups, eps, stream);
+  return launch_bwd<768, true>(x, dy, gamma, beta, w, dx, grads, w_part, row_part, ln_work, rows,
+                               f, groups, eps, stream);
 }
 
 // y = res + bf16(a . w + b). res, y: (rows, d); a: (rows, f); w: (f, d);
-// b: (d,); f and d are 384 or 768.
+// b: (d,); f and d are 384 or 768. d = 384 runs dense_sm90.cu's row kernel.
 int tpuwsi_gemm_res_fwd(const void* res, const void* a, const void* w, const void* b, void* y,
                         int rows, int f, int d, void* stream) {
-  if (d != 384 && d != 768) return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 384) return dense_sm90::gemm_res_fwd(res, a, w, b, y, rows, f,
+                                                static_cast<cudaStream_t>(stream));
+  if (d != 768) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch_fwd<false>(a, nullptr, nullptr, w, b, res, y, rows, f, d, 0.f, stream);
 }
 

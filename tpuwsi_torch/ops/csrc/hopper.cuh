@@ -1,9 +1,9 @@
 // Hopper building blocks that more than one kernel source uses
-// (mha_qkv_fwd.cu, flash_fwd.cu, flash_bwd.cu, mlp_sm90.cu): mbarriers, TMA
-// loads through tensor maps (2-D ones also multicast to a thread-block
-// cluster) and their encoding on the host, cluster barriers and remote
-// arrivals, named barriers, wgmma descriptors for 128-byte swizzled tiles,
-// and the wgmma shapes the attention kernels share.
+// (mha_qkv_fwd.cu, flash_fwd.cu, flash_bwd.cu, mlp_sm90.cu, dense_sm90.cuh):
+// mbarriers, TMA loads through tensor maps (2-D ones also multicast to a
+// thread-block cluster) and 2-D stores, the maps' encoding on the host,
+// cluster barriers and remote arrivals, named barriers, wgmma descriptors for
+// 128-byte swizzled tiles, and the wgmma shapes the attention kernels share.
 // Every function is inline; sm_90a only (wgmma).
 
 #pragma once
@@ -118,6 +118,35 @@ __device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtens
       ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "h"(mask)
       : "memory");
+}
+
+// One 2-D box of shared memory at `src` (128-byte swizzled as the map says) to
+// the tensor map's coordinates (col, row); rows past the map's extent are not
+// written. The store joins the issuing thread's bulk async-group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int col,
+                                             int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(col), "r"(row)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's bulk groups still read their
+// shared memory (which may then be written again) ...
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+
+// ... or are still running at all.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // ---- thread-block clusters -------------------------------------------------

@@ -11,7 +11,12 @@ every run. ``_dense_bwd_reference`` is its plain PyTorch version, which runs
 on a CPU tensor and nowhere else: on a CUDA tensor the backward launches the
 kernel or raises. The kernel takes bf16, D of 384 or 768 and N of D or 3 D
 (the qkv and proj layers of ViT-S and ViT-B); the reference's gate that sends
-ViT-B's qkv layer to the plain backward for want of VMEM is not carried.
+ViT-B's qkv layer to the plain backward for want of VMEM is not carried. At
+D = 384 it is ``csrc/dense_sm90.cu``, which reads the weight in either layout:
+the ViT passes ``nn.Linear.weight.t()``, and the backward hands the kernel
+that weight's own (N, D) storage, no copy; at D = 768 it is the row-tiled
+kernel of ``csrc/dense.cu``, which reads W only as (D, N), so such a view is
+copied there.
 
 As in the reference, the parameters are cast to ``x.dtype`` outside the
 differentiated op and the op returns their gradients in that dtype: with bf16
@@ -34,6 +39,7 @@ from tpuwsi_torch.ops.mlp import (
 )
 
 LAUNCHES = {"dense_bwd": 0}
+LINEAR_LAYOUT_WIDTHS = (384,)  # input widths whose kernel reads nn.Linear's (N, D) weight
 
 
 def reset_launches() -> None:
@@ -48,15 +54,33 @@ def _dense_bwd_reference(x2, dy2, w):
     return dx.to(x2.dtype), dw, db
 
 
-def _check_operands(x2, dy2, w) -> None:
-    """Raise unless the kernel takes these operands as they are."""
+def _check_operands(x2, dy2, w, w_layout: int = 0) -> None:
+    """Raise unless the kernel takes these operands as they are: ``w`` holds
+    the (D, N) weight as it is stored, (D, N) or (``w_layout`` 1) (N, D)."""
     d = x2.shape[1]
-    _check_dense_operands("hybrid dense", x2, w, (d, 3 * d), dy2=dy2)
+    if w_layout and d not in LINEAR_LAYOUT_WIDTHS:
+        raise ValueError(f"hybrid dense kernels read an (N, D) weight at D in "
+                         f"{LINEAR_LAYOUT_WIDTHS} only: got D = {d}")
+    _check_dense_operands("hybrid dense", x2, w, (d, 3 * d), dy2=dy2, w_layout=w_layout)
+
+
+def _weight_operand(w):
+    """What the kernel reads for the (D, N) weight ``w`` → ``(tensor,
+    w_layout)``: ``w`` itself where it is contiguous (0); where it is the
+    transposed view of an (N, D) weight, as ``nn.Linear.weight.t()`` is, that
+    weight's own storage (1) at the widths whose kernel reads it; otherwise a
+    (D, N) copy (0): the row-tiled kernel at D = 768 reads W as (D, N) only."""
+    if w.is_contiguous():
+        return w, 0
+    if w.shape[0] in LINEAR_LAYOUT_WIDTHS and w.t().is_contiguous():
+        return w.t(), 1
+    return w.contiguous(), 0
 
 
 def _launch_dense_bwd(x2, dy2, w):
-    _check_operands(x2, dy2, w)
-    return _launch_dense_grads("dense_bwd", LAUNCHES, x2, dy2, w)
+    w_op, w_layout = _weight_operand(w)
+    _check_operands(x2, dy2, w_op, w_layout)
+    return _launch_dense_grads("dense_bwd", LAUNCHES, x2, dy2, w_op, w_layout=w_layout)
 
 
 class _HybridDense(torch.autograd.Function):
@@ -76,7 +100,7 @@ class _HybridDense(torch.autograd.Function):
         d, n = w.shape
         bwd = _dense_bwd_reference if _use_plain(x) else _launch_dense_bwd
         dx, dw, db = bwd(x.reshape(-1, d).contiguous(),
-                         dy.to(x.dtype).reshape(-1, n).contiguous(), w.contiguous())
+                         dy.to(x.dtype).reshape(-1, n).contiguous(), w)
         return dx.reshape(x.shape), dw.to(w.dtype), db.to(w.dtype) if ctx.has_bias else None
 
 

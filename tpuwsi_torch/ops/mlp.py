@@ -43,8 +43,11 @@ in-kernel. The backward kernels sum the weight gradients in a fixed order: the
 same inputs give the same bits on every run. At width 384 the four MLP
 kernels are ``csrc/mlp_sm90.cu`` (clusters of four blocks sharing the weight
 stream; the sub-block's LayerNorm inside the row tile; the backward's row
-groups from ``mlp_dw_groups``); at 768, and for the other four, the row-tiled
-kernels of ``csrc/mlp_fwd.cu``, ``csrc/mlp_bwd.cu`` and ``csrc/dense.cu``.
+groups from ``mlp_dw_groups``), and the GEMM+residual's are
+``csrc/dense_sm90.cu`` (the forward where the output width is 384, the
+backward where the input width is 384: the hybrid dense layer's kernels); at
+768, and for the LN+GEMM, the row-tiled kernels of ``csrc/mlp_fwd.cu``,
+``csrc/mlp_bwd.cu`` and ``csrc/dense.cu``.
 
 As in the reference, the public functions cast the parameters to ``x.dtype``
 outside the differentiated op and the op returns weight and bias gradients in
@@ -250,12 +253,13 @@ def _check_operands(x2, w1, b1, w2, b2=None, dy2=None, ln=None) -> None:
 
 
 def _check_dense_operands(what, a2, w, outs=None, *, b=None, dy2=None, res2=None,
-                          ln=None) -> None:
+                          ln=None, w_layout=0) -> None:
     """Raise unless the dense-layer kernels take these operands as they are:
-    ``a2 (rows, K) @ w (K, N)`` with K in ``KERNEL_WIDTHS`` and N in ``outs``
-    (None: any multiple of 64)."""
+    ``a2 (rows, K) @ W (K, N)`` with K in ``KERNEL_WIDTHS`` and N in ``outs``
+    (None: any multiple of 64); ``w`` holds W as (K, N), or with ``w_layout``
+    1 as nn.Linear's (N, K)."""
     rows, k = a2.shape
-    n = w.shape[1]
+    n = w.shape[0] if w_layout else w.shape[1]
     n_ok = n % KERNEL_HIDDEN_MULTIPLE == 0 and n > 0 if outs is None else n in outs
     if k not in KERNEL_WIDTHS or not n_ok:
         want = f"a multiple of {KERNEL_HIDDEN_MULTIPLE}" if outs is None else f"in {tuple(outs)}"
@@ -264,8 +268,8 @@ def _check_dense_operands(what, a2, w, outs=None, *, b=None, dy2=None, res2=None
     if rows < 1 or rows * max(k, n) >= 2 ** 31:
         raise ValueError(f"{what} kernels take 1 <= rows and rows * width < 2^31: {rows} rows")
     _check_tensors(what, a2.device, k, ln, {
-        "the input": (a2, (rows, k)), "w": (w, (k, n)), "b": (b, (n,)), "dy": (dy2, (rows, n)),
-        "res": (res2, (rows, n))})
+        "the input": (a2, (rows, k)), "w": (w, (n, k) if w_layout else (k, n)), "b": (b, (n,)),
+        "dy": (dy2, (rows, n)), "res": (res2, (rows, n))})
 
 
 def _call(name: str, like: torch.Tensor, args, counts=LAUNCHES) -> None:
@@ -363,16 +367,18 @@ def _launch_mlp_block_bwd(x2, dy2, g, be, w1, b1, w2, approx, eps):
     return dx, dg, dbe, dw1, db1, dw2, db2
 
 
-def _launch_dense_grads(name, counts, a2, dy2, w, ln=None, eps=0.0):
+def _launch_dense_grads(name, counts, a2, dy2, w, ln=None, eps=0.0, w_layout=None):
     """One launch of a dense-layer backward kernel (``dense_bwd``,
     ``gemm_res_bwd``; with ``ln = (gamma, beta)``: ``ln_gemm_bwd``) →
     ``(da, dw (K, N), db)`` or ``(dx, dgamma, dbeta, dw, db)``; the first in
-    a2's dtype, the others fp32 views of one buffer. As in ``_bwd_buffers``
-    the number of row groups follows from the shapes and the card alone."""
+    a2's dtype, the others fp32 views of one buffer. ``w_layout`` (``dense_bwd``
+    only, whose C function takes it): 0 for W stored (K, N), 1 for nn.Linear's
+    (N, K). As in ``_bwd_buffers`` the number of row groups follows from the
+    shapes and the card alone."""
     from tpuwsi_torch.ops import _build
 
     rows, k = a2.shape
-    n = w.shape[1]
+    n = w.shape[0] if w_layout else w.shape[1]
     dev = a2.device
     lib = _build.load()
     steps = -(-rows // lib.tpuwsi_dense_rows_per_step(k))
@@ -384,8 +390,9 @@ def _launch_dense_grads(name, counts, a2, dy2, w, ln=None, eps=0.0):
     w_part = torch.empty((groups, n_w), dtype=torch.float32, device=dev)
     da = torch.empty_like(a2)
     if not ln:
+        layout = () if w_layout is None else (w_layout,)
         _call(name, a2, (a2.data_ptr(), dy2.data_ptr(), w.data_ptr(), da.data_ptr(),
-                         grads.data_ptr(), w_part.data_ptr(), rows, k, n, groups), counts)
+                         grads.data_ptr(), w_part.data_ptr(), rows, k, n, groups, *layout), counts)
         dw, db = grads.split([k * n, n])
         return da, dw.view(k, n), db
     g, be = ln

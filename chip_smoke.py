@@ -229,12 +229,13 @@ DENSE_SHAPES = [
     (6304, 768, 768),     # ViT-B/16, proj layer
     (7, 384, 384),        # less than one row tile
 ]
-# K7, K9c and K9d at width 384 (csrc/dense_sm90.cu) where its row tiles and
-# clusters of four tiles end: one row, less than a tile, either side of one
-# tile, two tiles and a row (three past the end in the one cluster), four
-# tiles and a row (the second cluster: a tile of one row, three past the end);
-# K7 with the qkv and proj layers' output widths, K9c with both input widths,
-# K9d with both output widths
+# K7, K9c, K9d, K9a and K9b at width 384 (csrc/dense_sm90.cu,
+# csrc/ln_gemm_sm90.cu) where their row tiles and clusters of four tiles end:
+# one row, less than a tile, either side of one tile, two tiles and a row
+# (three past the end in the one cluster), four tiles and a row (the second
+# cluster: a tile of one row, three past the end); K7, K9a and K9b with the
+# qkv and proj layers' output widths, K9c with both input widths, K9d with
+# both output widths
 DENSE_EDGE_ROWS = [1, 7, 63, 64, 65, 129, 257]
 # parameter gradients that both routes round to bf16 on their way to the fp32
 # parameters: one bf16 ulp of the largest element, 2^-7 of it
@@ -331,7 +332,9 @@ def phase_build() -> None:
     # any kernel compiled from them (the build log's "== <source>" parts)
     for source, what in (("mlp_sm90.cu", "K5f, K5b, K6f, K6b"),
                          ("attn_block.cu", "K8f, K8b's head kernel and tails, LN(x)"),
-                         ("dense_sm90.cu", "K7, K9c, K9d at width 384: row and dW kernels")):
+                         ("dense_sm90.cu", "K7, K9c, K9d at width 384: row and dW kernels"),
+                         ("ln_gemm_sm90.cu", "K9a, K9b at width 384: the resident-LN(x) "
+                          "forward, the row pass with the LayerNorm backward, LN(x), dW")):
         part, fn, spills, serialised = None, None, {}, []
         for line in lines:
             if line.startswith("== "):
@@ -1022,9 +1025,9 @@ def phase_dense_kernels(smi: str) -> dict:
     too) and the proj layer (K9c, K9d), single calls and back to back, beside
     one library route for the same function, the plain version's and the
     bound. The three backward kernels run twice on the same inputs and must
-    give the same bits; K7 also takes W as nn.Linear keeps it (a transposed
-    view: at width 384 read in place), with the same dW and db bits. Then K7,
-    K9c and K9d at ``DENSE_EDGE_ROWS``."""
+    give the same bits; K7, K9a and K9b also take W as nn.Linear keeps it (at
+    width 384 read in place), K7 with the same dW and db bits, K9a and K9b
+    with the same bits. Then K7, K9c, K9d, K9a and K9b at ``DENSE_EDGE_ROWS``."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     F = torch.nn.functional
     names = ("dense_bwd", "ln_gemm_fwd", "ln_gemm_bwd", "gemm_res_fwd", "gemm_res_bwd")
@@ -1069,6 +1072,8 @@ def phase_dense_kernels(smi: str) -> dict:
         if dy is not None:
             res["dense_bwd"]["max_abs_err"] = max(res["dense_bwd"]["max_abs_err"],
                                                   check_linear_layout(case, x, dy, w))
+        if k in mlp.LINEAR_LAYOUT_WIDTHS:
+            check_ln_layout(case, x, dy, g, be, w, b)
         timed = {DENSE_SHAPES[0]: ("dense_bwd", "ln_gemm_fwd", "ln_gemm_bwd"),
                  DENSE_SHAPES[1]: ("dense_bwd", "gemm_res_fwd", "gemm_res_bwd")}.get(shape, ())
         if timed:
@@ -1130,6 +1135,20 @@ def phase_dense_kernels(smi: str) -> dict:
                 check_kernel("dense_bwd", case, lambda: dense._launch_dense_bwd(x, dy, w),
                              lambda: dense._dense_bwd_reference(x, dy, w)),
                 check_linear_layout(case, x, dy, w))
+        for n in (3 * k, k):  # K9a and K9b at the qkv and proj layers, both weight layouts
+            x, dy = randn((rows, k)), randn((rows, n))
+            g, be = 1.0 + randn((k,), 0.1, torch.float32), randn((k,), 0.1, torch.float32)
+            w, b = randn((k, n), k ** -0.5), randn((n,), 0.1)
+            case = f"rows={rows} K={k} N={n}"
+            for name, fns in {
+                "ln_gemm_fwd": (lambda: mlp._launch_ln_gemm_fwd(x, g, be, w, b, 1e-6),
+                                lambda: mlp._ln_gemm_fwd_reference(x, g, be, w, b, 1e-6)),
+                "ln_gemm_bwd": (lambda: mlp._launch_ln_gemm_bwd(x, dy, g, be, w, 1e-6),
+                                lambda: mlp._ln_gemm_bwd_reference(x, dy, g, be, w, 1e-6)),
+            }.items():
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                               check_kernel(name, case, *fns))
+            check_ln_layout(case, x, dy, g, be, w, b)
         for f in (384, 768):  # K9c by its input width, K9d by its output width
             a, resid, dy = randn((rows, f)), randn((rows, k)), randn((rows, f))
             w, b, wd = randn((f, k), f ** -0.5), randn((k,), 0.1), randn((k, f), k ** -0.5)
@@ -1145,8 +1164,23 @@ def phase_dense_kernels(smi: str) -> dict:
                              lambda: mlp._launch_gemm_res_bwd(xk, dy, wd),
                              lambda: mlp._gemm_res_bwd_reference(xk, dy, wd)))
     print("[dense_bwd, ln_gemm_bwd, gemm_res_bwd] two runs on the same inputs gave the same "
-          f"bits at every shape; K7, K9c, K9d also at rows {DENSE_EDGE_ROWS}")
+          f"bits at every shape; K7, K9c, K9d, K9a, K9b also at rows {DENSE_EDGE_ROWS}")
     return res
+
+
+def check_ln_layout(case, x, dy, g, be, w, b) -> None:
+    """K9a and K9b (``dy`` None: K9a alone) on nn.Linear's (N, K) weight, read
+    in place (layout 1): the same bits as from the (K, N) weight."""
+    wl = w.t().contiguous()
+    pairs = [(mlp._launch_ln_gemm_fwd(x, g, be, wl, b, 1e-6, 1),
+              mlp._launch_ln_gemm_fwd(x, g, be, w, b, 1e-6))]
+    if dy is not None:
+        pairs += zip(mlp._launch_ln_gemm_bwd(x, dy, g, be, wl, 1e-6, 1),
+                     mlp._launch_ln_gemm_bwd(x, dy, g, be, w, 1e-6))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in pairs):
+        raise RuntimeError(f"ln_gemm at {case}: nn.Linear's layout gave other bits")
+    print(f"[ln_gemm_fwd, ln_gemm_bwd] {case}: nn.Linear's layout read in place, the same bits")
 
 
 def check_linear_layout(case, x, dy, w) -> float:
@@ -2080,18 +2114,18 @@ def main() -> None:
         "mlp_block_fwd": ("mlp_sm90.cu", "tpuwsi/ops/mlp.py:485"),
         "mlp_block_bwd": ("mlp_sm90.cu", "tpuwsi/ops/mlp.py:508"),
         "dense_bwd": ("dense_sm90.cu", "tpuwsi/ops/dense.py:51"),
-        "ln_gemm_fwd": ("dense.cu", "tpuwsi/ops/mlp.py:832"),
-        "ln_gemm_bwd": ("dense.cu", "tpuwsi/ops/mlp.py:850"),
+        "ln_gemm_fwd": ("ln_gemm_sm90.cu", "tpuwsi/ops/mlp.py:832"),
+        "ln_gemm_bwd": ("ln_gemm_sm90.cu", "tpuwsi/ops/mlp.py:850"),
         "gemm_res_fwd": ("dense_sm90.cu", "tpuwsi/ops/mlp.py:1079"),
         "gemm_res_bwd": ("dense_sm90.cu", "tpuwsi/ops/mlp.py:1092"),
         "attn_block_fwd": ("attn_block.cu", "tpuwsi/ops/attention.py:1467"),
         "attn_block_bwd": ("attn_block.cu", "tpuwsi/ops/attention.py:1490"),
     }
     # the fused-MLP kernels at D = 768 (ViT-B) keep the row-tiled sources, as
-    # do K7 and K9d at input width 768 and K9c at output width 768
+    # do K7, K9d, K9a and K9b at input width 768 and K9c at output width 768
     at_768 = {"mlp_fwd": "mlp_fwd.cu", "mlp_bwd": "mlp_bwd.cu", "mlp_block_fwd": "mlp_fwd.cu",
               "mlp_block_bwd": "mlp_bwd.cu", "dense_bwd": "dense.cu", "gemm_res_fwd": "dense.cu",
-              "gemm_res_bwd": "dense.cu"}
+              "gemm_res_bwd": "dense.cu", "ln_gemm_fwd": "dense.cu", "ln_gemm_bwd": "dense.cu"}
     lines = []
     for name, (source, replaces) in meta.items():
         by_path = {path: counts[name] for path, counts in paths.items()}

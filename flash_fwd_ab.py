@@ -138,7 +138,8 @@ ABLATE_SOURCES = {"flash_fwd.cu": ("flash_fwd", "flash_fwd_stats"),
                   "mlp_sm90.cu": ("mlp_fwd", "mlp_bwd", "mlp_block_fwd", "mlp_block_bwd"),
                   "attn_block.cu": ("attn_block_fwd", "attn_block_bwd"),
                   "dense_sm90.cu": ("dense_bwd", "dense_bwd proj", "gemm_res_fwd",
-                                    "gemm_res_bwd", "attn_block_bwd")}
+                                    "gemm_res_bwd", "attn_block_bwd"),
+                  "ln_gemm_sm90.cu": ("ln_gemm_fwd", "ln_gemm_fwd 128500", "ln_gemm_bwd")}
 MHA_SHAPES = [(192, 197, 384, 6), (576, 37, 384, 6)]  # (B, N, D, H)
 SERVE_CHUNKS, STEP_TIMED = 8, 6
 # the fused-MLP kernels timed by ``mlp`` at D 384, F 1,536: rows -> kernels
@@ -155,11 +156,15 @@ ATTN_AB = [(192, 197, 384, 6, ("attn_block_fwd", "attn_block_bwd")),
            (64, 257, 768, 12, ("attn_block_fwd",))]
 # the dense-layer kernels timed by ``dense``: (kernel, rows, K, N), K the
 # input width and N the output width (K9c: f and d); ``cutout`` times the
-# first two of K7 and the first of K9c and K9d
+# first two of K7 and the first of K9c and K9d (dense_sm90.cu), or K9a and
+# K9b (ln_gemm_sm90.cu)
 DENSE_AB = [("dense_bwd", 37824, 384, 1152), ("dense_bwd", 37824, 384, 384),
             ("dense_bwd", 21312, 384, 1152), ("gemm_res_fwd", 37824, 384, 384),
-            ("gemm_res_fwd", 128500, 384, 384), ("gemm_res_bwd", 37824, 384, 384)]
+            ("gemm_res_fwd", 128500, 384, 384), ("gemm_res_bwd", 37824, 384, 384),
+            ("ln_gemm_fwd", 37824, 384, 1152), ("ln_gemm_fwd", 128500, 384, 1152),
+            ("ln_gemm_bwd", 37824, 384, 1152)]
 DENSE_CUT = [DENSE_AB[0], DENSE_AB[1], DENSE_AB[3], DENSE_AB[5]]
+LN_GEMM_CUT = DENSE_AB[6:9]
 # K8b, whose tails at D = 384 are K7's kernels: (B, N, D, H)
 DENSE_K8B = [(192, 197, 384, 6), (16, 197, 768, 12)]
 _NEW_DW_GROUPS = mlp.mlp_dw_groups
@@ -212,6 +217,18 @@ def _launch_dense_bwd_no_layout(x2, dy2, w):
 
 
 _NEW_DENSE_BWD = dense._launch_dense_bwd
+_NEW_CALL = mlp._call
+
+
+def _call_without_ln_layout(name, like, args, counts=mlp.LAUNCHES):
+    """``mlp._call`` for a tree whose LN+GEMM C functions take no weight
+    layout (before csrc/ln_gemm_sm90.cu): W as (D, F) only, the trailing
+    layout argument (0 there) dropped."""
+    if name.startswith("ln_gemm"):
+        if args[-1] != 0:
+            raise ValueError("this tree's LN+GEMM kernels read W as (D, F) only")
+        args = args[:-1]
+    _NEW_CALL(name, like, args, counts)
 
 
 def use(csrc: Path) -> Path:
@@ -220,8 +237,8 @@ def use(csrc: Path) -> Path:
     tree's hash, so the libraries of both trees sit side by side. A tree
     without csrc/mlp_sm90.cu gets K5b and K6b launched with the row groups of
     the row-tiled kernels, one whose mlp_sm90.cu has no sub-block K6b
-    alone; a tree whose K8f takes no LN(x) workspace, or whose K7 takes no
-    weight layout, a launcher of its own for it."""
+    alone; a tree whose K8f takes no LN(x) workspace, or whose K7, K9a and K9b
+    take no weight layout, a launcher of its own for it."""
     _build.CSRC = Path(csrc)
     _build._lib = None
     _build.load()
@@ -230,7 +247,7 @@ def use(csrc: Path) -> Path:
     old_for = {1, 3} if not text else set() if "block_bwd" in text else {3}
     mlp._bwd_buffers = _bwd_buffers_of(old_for) if old_for else _NEW_BWD_BUFFERS
     # a tree before PR 13 takes K8f without the LN(x) workspace
-    pr6 = "ln_rows_kernel" not in (Path(csrc) / "attn_block.cu").read_text()
+    pr6 = "ln_launch" not in (Path(csrc) / "attn_block.cu").read_text()
     attention._launch_attn_block_fwd = _launch_attn_block_fwd_pr6 if pr6 else _NEW_ATTN_BLOCK_FWD
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if pr6:
@@ -240,6 +257,12 @@ def use(csrc: Path) -> Path:
     dense._launch_dense_bwd = _launch_dense_bwd_no_layout if no_layout else _NEW_DENSE_BWD
     if no_layout:
         _build._lib.tpuwsi_dense_bwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+    # a tree before csrc/ln_gemm_sm90.cu: K9a and K9b take W as (D, F) only
+    ln_no_layout = not (Path(csrc) / "ln_gemm_sm90.cu").exists()
+    mlp._call = _call_without_ln_layout if ln_no_layout else _NEW_CALL
+    if ln_no_layout:
+        _build._lib.tpuwsi_ln_gemm_fwd.argtypes = [ptr] * 6 + [i32, i32, i32, f32, ptr]
+        _build._lib.tpuwsi_ln_gemm_bwd.argtypes = [ptr] * 10 + [i32] * 4 + [f32, ptr]
     return _build.library_path()
 
 
@@ -613,7 +636,7 @@ _HALF_W = ["          tma_load_2d(dst + kBox / 2, wkv_map, bars.w_full(s), 2 * k
            "        tma_load_2d(dst + kBox, wq_map, bars.w_full(s), 64 * h1, 64 * kc);\n",
            "        tma_load_2d(dst + kBox, wp_map, bars.w_full(s), 128 * rank + 64, 64 * kc);\n",
            "    mbar_expect_tx(bars.w_full(s), kWStage);"]
-_DX_TAIL = "  const int err = launch_rows<LnBackward, false>("
+_DX_TAIL = "  const int err = launch_rows<LnBackward<true>, false>("
 _DW_TAILS = ["  const int e = dw(ln, dqkv, w_part_qkv, rows, 3 * kTailD, groups_qkv, stream);",
              "  return dw(o, dyp, w_part_proj, rows, kTailD, groups_proj, stream);"]
 _PHASE_A = "    for (int i = kWg; i < T; i += 2) {"
@@ -633,7 +656,30 @@ _DX_ONLY = [("  err = dw(x, dy, static_cast<float*>(w_part), rows, n, groups, st
             ("  mlp::sum_partials_kernel<float><<<static_cast<unsigned>((n_w + 255) / 256)",
              "  if (false) mlp::sum_partials_kernel<float><<<static_cast<unsigned>((n_w + 255) / 256)")]
 
+# ln_gemm_sm90.cu's K9a: its in-tile LayerNorm, products, y's writes into the
+# stage and TMA stores; the cluster that shares W halved or undone
+_LN_TILE = "    ln_tile<kWg>(prm, base, tid);\n"
+_FWD_MMA = ("          if constexpr (kTransB)\n"
+            "            ss_n192<0, 1>(acc, a, sw128(wb + 2048 * kk, kBox), 1);\n"
+            "          else\n"
+            "            ss_n192<0, 0>(acc, a, sw128(wb + 32 * kk), 1);")
+_Y_WRITES = ("    stsm_x4(io + (3 * kWg + group / 8) * kBox + row * 128 + ((((group & 7) ^ row) & 7) "
+             "<< 4), r);")
+_Y_STORE = ("      if (out < shape.n) tma_store_2d(y_map, io + (3 * kWg + j) * kBox, out, "
+            "kTile * tile);")
+_FWD_CLUSTER = "constexpr int kFwdCluster = 2;"
+
 CUTOUTS = {
+    "ln_gemm_sm90.cu": {
+        "no_ln": [(_LN_TILE, "")],
+        "no_products": [(_FWD_MMA, "          (void)a;\n          (void)wb;")],
+        "no_y_writes": [(_Y_WRITES, "    (void)row;")],
+        "no_stores": [(_Y_STORE, "      (void)out;")],
+        "loads_only": [(_LN_TILE, ""), (_FWD_MMA, "          (void)a;\n          (void)wb;"),
+                       (_Y_WRITES, "    (void)row;"), (_Y_STORE, "      (void)out;")],
+        "cluster1": [(_FWD_CLUSTER, _FWD_CLUSTER.replace("2", "1"))],
+        "cluster4": [(_FWD_CLUSTER, _FWD_CLUSTER.replace("2", "4"))],
+    },
     "dense_sm90.cu": {
         "cluster1": [(_ROW_CLUSTER, _ROW_CLUSTER.replace("4", "1"))],
         "cluster2": [(_ROW_CLUSTER, _ROW_CLUSTER.replace("4", "2"))],
@@ -654,7 +700,7 @@ CUTOUTS = {
                        (_Q_MMA, "          ;"), (_PROJ_MMA, "            ;")],
         "no_phases": [(_PHASE_A, _PHASE_A.replace("i < T", "i < 0")),
                       (_PHASE_B, _PHASE_B.replace("j < T", "j < 0"))],
-        "no_dx_tail": [(_DX_TAIL, "  const int err = 0;\n  if (false) launch_rows<LnBackward, false>(")],
+        "no_dx_tail": [(_DX_TAIL, "  const int err = 0;\n  if (false) launch_rows<LnBackward<true>, false>(")],
         "no_dw_tails": [(_DW_TAILS[0], "  const int e = 0;"), (_DW_TAILS[1], "  return 0;")],
         # loads only, half of every weight stage fetched: bytes or latency?
         "loads_only_half_w": [(_WALKS, _WALKS.replace("j < T", "j < 0")), (_KV_MMA, "            ;"),
@@ -747,7 +793,8 @@ def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) ->
         t0 = time.perf_counter()
         lib = use(tree)
         print(f"[{tag}] {name}: built in {time.perf_counter() - t0:.1f} s")
-        for needle in ("flash_", "mha_qkv_bwd", "mlp_sm90", "attn_block", "dense_sm90"):
+        for needle in ("flash_", "mha_qkv_bwd", "mlp_sm90", "attn_block", "dense_sm90",
+                       "ln_gemm"):
             for line in ptxas_lines(lib, needle):
                 if ("registers" in line or "spill" in line or "Performance Loss" in line) and (
                         "C7519" not in line):
@@ -814,6 +861,16 @@ def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) ->
             checks += [lambda name, kname=kname: cs.check_mlp(f"{kname} {name}", case, fns[kname](),
                                                               want_dense[kname])
                        for kname in names]
+    if "ln_gemm_sm90.cu" in sources:
+        ln_fns, _, ln_plain, _ = dense_operands(gen, LN_GEMM_CUT)
+        names = ABLATE_SOURCES["ln_gemm_sm90.cu"]
+        fns.update({kname: ln_fns[key] for kname, key in zip(names, LN_GEMM_CUT)})
+        case = "K9a at (37,824, 384, 1,152) and (128,500, 384, 1,152), K9b at the first"
+        if check:
+            want_ln = {kname: ln_plain[key]() for kname, key in zip(names, LN_GEMM_CUT)}
+            checks += [lambda name, kname=kname: cs.check_mlp(f"{kname} {name}", case, fns[kname](),
+                                                              want_ln[kname])
+                       for kname in names]
     if "mha_qkv_bwd.cu" in sources:
         shape = MHA_SHAPES[0]
         _, mha, plain = mha_operands(gen, *shape)
@@ -831,8 +888,12 @@ def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) ->
             fn(name)
         torch.cuda.synchronize()
         for kname in kernels:
-            res[name][kname].append((cs.cuda_median_ms(fns[kname]),
-                                     cs.back_to_back_ms(fns[kname])))
+            try:
+                res[name][kname].append((cs.cuda_median_ms(fns[kname]),
+                                         cs.back_to_back_ms(fns[kname])))
+            except RuntimeError as e:  # a launch the variant refuses: reported, not timed
+                print(f"[{tag}] {name} {kname}: {e}")
+                res[name][kname].append(None)
     for name, r in res.items():
         print(f"[{tag}] {name}: (single, back to back) ms, order {order}: "
               + ", ".join(f"{kname} {r[kname]}" for kname in kernels)
@@ -843,10 +904,11 @@ def time_variants(smi: str, tag: str, trees: dict, sources: set, check: bool) ->
     for name in order:
         use(trees[name])
         for kname in kernels:
-            res[name].setdefault(f"{kname} device", []).append(device_ms(fns[kname]))
+            if None not in res[name][kname]:
+                res[name].setdefault(f"{kname} device", []).append(device_ms(fns[kname]))
     for name, r in res.items():
         print(f"[{tag}] {name}: device ms a call (torch.profiler, {DEVICE_CALLS} calls), order "
-              f"{order}: " + ", ".join(f"{kname} {r[kname + ' device']}" for kname in kernels)
+              f"{order}: " + ", ".join(f"{kname} {r.get(kname + ' device')}" for kname in kernels)
               + f"; on {smi}")
     use(NEW)
     return res
@@ -869,6 +931,27 @@ def device_ms(fn, calls: int = DEVICE_CALLS) -> float:
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
+def kernel_device_ms(fn, calls: int = DEVICE_CALLS) -> dict:
+    """As ``device_ms``, by kernel: {the kernel's name up to its argument
+    list: device ms a call}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.removeprefix("void ")
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+    return out
 
 
 def mlp_operands(gen, rows, d, f, names=ABLATE_SOURCES["mlp_sm90.cu"]):
@@ -955,9 +1038,11 @@ def dense_operands(gen, cases):
     case of ``cases`` → (kernel functions, library functions, plain versions,
     and for K7 the kernel on nn.Linear's layout: W passed as ``weight.t()``);
     the kernel and plain functions return tuples.
-    The kernel functions give K7 W as a contiguous (K, N) tensor, which every
-    tree takes as it is; the library is one PyTorch call on nn.Linear's
-    weight (``F.linear``, with the residual sum; or its autograd backward)."""
+    The kernel functions give K7, K9a and K9b W as a contiguous (K, N)
+    tensor, which every tree takes as it is (``linear``: nn.Linear's storage,
+    for the trees that read it in place); the library is one PyTorch call on
+    nn.Linear's weight (``F.linear``, with the residual sum or after
+    ``F.layer_norm`` in fp32 and a cast; or its autograd backward)."""
     F = torch.nn.functional
 
     def randn(shape, std=1.0):
@@ -968,6 +1053,11 @@ def dense_operands(gen, cases):
         name, rows, k, n = case
         a, w, b = randn((rows, k)), randn((k, n), k ** -0.5), randn((n,), 0.1)
         wl = w.t().contiguous()  # nn.Linear's (N, K) weight
+        if name.startswith("ln_gemm"):
+            g = (1.0 + 0.1 * torch.randn((k,), generator=gen, device="cuda"))
+            be = 0.1 * torch.randn((k,), generator=gen, device="cuda")
+            ln_operands(case, a, g, be, w, wl, b, randn, fns, library, plain, linear)
+            continue
         if name == "gemm_res_fwd":
             res = randn((rows, n))
             fns[case] = lambda a=a, w=w, b=b, res=res: (mlp._launch_gemm_res_fwd(res, a, w, b),)
@@ -994,15 +1084,47 @@ def dense_operands(gen, cases):
     return fns, library, plain, linear
 
 
+def ln_operands(case, x, g, be, w, wl, b, randn, fns, library, plain, linear) -> None:
+    """K9a's or K9b's entries of ``dense_operands`` for ``case``."""
+    F = torch.nn.functional
+    k = x.shape[1]
+
+    def ln(t):
+        return F.layer_norm(t.float(), (k,), g_, be_, 1e-6).to(x.dtype)
+
+    if case[0] == "ln_gemm_fwd":
+        fns[case] = lambda: (mlp._launch_ln_gemm_fwd(x, g, be, w, b, 1e-6),)
+        plain[case] = lambda: (mlp._ln_gemm_fwd_reference(x, g, be, w, b, 1e-6),)
+        linear[case] = lambda: (mlp._launch_ln_gemm_fwd(x, g, be, wl, b, 1e-6, 1),)
+        g_, be_ = g, be
+
+        def ln_linear():
+            with torch.no_grad():
+                return F.linear(ln(x), wl, b)
+        library[case] = ln_linear
+        return
+    dy = randn((x.shape[0], w.shape[1]))
+    fns[case] = lambda: mlp._launch_ln_gemm_bwd(x, dy, g, be, w, 1e-6)
+    plain[case] = lambda: mlp._ln_gemm_bwd_reference(x, dy, g, be, w, 1e-6)
+    linear[case] = lambda: mlp._launch_ln_gemm_bwd(x, dy, g, be, wl, 1e-6, 1)
+    leaves = [t.detach().requires_grad_() for t in (x, g, be, wl, b)]
+    g_, be_ = leaves[1], leaves[2]
+    y = F.linear(ln(leaves[0]), leaves[3], leaves[4])
+    library[case] = lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+
 def mode_dense(smi: str, old: Path) -> dict:
-    """K7, K9c and K9d at ``DENSE_AB`` in the order new, old, old, new (K7 also
-    on nn.Linear's layout, new arms only): medians of 20 single calls and of 5
-    runs of 50 back to back, beside the library call read the same two ways,
-    the plain version once and the bound from ``chip_smoke.dense_bound``; the
-    new backwards must repeat their bits. Then K8b at ``DENSE_K8B`` the same
-    way (its D = 384 tails are K7's kernels: the same bits in every arm), the
-    DINO step with ``dense_pallas_bwd`` beside the default route
-    (``dense_step``), and last each case's device time alone (``device_ms``)."""
+    """K7, K9c, K9d, K9a and K9b at ``DENSE_AB`` in the order new, old, old,
+    new (K7, K9a and K9b also on nn.Linear's layout, new arms only, with the
+    same bits): medians of 20 single calls and of 5 runs of 50 back to back,
+    beside the library call read the same two ways, the plain version once
+    and the bound from ``chip_smoke.dense_bound``; the new kernels must repeat
+    their bits. Then K8b at ``DENSE_K8B`` the same way (its D = 384 tails are
+    K7's kernels and the LayerNorm-backward epilogue: the same bits in every
+    arm), the DINO step with ``dense_pallas_bwd`` beside the default route
+    (``dense_step``), and last each case's device time alone, by kernel
+    (``kernel_device_ms``: the row pass with its epilogue alone in K8b and
+    K9b)."""
     arms = [("new", NEW), ("old", old), ("old", old), ("new", NEW)]
     for _, csrc in arms[:2]:
         use(csrc)
@@ -1018,7 +1140,7 @@ def mode_dense(smi: str, old: Path) -> dict:
         use(csrc)
         for case, fn in fns.items():
             got = [t.clone() for t in fn()]
-            if arm == "new" and case[0].endswith("bwd"):
+            if arm == "new":
                 if case not in ref:
                     ref[case] = got
                 elif not all(torch.equal(a, c) for a, c in zip(got, ref[case])):
@@ -1051,14 +1173,25 @@ def mode_dense(smi: str, old: Path) -> dict:
     out["step"] = dense_step(smi, arms)
     # last, after the step's profiles: each call's kernels alone on the device
     fns = dense_operands(gen, DENSE_AB)[0]
+    b, n, d, h = DENSE_K8B[0]
+    k8b = f"attn_block_bwd {b} {n} {d}"
+    fns[k8b] = attn_block_operands(gen, b, n, d, h, ("attn_block_bwd",))[0]["attn_block_bwd"]
+    out[k8b] = {}
     for arm, csrc in arms:
         use(csrc)
         for case, fn in fns.items():
-            out[" ".join(map(str, case))].setdefault("device_ms", []).append(device_ms(fn))
-    for case in DENSE_AB:
-        key = " ".join(map(str, case))
+            key = case if isinstance(case, str) else " ".join(map(str, case))
+            by_kernel = kernel_device_ms(fn)
+            row = out[key]
+            row.setdefault("device_ms", []).append(sum(by_kernel.values()))
+            row.setdefault("device_ms_by_kernel", []).append(by_kernel)
+    for key in [*(" ".join(map(str, c)) for c in DENSE_AB), k8b]:
         print(f"[dense] {key}: device ms a call (torch.profiler, {DEVICE_CALLS} calls), order "
               f"{[a for a, _ in arms]}: {out[key]['device_ms']}; on {smi}")
+        if len(out[key]["device_ms_by_kernel"][0]) > 1 or key.startswith("ln_gemm"):
+            for arm, by_kernel in zip((a for a, _ in arms), out[key]["device_ms_by_kernel"]):
+                print(f"[dense] {key} ({arm}) by kernel: "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in by_kernel.items()) + " ms")
     use(NEW)
     return out
 

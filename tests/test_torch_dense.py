@@ -522,6 +522,104 @@ def test_hybrid_dense_backward_reads_nn_linear_weight_in_place(monkeypatch, laun
     assert layer.weight.grad.shape == (3 * d, d) and x.grad.shape == x.shape
 
 
+@pytest.mark.parametrize("layout", ["kn", "nk"], ids=["w_kn", "w_nk"])
+@pytest.mark.parametrize("k", [384, 768])
+def test_ln_gemm_passes_the_weight_as_stored(launches, k, layout):
+    """K9a's and K9b's launches by input width: the weight's own storage with
+    layout 1 for nn.Linear's (N, K) at K = 384 (csrc/ln_gemm_sm90.cu reads it
+    in place), a (K, N) weight as it is (layout 0), and a (K, N) copy at
+    K = 768, whose row-tiled kernels read W only so; the widths, the row
+    groups and the outputs' shapes in both directions."""
+    from tpuwsi_torch.ops.mlp import _weight_operand
+
+    n, rows = 3 * k, 70
+    x, dy = _bf16(rows, k), _bf16(rows, n)
+    g, be = torch.ones(k), torch.zeros(k)
+    stored = _bf16(k, n) if layout == "kn" else _bf16(n, k)
+    w_op, w_layout = _weight_operand(stored if layout == "kn" else stored.t())
+    y = tmlp._launch_ln_gemm_fwd(x, g, be, w_op, _bf16(n), 1e-6, w_layout)
+    dx, dg, dbe, dw, db = tmlp._launch_ln_gemm_bwd(x, dy, g, be, w_op, 1e-6, w_layout)
+    (fwd_name, fwd), (bwd_name, bwd) = launches
+    in_place = (layout, k) == ("nk", 384)
+    assert w_layout == (1 if in_place else 0)
+    assert (w_op.data_ptr() == stored.data_ptr()) == (layout == "kn" or in_place)
+    assert fwd_name == "ln_gemm_fwd" and len(fwd) == 11 and fwd[3] == w_op.data_ptr()
+    assert fwd[6:9] == (rows, k, n) and fwd[10] == w_layout
+    assert bwd_name == "ln_gemm_bwd" and len(bwd) == 16 and bwd[4] == w_op.data_ptr()
+    steps = -(-rows // _FakeLib.tpuwsi_dense_rows_per_step(k))
+    assert bwd[10:13] == (rows, k, n) and 1 <= bwd[13] <= steps and bwd[15] == w_layout
+    assert y.shape == (rows, n) and dx.shape == (rows, k) and dw.shape == (k, n)
+    assert dg.shape == dbe.shape == (k,) and db.shape == (n,)
+
+
+@pytest.mark.parametrize("d", [384, 768])
+def test_fused_ln_gemm_reads_nn_linear_weight_in_place(monkeypatch, launches, d):
+    """The composed sub-block hands ``fused_ln_gemm`` its nn.Linear's
+    ``weight.t()``. At D = 384 K9a and K9b get that weight's own storage with
+    layout 1 and nothing is copied out of it; at D = 768 one (D, N) copy
+    serves both directions."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+
+    class Copies(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (aten.clone.default, aten._to_copy.default, aten.copy_.default):
+                src = args[1] if func is aten.copy_.default else args[0]
+                self.seen.append(src.untyped_storage().data_ptr())
+            return func(*args, **(kwargs or {}))
+
+    monkeypatch.setattr(tmlp, "_use_plain", lambda x: False)  # the kernels' path, faked launch
+    layer = torch.nn.Linear(d, 3 * d).to(torch.bfloat16)
+    g, be = torch.ones(d, requires_grad=True), torch.zeros(d, requires_grad=True)
+    x = torch.zeros(2, 3, d, dtype=torch.bfloat16, requires_grad=True)
+    with Copies() as mode:
+        y = tmlp.fused_ln_gemm(x, g, be, layer.weight.t(), layer.bias)
+        y.backward(torch.zeros_like(y))
+    (fwd_name, fwd), (bwd_name, bwd) = launches
+    copies = mode.seen.count(layer.weight.untyped_storage().data_ptr())
+    assert (fwd_name, bwd_name) == ("ln_gemm_fwd", "ln_gemm_bwd") and fwd[3] == bwd[4]
+    if d == 384:
+        assert fwd[3] == layer.weight.data_ptr() and (fwd[10], bwd[15]) == (1, 1) and copies == 0
+    else:
+        assert fwd[3] != layer.weight.data_ptr() and (fwd[10], bwd[15]) == (0, 0) and copies == 1
+    assert y.shape == (2, 3, 3 * d) and layer.weight.grad.shape == (3 * d, d)
+    assert x.grad.shape == x.shape and g.grad.shape == be.grad.shape == (d,)
+
+
+def test_ln_gemm_refusals_come_before_any_launch(launches):
+    """What K9a and K9b do not take raises before a launch: an input width
+    they are not built for, an output width that is not a multiple of 64,
+    nn.Linear's layout at D = 768, fp32 LayerNorm vectors of the wrong width,
+    a bf16 one, a misaligned x, rows x width past 2^31."""
+    k, n = 384, 1152
+    x, dy, w, b = _bf16(5, k), _bf16(5, n), _bf16(k, n), _bf16(n)
+    g, be = torch.ones(k), torch.zeros(k)
+    with pytest.raises(ValueError, match=r"widths \(384, 768\)"):
+        tmlp._launch_ln_gemm_fwd(_bf16(5, 512), torch.ones(512), torch.zeros(512),
+                                 _bf16(512, n), b, 1e-6)
+    with pytest.raises(ValueError, match="a multiple of 64"):
+        tmlp._launch_ln_gemm_bwd(x, _bf16(5, 100), g, be, _bf16(k, 100), 1e-6)
+    with pytest.raises(ValueError, match=r"\(N, D\) weight at D in \(384,\) only"):
+        tmlp._launch_ln_gemm_fwd(_bf16(5, 768), torch.ones(768), torch.zeros(768),
+                                 _bf16(2304, 768), _bf16(2304), 1e-6, 1)
+    with pytest.raises(ValueError, match=r"fp32 \(384,\) ln_scale"):
+        tmlp._launch_ln_gemm_fwd(x, torch.ones(768), be, w, b, 1e-6)
+    with pytest.raises(ValueError, match=r"fp32 \(384,\) ln_bias"):
+        tmlp._launch_ln_gemm_bwd(x, dy, g, be.bfloat16(), w, 1e-6)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tmlp._launch_ln_gemm_fwd(_bf16(5 * k + 1)[1:].view(5, k), g, be, w, b, 1e-6)
+    big = 2 ** 31 // n + 1
+    with pytest.raises(ValueError, match="2\\^31"):
+        tmlp._launch_ln_gemm_bwd(_bf16(big, k, device="meta"), _bf16(big, n, device="meta"),
+                                 g, be, w, 1e-6)
+    assert launches == []
+
+
 def test_dense_refusals_come_before_any_launch(launches):
     """What the dense-layer kernels do not take raises before a launch: widths
     they are not built for, an output width K7 does not serve, fp32, a weight

@@ -157,6 +157,46 @@ def test_gemm_residual_at_edge_rows_on_the_card(rows):
         assert all(torch.equal(a_, c) for a_, c in zip(got, again))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["kn", "nk"], ids=["w_kn", "w_nk"])
+@pytest.mark.parametrize("rows", DENSE_EDGE_ROWS)
+def test_ln_gemm_at_edge_rows_on_the_card(rows, layout):
+    """K9a and K9b at width 384 (csrc/ln_gemm_sm90.cu) with the qkv and proj
+    layers' output widths, the weight stored (K, N) or as nn.Linear keeps it
+    (N, K) and read in place, against their plain versions; K9b launched
+    twice, the same bits, and both kernels the same bits in both layouts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator(device="cuda").manual_seed(rows + 2)
+
+    def randn(shape, std=1.0):
+        return (std * torch.randn(shape, generator=gen, device="cuda")).bfloat16()
+
+    k = 384
+    g = 1.0 + 0.1 * torch.randn(k, generator=gen, device="cuda")
+    be = 0.1 * torch.randn(k, generator=gen, device="cuda")
+    for n in (3 * k, k):
+        x, dy, w, b = randn((rows, k)), randn((rows, n)), randn((k, n), k ** -0.5), randn((n,), 0.1)
+        w_in, w_layout = (w, 0) if layout == "kn" else (w.t().contiguous(), 1)
+        before = (tmlp.LAUNCHES["ln_gemm_fwd"], tmlp.LAUNCHES["ln_gemm_bwd"])
+        y = tmlp._launch_ln_gemm_fwd(x, g, be, w_in, b, 1e-6, w_layout)
+        got = tmlp._launch_ln_gemm_bwd(x, dy, g, be, w_in, 1e-6, w_layout)
+        again = tmlp._launch_ln_gemm_bwd(x, dy, g, be, w_in, 1e-6, w_layout)
+        other = (tmlp._launch_ln_gemm_fwd(x, g, be, w, b, 1e-6),
+                 *tmlp._launch_ln_gemm_bwd(x, dy, g, be, w, 1e-6))
+        pairs = [(y, tmlp._ln_gemm_fwd_reference(x, g, be, w, b, 1e-6))]
+        pairs += list(zip(got, tmlp._ln_gemm_bwd_reference(x, dy, g, be, w, 1e-6)))
+        torch.cuda.synchronize()
+        assert (tmlp.LAUNCHES["ln_gemm_fwd"], tmlp.LAUNCHES["ln_gemm_bwd"]) == (
+            before[0] + 2, before[1] + 3)
+        for a, c in pairs:
+            assert a.shape == c.shape and a.dtype == c.dtype and torch.isfinite(a.float()).all()
+            scale = max(1.0, c.float().abs().max().item() / 4)
+            assert (a.float() - c.float()).abs().max().item() <= CARD_MAX_ABS * scale
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+        assert all(torch.equal(a, c) for a, c in zip((y, *got), other))
+
+
 # The four fused-MLP kernels at the row counts where their tiles and clusters
 # end: one row, either side of one and two 64-row tiles, a partial cluster
 # (five tiles and a row: the second cluster of four holds two tiles, one of a

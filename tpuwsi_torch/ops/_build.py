@@ -138,8 +138,8 @@ def load() -> ctypes.CDLL:
         # (, eps) (, the weight's layout) and the stream
         lib.tpuwsi_dense_bwd.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
         lib.tpuwsi_gemm_res_bwd.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-        lib.tpuwsi_ln_gemm_fwd.argtypes = [ptr] * 6 + [i32, i32, i32, f32, ptr]
-        lib.tpuwsi_ln_gemm_bwd.argtypes = [ptr] * 10 + [i32] * 4 + [f32, ptr]
+        lib.tpuwsi_ln_gemm_fwd.argtypes = [ptr] * 6 + [i32, i32, i32, f32, i32, ptr]
+        lib.tpuwsi_ln_gemm_bwd.argtypes = [ptr] * 10 + [i32] * 4 + [f32, i32, ptr]
         lib.tpuwsi_gemm_res_fwd.argtypes = [ptr] * 5 + [i32, i32, i32, ptr]
         lib.tpuwsi_dense_rows_per_step.argtypes = [i32]
         lib.tpuwsi_dense_cols_per_slice.argtypes = [i32]

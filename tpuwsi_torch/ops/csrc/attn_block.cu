@@ -87,11 +87,12 @@
 // dy added, per 64-row tile with its dgamma, dbeta column sums; dWqkv =
 // LN(x)^T . dqkv and dWproj, dbproj = o^T . dy, sum dy per group of row
 // steps. At D = 384 they are K7's wgmma kernels (dense_sm90.cuh): its row
-// pass with this file's LayerNorm-backward epilogue (`LnBackward`), and its
-// dW kernel; at D = 768 the row-tiled kernels of dense_common.cuh (K7's at
-// 768; the dx one rebuilds LN(x) into the workspace with the same
-// arithmetic). `sum_partials_kernel`
-// adds every partial in a fixed order. No atomics: two launches on the same
+// pass with the LayerNorm-backward epilogue (`LnBackward<true>`, K9b's with
+// the cotangent added; x arrives by TMA in the epilogue's stage and dx leaves
+// by TMA stores), and its dW kernel; at D = 768 the row-tiled kernels of
+// dense_common.cuh (K7's at 768; the dx one rebuilds LN(x) into the workspace
+// with the same arithmetic). `sum_partials_kernel` adds every partial in a
+// fixed order. No atomics: two launches on the same
 // inputs give the same bits. (PR 6's head kernel held 1.2 of the backward's
 // 1.8 ms at (192, 197), the tails the rest: PERF.md, PR 13.)
 //
@@ -127,11 +128,6 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint64_t desc(uint32_t addr) { return sw128(opaque(addr)); }
 
-__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
-               "r"(v.z), "r"(v.w)
-               : "memory");
-}
 
 
 // ---- thread-block clusters --------------------------------------------------
@@ -183,12 +179,6 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity)
     if (done) return;
     if (tries == (1u << 24)) __trap();
   }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // ---- wgmma -------------------------------------------------------------------
@@ -255,92 +245,6 @@ __device__ __forceinline__ void rn_steps(float (&acc)[32], const uint32_t (&a)[4
 #pragma unroll
   for (int s = 0; s < 4; ++s)
     if (s < steps) wgmma_n64_mn(acc, a[s], desc(b_addr + 2048 * s), 1);
-}
-
-// ---- LayerNorm -----------------------------------------------------------------
-
-// bf16(LN(x)) of every row of x (rows x kD) into `ln`: fp32 statistics with
-// the fast variance E[x^2] - mean^2 clamped at 0, then bf16((x - mean) inv
-// gamma + beta). One warp a row, 16-byte loads and stores, eight rows a
-// block. It runs once per image, for all of its heads: both kernels take
-// LN(x) as TMA boxes from `ln`, so neither normalises anything.
-template <int kD>
-__global__ void __launch_bounds__(256) ln_rows_kernel(const bf16* __restrict__ x,
-                                                      const float* __restrict__ gamma,
-                                                      const float* __restrict__ beta, float eps,
-                                                      long long rows, bf16* __restrict__ ln) {
-  constexpr int kPer = (kD / 8 + 31) / 32;  // 16-byte chunks a lane
-  const long long row = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  uint4 v[kPer];
-  float sum = 0.f, sq = 0.f;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int c = lane + 32 * j;
-    v[j] = c < kD / 8 ? *reinterpret_cast<const uint4*>(x + row * kD + 8 * c) : make_uint4(0, 0, 0, 0);
-    const uint32_t w[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = mlp::unpack_bf16(w[e]);
-      sum += f.x + f.y;
-      sq += f.x * f.x + f.y * f.y;
-    }
-  }
-  const float mean = warp_sum(sum) * (1.f / kD);
-  const float inv = rsqrtf(fmaxf(warp_sum(sq) * (1.f / kD) - mean * mean, 0.f) + eps);
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int c = lane + 32 * j;
-    if (c >= kD / 8) continue;
-    const uint32_t w[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
-    uint32_t o[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {  // gamma, beta: 8-byte aligned
-      const float2 f = mlp::unpack_bf16(w[e]);
-      const float2 gm = *reinterpret_cast<const float2*>(gamma + 8 * c + 2 * e);
-      const float2 bt = *reinterpret_cast<const float2*>(beta + 8 * c + 2 * e);
-      o[e] = pack_bf16((f.x - mean) * inv * gm.x + bt.x, (f.y - mean) * inv * gm.y + bt.y);
-    }
-    *reinterpret_cast<uint4*>(ln + row * kD + 8 * c) = make_uint4(o[0], o[1], o[2], o[3]);
-  }
-}
-
-// mean and 1 / sigma (fast variance, clamped at 0) of four rows of x (kD
-// wide, rows[r] an offset from x) by one warp, 16-byte loads; a row at or
-// past n gives (0, 0).
-template <int kD>
-__device__ __forceinline__ void row_stats4(const bf16* __restrict__ x, const int (&rows)[4], int n,
-                                           float eps, int lane, float (&mean)[4],
-                                           float (&inv)[4]) {
-  float sum[4], sq[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    sum[r] = 0.f;
-    sq[r] = 0.f;
-    if (rows[r] < n) {
-#pragma unroll
-      for (int c = lane; c < kD / 8; c += 32) {
-        const uint4 v =
-            *reinterpret_cast<const uint4*>(x + static_cast<size_t>(rows[r]) * kD + 8 * c);
-        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = mlp::unpack_bf16(w[e]);
-          sum[r] += f.x + f.y;
-          sq[r] += f.x * f.x + f.y * f.y;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const float m = warp_sum(sum[r]) * (1.f / kD);
-    const float var = warp_sum(sq[r]) * (1.f / kD) - m * m;
-    const bool ok = rows[r] < n;
-    mean[r] = ok ? m : 0.f;
-    inv[r] = ok ? rsqrtf(fmaxf(var, 0.f) + eps) : 0.f;
-  }
 }
 
 // This thread's eight bias pairs of a head's 64 columns (8i + 2t4, + 1),
@@ -1181,161 +1085,15 @@ attn_block_bwd_head_kernel(const __grid_constant__ CUtensorMap ln_map,
 // Both are dense_sm90.cuh's kernels, K7's at input width 384. dx: its row
 // pass, per 64-row tile of the B N rows dln = dqkv . Wqkv^T (18 chunks of
 // 64; Wqkv (384, 1,152) read K-major, multicast to the cluster), with the
-// LayerNorm backward and dy added as its epilogue: dx = bf16(dy + inv (dln
-// gamma - mean(dln gamma) - xhat mean(dln gamma xhat))) and the tile's
-// dgamma, dbeta column sums (row_part, as the row-tiled kernel wrote them).
+// LayerNorm backward and dy added as its epilogue (dense_sm90.cuh's
+// `LnBackward<true>`): dx = bf16(dy + inv (dln gamma - mean(dln gamma) - xhat
+// mean(dln gamma xhat))) and the tile's dgamma, dbeta column sums (row_part,
+// as the row-tiled kernel wrote them).
 // dW: dWqkv = LN(x)^T . dqkv and dWproj = o^T . dy with their column sums,
 // per (slice of 64 output columns, group of 64-row steps) into w_part in the
 // fixed-order layout of the row-tiled kernels.
 
 constexpr int kTailD = 384;
-
-struct DxParams {
-  const bf16* x;
-  const bf16* dy;
-  const float* gamma;
-  bf16* dx;
-  float* row_part;  // (n_tiles, 2, D): dgamma | dbeta per 64-row tile
-  float eps;
-  int rows, n_tiles;
-};
-
-// The LayerNorm backward of the tile's rows row0 + ra, + rb (this thread's),
-// columns 192 kWg + 8i + 2t4, + 1, from dln in acc; each row's mean and
-// 1 / sigma at `stats`; the two warpgroups' row halves meet in shared memory
-// at `row_red` (warpgroup 0's first), the warps' column sums at `col_red` in
-// a fixed order. Rows past the end hold dln = 0 and read the last row's x in
-// their place; they are not written, nor are a tile's sums past the last.
-template <int kWg>
-__device__ __forceinline__ void dx_epilogue(const float (&acc)[96], const DxParams& prm,
-                                            uint32_t stats, uint32_t row_red, uint32_t col_red,
-                                            int tile, int tid) {
-  tid = static_cast<int>(opaque(static_cast<uint32_t>(tid)));
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int ra = 16 * warp + g, rb = ra + 8, row0 = kTile * tile;
-  const float2 sa = ld_shared_f2(stats + 8 * ra);
-  const float2 sb = ld_shared_f2(stats + 8 * rb);
-  // element offsets of the two rows (rows x 3 D < 2^31)
-  const int at_a = min(row0 + ra, prm.rows - 1) * kTailD, at_b = min(row0 + rb, prm.rows - 1) * kTailD;
-  auto pair = [](const bf16* p, int at) {
-    return mlp::unpack_bf16(*reinterpret_cast<const uint32_t*>(p + at));
-  };
-  col_red += kWg * (4 * 192 * 8);
-  float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
-#pragma unroll
-  for (int i = 0; i < 24; ++i) {
-    const int c = 8 * i + 2 * t4, col = 192 * kWg + c;
-    const float2 gam = *reinterpret_cast<const float2*>(prm.gamma + col);
-    const float2 xa = pair(prm.x, at_a + col), xb = pair(prm.x, at_b + col);
-    const float ha0 = (xa.x - sa.x) * sa.y, ha1 = (xa.y - sa.x) * sa.y;
-    const float hb0 = (xb.x - sb.x) * sb.y, hb1 = (xb.y - sb.x) * sb.y;
-    const float da0 = acc[4 * i] * gam.x, da1 = acc[4 * i + 1] * gam.y;
-    const float db0 = acc[4 * i + 2] * gam.x, db1 = acc[4 * i + 3] * gam.y;
-    s1a += da0 + da1;
-    s2a += da0 * ha0 + da1 * ha1;
-    s1b += db0 + db1;
-    s2b += db0 * hb0 + db1 * hb1;
-    float pg0 = acc[4 * i] * ha0 + acc[4 * i + 2] * hb0;
-    float pg1 = acc[4 * i + 1] * ha1 + acc[4 * i + 3] * hb1;
-    float pb0 = acc[4 * i] + acc[4 * i + 2], pb1 = acc[4 * i + 1] + acc[4 * i + 3];
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      pg0 += __shfl_xor_sync(0xffffffffu, pg0, off);
-      pg1 += __shfl_xor_sync(0xffffffffu, pg1, off);
-      pb0 += __shfl_xor_sync(0xffffffffu, pb0, off);
-      pb1 += __shfl_xor_sync(0xffffffffu, pb1, off);
-    }
-    if (g == 0) {
-      const uint32_t dst = col_red + (warp * 192 + c) * 8;
-      st_shared_f32(dst, pg0);
-      st_shared_f32(dst + 4, pb0);
-      st_shared_f32(dst + 8, pg1);
-      st_shared_f32(dst + 12, pb1);
-    }
-  }
-  s1a = quad_sum(s1a);
-  s2a = quad_sum(s2a);
-  s1b = quad_sum(s1b);
-  s2b = quad_sum(s2b);
-  if (t4 == 0) {
-    st_shared_f32(row_red + (kWg * kTile + ra) * 8, s1a);
-    st_shared_f32(row_red + (kWg * kTile + ra) * 8 + 4, s2a);
-    st_shared_f32(row_red + (kWg * kTile + rb) * 8, s1b);
-    st_shared_f32(row_red + (kWg * kTile + rb) * 8 + 4, s2b);
-  }
-  named_sync(1, 256);  // both halves of every row; the four warps' column sums
-  auto row_mean = [&](int r, int k) {
-    return (ld_shared_f32(row_red + r * 8 + 4 * k) +
-            ld_shared_f32(row_red + (kTile + r) * 8 + 4 * k)) * (1.f / kTailD);
-  };
-  const float m1a = row_mean(ra, 0), m2a = row_mean(ra, 1);
-  const float m1b = row_mean(rb, 0), m2b = row_mean(rb, 1);
-  float* part = prm.row_part + static_cast<size_t>(tile) * 2 * kTailD + 192 * kWg;
-  for (int c = tid; c < 192 && tile < prm.n_tiles; c += 128) {
-    float dg = 0.f, db = 0.f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      dg += ld_shared_f32(col_red + (w * 192 + c) * 8);
-      db += ld_shared_f32(col_red + (w * 192 + c) * 8 + 4);
-    }
-    part[c] = dg;
-    part[kTailD + c] = db;
-  }
-#pragma unroll
-  for (int i = 0; i < 24; ++i) {
-    const int col = 192 * kWg + 8 * i + 2 * t4;
-    const float2 gam = *reinterpret_cast<const float2*>(prm.gamma + col);
-    if (row0 + ra < prm.rows) {
-      const float2 xv = pair(prm.x, at_a + col), dyv = pair(prm.dy, at_a + col);
-      const float h0 = (xv.x - sa.x) * sa.y, h1 = (xv.y - sa.x) * sa.y;
-      *reinterpret_cast<uint32_t*>(prm.dx + at_a + col) =
-          pack_bf16(dyv.x + sa.y * (acc[4 * i] * gam.x - m1a - h0 * m2a),
-                    dyv.y + sa.y * (acc[4 * i + 1] * gam.y - m1a - h1 * m2a));
-    }
-    if (row0 + rb < prm.rows) {
-      const float2 xv = pair(prm.x, at_b + col), dyv = pair(prm.dy, at_b + col);
-      const float h0 = (xv.x - sb.x) * sb.y, h1 = (xv.y - sb.x) * sb.y;
-      *reinterpret_cast<uint32_t*>(prm.dx + at_b + col) =
-          pack_bf16(dyv.x + sb.y * (acc[4 * i + 2] * gam.x - m1b - h0 * m2b),
-                    dyv.y + sb.y * (acc[4 * i + 3] * gam.y - m1b - h1 * m2b));
-    }
-  }
-  named_sync(1, 256);  // the sums are read before the next tile's
-}
-
-// The dx tail's hooks on the row pass: each warpgroup takes its 32 rows'
-// LayerNorm statistics while the tile's first chunks land; the epilogue
-// reduces through the epilogue's stage (row sums at its start, column sums
-// after them: 13 KB of its 48).
-struct LnBackward {
-  using Params = DxParams;
-  static constexpr bool kLoadsRes = false;
-  static constexpr uint32_t kSmem = kTile * 8;  // (mean, inv) of the tile's rows
-
-  template <int kWg>
-  __device__ static void prologue(const DxParams& prm, uint32_t base, int tile, int tid) {
-    const int warp = tid >> 5, lane = tid & 31;
-    const int r0 = 32 * kWg + 8 * warp;
-    const bf16* x_tile = prm.x + static_cast<size_t>(kTile) * tile * kTailD;
-    for (int j = 0; j < 8; j += 4) {
-      int rows[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) rows[r] = r0 + j + r;
-      float mean[4], inv[4];
-      row_stats4<kTailD>(x_tile, rows, prm.rows - kTile * tile, prm.eps, lane, mean, inv);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        if (lane == r) st_shared_f2(base + kRowOffEpi + 8 * (r0 + j + r), mean[r], inv[r]);
-    }
-  }
-
-  template <int kWg>
-  __device__ static void epilogue(const float (&acc)[96], const DxParams& prm, const CUtensorMap*,
-                                  uint32_t io, uint32_t base, int tile, const RowShape&, int tid) {
-    named_sync(1, 256);  // every row's statistics
-    dx_epilogue<kWg>(acc, prm, base + kRowOffEpi, io, io + 2 * kTile * 8, tile, tid);
-  }
-};
 
 // ---------------------------------------------------------------------------
 // host side
@@ -1413,16 +1171,6 @@ int fwd_setup(FwdParams& prm, int n, int* clusters) {
   }
   *clusters = count;
   return 0;
-}
-
-// bf16(LN(x)) of the rows into `ln` (rows x kD).
-template <int kD>
-int ln_launch(const void* x, const void* gamma, const void* beta, void* ln, long long rows,
-              float eps, cudaStream_t stream) {
-  ln_rows_kernel<kD><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), eps, rows, static_cast<bf16*>(ln));
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <int kD>
@@ -1516,9 +1264,9 @@ int tails_384(const bf16* xp, const bf16* dyp, const float* gp, const bf16* wq, 
   CUtensorMap w_map;  // Wqkv (384, 1,152): 64 output rows of 64 reduction values a box, K-major
   if (!encode_2d(&w_map, encode, wq, 3 * kTailD, kTailD, kTile))
     return static_cast<int>(cudaErrorInvalidValue);
-  const DxParams dxp{xp, dyp, gp, dx, row_part, eps, rows, (rows + kTile - 1) / kTile};
-  const int err = launch_rows<LnBackward, false>(dqkv, w_map, nullptr, dx, rows, 3 * kTailD / kTile,
-                                                 dxp, stream);
+  const DxParams dxp{dyp, gp, row_part, eps, rows, (rows + kTile - 1) / kTile};
+  const int err = launch_rows<LnBackward<true>, false>(dqkv, w_map, xp, dx, rows,
+                                                       3 * kTailD / kTile, dxp, stream);
   if (err != 0) return err;
   // dWqkv = LN(x)^T . dqkv and dWproj = o^T . dy with their column sums
   const int e = dw(ln, dqkv, w_part_qkv, rows, 3 * kTailD, groups_qkv, stream);

@@ -2,9 +2,9 @@
 // (LayerNorm in front, bias and residual sum behind) forward, and the three
 // gradients of a dense layer from one op backward.
 //
-// Replaces five TPU kernels (three of them only at width 768: at 384 the
-// entry points below dispatch K7 and K9d by their input width and K9c by its
-// output width to the Hopper kernels of dense_sm90.cu):
+// Replaces five TPU kernels at width 768 (at 384 the entry points below
+// dispatch K7, K9d, K9a and K9b by their input width and K9c by its output
+// width to the Hopper kernels of dense_sm90.cu and ln_gemm_sm90.cu):
 //   tpuwsi/ops/dense.py:51  `_dense_bwd_kernel`     (pallas_call at :87)
 //       dx = dy . W^T, dW = x^T . dy, db = sum dy
 //   tpuwsi/ops/mlp.py:832   `_ln_gemm_fwd_kernel`   (pallas_call at :904)
@@ -244,17 +244,6 @@ bool widths_ok(int rows, int k, int n) {
   return rows >= 1 && (k == 384 || k == 768) && n >= 64 && n % 64 == 0;
 }
 
-// y (rows, n) = LN(x) . W + b (kLn) or res + bf16(a . W + b) with the
-// row-tiled kernel; a (rows, k).
-template <bool kLn>
-int dispatch_fwd(const void* a, const void* gamma, const void* beta, const void* w,
-                 const void* bias, const void* res, void* y, int rows, int k, int n, float eps,
-                 void* stream) {
-  if (!widths_ok(rows, k, n)) return static_cast<int>(cudaErrorInvalidValue);
-  if (k == 384)
-    return launch_fwd<384, kLn>(a, gamma, beta, w, bias, res, y, rows, n, eps, stream);
-  return launch_fwd<768, kLn>(a, gamma, beta, w, bias, res, y, rows, n, eps, stream);
-}
 
 // The three gradients of a dense layer with input width k, K7's and K9d's:
 // at 384 dense_sm90.cu's kernels, which take W (k, n) (w_layout 0) or (n, k)
@@ -277,8 +266,9 @@ extern "C" {
 
 // Rows per step and output columns per block of the weight-gradient grid for
 // input width k (0 for a width that is not built). The number of row groups
-// may not exceed ceil(rows / rows_per_step). At 384 dense_sm90.cuh's kernel
-// (K7, K9d) and the LN+GEMM's DwSlice<384> (K9b) walk the same grid.
+// may not exceed ceil(rows / rows_per_step). At 384 every weight gradient is
+// dense_sm90.cuh's kernel (K7, K9d, K9b and K8b's tails), whose grid
+// attn_block.cu reads as DwSlice<384>'s.
 static_assert(DwSlice<384>::kRows == dense_sm90::kTile && DwSlice<384>::kNs == dense_sm90::kTile,
               "one weight-gradient grid at input width 384");
 
@@ -319,26 +309,40 @@ int tpuwsi_gemm_res_bwd(const void* a, const void* dy, const void* w, void* da, 
   return dense_grads(a, dy, w, 0, da, grads, w_part, rows, f, d, groups, stream);
 }
 
-// y = LN(x) . w + b. x: (rows, d); gamma, beta: (d,) fp32; w: (d, f); b: (f,);
-// y: (rows, f); d is 384 or 768, f a multiple of 64.
+// y = LN(x) . w + b. x: (rows, d); gamma, beta: (d,) fp32; w: (d, f) with
+// w_layout 0, or nn.Linear's (f, d) with w_layout 1 (at d = 384 only: the
+// caller makes a (d, f) copy for d = 768); b: (f,); y: (rows, f); d is 384
+// or 768, f a multiple of 64. d = 384 runs ln_gemm_sm90.cu's kernel (K9a).
 int tpuwsi_ln_gemm_fwd(const void* x, const void* gamma, const void* beta, const void* w,
-                       const void* b, void* y, int rows, int d, int f, float eps, void* stream) {
-  return dispatch_fwd<true>(x, gamma, beta, w, b, nullptr, y, rows, d, f, eps, stream);
+                       const void* b, void* y, int rows, int d, int f, float eps, int w_layout,
+                       void* stream) {
+  if (!widths_ok(rows, d, f) || (w_layout != 0 && w_layout != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (d == 384)
+    return dense_sm90::ln_gemm_fwd(x, gamma, beta, w, w_layout, b, y, rows, f, eps,
+                                   static_cast<cudaStream_t>(stream));
+  if (w_layout != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fwd<768, true>(x, gamma, beta, w, b, nullptr, y, rows, f, eps, stream);
 }
 
 // Gradients of the above. dy: (rows, f); dx: (rows, d). grads: d f + f + 2 d
 // fp32 = dW (d, f) | db | dgamma | dbeta. Workspaces: w_part (groups, d f + f)
 // and row_part (n_row_tiles, 2 d) fp32, with n_row_tiles = ceil(rows /
-// tpuwsi_mlp_rows_per_tile(d)); ln_work (rows, d) bf16 takes LN(x) from the
-// first kernel to the second.
+// tpuwsi_mlp_rows_per_tile(d)) and 1 <= groups <= ceil(rows /
+// tpuwsi_dense_rows_per_step(d)); ln_work (rows, d) bf16 takes LN(x) from the
+// first kernel to the weight gradient's. d = 384 runs ln_gemm_sm90.cu's
+// launches (K9b).
 int tpuwsi_ln_gemm_bwd(const void* x, const void* dy, const void* gamma, const void* beta,
                        const void* w, void* dx, void* grads, void* w_part, void* row_part,
-                       void* ln_work, int rows, int d, int f, int groups, float eps,
+                       void* ln_work, int rows, int d, int f, int groups, float eps, int w_layout,
                        void* stream) {
-  if (!widths_ok(rows, d, f)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!widths_ok(rows, d, f) || (w_layout != 0 && w_layout != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (d == 384)
-    return launch_bwd<384, true>(x, dy, gamma, beta, w, dx, grads, w_part, row_part, ln_work,
-                                 rows, f, groups, eps, stream);
+    return dense_sm90::ln_gemm_bwd(x, dy, gamma, beta, w, w_layout, dx, grads, w_part, row_part,
+                                   ln_work, rows, f, groups, eps,
+                                   static_cast<cudaStream_t>(stream));
+  if (w_layout != 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_bwd<768, true>(x, dy, gamma, beta, w, dx, grads, w_part, row_part, ln_work, rows,
                                f, groups, eps, stream);
 }
@@ -349,8 +353,9 @@ int tpuwsi_gemm_res_fwd(const void* res, const void* a, const void* w, const voi
                         int rows, int f, int d, void* stream) {
   if (d == 384) return dense_sm90::gemm_res_fwd(res, a, w, b, y, rows, f,
                                                 static_cast<cudaStream_t>(stream));
-  if (d != 768) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_fwd<false>(a, nullptr, nullptr, w, b, res, y, rows, f, d, 0.f, stream);
+  if (d != 768 || !widths_ok(rows, f, d)) return static_cast<int>(cudaErrorInvalidValue);
+  return f == 384 ? launch_fwd<384, false>(a, nullptr, nullptr, w, b, res, y, rows, d, 0.f, stream)
+                  : launch_fwd<768, false>(a, nullptr, nullptr, w, b, res, y, rows, d, 0.f, stream);
 }
 
 }  // extern "C"

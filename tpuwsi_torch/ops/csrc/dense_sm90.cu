@@ -97,9 +97,6 @@ struct StoreEpilogue {
   static constexpr uint32_t kSmem = 0;
 
   template <int kWg>
-  __device__ static void prologue(const Params&, uint32_t, int, int) {}
-
-  template <int kWg>
   __device__ static void epilogue(const float (&acc)[96], const Params& ep,
                                   const CUtensorMap* out_map, uint32_t io, uint32_t, int tile,
                                   const RowShape& shape, int tid) {
@@ -144,9 +141,7 @@ int dx_pass(const void* dy, const void* w, int w_layout, void* dx, int rows, int
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap w_map;
-  const bool ok = w_layout == 0 ? encode_2d(&w_map, encode, w, n, kWidth, kTile)
-                                : encode_2d(&w_map, encode, w, kWidth, n, kTile);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (!encode_w(&w_map, encode, w, w_layout, n)) return static_cast<int>(cudaErrorInvalidValue);
   return w_layout == 0
              ? launch_rows<DxStore, false>(dy, w_map, nullptr, dx, rows, n / kTile, {}, stream)
              : launch_rows<DxStore, true>(dy, w_map, nullptr, dx, rows, n / kTile, {}, stream);

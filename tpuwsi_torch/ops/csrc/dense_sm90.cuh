@@ -1,7 +1,9 @@
 // Dense-layer building blocks on wgmma that more than one source shares
-// (dense_sm90.cu, attn_block.cu): helpers for 128-byte swizzled 64 x 64
-// boxes and the wgmma shapes the row passes use, and the weight-gradient
-// kernel of a dense layer whose input is 384 wide,
+// (dense_sm90.cu, ln_gemm_sm90.cu, attn_block.cu): helpers for 128-byte
+// swizzled 64 x 64 boxes and the wgmma shapes the row passes use, the row
+// pass itself, LayerNorm (a pass of its own, and its backward as the row
+// pass's epilogue: K8b's and K9b's dx), and the weight-gradient kernel of a
+// dense layer whose input is 384 wide,
 //   dW (384, n) = A^T . G,  db (n,) = the column sums of G,
 // per (slice of 64 output columns, group of 64-row steps), into w_part in
 // the fixed-order layout of the row-tiled kernels (dense_common.cuh), which
@@ -88,6 +90,33 @@ __device__ __forceinline__ float ld_shared_f32(uint32_t addr) {
 
 __device__ __forceinline__ void st_shared_f32(uint32_t addr, float v) {
   asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Byte offset of 16-byte chunk c (values 8c .. 8c + 7) of row r of a tile
+// whose 64-column boxes lie kBox apart, 128-byte swizzled as TMA writes them.
+__device__ __forceinline__ uint32_t chunk_at(int r, int c) {
+  return static_cast<uint32_t>((c >> 3) * kBox + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
 }
 
 // Each warp's lane 0 arrives once for the warp, after the warp's reads.
@@ -352,7 +381,8 @@ inline int dw(const void* a, const void* g, float* w_part, int rows, int n, int 
 // ---- the row pass -------------------------------------------------------------
 // out (rows, 384) from A (rows, 64 n_chunks) and W, a 64-row tile at a time,
 // with an epilogue of the caller's: dense_sm90.cu stores K7's dx and K9c's
-// residual sum, attn_block.cu runs K8b's LayerNorm backward (its dx tail).
+// residual sum, `LnBackward` below runs the LayerNorm backward of K8b's dx
+// tail (attn_block.cu) and of K9b (ln_gemm_sm90.cu).
 // The design is dense_sm90.cu's head comment's: 384-thread blocks in
 // clusters of kRowCluster that walk neighbouring tiles, two consumer
 // warpgroups of 192 output columns (m64n192), a producer thread, a ring of
@@ -362,7 +392,6 @@ inline int dw(const void* a, const void* g, float* w_part, int rows, int n, int 
 // An epilogue type provides: `Params`, what its hooks read; `kLoadsRes`,
 // whether the producer loads the tile's six boxes of res_map into the
 // epilogue's stage; `kSmem`, bytes of its own at base + kRowOffEpi; and
-// `prologue<kWg>(ep, base, tile, tid)`, run before the tile's chunks, and
 // `epilogue<kWg>(acc, ep, out_map, io, base, tile, shape, tid)`, run with the
 // tile's products in acc and its stage's six boxes at io, which it leaves
 // free for the producer.
@@ -384,10 +413,11 @@ struct RowShape {
 
 // Arrive on the barrier at offset `bar` of every block of the cluster: lane r
 // of the warp signals the block of rank r, all at once.
+template <int kBlocks = kRowCluster>
 __device__ __forceinline__ void warp_arrive_cluster(uint32_t bar) {
   __syncwarp();
   const uint32_t lane = threadIdx.x & 31;
-  if (lane < kRowCluster) mbar_arrive_cluster(bar, lane);
+  if (lane < kBlocks) mbar_arrive_cluster(bar, lane);
 }
 
 // One thread: per row tile of this block, the chunks of the reduction, then
@@ -440,7 +470,6 @@ __device__ __forceinline__ void row_consumer(const CUtensorMap* out_map, const R
   uint32_t it = 0;
   for (int grp = cluster; grp < shape.n_groups; grp += n_clusters) {
     const int tile = grp * kRowCluster + rank;
-    Epi::template prologue<kWg>(ep, base, tile, tid);
     float acc[96];  // the tile's 64 rows x columns 192 kWg .. + 191
     zero(acc);
     // each chunk's products issued one group ahead of the wait that frees
@@ -523,14 +552,14 @@ constexpr uint32_t row_smem() {
 }
 
 inline cudaLaunchConfig_t row_config(cudaLaunchAttribute* attr, int blocks, uint32_t smem,
-                                     cudaStream_t stream) {
+                                     cudaStream_t stream, int cluster = kRowCluster) {
   cudaLaunchConfig_t cfg{};
   cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(kRowThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = kRowCluster;
+  attr->val.clusterDim.x = cluster;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -539,8 +568,12 @@ inline cudaLaunchConfig_t row_config(cudaLaunchAttribute* attr, int blocks, uint
 }
 
 // Clusters of a row kernel the card holds at once, asked once per kernel.
+// `static`: each source that includes this header keeps its own cache, and
+// so does each library built from a tree of them (a static local of a
+// function with external linkage is one object per process, shared by every
+// library loaded into it that instantiates the same template).
 template <class Epi, bool kTransB>
-int row_clusters(int* clusters) {
+static int row_clusters(int* clusters) {
   static int cached = 0;
   if (cached == 0) {
     auto kernel = dense_row_kernel<Epi, kTransB>;
@@ -584,6 +617,295 @@ int launch_rows(const void* a, const CUtensorMap& w_map, const void* res, void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// A map over W (384, n) (w_layout 0) or, as nn.Linear keeps it, (n, 384)
+// (w_layout 1), in 64 x 64 boxes: a box at (col, row) of the map holds 64
+// values of the stored rows' contiguous axis.
+inline bool encode_w(CUtensorMap* map, EncodeTiledFn encode, const void* w, int w_layout, int n) {
+  return w_layout == 0 ? encode_2d(map, encode, w, n, kWidth, kTile)
+                       : encode_2d(map, encode, w, kWidth, n, kTile);
+}
+
+// ---- LayerNorm ------------------------------------------------------------------
+
+// bf16(LN(x)) of every row of x (rows x kD) into `ln`: fp32 statistics with
+// the fast variance E[x^2] - mean^2 clamped at 0, then bf16((x - mean) inv
+// gamma + beta). One warp a row, 16-byte loads and stores, eight rows a
+// block. attn_block.cu runs it once per image for both of its kernels, which
+// take LN(x) as TMA boxes; ln_gemm_sm90.cu for K9b's dW kernel.
+template <int kD>
+__global__ void __launch_bounds__(256) ln_rows_kernel(const __nv_bfloat16* __restrict__ x,
+                                                      const float* __restrict__ gamma,
+                                                      const float* __restrict__ beta, float eps,
+                                                      long long rows,
+                                                      __nv_bfloat16* __restrict__ ln) {
+  constexpr int kPer = (kD / 8 + 31) / 32;  // 16-byte chunks a lane
+  const long long row = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  uint4 v[kPer];
+  float sum = 0.f, sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int c = lane + 32 * j;
+    v[j] = c < kD / 8 ? *reinterpret_cast<const uint4*>(x + row * kD + 8 * c) : make_uint4(0, 0, 0, 0);
+    const uint32_t w[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = mlp::unpack_bf16(w[e]);
+      sum += f.x + f.y;
+      sq += f.x * f.x + f.y * f.y;
+    }
+  }
+  const float mean = warp_sum(sum) * (1.f / kD);
+  const float inv = rsqrtf(fmaxf(warp_sum(sq) * (1.f / kD) - mean * mean, 0.f) + eps);
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int c = lane + 32 * j;
+    if (c >= kD / 8) continue;
+    const uint32_t w[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
+    uint32_t o[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // gamma, beta: 8-byte aligned
+      const float2 f = mlp::unpack_bf16(w[e]);
+      const float2 gm = *reinterpret_cast<const float2*>(gamma + 8 * c + 2 * e);
+      const float2 bt = *reinterpret_cast<const float2*>(beta + 8 * c + 2 * e);
+      o[e] = pack_bf16((f.x - mean) * inv * gm.x + bt.x, (f.y - mean) * inv * gm.y + bt.y);
+    }
+    *reinterpret_cast<uint4*>(ln + row * kD + 8 * c) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
+template <int kD>
+int ln_launch(const void* x, const void* gamma, const void* beta, void* ln, long long rows,
+              float eps, cudaStream_t stream) {
+  ln_rows_kernel<kD><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), eps, rows, static_cast<__nv_bfloat16*>(ln));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the LayerNorm backward as the row pass's epilogue ---------------------------
+// dln = A . W^T from the row pass in acc; per 64-row tile
+//   dx = [dy +] inv (dln gamma - mean(dln gamma) - xhat mean(dln gamma xhat))
+// and the tile's dgamma = sum dln xhat, dbeta = sum dln column sums into
+// row_part. K8b's dx tail (attn_block.cu) adds its cotangent dy (kResidual);
+// K9b's (ln_gemm_sm90.cu) has none.
+//
+// The producer loads the tile's x (six 64 x 64 boxes, 48 KB) by TMA into the
+// epilogue's stage, as K9c loads res (kLoadsRes): the row statistics and xhat
+// come from shared memory, and dx is written back in place of x and leaves by
+// TMA stores (rows past the end clipped). The stage's seventh box, A's slot,
+// which the epilogue does not load, holds the column sums: 4 warps x 192
+// columns x (dgamma, dbeta) of fp32 are 6 KB a warpgroup, 12 KB for both, so
+// each warpgroup reduces its columns in two halves of 96 (3 KB each) through
+// its own 3 KB of the box. The row sums of both warpgroups (1 KB) and the
+// rows' (mean, 1 / sigma) (0.5 KB) take the epilogue's own bytes beyond the
+// ring, of which 227 KB leave 2.9 KB. The arithmetic and its order are the
+// ones of the epilogue that read x from device memory before it, so K8b gives
+// the same bits: each row's statistics from the same lanes' 16-byte chunks
+// in the same order, the column sums over the warps in warp order.
+
+struct DxParams {
+  const __nv_bfloat16* dy;  // kResidual: (rows, 384), added to dx
+  const float* gamma;
+  float* row_part;  // (n_tiles, 2, 384): dgamma | dbeta per 64-row tile
+  float eps;
+  int rows, n_tiles;
+};
+
+// mean and 1 / sigma (fast variance, clamped at 0) of four rows of the tile
+// at `x` (rows[r] a row of the tile) by one warp, 16-byte chunks in lane
+// order; a row at or past n gives (0, 0).
+__device__ __forceinline__ void row_stats4(uint32_t x, const int (&rows)[4], int n, float eps,
+                                           int lane, float (&mean)[4], float (&inv)[4]) {
+  float sum[4], sq[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    sum[r] = 0.f;
+    sq[r] = 0.f;
+    if (rows[r] < n) {
+#pragma unroll
+      for (int c = lane; c < kWidth / 8; c += 32) {
+        const uint4 v = ld_shared_v4(x + chunk_at(rows[r], c));
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = mlp::unpack_bf16(w[e]);
+          sum[r] += f.x + f.y;
+          sq[r] += f.x * f.x + f.y * f.y;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float m = warp_sum(sum[r]) * (1.f / kWidth);
+    const float var = warp_sum(sq[r]) * (1.f / kWidth) - m * m;
+    const bool ok = rows[r] < n;
+    mean[r] = ok ? m : 0.f;
+    inv[r] = ok ? rsqrtf(fmaxf(var, 0.f) + eps) : 0.f;
+  }
+}
+
+// The LayerNorm backward of the tile's rows row0 + ra, + rb (this thread's),
+// columns 192 kWg + 8i + 2t4, + 1, from dln in acc and x at `io` (six boxes);
+// each row's mean and 1 / sigma at `stats`; the two warpgroups' row halves
+// meet at `row_red` (warpgroup 0's first), the warps' column sums at
+// `col_red` (3 KB a warpgroup) in a fixed order. Rows past the end hold dln = 0
+// and x = 0; they are not stored, nor are a tile's sums past the last.
+template <bool kResidual, int kWg>
+__device__ __forceinline__ void dx_epilogue(const float (&acc)[96], const DxParams& prm,
+                                            const CUtensorMap* out_map, uint32_t io,
+                                            uint32_t stats, uint32_t row_red, uint32_t col_red,
+                                            int tile, int tid) {
+  tid = static_cast<int>(opaque(static_cast<uint32_t>(tid)));
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int ra = 16 * warp + g, rb = ra + 8, row0 = kTile * tile;
+  const float2 sa = ld_shared_f2(stats + 8 * ra);
+  const float2 sb = ld_shared_f2(stats + 8 * rb);
+  auto at = [&](int r, int col) { return io + (col >> 6) * kBox + swz(r, col & 63); };
+  col_red += kWg * (4 * 96 * 8);
+  float s1a = 0.f, s2a = 0.f, s1b = 0.f, s2b = 0.f;
+  float* part = prm.row_part + static_cast<size_t>(tile) * 2 * kWidth + 192 * kWg;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int i = 12 * half; i < 12 * half + 12; ++i) {
+      const int c = 8 * i + 2 * t4, col = 192 * kWg + c;
+      const float2 gam = *reinterpret_cast<const float2*>(prm.gamma + col);
+      const float2 xa = mlp::unpack_bf16(ld_shared_u32(at(ra, col)));
+      const float2 xb = mlp::unpack_bf16(ld_shared_u32(at(rb, col)));
+      const float ha0 = (xa.x - sa.x) * sa.y, ha1 = (xa.y - sa.x) * sa.y;
+      const float hb0 = (xb.x - sb.x) * sb.y, hb1 = (xb.y - sb.x) * sb.y;
+      const float da0 = acc[4 * i] * gam.x, da1 = acc[4 * i + 1] * gam.y;
+      const float db0 = acc[4 * i + 2] * gam.x, db1 = acc[4 * i + 3] * gam.y;
+      s1a += da0 + da1;
+      s2a += da0 * ha0 + da1 * ha1;
+      s1b += db0 + db1;
+      s2b += db0 * hb0 + db1 * hb1;
+      float pg0 = acc[4 * i] * ha0 + acc[4 * i + 2] * hb0;
+      float pg1 = acc[4 * i + 1] * ha1 + acc[4 * i + 3] * hb1;
+      float pb0 = acc[4 * i] + acc[4 * i + 2], pb1 = acc[4 * i + 1] + acc[4 * i + 3];
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        pg0 += __shfl_xor_sync(0xffffffffu, pg0, off);
+        pg1 += __shfl_xor_sync(0xffffffffu, pg1, off);
+        pb0 += __shfl_xor_sync(0xffffffffu, pb0, off);
+        pb1 += __shfl_xor_sync(0xffffffffu, pb1, off);
+      }
+      if (g == 0) {
+        const uint32_t dst = col_red + (warp * 96 + c - 96 * half) * 8;
+        st_shared_f32(dst, pg0);
+        st_shared_f32(dst + 4, pb0);
+        st_shared_f32(dst + 8, pg1);
+        st_shared_f32(dst + 12, pb1);
+      }
+    }
+    named_sync(2 + kWg, 128);  // the four warps' sums of the half's 96 columns
+    for (int c = tid; c < 96 && tile < prm.n_tiles; c += 128) {
+      float dg = 0.f, db = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        dg += ld_shared_f32(col_red + (w * 96 + c) * 8);
+        db += ld_shared_f32(col_red + (w * 96 + c) * 8 + 4);
+      }
+      part[96 * half + c] = dg;
+      part[kWidth + 96 * half + c] = db;
+    }
+    named_sync(2 + kWg, 128);  // read before the next half, or the producer, writes there
+  }
+  s1a = quad_sum(s1a);
+  s2a = quad_sum(s2a);
+  s1b = quad_sum(s1b);
+  s2b = quad_sum(s2b);
+  if (t4 == 0) {
+    st_shared_f32(row_red + (kWg * kTile + ra) * 8, s1a);
+    st_shared_f32(row_red + (kWg * kTile + ra) * 8 + 4, s2a);
+    st_shared_f32(row_red + (kWg * kTile + rb) * 8, s1b);
+    st_shared_f32(row_red + (kWg * kTile + rb) * 8 + 4, s2b);
+  }
+  named_sync(1, 256);  // both halves of every row
+  auto row_mean = [&](int r, int k) {
+    return (ld_shared_f32(row_red + r * 8 + 4 * k) +
+            ld_shared_f32(row_red + (kTile + r) * 8 + 4 * k)) * (1.f / kWidth);
+  };
+  const float m1a = row_mean(ra, 0), m2a = row_mean(ra, 1);
+  const float m1b = row_mean(rb, 0), m2b = row_mean(rb, 1);
+  // element offsets of the two rows in dy (rows x 3 D < 2^31); a row past the
+  // end reads the last one's, and is not stored
+  [[maybe_unused]] const int dy_a = min(row0 + ra, prm.rows - 1) * kWidth;
+  [[maybe_unused]] const int dy_b = min(row0 + rb, prm.rows - 1) * kWidth;
+#pragma unroll
+  for (int i = 0; i < 24; ++i) {
+    const int col = 192 * kWg + 8 * i + 2 * t4;
+    const float2 gam = *reinterpret_cast<const float2*>(prm.gamma + col);
+    const uint32_t xa_at = at(ra, col), xb_at = at(rb, col);
+    const float2 xa = mlp::unpack_bf16(ld_shared_u32(xa_at));
+    const float2 xb = mlp::unpack_bf16(ld_shared_u32(xb_at));
+    const float ha0 = (xa.x - sa.x) * sa.y, ha1 = (xa.y - sa.x) * sa.y;
+    const float hb0 = (xb.x - sb.x) * sb.y, hb1 = (xb.y - sb.x) * sb.y;
+    // one expression each, as the epilogue that read x from device memory wrote
+    // them: the same contractions, the same bits
+    if constexpr (kResidual) {
+      const float2 dya = mlp::unpack_bf16(*reinterpret_cast<const uint32_t*>(prm.dy + dy_a + col));
+      const float2 dyb = mlp::unpack_bf16(*reinterpret_cast<const uint32_t*>(prm.dy + dy_b + col));
+      st_shared_u32(xa_at, pack_bf16(dya.x + sa.y * (acc[4 * i] * gam.x - m1a - ha0 * m2a),
+                                     dya.y + sa.y * (acc[4 * i + 1] * gam.y - m1a - ha1 * m2a)));
+      st_shared_u32(xb_at, pack_bf16(dyb.x + sb.y * (acc[4 * i + 2] * gam.x - m1b - hb0 * m2b),
+                                     dyb.y + sb.y * (acc[4 * i + 3] * gam.y - m1b - hb1 * m2b)));
+    } else {
+      st_shared_u32(xa_at, pack_bf16(sa.y * (acc[4 * i] * gam.x - m1a - ha0 * m2a),
+                                     sa.y * (acc[4 * i + 1] * gam.y - m1a - ha1 * m2a)));
+      st_shared_u32(xb_at, pack_bf16(sb.y * (acc[4 * i + 2] * gam.x - m1b - hb0 * m2b),
+                                     sb.y * (acc[4 * i + 3] * gam.y - m1b - hb1 * m2b)));
+    }
+  }
+  fence_proxy_async();       // the generic stores, before TMA reads them
+  named_sync(2 + kWg, 128);  // the warpgroup's three boxes, whole
+  if (tid == 0 && tile < prm.n_tiles) {
+    for (int j = 0; j < 3; ++j)
+      tma_store_2d(out_map, io + (3 * kWg + j) * kBox, kTile * (3 * kWg + j), kTile * tile);
+    bulk_commit();
+    bulk_wait_read<0>();
+  }
+  named_sync(2 + kWg, 128);  // TMA has read the boxes: the stage may be refilled
+}
+
+// The hooks on the row pass. The epilogue first takes each row's statistics
+// from x in the stage (each warp eight rows of the 64, four at a time), then
+// runs dx_epilogue.
+template <bool kResidual>
+struct LnBackward {
+  using Params = DxParams;
+  static constexpr bool kLoadsRes = true;  // x, into the epilogue's stage
+  // (mean, inv) of the tile's rows, then the row sums of both warpgroups
+  static constexpr uint32_t kSmem = 3 * kTile * 8;
+
+  template <int kWg>
+  __device__ static void epilogue(const float (&acc)[96], const DxParams& prm,
+                                  const CUtensorMap* out_map, uint32_t io, uint32_t base, int tile,
+                                  const RowShape&, int tid) {
+    const uint32_t stats = base + kRowOffEpi;
+    {
+      const int warp = static_cast<int>(opaque(static_cast<uint32_t>(tid))) >> 5, lane = tid & 31;
+      const int r0 = 32 * kWg + 8 * warp;
+      for (int j = 0; j < 8; j += 4) {
+        int rows[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) rows[r] = r0 + j + r;
+        float mean[4], inv[4];
+        row_stats4(io, rows, prm.rows - kTile * tile, prm.eps, lane, mean, inv);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          if (lane == r) st_shared_f2(stats + 8 * (r0 + j + r), mean[r], inv[r]);
+      }
+    }
+    named_sync(1, 256);  // every row's statistics
+    dx_epilogue<kResidual, kWg>(acc, prm, out_map, io, stats, stats + kTile * 8, io - kBox, tile,
+                                tid);
+  }
+};
+
 // The entry points of dense_sm90.cu (dense.cu dispatches to them at width
 // 384). bf16 tensors, contiguous and 16-byte aligned; each launches on
 // `stream`, allocates nothing and returns a CUDA error code.
@@ -599,5 +921,18 @@ int bwd(const void* x, const void* dy, const void* w, int w_layout, void* dx, vo
 // (384,); f 384 or 768.
 int gemm_res_fwd(const void* res, const void* a, const void* w, const void* b, void* y, int rows,
                  int f, cudaStream_t stream);
+
+// The entry points of ln_gemm_sm90.cu. y (rows, n) = bf16(LN(x)) . W + b: x
+// (rows, 384); gamma, beta (384,) fp32; W as above by w_layout; b (n,); n a
+// multiple of 64.
+int ln_gemm_fwd(const void* x, const void* gamma, const void* beta, const void* w, int w_layout,
+                const void* b, void* y, int rows, int n, float eps, cudaStream_t stream);
+// Its gradients at dy (rows, n): dx (rows, 384); grads (out): 384 n + n + 2 x 384
+// fp32 = dW | db | dgamma | dbeta. Workspaces, contents undefined on entry:
+// w_part as bwd's, row_part (ceil(rows / 64), 2 x 384) fp32, ln_work (rows,
+// 384) bf16.
+int ln_gemm_bwd(const void* x, const void* dy, const void* gamma, const void* beta, const void* w,
+                int w_layout, void* dx, void* grads, void* w_part, void* row_part, void* ln_work,
+                int rows, int n, int groups, float eps, cudaStream_t stream);
 
 }  // namespace dense_sm90

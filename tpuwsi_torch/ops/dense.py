@@ -36,10 +36,10 @@ from tpuwsi_torch.ops.mlp import (
     _dense_grads,
     _launch_dense_grads,
     _use_plain,
+    _weight_operand,
 )
 
 LAUNCHES = {"dense_bwd": 0}
-LINEAR_LAYOUT_WIDTHS = (384,)  # input widths whose kernel reads nn.Linear's (N, D) weight
 
 
 def reset_launches() -> None:
@@ -58,23 +58,7 @@ def _check_operands(x2, dy2, w, w_layout: int = 0) -> None:
     """Raise unless the kernel takes these operands as they are: ``w`` holds
     the (D, N) weight as it is stored, (D, N) or (``w_layout`` 1) (N, D)."""
     d = x2.shape[1]
-    if w_layout and d not in LINEAR_LAYOUT_WIDTHS:
-        raise ValueError(f"hybrid dense kernels read an (N, D) weight at D in "
-                         f"{LINEAR_LAYOUT_WIDTHS} only: got D = {d}")
     _check_dense_operands("hybrid dense", x2, w, (d, 3 * d), dy2=dy2, w_layout=w_layout)
-
-
-def _weight_operand(w):
-    """What the kernel reads for the (D, N) weight ``w`` → ``(tensor,
-    w_layout)``: ``w`` itself where it is contiguous (0); where it is the
-    transposed view of an (N, D) weight, as ``nn.Linear.weight.t()`` is, that
-    weight's own storage (1) at the widths whose kernel reads it; otherwise a
-    (D, N) copy (0): the row-tiled kernel at D = 768 reads W as (D, N) only."""
-    if w.is_contiguous():
-        return w, 0
-    if w.shape[0] in LINEAR_LAYOUT_WIDTHS and w.t().is_contiguous():
-        return w.t(), 1
-    return w.contiguous(), 0
 
 
 def _launch_dense_bwd(x2, dy2, w):

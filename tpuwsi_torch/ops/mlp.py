@@ -43,11 +43,14 @@ in-kernel. The backward kernels sum the weight gradients in a fixed order: the
 same inputs give the same bits on every run. At width 384 the four MLP
 kernels are ``csrc/mlp_sm90.cu`` (clusters of four blocks sharing the weight
 stream; the sub-block's LayerNorm inside the row tile; the backward's row
-groups from ``mlp_dw_groups``), and the GEMM+residual's are
+groups from ``mlp_dw_groups``), the GEMM+residual's are
 ``csrc/dense_sm90.cu`` (the forward where the output width is 384, the
-backward where the input width is 384: the hybrid dense layer's kernels); at
-768, and for the LN+GEMM, the row-tiled kernels of ``csrc/mlp_fwd.cu``,
-``csrc/mlp_bwd.cu`` and ``csrc/dense.cu``.
+backward where the input width is 384: the hybrid dense layer's kernels), and
+the LN+GEMM's ``csrc/ln_gemm_sm90.cu``, which reads the weight as it is
+stored: ``fused_ln_gemm`` hands it nn.Linear's ``weight.t()`` as that
+weight's own (F, D) storage, no copy. At 768 they are the row-tiled kernels of
+``csrc/mlp_fwd.cu``, ``csrc/mlp_bwd.cu`` and ``csrc/dense.cu``, which read W
+only as (D, F): a transposed view is copied there.
 
 As in the reference, the public functions cast the parameters to ``x.dtype``
 outside the differentiated op and the op returns weight and bias gradients in
@@ -64,6 +67,7 @@ import torch
 import torch.nn.functional as F
 
 KERNEL_WIDTHS = (384, 768)   # embedding widths the kernels are built for
+LINEAR_LAYOUT_WIDTHS = (384,)  # input widths whose dense kernels read nn.Linear's (N, D) weight
 KERNEL_HIDDEN_MULTIPLE = 64
 DW_WAVES = 4                 # weight-gradient blocks per SM that the row groups aim at
 # The weight-gradient passes of the D = 384 backward (csrc/mlp_sm90.cu): clusters
@@ -257,8 +261,12 @@ def _check_dense_operands(what, a2, w, outs=None, *, b=None, dy2=None, res2=None
     """Raise unless the dense-layer kernels take these operands as they are:
     ``a2 (rows, K) @ W (K, N)`` with K in ``KERNEL_WIDTHS`` and N in ``outs``
     (None: any multiple of 64); ``w`` holds W as (K, N), or with ``w_layout``
-    1 as nn.Linear's (N, K)."""
+    1 as nn.Linear's (N, K), which the kernels read at K in
+    ``LINEAR_LAYOUT_WIDTHS`` only."""
     rows, k = a2.shape
+    if w_layout and k not in LINEAR_LAYOUT_WIDTHS:
+        raise ValueError(f"{what} kernels read an (N, D) weight at D in "
+                         f"{LINEAR_LAYOUT_WIDTHS} only: got D = {k}")
     n = w.shape[0] if w_layout else w.shape[1]
     n_ok = n % KERNEL_HIDDEN_MULTIPLE == 0 and n > 0 if outs is None else n in outs
     if k not in KERNEL_WIDTHS or not n_ok:
@@ -270,6 +278,20 @@ def _check_dense_operands(what, a2, w, outs=None, *, b=None, dy2=None, res2=None
     _check_tensors(what, a2.device, k, ln, {
         "the input": (a2, (rows, k)), "w": (w, (n, k) if w_layout else (k, n)), "b": (b, (n,)),
         "dy": (dy2, (rows, n)), "res": (res2, (rows, n))})
+
+
+def _weight_operand(w):
+    """What a dense-layer kernel reads for the (K, N) weight ``w`` →
+    ``(tensor, w_layout)``: ``w`` itself where it is contiguous (0); where it
+    is the transposed view of an (N, K) weight, as ``nn.Linear.weight.t()`` is,
+    that weight's own storage (1) at the widths whose kernels read it;
+    otherwise a (K, N) copy (0): the row-tiled kernels at K = 768 read W as
+    (K, N) only."""
+    if w.is_contiguous():
+        return w, 0
+    if w.shape[0] in LINEAR_LAYOUT_WIDTHS and w.t().is_contiguous():
+        return w.t(), 1
+    return w.contiguous(), 0
 
 
 def _call(name: str, like: torch.Tensor, args, counts=LAUNCHES) -> None:
@@ -371,10 +393,10 @@ def _launch_dense_grads(name, counts, a2, dy2, w, ln=None, eps=0.0, w_layout=Non
     """One launch of a dense-layer backward kernel (``dense_bwd``,
     ``gemm_res_bwd``; with ``ln = (gamma, beta)``: ``ln_gemm_bwd``) →
     ``(da, dw (K, N), db)`` or ``(dx, dgamma, dbeta, dw, db)``; the first in
-    a2's dtype, the others fp32 views of one buffer. ``w_layout`` (``dense_bwd``
-    only, whose C function takes it): 0 for W stored (K, N), 1 for nn.Linear's
-    (N, K). As in ``_bwd_buffers`` the number of row groups follows from the
-    shapes and the card alone."""
+    a2's dtype, the others fp32 views of one buffer. ``w_layout`` (for the C
+    functions that take it: ``dense_bwd``, ``ln_gemm_bwd``): 0 for W stored
+    (K, N), 1 for nn.Linear's (N, K). As in ``_bwd_buffers`` the number of row
+    groups follows from the shapes and the card alone."""
     from tpuwsi_torch.ops import _build
 
     rows, k = a2.shape
@@ -401,22 +423,27 @@ def _launch_dense_grads(name, counts, a2, dy2, w, ln=None, eps=0.0, w_layout=Non
     ln_work = torch.empty_like(a2)  # LN(x), from the launch's first kernel to its second
     _call(name, a2, (a2.data_ptr(), dy2.data_ptr(), g.data_ptr(), be.data_ptr(), w.data_ptr(),
                      da.data_ptr(), grads.data_ptr(), w_part.data_ptr(), row_part.data_ptr(),
-                     ln_work.data_ptr(), rows, k, n, groups, float(eps)), counts)
+                     ln_work.data_ptr(), rows, k, n, groups, float(eps), w_layout or 0), counts)
     dw, db, dg, dbe = grads.split([k * n, n, k, k])
     return da, dg, dbe, dw.view(k, n), db
 
 
-def _launch_ln_gemm_fwd(x2, g, be, w, b, eps):
-    _check_dense_operands("LN+GEMM", x2, w, b=b, ln=(g, be))
-    y = torch.empty((x2.shape[0], w.shape[1]), dtype=x2.dtype, device=x2.device)
+def _launch_ln_gemm_fwd(x2, g, be, w, b, eps, w_layout=0):
+    """K9a on ``w`` as it is stored: (D, F) with ``w_layout`` 0, nn.Linear's
+    (F, D) with 1."""
+    _check_dense_operands("LN+GEMM", x2, w, b=b, ln=(g, be), w_layout=w_layout)
+    n = w.shape[0] if w_layout else w.shape[1]
+    y = torch.empty((x2.shape[0], n), dtype=x2.dtype, device=x2.device)
     _call("ln_gemm_fwd", x2, (x2.data_ptr(), g.data_ptr(), be.data_ptr(), w.data_ptr(),
-                              b.data_ptr(), y.data_ptr(), *x2.shape, w.shape[1], float(eps)))
+                              b.data_ptr(), y.data_ptr(), *x2.shape, n, float(eps), w_layout))
     return y
 
 
-def _launch_ln_gemm_bwd(x2, dy2, g, be, w, eps):
-    _check_dense_operands("LN+GEMM", x2, w, dy2=dy2, ln=(g, be))
-    return _launch_dense_grads("ln_gemm_bwd", LAUNCHES, x2, dy2, w, (g, be), eps)
+def _launch_ln_gemm_bwd(x2, dy2, g, be, w, eps, w_layout=0):
+    """K9b on ``w`` as it is stored, as ``_launch_ln_gemm_fwd``; dw is (D, F)
+    in both layouts."""
+    _check_dense_operands("LN+GEMM", x2, w, dy2=dy2, ln=(g, be), w_layout=w_layout)
+    return _launch_dense_grads("ln_gemm_bwd", LAUNCHES, x2, dy2, w, (g, be), eps, w_layout)
 
 
 def _launch_gemm_res_fwd(res2, a2, w, b):
@@ -492,20 +519,28 @@ class _FusedMlpBlock(torch.autograd.Function):
 
 class _FusedLnGemm(torch.autograd.Function):
     """LayerNorm inside the GEMM's row tiles (``tpuwsi/ops/mlp.py:1039
-    _fused_ln_gemm``)."""
+    _fused_ln_gemm``). ``w`` (D, F) in any layout: the kernels read it as
+    ``_weight_operand`` gives it, once for both directions."""
 
     @staticmethod
     def forward(ctx, x2, g, be, w, b, eps):
-        fwd = _ln_gemm_fwd_reference if _use_plain(x2) else _launch_ln_gemm_fwd
+        ctx.eps, ctx.w_layout = eps, 0
+        if _use_plain(x2):
+            y = _ln_gemm_fwd_reference(x2, g, be, w, b, eps)
+        else:
+            w, ctx.w_layout = _weight_operand(w)
+            y = _launch_ln_gemm_fwd(x2, g, be, w, b, eps, ctx.w_layout)
         ctx.save_for_backward(x2, g, be, w)
-        ctx.eps = eps
-        return fwd(x2, g, be, w, b, eps)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
         x2, g, be, w = ctx.saved_tensors
-        bwd = _ln_gemm_bwd_reference if _use_plain(x2) else _launch_ln_gemm_bwd
-        dx, dg, dbe, dw, db = bwd(x2, dy.to(x2.dtype).contiguous(), g, be, w, ctx.eps)
+        dy2 = dy.to(x2.dtype).contiguous()
+        if _use_plain(x2):
+            dx, dg, dbe, dw, db = _ln_gemm_bwd_reference(x2, dy2, g, be, w, ctx.eps)
+        else:
+            dx, dg, dbe, dw, db = _launch_ln_gemm_bwd(x2, dy2, g, be, w, ctx.eps, ctx.w_layout)
         return dx, dg.to(g.dtype), dbe.to(be.dtype), dw.to(w.dtype), db.to(w.dtype), None
 
 
@@ -527,14 +562,16 @@ class _FusedGemmRes(torch.autograd.Function):
         return dy, da, dw.to(w.dtype), db.to(w.dtype)
 
 
-def _apply_rows(op, x, ln, params, *static):
+def _apply_rows(op, x, ln, params, *static, as_stored=False):
     """Flatten x to rows, cast ``params`` to its dtype (``ln`` to fp32), apply
     the op and restore x's leading shape. The casts stand outside the op, so
-    their backward carries the op's gradients to the parameters' own dtype."""
+    their backward carries the op's gradients to the parameters' own dtype.
+    ``as_stored``: the params keep their layout (the op reads a weight as it
+    is stored) instead of being made contiguous."""
     dt = x.dtype
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     y = op.apply(x2, *(p.float().contiguous() for p in ln),
-                 *(p.to(dt).contiguous() for p in params), *static)
+                 *(p.to(dt) if as_stored else p.to(dt).contiguous() for p in params), *static)
     return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
@@ -565,9 +602,11 @@ def fused_mlp_block(x, ln_scale, ln_bias, w1, b1, w2, b2, *, approx: bool = Fals
 def fused_ln_gemm(x, ln_scale, ln_bias, w, b, *, eps: float = 1e-6) -> torch.Tensor:
     """``LN(x) @ w + b`` with the LayerNorm inside the GEMM's row tiles: its
     fp32 output never reaches device memory (``tpuwsi/ops/mlp.py:1058``).
-    x: (..., D); w: (D, F). LayerNorm runs in fp32 on fp32 ``ln_scale``,
+    x: (..., D); w: (D, F), for an ``nn.Linear`` its ``weight.t()``, read in
+    place at D = 384. LayerNorm runs in fp32 on fp32 ``ln_scale``,
     ``ln_bias``; its output is rounded to x's dtype before the product."""
-    return _apply_rows(_FusedLnGemm, x, (ln_scale, ln_bias), (w, b), float(eps))
+    return _apply_rows(_FusedLnGemm, x, (ln_scale, ln_bias), (w, b.contiguous()), float(eps),
+                       as_stored=True)
 
 
 def fused_gemm_residual(res, a, w, b) -> torch.Tensor:

@@ -54,6 +54,18 @@ Phases, each printing its own lines:
      attention must give the same losses, and so must a depth-4 run with
      attn_save_probs off, which takes the recomputing backward kernel (timed
      at full depth too);
+  5b. the DINO trainer through its entry point: a seeded folder of 2 x 160
+     uint8 256-px tissue-like PNG tiles (written by this script, each
+     scanline filtered as libpng chooses, all five filter types present; a
+     sample decoded back byte for byte), then
+     tpuwsi_torch.cli.train.main --ssl over it with the step above for 2
+     epochs of 3 steps with the kNN probe after each, once as is and once
+     with --grad-checkpointing: per step K1a = K1b = 24 (K1a = 48
+     recomputing) and K2 = 12, the probe's K2 = 12 per batch, finite losses
+     that agree between the arms, two checkpoints each, summary.csv, and a
+     restore into a fresh bundle equal to the final state in every tensor;
+     the loop's wall ms per step (spot readings) beside the bare step's, its
+     wait on the data and each arm's peak device memory;
   6. the fused-MLP route (use_fused_mlp), full width and depth: the serving
      slice again (12 sub-block forwards per chunk) and the DINO step for
      2 + 6 steps (per step 14 sub-block forwards, 2 sub-block backwards, 22
@@ -94,14 +106,17 @@ Outputs go to build/chip_smoke/.
 
 from __future__ import annotations
 
+import csv
 import dataclasses
 import json
 import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -116,6 +131,10 @@ from tpuwsi_torch.models.convert import params_from_flax
 from tpuwsi_torch.models.registry import create_model
 from tpuwsi_torch.models.vit import VisionTransformer, interpolate_pos_encoding
 from tpuwsi_torch.ops import _build, attention, dense, mlp
+from tpuwsi_torch.cli import train as cli_train
+from tpuwsi_torch.io import prefetch
+from tpuwsi_torch.io.image import decode_png
+from tpuwsi_torch.train.checkpoint import CheckpointManager
 
 SEED = 0
 OUT = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -276,6 +295,17 @@ TRAIN_ARGV_448, TIMED_STEPS_448 = TRAIN_ARGV + ["--dino-global-size", "448"], 4
 # kernel path against plain-attention path, same seeds: the two differ in the
 # summation order inside attention only, then in what bf16 makes of that
 LOSS_MAX_DIFF = 2e-2
+# the trainer's folder: classes x tiles of SSL_TILE px, class means apart
+SSL_DIR, SSL_RUNS = OUT / "ssl_folder", OUT / "train_ssl"
+SSL_CLASSES, SSL_PER_CLASS, SSL_TILE = 2, 160, 256
+SSL_MEANS = [(70, 60, 110), (190, 150, 200)]
+SSL_EPOCHS, SSL_STEPS = 2, 3
+SSL_ARGV = ["--ssl", "--model", "vit_small_patch16_224_dino", "-b", str(TRAIN_BATCH),
+            "--dino-out-dim", "65536", "--epochs", str(SSL_EPOCHS), "--max-steps-per-epoch",
+            str(SSL_STEPS), "--warmup-epochs", "10", "--opt", "adamw", "--lr-base", "0.0005",
+            "--weight-decay", "0.04", "--knn-eval-rate", "1", "--log-interval", "1"]
+# step times of the bare step, by tag, for the phases that read them beside theirs
+STEP_MS = {}
 
 
 def all_launches() -> dict:
@@ -1679,6 +1709,7 @@ def phase_train(smi: str) -> dict:
                              reps=5, warmup=1)
     print(f"[train] multi-crop alone (8 views of {TRAIN_BATCH} tiles): {crop_ms:.2f} ms; on {smi}")
     PROFILES.append(("the tuned step", None, TRAIN_ARGV, ms))
+    STEP_MS["tuned"] = ms
     del bundle
     torch.cuda.empty_cache()
 
@@ -1721,6 +1752,259 @@ def phase_train(smi: str) -> dict:
     print(f"[train] attn_save_probs off at depth {depth}: median of {TIMED_STEPS} steps after "
           f"{WARMUP_STEPS} warm-up {ms_full:.2f} ms per step = {views / ms_full * 1e3:.1f} "
           f"views/s (tuned path above: {ms:.2f} ms); on {smi}")
+    return total
+
+
+def png_bytes(img: np.ndarray, first_row_none: bool = False) -> tuple[bytes, np.ndarray]:
+    """uint8 RGB (H, W, 3) → (a PNG file's bytes, the filter type of each
+    scanline). Each scanline takes the filter (0 None, 1 Sub, 2 Up, 3
+    Average, 4 Paeth) whose residuals, read as signed bytes, have the least
+    absolute sum: libpng's default choice. ``first_row_none`` leaves the
+    first scanline unfiltered."""
+    h, w, c = img.shape
+    cur = img.reshape(h, w * c).astype(np.int16)
+    up = np.vstack([np.zeros((1, w * c), np.int16), cur[:-1]])
+    left = np.hstack([np.zeros((h, c), np.int16), cur[:, :-c]])
+    upleft = np.hstack([np.zeros((h, c), np.int16), up[:, :-c]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = np.stack([np.zeros_like(cur), left, up, (left + up) // 2, paeth])
+    residuals = ((cur[None] - preds) & 0xFF).astype(np.uint8)       # (5, h, w * c)
+    kinds = np.abs(residuals.view(np.int8).astype(np.int32)).sum(-1).argmin(0)
+    if first_row_none:
+        kinds[0] = 0
+    filtered = residuals[kinds, np.arange(h)]
+    raw = np.hstack([kinds[:, None].astype(np.uint8), filtered]).tobytes()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    data = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+    return data, kinds
+
+
+def smooth_field(rng, n: int, cells: int) -> np.ndarray:
+    """(n, n) bilinear interpolation of a (cells + 1)² grid of N(0, 1)."""
+    f = rng.standard_normal((cells + 1, cells + 1))
+    x = np.linspace(0, cells, n)
+    i = np.minimum(x.astype(np.int64), cells - 1)
+    t = x - i
+    rows = f[i] * (1 - t)[:, None] + f[i + 1] * t[:, None]
+    return rows[:, i] * (1 - t)[None] + rows[:, i + 1] * t[None]
+
+
+def ssl_tile(rng, mean) -> np.ndarray:
+    """A stained-tissue-like uint8 tile: smooth blobs of tissue in the class's
+    colour, its stain varying smoothly, on a near-white background, with
+    scanner noise."""
+    tissue = smooth_field(rng, SSL_TILE, 4) + 0.3 > 0
+    stain = 30.0 * smooth_field(rng, SSL_TILE, 16)[..., None]
+    img = np.where(tissue[..., None], np.asarray(mean, np.float64) + stain, 242.0)
+    return np.clip(img + rng.normal(0.0, 4.0, img.shape), 0, 255).astype(np.uint8)
+
+
+def write_ssl_folder() -> dict:
+    """The trainer's seeded folder: per class SSL_PER_CLASS tiles of
+    ``ssl_tile`` in the class's colour, each scanline filtered as libpng
+    chooses (every eighth file's first scanline unfiltered, so that all five
+    filter types appear). → {path: source pixels} of a sample."""
+    rng = np.random.default_rng(SEED)
+    sample, counts = {}, np.zeros(5, np.int64)
+    t0 = time.perf_counter()
+    for c in range(SSL_CLASSES):
+        cdir = SSL_DIR / f"class{c}"
+        cdir.mkdir(parents=True, exist_ok=True)
+        for k in range(SSL_PER_CLASS):
+            img = ssl_tile(rng, SSL_MEANS[c])
+            data, kinds = png_bytes(img, first_row_none=k % 8 == 0)
+            counts += np.bincount(kinds, minlength=5)
+            path = cdir / f"{k:04d}.png"
+            path.write_bytes(data)
+            if k % 8 == 0 or k < 3:
+                sample[str(path)] = img
+    share = ", ".join(f"{name} {100 * n / counts.sum():.1f}%" for name, n in
+                      zip(("None", "Sub", "Up", "Average", "Paeth"), counts))
+    print(f"[train_ssl] wrote {SSL_CLASSES} x {SSL_PER_CLASS} PNG tiles of {SSL_TILE} px to "
+          f"{SSL_DIR} in {time.perf_counter() - t0:.2f} s; scanline filters {share}")
+    if not counts.all():
+        raise RuntimeError(f"[train_ssl] a filter type is missing from the folder: {share}")
+    return sample
+
+
+def ssl_run(tag: str, extra: list) -> dict:
+    """``cli.train.main`` over the folder on the card, recording per step its
+    launches, entry time and the loop's wait on the Prefetcher so far. →
+    state, rows, total launches, peak memory, wall seconds, output dir."""
+    rows, feeds = [], []
+    real_bundle, real_prefetcher = cli_train.ssl_step_bundle, prefetch.Prefetcher
+
+    def waited() -> float:
+        return sum(f.wait_s for f in feeds)
+
+    def bundle_with_recording(*a, **kw):
+        bundle = real_bundle(*a, **kw)
+        step = bundle.raw_step
+
+        def recorded(state, batch, generator):
+            before = all_launches()
+            t = time.perf_counter()
+            state, metrics = step(state, batch, generator)
+            rows.append({"t": t, "wait": waited(), "loss": metrics["loss"],
+                         "launches": {k: v - before[k] for k, v in all_launches().items()}})
+            return state, metrics
+
+        bundle.raw_step = recorded
+        return bundle
+
+    class RecordedPrefetcher(real_prefetcher):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            feeds.append(self)
+
+    out = SSL_RUNS / tag
+    cli_train.ssl_step_bundle, prefetch.Prefetcher = bundle_with_recording, RecordedPrefetcher
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = cli_train.main(SSL_ARGV + ["--data-dir", str(SSL_DIR), "--output", str(out)]
+                               + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = all_launches()
+    finally:
+        cli_train.ssl_step_bundle, prefetch.Prefetcher = real_bundle, real_prefetcher
+    for r in rows:
+        r["loss"] = r["loss"].item()
+    return {"state": state, "rows": rows, "total": total, "wall": wall, "out": out,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def check_ssl_run(tag: str, run: dict, k1a_per_step: int, depth: int) -> None:
+    rows, n_steps = run["rows"], SSL_EPOCHS * SSL_STEPS
+    if len(rows) != n_steps:
+        raise RuntimeError(f"[train_ssl] {tag}: {len(rows)} steps, expected {n_steps}")
+    none = dict.fromkeys(all_launches(), 0)
+    want = {**none, "mha_qkv_fwd": depth, "mha_qkv_fwd_saved": k1a_per_step,
+            "mha_qkv_bwd_saved": 2 * depth}
+    for i, r in enumerate(rows):
+        print(f"[train_ssl] {tag} step {i}: loss {r['loss']:.6f} launches {r['launches']}")
+        if not np.isfinite(r["loss"]):
+            raise RuntimeError(f"[train_ssl] {tag} step {i}: the loss is not finite")
+        if r["launches"] != want:
+            raise RuntimeError(f"[train_ssl] {tag} step {i}: launches {r['launches']}, "
+                               f"expected {want}")
+    n_images = SSL_CLASSES * SSL_PER_CLASS
+    probe_batches = -(-n_images // TRAIN_BATCH)
+    probe = {k: v - sum(r["launches"][k] for r in rows) for k, v in run["total"].items()}
+    want_probe = {**none, "mha_qkv_fwd": depth * probe_batches * SSL_EPOCHS}
+    print(f"[train_ssl] {tag}: the probe's launches over {SSL_EPOCHS} probes of "
+          f"{probe_batches} batches: {probe}")
+    if probe != want_probe:
+        raise RuntimeError(f"[train_ssl] {tag}: probe launches {probe}, expected {want_probe}")
+    exp = [d for d in run["out"].iterdir() if d.name.startswith("Exp_")]
+    if len(exp) != 1:
+        raise RuntimeError(f"[train_ssl] {tag}: {len(exp)} experiment directories")
+    steps = sorted(int(d.name) for d in (exp[0] / "checkpoints").iterdir())
+    if steps != [SSL_STEPS * (e + 1) for e in range(SSL_EPOCHS)]:
+        raise RuntimeError(f"[train_ssl] {tag}: checkpoints at steps {steps}")
+    with open(exp[0] / "summary.csv") as f:
+        summary = list(csv.DictReader(f))
+    accs = [float(r["eval_knn_acc"]) for r in summary]
+    print(f"[train_ssl] {tag}: checkpoints at steps {steps}; summary.csv {summary}")
+    if len(summary) != SSL_EPOCHS or not all(0.0 <= a <= 1.0 for a in accs):
+        raise RuntimeError(f"[train_ssl] {tag}: summary.csv holds {summary}")
+    for name in ("log.txt", "run_data.jsonl"):
+        if not (run["out"] / name).is_file():
+            raise RuntimeError(f"[train_ssl] {tag}: no {name}")
+
+
+def loop_timing(run: dict) -> tuple:
+    """→ (ms between the starts of consecutive steps within each epoch, the
+    share of them spent waiting on the Prefetcher): SSL_STEPS - 1 gaps an
+    epoch, a spot reading here (train_loop_ab.py's ``loop`` takes the median
+    over two epochs of 10 steps)."""
+    gaps, waits = [], []
+    for e in range(SSL_EPOCHS):
+        rows = run["rows"][e * SSL_STEPS:(e + 1) * SSL_STEPS]
+        gaps += [b["t"] - a["t"] for a, b in zip(rows, rows[1:])]
+        waits += [b["wait"] - a["wait"] for a, b in zip(rows, rows[1:])]
+    return [g * 1e3 for g in gaps], sum(waits) / sum(gaps)
+
+
+def phase_train_ssl(smi: str) -> dict:
+    """``python -m tpuwsi_torch.cli.train --ssl --data-dir <folder>`` on the
+    card, as is and with --grad-checkpointing; → launches per kernel."""
+    sample = write_ssl_folder()
+    for path, img in sample.items():
+        if not np.array_equal(decode_png(path), img):
+            raise RuntimeError(f"[train_ssl] {path} does not decode to the pixels written")
+    print(f"[train_ssl] {len(sample)} sampled files (every filter type) decode to the pixels "
+          f"written")
+    depth = 12
+    runs = {}
+    for tag, extra, k1a in (("default", [], 2 * depth),
+                            ("grad_checkpointing", ["--grad-checkpointing"], 4 * depth)):
+        run = ssl_run(tag, extra)
+        check_ssl_run(tag, run, k1a, depth)
+        gaps, wait = loop_timing(run)
+        print(f"[train_ssl] {tag}: main() took {run['wall']:.2f} s for {len(run['rows'])} steps, "
+              f"{SSL_EPOCHS} probes and checkpoints; the loop "
+              f"{', '.join(f'{g:.2f}' for g in gaps)} ms per step (spot readings: the gaps "
+              f"between the starts of an epoch's steps, each ending in a read of its loss), "
+              f"{100 * wait:.1f}% of it waiting on the Prefetcher, the first step "
+              f"{run['rows'][0]['wait']:.2f} s; the bare step of [train] {STEP_MS['tuned']:.2f} "
+              f"ms; peak device memory {run['peak'] / 2**30:.2f} GiB; on {smi}")
+        runs[tag] = run
+
+    # the final state against a restore of the last checkpoint into a fresh bundle
+    run = runs["default"]
+    exp = next(d for d in run["out"].iterdir() if d.name.startswith("Exp_"))
+    fresh = ssl_step_bundle(parse_args(SSL_ARGV + ["--data-dir", str(SSL_DIR)]), SSL_STEPS,
+                            TRAIN_BATCH, torch.device("cuda"))
+    mgr = CheckpointManager(str(exp / "checkpoints"), metric_name="loss", mode="min")
+    mgr.restore(mgr.latest_step(), target=fresh.state)
+    mgr.close()
+    want, got = run["state"].state_dict(), fresh.state.state_dict()
+    n_tensors = 0
+
+    def same(a, b, where):
+        nonlocal n_tensors
+        if isinstance(a, dict):
+            if a.keys() != b.keys():
+                raise RuntimeError(f"[train_ssl] restore: keys differ at {where}")
+            for k in a:
+                same(a[k], b[k], f"{where}/{k}")
+        elif isinstance(a, (list, tuple)):
+            for i, (x, y) in enumerate(zip(a, b, strict=True)):
+                same(x, y, f"{where}/{i}")
+        elif isinstance(a, torch.Tensor):
+            n_tensors += 1
+            if not (a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b.to(a.device))):
+                raise RuntimeError(f"[train_ssl] restore: {where} differs")
+        elif a != b:
+            raise RuntimeError(f"[train_ssl] restore: {where} is {b}, expected {a}")
+
+    same(want, got, "state")
+    print(f"[train_ssl] a restore of step {run['state'].step} into a fresh bundle equals the "
+          f"final state in all {n_tensors} tensors (the generator's state among them)")
+    del fresh, want, got
+
+    a, b = runs["default"]["rows"], runs["grad_checkpointing"]["rows"]
+    diff = max(abs(x["loss"] - y["loss"]) for x, y in zip(a, b))
+    print(f"[train_ssl] --grad-checkpointing against the default run, same seeds: largest loss "
+          f"difference {diff:.3e} (<= {LOSS_MAX_DIFF})")
+    if not diff <= LOSS_MAX_DIFF:
+        raise RuntimeError("[train_ssl] the recomputing run's losses disagree")
+    total = {k: sum(r["total"][k] for r in runs.values()) for k in all_launches()}
+    for r in runs.values():
+        del r["state"]
+    shutil.rmtree(SSL_RUNS, ignore_errors=True)  # ~2.6 GB of checkpoints
+    torch.cuda.empty_cache()
     return total
 
 
@@ -2089,6 +2373,7 @@ def main() -> None:
                **phase_flash_kernels(smi), **phase_mlp_kernels(smi),
                **phase_dense_kernels(smi), **phase_attn_block_kernels(smi)}
     paths = {"serving": phase_slice(smi), "training": phase_train(smi)}
+    paths["train_ssl"] = phase_train_ssl(smi)
     paths["serving_fused_mlp"] = phase_slice(
         smi, kernels=("mha_qkv_fwd", "mlp_block_fwd"), tag="slice_fused_mlp",
         model_kw={"use_fused_mlp": True}, other_kw={}, other="default route")

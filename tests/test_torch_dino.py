@@ -265,9 +265,11 @@ def test_ssl_step_bundle_on_cpu():
         if torch.cuda.is_available():
             raise RuntimeError("no CUDA device")  # the default device exists here
         ssl_step_bundle(args, 1000, 96, vit_overrides=tiny)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssl_step_bundle(parse_args(BENCH_ARGV + ["--grad-checkpointing"]), 1000, 96,
-                        torch.device("cpu"), vit_overrides=tiny)
+    # --grad-checkpointing recomputes each block in the backward (remat_blocks)
+    remat = ssl_step_bundle(parse_args(BENCH_ARGV + ["--grad-checkpointing"]), 1000, 96,
+                            torch.device("cpu"), vit_overrides=tiny)
+    assert remat.model.backbone.config.remat_blocks and not cfg.remat_blocks
+    assert remat.state.generator is remat.generator
 
 
 def test_long_sequence_step_bundle_trajectory_matches_jax():

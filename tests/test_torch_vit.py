@@ -250,7 +250,7 @@ def test_return_all_tokens_matches_flax(num_classes):
 
 def test_create_model_takes_the_reference_keywords():
     """The reference's ``create_model`` keywords reach the configuration;
-    the two that are not ported raise by name; ``list_models`` names parse."""
+    ``quant_int8``, not ported, raises by name; ``list_models`` names parse."""
     import inspect
 
     kw = dict(num_classes=3, drop_rate=0.1, drop_path_rate=0.2, img_size=64,
@@ -265,9 +265,11 @@ def test_create_model_takes_the_reference_keywords():
     renamed = {"use_pallas_attention": "use_kernel_attention"}
     assert [renamed.get(k, k) for k in jparams] == list(tparams)[:len(jparams)]
     assert list(tparams)[len(jparams):] == ["use_fused_mlp", "dense_pallas_bwd"]
-    for flag in ("grad_checkpointing", "quant_int8"):
-        with pytest.raises(NotImplementedError, match=flag):
-            tregistry.create_model("vit_tiny_patch16_224", **{flag: True})
+    with pytest.raises(NotImplementedError, match="quant_int8"):
+        tregistry.create_model("vit_tiny_patch16_224", quant_int8=True)
+    # grad_checkpointing recomputes each block in the backward, as the reference's does
+    assert tregistry.create_model("vit_tiny_patch16_224", grad_checkpointing=True).config.remat_blocks
+    assert jregistry.create_model("vit_tiny_patch16_224", grad_checkpointing=True).config.remat_blocks
     names = tregistry.list_models()
     assert names and set(names) <= set(jregistry.list_models())
     assert [n for n in jregistry.list_models() if n.startswith("vit_")] == names

@@ -78,17 +78,13 @@ def create_model(
     (``tpuwsi/models/registry.py:79-92``, ``use_kernel_attention`` standing for
     its ``use_pallas_attention``): ``bn_momentum`` and ``bn_eps`` only reach
     the CNN families and are ignored by a ViT, as there; ``grad_checkpointing``
-    and ``quant_int8`` raise ``NotImplementedError`` when set, until
-    activation recomputation and int8 serving are ported. ``use_fused_mlp``
+    recomputes each block in the backward (``remat_blocks``); ``quant_int8``
+    raises ``NotImplementedError`` when set, until int8 serving is ported. ``use_fused_mlp``
     and ``dense_pallas_bwd`` are the port's own: the reference reaches those
     ``ViTConfig`` fields through ``vit_overrides`` only."""
     if name.startswith(_CNN_PREFIXES):
         raise NotImplementedError(
             f"{name}: the CNN zoo is not ported yet (ROADMAP.md, Queue 1)")
-    if grad_checkpointing:
-        raise NotImplementedError(
-            "grad_checkpointing (remat_blocks, activation recomputation) is not ported yet "
-            "(ROADMAP.md, Queue 1, M2b)")
     if quant_int8:
         raise NotImplementedError(
             "quant_int8 (int8 serving) is not ported yet (ROADMAP.md, Queue 1, M8)")
@@ -106,6 +102,7 @@ def create_model(
         drop_path_rate=drop_path_rate,
         img_size=img_size or cfg.img_size,
         dtype=dtype,
+        remat_blocks=grad_checkpointing,
         use_kernel_attention=use_kernel_attention,
         attn_save_probs=attn_save_probs,
         use_fused_mlp=use_fused_mlp,

@@ -23,17 +23,28 @@ reference does, then per block the attention-output dropout mask (only when
 ``attn_drop_rate`` > 0), the projection dropout mask and the two MLP dropout
 masks (only when ``drop_rate`` > 0).
 
-Not ported yet, of the reference's ``ViTConfig`` fields: ``remat_blocks``
-(raises when set) with ``remat_policy``, ``quant_int8``, ``scan_blocks`` (a
-layout of the parameter tree: ``params_from_flax`` reads scanned trees) and
-``pallas_interpret`` (the plain versions take its place); of its ``__call__``
-arguments: ``return_last_attention`` and ``intermediate_layers``.
+``remat_blocks`` recomputes each block's activations in the backward
+(``torch.utils.checkpoint``, non-reentrant) where gradients are on. The
+stack is unrolled, so ``remat_policy`` "auto" and None mean full recompute,
+as the reference's unrolled stack does; the other names the port takes are
+in ``REMAT_POLICIES`` (``dots_saveable`` keeps the outputs of ``aten.mm``,
+``addmm`` and ``bmm``). A block that draws dropout masks from the caller's
+generator is recomputed from that generator's state at the block's start,
+and the generator is put back after, so the backward sees the forward's
+masks and later draws are unchanged. Stochastic-depth masks are drawn
+before the blocks, outside any recomputed region.
+
+Not ported yet, of the reference's ``ViTConfig`` fields: ``quant_int8``,
+``scan_blocks`` (a layout of the parameter tree: ``params_from_flax`` reads
+scanned trees) and ``pallas_interpret`` (the plain versions take its place).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -61,8 +72,10 @@ class ViTConfig:
     num_classes: int = 0  # 0 → no head (feature extractor)
     dtype: torch.dtype = torch.bfloat16
     ln_dtype: torch.dtype = torch.float32
-    # activation recomputation per block; not ported yet (ROADMAP.md, M2b)
+    # recompute each block's activations in the backward (timm --grad-checkpointing)
     remat_blocks: bool = False
+    # what a recomputed block keeps: a name of REMAT_POLICIES
+    remat_policy: Optional[str] = "auto"
     gelu_approx: bool = False  # tanh GELU; erf when False
     # the Hopper kernels on a CUDA tensor when True, the plain versions
     # everywhere when False
@@ -167,14 +180,29 @@ class Attention(nn.Module):
             return hybrid_dense(x.to(self.dtype), layer.weight.t(), layer.bias)
         return _linear(x, layer, self.dtype)
 
-    def forward(self, x, deterministic: bool = True, generator=None):
+    def attention_map(self, qkv) -> torch.Tensor:
+        """(B, H, N, N) fp32 softmax of the scaled scores from ``qkv``, in
+        plain PyTorch as the reference computes it beside its kernel
+        (``tpuwsi/models/vit.py:264-275``)."""
+        b, n, d3 = qkv.shape
+        hd = d3 // (3 * self.num_heads)
+        qkv = qkv.reshape(b, n, 3, self.num_heads, hd)
+        q, k = (qkv[:, :, i].transpose(1, 2).float() for i in range(2))
+        return torch.softmax((q @ k.transpose(-1, -2)) * hd ** -0.5, dim=-1)
+
+    def forward(self, x, deterministic: bool = True, generator=None, return_attn: bool = False):
+        """→ the sub-block's output, and with ``return_attn`` also its
+        attention map (``attention_map``); the output comes from the kernel
+        either way."""
         qkv = self._dense(x, self.qkv)
+        attn = self.attention_map(qkv) if return_attn else None
         out = mha_from_qkv(qkv, self.num_heads, training=not deterministic,
                            save_probs=self.save_probs, plain=self.plain)
         # on the output values, not inside the softmax (tpuwsi/models/vit.py:313-317)
         out = _dropout(out, self.attn_drop, deterministic, generator)
         out = self._dense(out, self.proj)
-        return _dropout(out, self.proj_drop, deterministic, generator)
+        out = _dropout(out, self.proj_drop, deterministic, generator)
+        return (out, attn) if return_attn else out
 
 
 class Mlp(nn.Module):
@@ -219,20 +247,75 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(cfg.embed_dim, cfg.ln_dtype)
         self.mlp = Mlp(cfg)
 
-    def forward(self, x, deterministic: bool = True, generator=None, drop_path_mask=None):
+    def forward(self, x, deterministic: bool = True, generator=None, drop_path_mask=None,
+                return_attn: bool = False):
         """``drop_path_mask``: (2, B) bool keep masks of the two sub-blocks,
-        or None for no stochastic depth."""
+        or None for no stochastic depth. With ``return_attn`` → ``(x,
+        attention map)``."""
         m1, m2 = (None, None) if drop_path_mask is None else drop_path_mask
-        y = self.attn(self.norm1(x).to(self.dtype), deterministic, generator)
+        y = self.attn(self.norm1(x).to(self.dtype), deterministic, generator, return_attn)
+        y, attn = y if return_attn else (y, None)
         x = x + _drop_path(y, self.drop_path, m1)
         # the whole MLP sub-block as one op where neither dropout nor this
         # block's stochastic depth applies (tpuwsi/models/vit.py:563-566)
         if self.fused and (deterministic or (self.drop == 0.0 and self.drop_path == 0.0)):
-            return fused_mlp_block(
+            x = fused_mlp_block(
                 x.to(self.dtype), self.norm2.weight, self.norm2.bias,
                 *self.mlp.kernel_params(), approx=self.gelu_approx, eps=self.norm2.eps)
-        y = self.mlp(self.norm2(x).to(self.dtype), deterministic, generator)
-        return x + _drop_path(y, self.drop_path, m2)
+        else:
+            y = self.mlp(self.norm2(x).to(self.dtype), deterministic, generator)
+            x = x + _drop_path(y, self.drop_path, m2)
+        return (x, attn) if return_attn else x
+
+
+# remat_policy name → the aten ops whose outputs a recomputed block keeps
+# (None: full recompute); jax.checkpoint_policies' dots_saveable is the one
+# named policy with a torch counterpart here
+REMAT_POLICIES = {"auto": None, None: None, "dots_saveable": ("mm", "addmm", "bmm")}
+
+
+def _remat_context_fn(policy):
+    """``remat_policy`` → ``checkpoint``'s ``context_fn`` (None: full recompute)."""
+    if policy not in REMAT_POLICIES:
+        names = ", ".join(repr(k) for k in REMAT_POLICIES)
+        raise ValueError(
+            f"remat_policy {policy!r} has no counterpart in this package (it takes {names}; "
+            "checkpoint_name'd additions such as '+attn_out' are not ported: "
+            "ROADMAP.md, Queue 1)")
+    ops = REMAT_POLICIES[policy]
+    if ops is None:
+        return None
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return functools.partial(create_selective_checkpoint_contexts,
+                             [getattr(torch.ops.aten, op).default for op in ops])
+
+
+def _remat_block(blk: Block, x, deterministic: bool, generator, mask, return_attn: bool,
+                 context_fn):
+    """``blk`` under ``torch.utils.checkpoint``. A block that draws masks
+    from ``generator`` restarts it from the block's own starting state when
+    recomputed, then puts back the state the generator had reached."""
+    from torch.utils.checkpoint import checkpoint
+
+    draws = (generator is not None and not deterministic
+             and (blk.attn.attn_drop > 0.0 or blk.drop > 0.0))
+    start = generator.get_state() if draws else None
+    calls = [0]
+
+    def run(x, mask):
+        calls[0] += 1
+        if start is None or calls[0] == 1:
+            return blk(x, deterministic, generator, mask, return_attn)
+        reached = generator.get_state()
+        generator.set_state(start)
+        try:
+            return blk(x, deterministic, generator, mask, return_attn)
+        finally:
+            generator.set_state(reached)
+
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(run, x, mask, use_reentrant=False, **kw)
 
 
 def _keys_cubic(x):
@@ -279,10 +362,7 @@ class VisionTransformer(nn.Module):
     def __init__(self, config: ViTConfig):
         super().__init__()
         cfg = self.config = config
-        if cfg.remat_blocks:
-            raise NotImplementedError(
-                "remat_blocks (activation recomputation) is not ported yet "
-                "(ROADMAP.md, Queue 1, M2b)")
+        self._remat_context = _remat_context_fn(cfg.remat_policy) if cfg.remat_blocks else None
         d = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, d, cfg.dtype)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
@@ -302,9 +382,15 @@ class VisionTransformer(nn.Module):
         u = torch.rand((len(self.blocks), 2, batch), generator=generator, device=device)
         return u < keep[:, None, None]
 
-    def forward_tokens(self, x, deterministic: bool = True, generator=None):
+    def forward_tokens(self, x, deterministic: bool = True, generator=None,
+                       return_last_attention: bool = False,
+                       intermediate_layers: Optional[int] = None):
         """(B, H, W, 3) normalised images → all tokens after the final norm,
-        (B, 1 + N, D) in ``cfg.ln_dtype``, the cls token first."""
+        (B, 1 + N, D) in ``cfg.ln_dtype``, the cls token first. With
+        ``return_last_attention`` the last block's attention map (B, H, N, N)
+        fp32 instead; with ``intermediate_layers`` n the normed outputs of
+        the last n blocks, oldest first (``tpuwsi/models/vit.py:912-918``;
+        the attention map wins where both are asked, as there)."""
         cfg = self.config
         x, (gh, gw) = self.patch_embed(x)
         cls = self.cls_token.expand(x.shape[0], -1, -1).to(cfg.dtype)
@@ -315,19 +401,43 @@ class VisionTransformer(nn.Module):
         masks = None
         if not deterministic and cfg.drop_path_rate > 0.0:
             masks = self.drop_path_masks(x.shape[0], x.device, generator)
+        remat = self.config.remat_blocks and torch.is_grad_enabled()
+        depth = len(self.blocks)
+        intermediates, last_attn = [], None
         for i, blk in enumerate(self.blocks):
-            x = blk(x, deterministic, generator, None if masks is None else masks[i])
-        return self.norm(x)
+            want_attn = return_last_attention and i == depth - 1
+            mask = None if masks is None else masks[i]
+            if remat:
+                x = _remat_block(blk, x, deterministic, generator, mask, want_attn,
+                                 self._remat_context)
+            else:
+                x = blk(x, deterministic, generator, mask, want_attn)
+            if want_attn:
+                x, last_attn = x
+            if intermediate_layers and i >= depth - intermediate_layers:
+                intermediates.append(x)
+        if return_last_attention:
+            return last_attn
+        x = self.norm(x)
+        if intermediate_layers:
+            return [self.norm(h) for h in intermediates[:-1]] + [x]
+        return x
 
     def forward_features(self, x, deterministic: bool = True, generator=None):
         """(B, H, W, 3) normalised images → fp32 cls features (B, D)."""
         return self.forward_tokens(x, deterministic, generator)[:, 0].float()
 
     def forward(self, x, deterministic: bool = True, generator=None,
-                return_all_tokens: bool = False):
+                return_all_tokens: bool = False, return_last_attention: bool = False,
+                intermediate_layers: Optional[int] = None):
         """Logits (B, num_classes) fp32, or the cls features when there is no
         head; with ``return_all_tokens`` the normed tokens (B, 1 + N, D)
-        instead, head or not (``tpuwsi/models/vit.py:921-926``)."""
+        instead, head or not (``tpuwsi/models/vit.py:921-926``); with
+        ``return_last_attention`` or ``intermediate_layers`` what
+        ``forward_tokens`` returns for them."""
+        if return_last_attention or intermediate_layers:
+            return self.forward_tokens(x, deterministic, generator, return_last_attention,
+                                       intermediate_layers)
         if return_all_tokens:
             return self.forward_tokens(x, deterministic, generator)
         feats = self.forward_features(x, deterministic, generator)

@@ -65,16 +65,61 @@ class DINOState:
     teacher: DINOModel
     opt_state: object
     center: torch.Tensor  # (1, out_dim) fp32
+    # the generator the step draws from, when the state carries it
+    generator: Optional[torch.Generator] = None
+
+    def state_dict(self) -> dict:
+        """Everything a restore needs to continue bit for bit: the step, the
+        student and teacher parameters, AdamW's count, mu and nu (in
+        ``student.parameters()`` order), the centre and the generator's state.
+        The tensors are the state's own (``torch.save`` copies them)."""
+        out = {"step": int(self.step), "student": self.student.state_dict(),
+               "teacher": self.teacher.state_dict(),
+               "opt_state": {"count": int(self.opt_state.count),
+                             "mu": list(self.opt_state.mu), "nu": list(self.opt_state.nu)},
+               "center": self.center}
+        if self.generator is not None:
+            out["generator"] = self.generator.get_state()
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Copy a ``state_dict()`` into this state in place (the parameters
+        and moments keep their storage, so the step and optimizer built for
+        them stay valid)."""
+        self.student.load_state_dict(sd["student"])
+        self.teacher.load_state_dict(sd["teacher"])
+        opt = sd["opt_state"]
+        for dst, key in ((self.opt_state.mu, "mu"), (self.opt_state.nu, "nu")):
+            if len(dst) != len(opt[key]):
+                raise ValueError(f"{key}: {len(opt[key])} tensors saved, {len(dst)} here")
+            for d, s in zip(dst, opt[key]):
+                if d.shape != s.shape:
+                    raise ValueError(f"{key}: a saved {tuple(s.shape)} for {tuple(d.shape)}")
+                d.copy_(s)
+        if self.center.shape != sd["center"].shape:
+            raise ValueError(f"center: saved {tuple(sd['center'].shape)}, "
+                             f"here {tuple(self.center.shape)}")
+        self.opt_state.count = int(opt["count"])
+        self.center.copy_(sd["center"])
+        self.step = int(sd["step"])
+        if "generator" in sd:
+            if self.generator is None:
+                raise ValueError("the checkpoint holds a generator state and this state has "
+                                 "no generator")
+            self.generator.set_state(sd["generator"].cpu())
 
 
-def create_dino_state(student: DINOModel, optimizer, cfg: DINOConfig) -> DINOState:
+def create_dino_state(student: DINOModel, optimizer, cfg: DINOConfig,
+                      generator: Optional[torch.Generator] = None) -> DINOState:
     """The teacher starts as a copy of the student and takes no gradients."""
     teacher = copy.deepcopy(student).requires_grad_(False)
     device = next(student.parameters()).device
     return DINOState(
         step=0, student=student, teacher=teacher,
         opt_state=optimizer.init(list(student.parameters())),
-        center=torch.zeros((1, cfg.out_dim), dtype=torch.float32, device=device))
+        center=torch.zeros((1, cfg.out_dim), dtype=torch.float32, device=device),
+        generator=generator)
 
 
 def teacher_temp_schedule(cfg: DINOConfig):

@@ -1,1 +1,2 @@
-"""Train and eval steps; only the eval step is ported so far."""
+"""Optimizer, EMA, checkpoints and the eval step (the supervised train step is not
+ported yet)."""

@@ -66,6 +66,24 @@ Phases, each printing its own lines:
      restore into a fresh bundle equal to the final state in every tensor;
      the loop's wall ms per step (spot readings) beside the bare step's, its
      wait on the data and each arm's peak device memory;
+  5c. the WSI paths: a TCGA-layout cohort of 12 PNG slides of 8192 x 8192 px
+     (objective 20; ssl_tile's tissue-like picture at slide scale, each
+     scanline filtered as libpng chooses; each decoded back byte for byte),
+     their tissue grids for --mag 20 and 10 from build_tissue_grid and the
+     two xlsx tables from write_xlsx; the C crop-and-resize held against
+     resize_bicubic on 60 tiles; then tpuwsi_torch.cli.train.main -ef over
+     the 8 slides of test fold 1 at --mag 20 (500 crops a slide) and 10
+     (512² regions resized to 256²): K2 = 12 per chunk, one feature file a
+     slide and inference.data, 384-wide features, the first chunk held
+     against plain attention and main()'s saved features; tiles/s over
+     main() and over the walk, the host's seconds a slide (decode, walk,
+     pinned copy), the wait on the Prefetcher and the card's idle share
+     (CUDA events around each chunk's copy and forward), and an arm with the
+     slides decoded in turn; then main --ssl over the 4 slides of fold 2 at
+     --mag 10 (10 steps of 96 tiles): K1a = K1b = 24 and K2 = 12 per step,
+     finite losses, a checkpoint, the loop's ms per step beside the bare
+     step's, its wait on the data, the first step's wait and peak device
+     memory;
   6. the fused-MLP route (use_fused_mlp), full width and depth: the serving
      slice again (12 sub-block forwards per chunk) and the DINO step for
      2 + 6 steps (per step 14 sub-block forwards, 2 sub-block backwards, 22
@@ -134,6 +152,7 @@ from tpuwsi_torch.ops import _build, attention, dense, mlp
 from tpuwsi_torch.cli import train as cli_train
 from tpuwsi_torch.io import prefetch
 from tpuwsi_torch.io.image import decode_png
+from tpuwsi_torch.preprocess.recipes import make_recipe
 from tpuwsi_torch.train.checkpoint import CheckpointManager
 
 SEED = 0
@@ -304,8 +323,27 @@ SSL_ARGV = ["--ssl", "--model", "vit_small_patch16_224_dino", "-b", str(TRAIN_BA
             "--dino-out-dim", "65536", "--epochs", str(SSL_EPOCHS), "--max-steps-per-epoch",
             str(SSL_STEPS), "--warmup-epochs", "10", "--opt", "adamw", "--lr-base", "0.0005",
             "--weight-decay", "0.04", "--knn-eval-rate", "1", "--log-interval", "1"]
+# the WSI cohort: TCGA's layout under WSI_ROOT, PNG slides of WSI_SIZE² px at
+# objective 20 with tissue grids at 256-px tiles for --mag 20 and 10; fold 1
+# (8 slides) is -ef's test fold, fold 2 (4 slides, nearly all tissue) --ssl's
+WSI_ROOT, WSI_RUNS = OUT / "wsi", OUT / "wsi_runs"
+WSI_COHORT = WSI_ROOT / "Breast" / "TCGA"
+WSI_SIZE, WSI_OBJECTIVE, WSI_TILE, WSI_MAGS, WSI_BAND = 8192, 20, 256, (20, 10), 256
+WSI_FOLDS = [1] * 8 + [2] * 4
+WSI_TISSUE_CELLS, WSI_TISSUE_OFFSET = 16, {1: 0.5, 2: 2.0}
+WSI_EF_TILES, WSI_SSL_TILES = 500, 240
+WSI_EF_ARGV = ["-ef", "--dataset", "TCGA", "--data-root", str(WSI_ROOT), "--model", MODEL,
+               "--tile-size", str(WSI_TILE), "-nt", str(WSI_EF_TILES), "-tpi",
+               str(WSI_EF_TILES)]
+WSI_SSL_ARGV = ["--ssl", "--dataset", "TCGA", "--data-root", str(WSI_ROOT), "--mag", "10",
+                "--tile-size", str(WSI_TILE), "-b", str(TRAIN_BATCH), "--n_patches_train",
+                str(WSI_SSL_TILES), "--model", "vit_small_patch16_224_dino", "--dino-out-dim",
+                "65536", "--epochs", "1", "--warmup-epochs", "10", "--opt", "adamw",
+                "--lr-base", "0.0005", "--weight-decay", "0.04", "--log-interval", "1"]
 # step times of the bare step, by tag, for the phases that read them beside theirs
 STEP_MS = {}
+# tiles/s of the serving slice on resident chunks, by tag, for the same
+SERVING_TILES_S = {}
 
 
 def all_launches() -> dict:
@@ -1518,6 +1556,7 @@ def phase_slice(smi: str, name=MODEL, tile=TILE, tiles_per_iter=TILES_PER_ITER, 
     agg_plain, t_plain = timed_extract(chunks, plain, params, out_dir / "plain", dev)
     _, t_plain_2 = timed_extract(chunks, plain, params, out_dir / "plain", dev)
     _, t_kernel_2 = timed_extract(chunks, model, params, out_dir / "kernel_2", dev)
+    SERVING_TILES_S[tag] = (n_valid / t_kernel, n_valid / t_kernel_2)
     feats_p = np.concatenate([r.features for r in agg_plain.results])
     probs_p = np.concatenate([r.tile_probs for r in agg_plain.results])
     cos = (feats * feats_p).sum(1) / (
@@ -1755,15 +1794,18 @@ def phase_train(smi: str) -> dict:
     return total
 
 
-def png_bytes(img: np.ndarray, first_row_none: bool = False) -> tuple[bytes, np.ndarray]:
-    """uint8 RGB (H, W, 3) → (a PNG file's bytes, the filter type of each
-    scanline). Each scanline takes the filter (0 None, 1 Sub, 2 Up, 3
-    Average, 4 Paeth) whose residuals, read as signed bytes, have the least
-    absolute sum: libpng's default choice. ``first_row_none`` leaves the
-    first scanline unfiltered."""
+def filtered_scanlines(img: np.ndarray, prev=None, first_row_none: bool = False) -> tuple:
+    """uint8 RGB rows (H, W, 3) → (the PNG scanlines: each a filter-type byte
+    and the filtered row, the filter type of each). Each scanline takes the
+    filter (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth) whose residuals, read as
+    signed bytes, have the least absolute sum: libpng's default choice.
+    ``prev`` is the row above the first (None: the image's first row);
+    ``first_row_none`` leaves the first scanline unfiltered."""
     h, w, c = img.shape
     cur = img.reshape(h, w * c).astype(np.int16)
-    up = np.vstack([np.zeros((1, w * c), np.int16), cur[:-1]])
+    above = np.zeros((1, w * c), np.int16) if prev is None else \
+        prev.reshape(1, w * c).astype(np.int16)
+    up = np.vstack([above, cur[:-1]])
     left = np.hstack([np.zeros((h, c), np.int16), cur[:, :-c]])
     upleft = np.hstack([np.zeros((h, c), np.int16), up[:, :-c]])
     p = left + up - upleft
@@ -1771,18 +1813,27 @@ def png_bytes(img: np.ndarray, first_row_none: bool = False) -> tuple[bytes, np.
     paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
     preds = np.stack([np.zeros_like(cur), left, up, (left + up) // 2, paeth])
     residuals = ((cur[None] - preds) & 0xFF).astype(np.uint8)       # (5, h, w * c)
-    kinds = np.abs(residuals.view(np.int8).astype(np.int32)).sum(-1).argmin(0)
+    kinds = np.abs(residuals.view(np.int8).astype(np.int16)).sum(-1).argmin(0)
     if first_row_none:
         kinds[0] = 0
     filtered = residuals[kinds, np.arange(h)]
-    raw = np.hstack([kinds[:, None].astype(np.uint8), filtered]).tobytes()
+    return np.hstack([kinds[:, None].astype(np.uint8), filtered]).tobytes(), kinds
 
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body)))
 
-    data = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+def png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def png_header(h: int, w: int) -> bytes:
+    return b"\x89PNG\r\n\x1a\n" + png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+
+
+def png_bytes(img: np.ndarray, first_row_none: bool = False) -> tuple[bytes, np.ndarray]:
+    """uint8 RGB (H, W, 3) → (a PNG file's bytes, the filter type of each
+    scanline), filtered as ``filtered_scanlines`` chooses."""
+    raw, kinds = filtered_scanlines(img, first_row_none=first_row_none)
+    data = (png_header(*img.shape[:2]) + png_chunk(b"IDAT", zlib.compress(raw, 6))
+            + png_chunk(b"IEND", b""))
     return data, kinds
 
 
@@ -1834,10 +1885,11 @@ def write_ssl_folder() -> dict:
     return sample
 
 
-def ssl_run(tag: str, extra: list) -> dict:
-    """``cli.train.main`` over the folder on the card, recording per step its
-    launches, entry time and the loop's wait on the Prefetcher so far. →
-    state, rows, total launches, peak memory, wall seconds, output dir."""
+def ssl_run(out: Path, argv: list) -> dict:
+    """``cli.train.main(argv)`` on the card, writing under ``out``, recording
+    per step its launches, entry time and the loop's wait on the Prefetcher
+    so far. → state, rows, total launches, peak memory, wall seconds, output
+    dir."""
     rows, feeds = [], []
     real_bundle, real_prefetcher = cli_train.ssl_step_bundle, prefetch.Prefetcher
 
@@ -1864,15 +1916,13 @@ def ssl_run(tag: str, extra: list) -> dict:
             super().__init__(*a, **kw)
             feeds.append(self)
 
-    out = SSL_RUNS / tag
     cli_train.ssl_step_bundle, prefetch.Prefetcher = bundle_with_recording, RecordedPrefetcher
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
-        state = cli_train.main(SSL_ARGV + ["--data-dir", str(SSL_DIR), "--output", str(out)]
-                               + extra)
+        state = cli_train.main(argv + ["--output", str(out)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         total = all_launches()
@@ -1923,14 +1973,14 @@ def check_ssl_run(tag: str, run: dict, k1a_per_step: int, depth: int) -> None:
             raise RuntimeError(f"[train_ssl] {tag}: no {name}")
 
 
-def loop_timing(run: dict) -> tuple:
+def loop_timing(run: dict, epochs: int = SSL_EPOCHS, steps: int = SSL_STEPS) -> tuple:
     """→ (ms between the starts of consecutive steps within each epoch, the
-    share of them spent waiting on the Prefetcher): SSL_STEPS - 1 gaps an
-    epoch, a spot reading here (train_loop_ab.py's ``loop`` takes the median
-    over two epochs of 10 steps)."""
+    share of them spent waiting on the Prefetcher): steps - 1 gaps an epoch,
+    a spot reading here (train_loop_ab.py's ``loop`` takes the median over
+    two epochs of 10 steps)."""
     gaps, waits = [], []
-    for e in range(SSL_EPOCHS):
-        rows = run["rows"][e * SSL_STEPS:(e + 1) * SSL_STEPS]
+    for e in range(epochs):
+        rows = run["rows"][e * steps:(e + 1) * steps]
         gaps += [b["t"] - a["t"] for a, b in zip(rows, rows[1:])]
         waits += [b["wait"] - a["wait"] for a, b in zip(rows, rows[1:])]
     return [g * 1e3 for g in gaps], sum(waits) / sum(gaps)
@@ -1949,7 +1999,7 @@ def phase_train_ssl(smi: str) -> dict:
     runs = {}
     for tag, extra, k1a in (("default", [], 2 * depth),
                             ("grad_checkpointing", ["--grad-checkpointing"], 4 * depth)):
-        run = ssl_run(tag, extra)
+        run = ssl_run(SSL_RUNS / tag, SSL_ARGV + ["--data-dir", str(SSL_DIR)] + extra)
         check_ssl_run(tag, run, k1a, depth)
         gaps, wait = loop_timing(run)
         print(f"[train_ssl] {tag}: main() took {run['wall']:.2f} s for {len(run['rows'])} steps, "
@@ -2004,6 +2054,342 @@ def phase_train_ssl(smi: str) -> dict:
     for r in runs.values():
         del r["state"]
     shutil.rmtree(SSL_RUNS, ignore_errors=True)  # ~2.6 GB of checkpoints
+    torch.cuda.empty_cache()
+    return total
+
+
+# -- the WSI paths: a cohort of PNG slides, -ef and WSI-mode --ssl ---------------------
+
+def smooth_rows(grid: np.ndarray, ys: np.ndarray, xs: np.ndarray) -> np.ndarray:
+    """Rows ``ys`` × columns ``xs`` of the bilinear interpolation of ``grid``
+    (``smooth_field`` a band at a time)."""
+    cells = grid.shape[0] - 1
+    i = np.minimum(ys.astype(np.int64), cells - 1)
+    t = ys - i
+    rows = grid[i] * (1 - t)[:, None] + grid[i + 1] * t[:, None]
+    j = np.minimum(xs.astype(np.int64), cells - 1)
+    u = xs - j
+    return rows[:, j] * (1 - u)[None] + rows[:, j + 1] * u[None]
+
+
+def wsi_slide_bands(index: int):
+    """Slide ``index`` of the cohort, WSI_BAND rows at a time: ``ssl_tile``'s
+    tissue-like picture at slide scale (blobs of tissue ~WSI_SIZE /
+    WSI_TISSUE_CELLS px across, the stain varying every ~16 px, scanner
+    noise), in the colour of ``SSL_MEANS[index % 2]``, with the tissue
+    share of its fold."""
+    rng = np.random.default_rng([SEED, index])
+    n = WSI_SIZE
+    tissue_grid = rng.standard_normal((WSI_TISSUE_CELLS + 1,) * 2)
+    stain_grid = rng.standard_normal((n // 16 + 1,) * 2)
+    xt, xs = np.linspace(0, WSI_TISSUE_CELLS, n), np.linspace(0, n // 16, n)
+    mean = np.asarray(SSL_MEANS[index % 2], np.float32)
+    offset = WSI_TISSUE_OFFSET[WSI_FOLDS[index]]
+    for r0 in range(0, n, WSI_BAND):
+        rows = slice(r0, r0 + WSI_BAND)
+        tissue = smooth_rows(tissue_grid, xt[rows], xt) + offset > 0
+        stain = (30.0 * smooth_rows(stain_grid, xs[rows], xs)).astype(np.float32)[..., None]
+        img = np.where(tissue[..., None], mean + stain, np.float32(242.0))
+        img += 4.0 * rng.standard_normal(img.shape, dtype=np.float32)
+        yield np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_wsi_slide(index: int) -> dict:
+    """Slide ``index`` as a PNG (each scanline filtered as libpng chooses,
+    deflated at zlib level 1 into one IDAT chunk) with its tissue grids for
+    --mag 20 and 10, from the port's ``build_tissue_grid``. Decodes the file
+    back through the port's decoder. → {grid sizes by mag, filter counts,
+    decodes back, bytes}."""
+    from tpuwsi_torch.io import grids as t_grids
+    from tpuwsi_torch.io.slide_readers import ImageSlideReader
+
+    t0 = time.perf_counter()
+    name = f"slide_{index:02d}.png"
+    img = np.empty((WSI_SIZE, WSI_SIZE, 3), np.uint8)
+    comp, parts, counts, prev = zlib.compressobj(1), [], np.zeros(5, np.int64), None
+    for b, band in enumerate(wsi_slide_bands(index)):
+        img[b * WSI_BAND:(b + 1) * WSI_BAND] = band
+        raw, kinds = filtered_scanlines(band, prev)
+        counts += np.bincount(kinds, minlength=5)
+        parts.append(comp.compress(raw))
+        prev = band[-1]
+    parts.append(comp.flush())
+    path = WSI_COHORT / name
+    data = png_header(WSI_SIZE, WSI_SIZE) + png_chunk(b"IDAT", b"".join(parts)) + \
+        png_chunk(b"IEND", b"")
+    path.write_bytes(data)
+    same = bool(np.array_equal(decode_png(str(path)), img))
+    reader = ImageSlideReader(img)
+    sizes = {}
+    for mag in WSI_MAGS:
+        grid = t_grids.build_tissue_grid(reader, WSI_TILE * WSI_OBJECTIVE // mag,
+                                         preview_downsample=16)
+        t_grids.save_grid_pickle(t_grids.grid_file_path(str(WSI_COHORT), name, mag, WSI_TILE),
+                                 grid)
+        sizes[mag] = len(grid)
+    return {"name": name, "grids": sizes, "counts": counts, "same": same, "bytes": len(data),
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_wsi_cohort(smi: str) -> None:
+    """[wsi_cohort]: the TCGA-layout cohort under WSI_ROOT, written with the
+    port's writers on threads (numpy and zlib let go of the interpreter
+    lock), then the C crop-and-resize held against ``resize_bicubic``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpuwsi_torch.io.grids import grid_data_columns
+    from tpuwsi_torch.io.image import crop_resize, resize_bicubic
+    from tpuwsi_torch.utils.minixlsx import write_xlsx
+
+    shutil.rmtree(WSI_ROOT, ignore_errors=True)
+    WSI_COHORT.mkdir(parents=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        slides = list(pool.map(write_wsi_slide, range(len(WSI_FOLDS))))
+    counts = sum(s["counts"] for s in slides)
+    share = ", ".join(f"{name} {100 * n / counts.sum():.1f}%" for name, n in
+                      zip(("None", "Sub", "Up", "Average", "Paeth"), counts))
+    files = [s["name"] for s in slides]
+    cells = (WSI_SIZE * WSI_MAGS[0] // (WSI_TILE * WSI_OBJECTIVE)) ** 2
+    for mag in WSI_MAGS:
+        total, legit = grid_data_columns(WSI_TILE, mag)
+        per_side = WSI_SIZE * mag // (WSI_TILE * WSI_OBJECTIVE)
+        write_xlsx(str(WSI_COHORT / f"Grids_{mag}" / "Grid_data.xlsx"), {
+            "file": files, total: [per_side ** 2] * len(files),
+            legit: [s["grids"][mag] for s in slides]})
+    write_xlsx(str(WSI_COHORT / "slides_data_TCGA.xlsx"), {
+        "file": files, "id": ["TCGA"] * len(files),
+        "patient barcode": [f"TCGA-{i:02d}" for i in range(len(files))],
+        "ER status": ["Positive", "Negative"] * (len(files) // 2),
+        "PR status": ["Negative", "Positive"] * (len(files) // 2),
+        "test fold idx": WSI_FOLDS, "Manipulated Objective Power": [WSI_OBJECTIVE] * len(files),
+        "DX": [True] * len(files)})
+    print(f"[wsi_cohort] wrote {len(files)} PNG slides of {WSI_SIZE} x {WSI_SIZE} px "
+          f"(objective {WSI_OBJECTIVE}; test folds {WSI_FOLDS}) to {WSI_COHORT} in "
+          f"{time.perf_counter() - t0:.1f} s on {min(8, os.cpu_count() or 1)} threads "
+          f"({statistics.median(s['seconds'] for s in slides):.1f} s a slide, "
+          f"{sum(s['bytes'] for s in slides) / 2**20:.0f} MiB); scanline filters {share}; "
+          f"tissue tiles at --mag 20 (of {cells}) / 10 (of {cells // 4}): "
+          + ", ".join(f"{s['grids'][20]}/{s['grids'][10]}" for s in slides))
+    if not all(s["same"] for s in slides):
+        raise RuntimeError("[wsi_cohort] a slide does not decode to the pixels written")
+    for s, fold in zip(slides, WSI_FOLDS):
+        need = (WSI_EF_TILES, 20) if fold == 1 else (WSI_SSL_TILES, 10)
+        if s["grids"][need[1]] < need[0]:
+            raise RuntimeError(f"[wsi_cohort] {s['name']}: {s['grids'][need[1]]} tissue tiles "
+                               f"at --mag {need[1]}, fewer than the {need[0]} its path takes")
+
+    # the C crop-and-resize against resize_bicubic on the first slide
+    arr = decode_png(str(WSI_COHORT / files[0]))
+    rng = np.random.default_rng(SEED)
+    checked = 0
+    for region, out_size in ((512, 256), (256, 256), (300, 256), (1024, 512), (389, 256)):
+        tops = rng.integers(-region // 2, WSI_SIZE - region // 2, 12)
+        lefts = rng.integers(-region // 2, WSI_SIZE - region // 2, 12)
+        boxes = []
+        for top, left in zip(tops, lefts):  # read_region's bounds: the slide's edge in zeros
+            r0, c0 = max(int(top), 0), max(int(left), 0)
+            boxes.append((r0, c0, min(int(top) + region, WSI_SIZE) - r0,
+                          min(int(left) + region, WSI_SIZE) - c0, region))
+        got = crop_resize([arr] * len(boxes), np.asarray(boxes, np.int32), out_size, threads=4)
+        for (r0, c0, rows, cols, _), tile in zip(boxes, got):
+            src = np.zeros((region, region, 3), np.uint8)
+            src[:rows, :cols] = arr[r0:r0 + rows, c0:c0 + cols]
+            if not np.array_equal(tile, resize_bicubic(src, out_size)):
+                raise RuntimeError(f"[wsi_cohort] crop_resize differs from resize_bicubic at "
+                                   f"{(r0, c0, rows, cols)}, {region} -> {out_size}")
+            checked += 1
+    boxes = np.asarray([(int(r), int(c), 512, 512, 512) for r, c in
+                        rng.integers(0, WSI_SIZE - 512, (TRAIN_BATCH, 2))], np.int32)
+    ms = {}
+    for threads in (1, 4, 4, 1):
+        t = time.perf_counter()
+        crop_resize([arr] * len(boxes), boxes, 256, threads=threads)
+        ms.setdefault(threads, []).append((time.perf_counter() - t) * 1e3)
+    print(f"[wsi_cohort] crop_resize equals resize_bicubic byte for byte on {checked} tiles "
+          f"(512, 256, 300, 389 -> 256 and 1024 -> 512, across the slide's edges); "
+          f"{TRAIN_BATCH} tiles 512 -> 256 (runs 1, 4, 4, 1 threads): "
+          f"{ms[1][0]:.2f} / {ms[1][1]:.2f} ms on 1 thread, {ms[4][0]:.2f} / {ms[4][1]:.2f} ms "
+          f"on 4 = {ms[1][1] / TRAIN_BATCH:.3f} ms a tile on one thread (host CPU, beside {smi})")
+
+
+def wsi_ef_run(mag: int, open_ahead=None) -> dict:
+    """``main(-ef --mag mag)`` on the card, recording the walker, the
+    Prefetcher, each chunk's host copy time and a CUDA event before its copy
+    and after its forward; ``open_ahead`` overrides the walker's."""
+    from tpuwsi_torch.infer import slide_walker
+
+    rec = {"walkers": [], "feeds": [], "spans": [], "pin_s": 0.0, "first": None}
+    real = (slide_walker.SlideWalker, prefetch.Prefetcher, cli_train.eval_stream)
+
+    class RecordedWalker(real[0]):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            if open_ahead is not None:
+                self.open_ahead = open_ahead
+            rec["walkers"].append(self)
+
+    class RecordedPrefetcher(real[1]):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rec["feeds"].append(self)
+
+    def recorded_stream(chunks, images_of, single_call, depth=2):
+        def timed_images_of(chunk):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t = time.perf_counter()
+            images = images_of(chunk)
+            rec["pin_s"] += time.perf_counter() - t
+            if rec["first"] is None:
+                rec["first"] = (chunk.images.copy(), int(chunk.mask.sum()), chunk.slide_name)
+            rec["spans"].append([start, None])
+            return images
+
+        def timed_call(images):
+            out = single_call(images)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            rec["spans"][-1][1] = end
+            return out
+
+        return real[2](chunks, timed_images_of, timed_call, depth)
+
+    out = WSI_RUNS / f"ef{mag}_{open_ahead}"
+    slide_walker.SlideWalker, prefetch.Prefetcher, cli_train.eval_stream = (
+        RecordedWalker, RecordedPrefetcher, recorded_stream)
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        agg = cli_train.main(WSI_EF_ARGV + ["--mag", str(mag), "--output", str(out)])
+        torch.cuda.synchronize()
+        rec["wall"] = time.perf_counter() - t0
+        rec["launches"] = all_launches()
+    finally:
+        slide_walker.SlideWalker, prefetch.Prefetcher, cli_train.eval_stream = real
+    rec["agg"], rec["out"] = agg, out
+    rec["busy_ms"] = sum(a.elapsed_time(b) for a, b in rec["spans"])
+    return rec
+
+
+def check_wsi_ef(mag: int, rec: dict, smi: str) -> dict:
+    agg, walker, feed = rec["agg"], rec["walkers"][0], rec["feeds"][0]
+    n_slides, n_chunks = len(walker.table), len(rec["spans"])
+    n_tiles = sum(len(r.tile_locations) for r in agg.results)
+    want = {**dict.fromkeys(rec["launches"], 0), "mha_qkv_fwd": 12 * n_chunks}
+    print(f"[wsi_ef] --mag {mag}: {n_slides} slides, {n_tiles} tiles in {n_chunks} chunks "
+          f"(the walker's count {len(walker)}); launches {rec['launches']}")
+    if n_chunks != len(walker) or n_slides != WSI_FOLDS.count(1):
+        raise RuntimeError(f"[wsi_ef] {n_chunks} chunks of {n_slides} slides")
+    if rec["launches"] != want:
+        raise RuntimeError(f"[wsi_ef] launches {rec['launches']}, expected {want}")
+    exp = next(d for d in rec["out"].iterdir() if d.name.startswith("Exp_"))
+    written = sorted(os.listdir(exp / "features"))
+    if written != sorted([f"{Path(n).stem}_features.pt" for n in walker.table.file_names]
+                         + ["inference.data"]):
+        raise RuntimeError(f"[wsi_ef] feature files: {written}")
+    feats = np.concatenate([r.features for r in agg.results])
+    if feats.shape != (n_tiles, 384) or not np.isfinite(feats).all():
+        raise RuntimeError(f"[wsi_ef] features: {feats.shape}, finite {np.isfinite(feats).all()}")
+
+    # the first chunk again, through the same weights with and without the kernel
+    dev = torch.device("cuda")
+    args = parse_args(WSI_EF_ARGV + ["--mag", str(mag)])
+    model, params = cli_train.feature_model(args)
+    plain = create_model(args.model, num_classes=2, img_size=WSI_TILE,
+                         use_kernel_attention=False)
+    norm = make_recipe("none", train=False, tile_size=WSI_TILE, norm_type="Ron")
+    images, k, name = rec["first"]
+    outs = []
+    for m in (model, plain):
+        m.load_state_dict(params)
+        m = m.to(dev).eval()
+        with torch.inference_mode():
+            f = m.forward_features(norm(torch.from_numpy(images[:k]).to(dev)))
+            outs.append((f.cpu().numpy(), torch.softmax(m.head(f), -1).cpu().numpy()))
+    (fk, pk), (fp, pp) = outs
+    main_feats = next(r.features for r in agg.results if r.slide_name == name)[:k]
+    cos = lambda a, b: ((a * b).sum(1) / (np.linalg.norm(a, axis=1)  # noqa: E731
+                                          * np.linalg.norm(b, axis=1))).min()
+    dprob = float(np.abs(pk - pp).max())
+    print(f"[wsi_ef] --mag {mag}, first chunk ({k} tiles of {name}): kernel against plain "
+          f"attention min per-tile feature cosine {cos(fk, fp):.6f} (>= {FEAT_COSINE_MIN}), max "
+          f"probs diff {dprob:.3e} (<= {PROBS_MAX_DIFF}); main()'s saved features against "
+          f"the kernel model's {cos(main_feats, fk):.6f}")
+    if cos(fk, fp) < FEAT_COSINE_MIN or dprob > PROBS_MAX_DIFF or \
+            cos(main_feats, fk) < FEAT_COSINE_MIN:
+        raise RuntimeError("[wsi_ef] the kernel path, plain attention and main() disagree")
+
+    walk_s = walker.seconds["open"] + walker.seconds["walk"]
+    idle = 1.0 - rec["busy_ms"] / (rec["wall"] * 1e3)
+    print(f"[wsi_ef] --mag {mag}: main() {rec['wall']:.2f} s = {n_tiles / rec['wall']:.1f} "
+          f"tiles/s; the walk alone (decode + draws + C cuts, summed over its threads) "
+          f"{walk_s:.2f} s = {n_tiles / walk_s:.1f} tiles/s; [slice] on resident chunks "
+          f"{SERVING_TILES_S['slice'][0]:.1f} / {SERVING_TILES_S['slice'][1]:.1f} tiles/s. Host "
+          f"seconds a slide: PNG decode {walker.seconds['open'] / n_slides:.3f} (on "
+          f"{walker.open_ahead} threads ahead), walk {walker.seconds['walk'] / n_slides:.3f}, "
+          f"pinned copy {rec['pin_s'] / n_slides:.3f}; waiting on the Prefetcher "
+          f"{feed.wait_s:.2f} s ({100 * feed.wait_s / rec['wall']:.1f}% of main()); the card "
+          f"busy {rec['busy_ms']:.1f} ms (H2D + forward, CUDA events), idle "
+          f"{100 * idle:.1f}% of main(); on {smi}")
+    return rec["launches"]
+
+
+def phase_wsi_ef(smi: str) -> dict:
+    """[wsi_ef]: ``python -m tpuwsi_torch.cli.train -ef`` over the cohort's
+    test fold on the card, at --mag 20 (crops) and 10 (512² regions resized
+    to 256²); → launches per kernel."""
+    total = dict.fromkeys(all_launches(), 0)
+    for mag in WSI_MAGS:
+        rec = wsi_ef_run(mag)
+        counts = check_wsi_ef(mag, rec, smi)
+        total = {k: total[k] + counts[k] for k in total}
+    # the walker opening each slide in turn, as the JAX package's does
+    turn = wsi_ef_run(WSI_MAGS[-1], open_ahead=0)
+    n_tiles = sum(len(r.tile_locations) for r in turn["agg"].results)
+    print(f"[wsi_ef] --mag {WSI_MAGS[-1]} with each slide decoded in turn (open_ahead 0): "
+          f"main() {turn['wall']:.2f} s = {n_tiles / turn['wall']:.1f} tiles/s against "
+          f"{n_tiles / rec['wall']:.1f} with {rec['walkers'][0].open_ahead} slides decoding "
+          f"ahead; waiting on the Prefetcher {turn['feeds'][0].wait_s:.2f} s; on {smi}")
+    shutil.rmtree(WSI_RUNS, ignore_errors=True)
+    return total
+
+
+def phase_wsi_ssl(smi: str) -> dict:
+    """[wsi_ssl]: ``python -m tpuwsi_torch.cli.train --ssl`` over the cohort's
+    training fold on the card (WSITileSampler at --mag 10): [train_ssl]'s
+    recipe with the slide table in place of the folder; → launches."""
+    run = ssl_run(WSI_RUNS / "ssl", WSI_SSL_ARGV)
+    rows, depth = run["rows"], 12
+    n_steps = WSI_FOLDS.count(2) * WSI_SSL_TILES // TRAIN_BATCH
+    want = {**dict.fromkeys(all_launches(), 0), "mha_qkv_fwd": depth,
+            "mha_qkv_fwd_saved": 2 * depth, "mha_qkv_bwd_saved": 2 * depth}
+    for i, r in enumerate(rows):
+        print(f"[wsi_ssl] step {i}: loss {r['loss']:.6f} launches {r['launches']}")
+        if not np.isfinite(r["loss"]) or r["launches"] != want:
+            raise RuntimeError(f"[wsi_ssl] step {i}: loss {r['loss']}, launches "
+                               f"{r['launches']}, expected {want}")
+    if len(rows) != n_steps:
+        raise RuntimeError(f"[wsi_ssl] {len(rows)} steps, expected {n_steps}")
+    exp = next(d for d in run["out"].iterdir() if d.name.startswith("Exp_"))
+    steps = sorted(int(d.name) for d in (exp / "checkpoints").iterdir())
+    if steps != [n_steps]:
+        raise RuntimeError(f"[wsi_ssl] checkpoints at steps {steps}")
+    gaps, wait = loop_timing(run, 1, n_steps)
+    held = WSI_FOLDS.count(2) * WSI_SIZE ** 2 * 3
+    print(f"[wsi_ssl] {n_steps} steps of {TRAIN_BATCH} tiles (4 slides x {WSI_SSL_TILES} at "
+          f"--mag 10: 512² regions resized to 256², the random shift on), a checkpoint at step "
+          f"{steps[0]}; main() took {run['wall']:.2f} s; the loop "
+          f"{', '.join(f'{g:.2f}' for g in gaps)} ms per step (median "
+          f"{statistics.median(gaps):.2f}), {100 * wait:.1f}% of it waiting on the Prefetcher, "
+          f"the first step {rows[0]['wait']:.2f} s (decoding the four slides); the bare step of "
+          f"[train] {STEP_MS['tuned']:.2f} ms; peak device memory {run['peak'] / 2**30:.2f} GiB; "
+          f"the sampler holds {held / 2**20:.0f} MiB of decoded slides; on {smi}")
+    total = run["total"]
+    del run["state"]
+    shutil.rmtree(WSI_RUNS, ignore_errors=True)  # ~0.66 GB of checkpoint
+    shutil.rmtree(WSI_ROOT, ignore_errors=True)
     torch.cuda.empty_cache()
     return total
 
@@ -2374,6 +2760,9 @@ def main() -> None:
                **phase_dense_kernels(smi), **phase_attn_block_kernels(smi)}
     paths = {"serving": phase_slice(smi), "training": phase_train(smi)}
     paths["train_ssl"] = phase_train_ssl(smi)
+    phase_wsi_cohort(smi)
+    paths["wsi_ef"] = phase_wsi_ef(smi)
+    paths["wsi_ssl"] = phase_wsi_ssl(smi)
     paths["serving_fused_mlp"] = phase_slice(
         smi, kernels=("mha_qkv_fwd", "mlp_block_fwd"), tag="slice_fused_mlp",
         model_kw={"use_fused_mlp": True}, other_kw={}, other="default route")

@@ -189,7 +189,50 @@ def test_train_recipe_is_not_ported_yet():
         make_recipe("cbnfrsc", train=True)
 
 
-_NO_JAX = """
+# A TCGA-layout cohort of four 96 x 128 PNG slides (test folds 1 and 2) written
+# with the port's own writers, for -ef and WSI-mode --ssl in the subprocesses.
+_COHORT = """
+import os, struct, tempfile, zlib
+import numpy as np, torch
+torch.set_num_threads(1)  # tiny runs; the test runner's other workers share the cores
+from tpuwsi_torch.io import grids
+from tpuwsi_torch.io.cohorts import get_datasets_dir_dict
+from tpuwsi_torch.io.slide_readers import ImageSlideReader
+from tpuwsi_torch.utils.minixlsx import write_xlsx
+
+def png(img):
+    h, w, _ = img.shape
+    raw = b"".join(b"\\x00" + img[r].tobytes() for r in range(h))
+    chunk = lambda k, b: struct.pack(">I", len(b)) + k + b + struct.pack(">I", zlib.crc32(k + b))
+    return (b"\\x89PNG\\r\\n\\x1a\\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+root = tempfile.mkdtemp()
+cohort = get_datasets_dir_dict("TCGA", data_root=root)["TCGA"]
+os.makedirs(cohort)
+rng = np.random.default_rng(0)
+files = [f"s{i}.png" for i in range(4)]
+counts = {20: [], 10: []}
+for name in files:
+    img = rng.integers(0, 200, (96, 128, 3), dtype=np.uint8)
+    open(os.path.join(cohort, name), "wb").write(png(img))
+    for mag in counts:
+        grid = grids.build_tissue_grid(ImageSlideReader(img), 16 * 20 // mag)
+        grids.save_grid_pickle(grids.grid_file_path(cohort, name, mag, 16), grid)
+        counts[mag].append(len(grid))
+for mag, n in counts.items():
+    total, legit = grids.grid_data_columns(16, mag)
+    write_xlsx(os.path.join(cohort, f"Grids_{mag}", "Grid_data.xlsx"),
+               {"file": files, total: n, legit: n})
+write_xlsx(os.path.join(cohort, "slides_data_TCGA.xlsx"), {
+    "file": files, "id": ["TCGA"] * 4, "patient barcode": ["a", "b", "c", "d"],
+    "ER status": ["Positive", "Negative"] * 2, "test fold idx": [1, 1, 2, 2],
+    "Manipulated Objective Power": [20] * 4})
+"""
+
+_BANNED = ("jax", "jaxlib", "flax", "optax", "tpuwsi", "pandas", "PIL", "cv2")
+
+_NO_JAX = _COHORT + """
 import sys, tempfile
 import numpy as np, torch
 import tpuwsi_torch.core.device, tpuwsi_torch.ops._build
@@ -214,9 +257,15 @@ mha_from_qkv(x, 2).sum().backward()
 assert x.grad.shape == x.shape
 q = torch.ones(1, 2, 512, 16)
 assert fused_attention(q, q, q, kv_lengths=torch.tensor([7])).shape == q.shape
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "tpuwsi"))
+from tpuwsi_torch.cli.train import main
+for mag in ("20", "10"):  # crops, then 32-px regions resized to 16
+    agg = main(["-ef", "--dataset", "TCGA", "--data-root", root, "--model",
+                "vit_tiny_patch8_224", "--tile-size", "16", "-nt", "6", "-tpi", "4", "--mag", mag,
+                "--output", os.path.join(root, "ef" + mag)], device=torch.device("cpu"))
+    assert [r.features.shape for r in agg.results] == [(6, 192)] * 2
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 assert not bad, bad
-"""
+""" % (_BANNED,)
 
 
 def test_port_runs_without_importing_jax():
@@ -225,7 +274,7 @@ def test_port_runs_without_importing_jax():
     assert proc.returncode == 0, proc.stderr
 
 
-_NO_JAX_TRAINING = """
+_NO_JAX_TRAINING = _COHORT + """
 import sys
 import numpy as np, torch
 from tpuwsi_torch.cli.args import parse_args
@@ -248,10 +297,17 @@ for flags in (dict(use_fused_mlp=True), dict(mlp_pallas_bwd=True)):
                                            use_kernel_attention=True, **flags))
     state, metrics = f.raw_step(f.state, {"images": images}, f.generator)
     assert state.step == 1 and np.isfinite(metrics["loss"].item())
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "tpuwsi"))
+from tpuwsi_torch.cli.train import main
+state = main(["--ssl", "--dataset", "TCGA", "--data-root", root, "--mag", "10", "--tile-size",
+              "16", "--n_patches_train", "3", "--model", "vit_tiny_patch8_224", "-b", "2",
+              "--epochs", "1", "--max-steps-per-epoch", "2", "--warmup-epochs", "0", "--lr",
+              "1e-4", "--dino-out-dim", "64", "--dino-global-size", "16", "--dino-local-size",
+              "8", "--dino-local-crops", "2", "--output", os.path.join(root, "ssl")],
+             device=torch.device("cpu"))
+assert state.step == 2
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 assert not bad, bad
-"""
+""" % (_BANNED,)
 
 
 def test_training_slice_runs_without_importing_jax():

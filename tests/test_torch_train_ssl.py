@@ -189,8 +189,16 @@ def test_ledger_and_summary_match_reference(tmp_path):
     assert records["t"] == records["j"]
     assert records["t"][1] == ["Exp_1-ER-TestFold_2", os.path.join("Exp_2-dino-TestFold_1", "a")]
     assert (tmp_path / "t.csv").read_text() == (tmp_path / "j.csv").read_text()
-    with pytest.raises(NotImplementedError, match="M1"):
-        tledger.ExperimentLedger(str(tmp_path / "t")).export_xlsx()
+    # run_data.xlsx: both exports read back by the JAX package's reader alike
+    from tpuwsi.utils.minixlsx import read_xlsx as j_read_xlsx
+
+    exported = {side: j_read_xlsx(mod.ExperimentLedger(str(tmp_path / side)).export_xlsx())
+                for side, mod in (("j", jledger), ("t", tledger))}
+    for frame in exported.values():
+        frame["Location"] = [os.path.relpath(p, os.path.dirname(p.rsplit("Exp_", 1)[0]))
+                             for p in frame["Location"]]
+    assert exported["t"].columns.tolist() == exported["j"].columns.tolist()
+    assert exported["t"].equals(exported["j"])
 
 
 # -- kNN ---------------------------------------------------------------------------
@@ -380,9 +388,9 @@ def test_refusals_match_the_jax_cli(argv, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--ssl", "--dataset", "TCGA"], "M1"),
+    (["--ssl", "--dataset", "TMA_HE_02_008"], "M1"),  # M1b: the TMA cohorts' JPEG cores
     (["--data-dir", "x"], "M3"),
-    (["-ef"], "M1"),
+    (["-ef", "--dataset", "TMA_HE_01_011"], "M1"),
     (["--target", "Survival_Time"], "M5"),
     (["--ssl", "--data-dir", "x", "--model-parallel", "2"], "M7"),
 ])

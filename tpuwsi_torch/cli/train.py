@@ -1,18 +1,28 @@
-"""Training entry point: ``python -m tpuwsi_torch.cli.train --ssl --data-dir <folder> ...``
+"""Training entry point: ``python -m tpuwsi_torch.cli.train ...``
 (``tpuwsi/cli/train.py``).
 
-``main`` takes the JAX CLI's arguments and runs the DINO SSL loop
-(``train_ssl``) over a folder of images: the step that ``ssl_step_bundle``
-assembles, the shared per-epoch shuffle, checkpoints, the kNN probe,
-``log.txt``, ``run_data.jsonl`` and ``summary.csv``. Every other mode raises
-``NotImplementedError`` naming its ROADMAP.md item. There is no console
-script: ``pyproject.toml``'s scripts name the JAX package's entry points.
+``main`` takes the JAX CLI's arguments and runs two of its modes:
 
-The serving entry points (``evaluate_slides``, ``extract_features``) take
-the stream of padded ``InferChunk``s in place of the slide table that the
-JAX CLI walks. ``params`` is the port's ``state_dict`` (for example from
-``models.convert.params_from_flax``); it is loaded into ``model``, which is
-moved to ``device`` and put in eval mode.
+- ``--ssl``: the DINO SSL loop (``train_ssl``) over a folder of images
+  (``--data-dir``) or over the slide table's tissue tiles (WSI mode): the
+  step that ``ssl_step_bundle`` assembles, the shared per-epoch shuffle,
+  checkpoints, the kNN probe (folder mode), ``log.txt``, ``run_data.jsonl``
+  and ``summary.csv``;
+- ``-ef``: per-tile features and head probabilities of the test fold's
+  slides (``extract_features_from_table``), a model initialised from
+  ``--seed``.
+
+Every other mode, and every slide format this package cannot read, raises
+``NotImplementedError`` naming its ROADMAP.md item before any file is
+written. There is no console script: ``pyproject.toml``'s scripts name the
+JAX package's entry points.
+
+The serving functions ``evaluate_slides`` and ``extract_features`` take a
+stream of padded ``InferChunk``s (``SlideWalker.walk()`` gives one);
+``evaluate_slide_table`` walks the slide table itself. ``params`` is the
+port's ``state_dict`` (for example from ``models.convert.params_from_flax``);
+it is loaded into ``model``, which is moved to ``device`` and put in eval
+mode.
 
 Everything runs on a CUDA device unless the caller passes
 ``torch.device("cpu")``.
@@ -55,24 +65,90 @@ def _images_on(device: torch.device):
     return images_of
 
 
+def _scored(chunks: Iterable[InferChunk], model: nn.Module, params, device: torch.device,
+            dispatch_ahead: int, norm_type: str):
+    """→ ``(chunk, (logits, probs))`` on the host for each chunk."""
+    model = _prepare(model, params, device)
+    norm = make_recipe("none", train=False, tile_size=model.config.img_size,
+                       norm_type=norm_type)
+    eval_step = make_eval_step(model, preprocess_fn=norm)
+    with torch.inference_mode():
+        yield from eval_stream(chunks, _images_on(device), eval_step, depth=dispatch_ahead)
+
+
 def evaluate_slides(chunks: Iterable[InferChunk], model: nn.Module, params,
                     device: torch.device, dispatch_ahead: int = 4,
                     norm_type: str = "Ron"):
     """Slide-level validation: mean tile softmax per slide, per-patch and
     per-slide AUC. Returns ``(metrics, aggregator)``, ``({}, None)`` for an
     empty stream."""
-    model = _prepare(model, params, device)
-    norm = make_recipe("none", train=False, tile_size=model.config.img_size,
-                       norm_type=norm_type)
-    eval_step = make_eval_step(model, preprocess_fn=norm)
     agg = SlideAggregator()
-    with torch.inference_mode():
-        for chunk, (_logits, probs) in eval_stream(
-                chunks, _images_on(device), eval_step, depth=dispatch_ahead):
-            agg.add_chunk(chunk, probs)
+    for chunk, (_logits, probs) in _scored(chunks, model, params, device, dispatch_ahead,
+                                           norm_type):
+        agg.add_chunk(chunk, probs)
     if not agg.results:
         return {}, None
     return {"auc": agg.slide_auc(), "patch_auc": agg.patch_auc()}, agg
+
+
+def evaluate_slide_table(args, model: nn.Module, params, device: torch.device,
+                         table=None):
+    """Slide-level validation over the test fold's slides
+    (``tpuwsi/cli/train.py:1100``): ``--n_patches_test`` tiles a slide,
+    mean softmax per slide, per-patch and per-slide AUC. A '+'-joined
+    ``--target`` has one two-class head per target: an aggregator each,
+    slides whose label for a head is -1 left out of it, and the mean of the
+    heads' AUCs as ``auc`` and ``patch_auc``. The walk runs behind a
+    ``Prefetcher`` of depth 2. Returns ``(metrics, aggregator)``, ``({},
+    None)`` when nothing was scored."""
+    from tpuwsi_torch.infer.slide_walker import SlideWalker
+    from tpuwsi_torch.io.prefetch import Prefetcher
+
+    table = table or infer_slide_table(args)
+    walker = SlideWalker(table, tiles_per_iter=args.tiles_per_iter,
+                         num_tiles=args.n_patches_test, threads=args.workers)
+    feed = Prefetcher(walker.walk(), depth=2)
+    try:
+        return _score_table(args, _scored(feed, model, params, device, args.dispatch_ahead,
+                                          norm_type="Ron"))
+    finally:
+        feed.close()
+
+
+def _score_table(args, scored):
+    """``evaluate_slide_table``'s aggregation of the scored chunks."""
+    names = args.target.split("+")
+    if len(names) == 1:
+        agg = SlideAggregator()
+        for chunk, (_logits, probs) in scored:
+            agg.add_chunk(chunk, probs)
+        if not agg.results:
+            return {}, None
+        return {"auc": agg.slide_auc(), "patch_auc": agg.patch_auc()}, agg
+    aggs = [SlideAggregator() for _ in names]
+    for chunk, (logits, _probs) in scored:
+        logits = np.asarray(logits, dtype=np.float32)
+        for t, a in enumerate(aggs):
+            lab = int(np.asarray(chunk.label).ravel()[t])
+            if lab < 0:
+                # unknown target for this head: -1 labels would inflate the
+                # rank sums of roc_auc
+                continue
+            lt = logits[:, 2 * t : 2 * t + 2]
+            e = np.exp(lt - lt.max(axis=-1, keepdims=True))
+            a.add_chunk(dataclasses.replace(chunk, label=lab), e / e.sum(axis=-1, keepdims=True))
+    if not any(a.results for a in aggs):
+        return {}, None
+    metrics, heads = {}, []
+    for name, a in zip(names, aggs):
+        if not a.results:
+            continue  # every slide had -1 for this head
+        metrics[f"auc_{name}"] = a.slide_auc()
+        metrics[f"patch_auc_{name}"] = a.patch_auc()
+        heads.append(name)
+    metrics["auc"] = float(np.mean([metrics[f"auc_{n}"] for n in heads]))
+    metrics["patch_auc"] = float(np.mean([metrics[f"patch_auc_{n}"] for n in heads]))
+    return metrics, next(a for a in aggs if a.results)
 
 
 def extract_features(chunks: Iterable[InferChunk], model: nn.Module, params,
@@ -304,19 +380,42 @@ def _interval_hit(i: int, j: int, n: int) -> bool:
 
 
 def _check_ssl_mode(args) -> None:
-    """The SSL modes the port runs: folder mode; WSI mode waits for M1."""
+    """The SSL modes the port runs: folder mode and WSI mode."""
+    from tpuwsi_torch.io.wsi import refuse_tma
+
     if args.knn_eval_rate and not args.data_dir:
         raise SystemExit(
             "--knn-eval-rate needs folder-mode labels (--data-dir); "
             "the WSI SSL stream is unlabeled"
         )
     if not args.data_dir:
-        raise NotImplementedError(
-            "WSI-mode SSL (the slide table and WSITileSampler) is not ported yet "
-            "(ROADMAP.md, Queue 1, M1); pass --data-dir with a folder of image tiles")
+        refuse_tma(args.dataset)
     if args.model_parallel > 1:
         raise NotImplementedError(
             "--model-parallel is not ported yet (ROADMAP.md, Queue 1, M7)")
+
+
+def _check_extract_mode(args) -> None:
+    """-ef runs a model initialised from --seed over the slide table."""
+    from tpuwsi_torch.io.wsi import refuse_tma
+
+    refuse_tma(args.dataset)
+    if args.resume or args.initial_checkpoint:
+        raise NotImplementedError(
+            "-ef with --resume or --initial-checkpoint: the supervised checkpoint layout is "
+            "not ported yet (ROADMAP.md, Queue 1, M3)")
+    if args.model_ema:
+        raise NotImplementedError(
+            "-ef with --model-ema (the two-forward route: probabilities from the EMA copy) "
+            "is not ported yet (ROADMAP.md, Queue 1, M8)")
+    if args.quantize == "int8":
+        raise NotImplementedError(
+            "-ef with --quantize int8 (int8 serving) is not ported yet "
+            "(ROADMAP.md, Queue 1, M8)")
+    if args.data_dir:
+        raise NotImplementedError(
+            "-ef with --data-dir: the folder-mode supervised setup is not ported yet "
+            "(ROADMAP.md, Queue 1, M3); -ef walks the slide table")
 
 
 def _check_mode_ported(args) -> None:
@@ -328,14 +427,85 @@ def _check_mode_ported(args) -> None:
             f"--target {args.target} (survival training) is not ported yet "
             "(ROADMAP.md, Queue 1, M5)")
     elif args.extract_features:
-        raise NotImplementedError(
-            "-ef (feature extraction over the slide table) is not ported yet: the slide "
-            "walker is ROADMAP.md, Queue 1, M1 (cli.train.extract_features takes an "
-            "InferChunk stream)")
+        _check_extract_mode(args)
     else:
         raise NotImplementedError(
             "supervised training and slide evaluation are not ported yet "
             "(ROADMAP.md, Queue 1, M3; the slide tables M1); --ssl runs")
+
+
+def ssl_slide_table(args):
+    """WSI-mode SSL's table: the training folds, REG, slides with at least
+    --n_patches_train tissue tiles (``tpuwsi/cli/train.py:1707-1711``)."""
+    from tpuwsi_torch.io.metadata import load_slide_table
+
+    return load_slide_table(
+        args.dataset, tile_size=args.tile_size, target_kind=args.target,
+        test_fold=args.test_fold, train=True, train_type="REG",
+        n_tiles=args.n_patches_train, desired_magnification=args.mag,
+        data_root=args.data_root,
+    )
+
+
+def infer_slide_table(args):
+    """The serving table: the test fold's slides (``tpuwsi/cli/train.py:1186-1196``)."""
+    from tpuwsi_torch.io.metadata import load_slide_table
+
+    return load_slide_table(
+        args.dataset, tile_size=args.tile_size, target_kind=args.target,
+        test_fold=args.test_fold, train=False, train_type="Infer",
+        infer_folds=[args.test_fold], desired_magnification=args.mag,
+        data_root=args.data_root,
+    )
+
+
+def check_slides_readable(table, presaved_ok: bool = False) -> None:
+    """Raise, naming ROADMAP.md's item, for a table this package cannot read:
+    a TMA cohort or a slide format of M1b. ``presaved_ok``: the
+    ABCTB_TILES cohort's slides are read as presaved tiles."""
+    from tpuwsi_torch.io.slide_readers import check_readable
+    from tpuwsi_torch.io.wsi import refuse_tma
+
+    refuse_tma(table.dataset)
+    for i in range(len(table)):
+        if not (presaved_ok and table.cohort_ids[i] == "ABCTB_TILES"):
+            check_readable(table.slide_path(i))
+
+
+def feature_model(args):
+    """-ef's model and its weights: ``create_model(args.model)`` with
+    --num-output, --num-classes or two classes a target, at --img-size (else
+    --tile-size), initialised from --seed (``init_dino_weights``). → (model,
+    its ``state_dict``)."""
+    from tpuwsi_torch.models.registry import create_model
+
+    n_targets = len(args.target.split("+")) if "+" in args.target else 1
+    model = create_model(args.model,
+                         num_classes=args.num_output or args.num_classes or 2 * n_targets,
+                         img_size=args.img_size or args.tile_size)
+    init_dino_weights(model, args.seed)
+    return model, model.state_dict()
+
+
+def extract_features_from_table(args, table, output_dir: str, device: torch.device):
+    """-ef (``tpuwsi/cli/train.py:1176``): the table's slides walked in
+    chunks of --tiles_per_iter (--num_tiles tiles a slide; --workers threads
+    cut the tiles and as many decode the next slides) behind a
+    ``Prefetcher`` of depth 2, one backbone forward a chunk; writes
+    ``<output_dir>/features/<slide>_features.pt`` and ``inference.data``.
+    --eval-steps-per-dispatch > 1 runs its chunks one after another."""
+    from tpuwsi_torch.infer.slide_walker import SlideWalker
+    from tpuwsi_torch.io.prefetch import Prefetcher
+
+    model, params = feature_model(args)
+    walker = SlideWalker(table, tiles_per_iter=args.tiles_per_iter, num_tiles=args.num_tiles,
+                         threads=args.workers)
+    feed = Prefetcher(walker.walk(), depth=2)
+    try:
+        return extract_features(feed, model, params, output_dir, device,
+                                dispatch_ahead=args.dispatch_ahead)
+    finally:
+        feed.close()
 
 
 def _pinned(batches):
@@ -346,28 +516,47 @@ def _pinned(batches):
 
 
 def train_ssl(args, output_dir: str, device: Optional[torch.device] = None,
-              pindex: int = 0, pcount: int = 1):
-    """DINO student/teacher SSL loop over ``args.data_dir``
-    (``tpuwsi/cli/train.py:1683``): per epoch one shuffle from ``seed +
-    epoch``, batches decoded on ``--workers`` threads behind a
-    ``Prefetcher``, the steps of each --steps-per-dispatch chunk one after
-    another, a host read of the loss every --dispatch-ahead steps (the
-    bound on run-ahead) and every --log-interval steps (logged), then the
-    kNN probe every --knn-eval-rate epochs, a checkpoint ranked by the loss
-    and a row of ``summary.csv`` when the probe is on. ``main`` has checked
-    the mode and passes this host's index and count. Returns the state.
+              pindex: int = 0, pcount: int = 1, table=None):
+    """DINO student/teacher SSL loop (``tpuwsi/cli/train.py:1683``) over
+    ``args.data_dir`` or, without one, over the tissue tiles of ``table``
+    (default ``ssl_slide_table(args)``): per epoch one shuffle from ``seed +
+    epoch``, batches decoded on ``--workers`` threads (a folder's files, or
+    the ``WSITileSampler``'s slides and tile cuts) behind a ``Prefetcher``,
+    the steps of each --steps-per-dispatch chunk one after another, a host
+    read of the loss every --dispatch-ahead steps (the bound on run-ahead)
+    and every --log-interval steps (logged), then the kNN probe every
+    --knn-eval-rate epochs (folder mode), a checkpoint ranked by the loss and
+    a row of ``summary.csv`` when the probe is on. ``main`` has checked the
+    mode and passes this host's index and count. Returns the state.
     """
     from tpuwsi_torch.core.device import require_cuda
     from tpuwsi_torch.io.folder import ImageFolderDataset
     from tpuwsi_torch.io.prefetch import Prefetcher
+    from tpuwsi_torch.io.wsi import WSITileSampler
     from tpuwsi_torch.train.checkpoint import CheckpointManager
     from tpuwsi_torch.utils.runlog import update_summary
 
     if device is None:
         device = require_cuda()
-    ds = ImageFolderDataset(args.data_dir)
+    sampler = None
+    if args.data_dir:
+        ds = ImageFolderDataset(args.data_dir)
+        n_items = len(ds)
+
+        def epoch_batches(rng):
+            return ds.batches(args.batch_size, rng=rng, process_index=pindex,
+                              process_count=pcount, workers=args.workers)
+    else:
+        ds = None
+        sampler = WSITileSampler(table or ssl_slide_table(args), n_tiles=args.n_patches_train,
+                                 bag_size=1, num_threads=args.workers, print_timing=args.time)
+        n_items = len(sampler)
+
+        def epoch_batches(rng):
+            return sampler.batches(rng, args.batch_size, process_index=pindex,
+                                   process_count=pcount)
     # per-host steps: each host sees a 1/pcount strided slice
-    steps_per_epoch = max(len(ds) // (args.batch_size * pcount), 1)
+    steps_per_epoch = max(n_items // (args.batch_size * pcount), 1)
     global_batch = args.batch_size * pcount
     bundle = ssl_step_bundle(args, steps_per_epoch, global_batch, device)
     state = bundle.state
@@ -379,8 +568,7 @@ def train_ssl(args, output_dir: str, device: Optional[torch.device] = None,
     for epoch in range(args.epochs):
         # the same seed on every host: the strided slices come from one shuffle
         epoch_rng = np.random.default_rng(args.seed + epoch)
-        batches = ds.batches(args.batch_size, rng=epoch_rng, process_index=pindex,
-                             process_count=pcount, workers=args.workers)
+        batches = epoch_batches(epoch_rng)
         feed = Prefetcher(_pinned(batches) if on_cuda else batches, depth=3)
         metrics, t0 = {}, time.perf_counter()
         for i, chunk in _chunked_enumerate(feed, spd):
@@ -402,6 +590,8 @@ def train_ssl(args, output_dir: str, device: Optional[torch.device] = None,
         loop_s = time.perf_counter() - t0
         logging.info("ssl epoch %d: loop %.3f s, waiting on the data %.3f s (%.1f%%)",
                      epoch, loop_s, feed.wait_s, 100.0 * feed.wait_s / max(loop_s, 1e-9))
+        if args.time and sampler is not None:  # -time: the sampler's stage times
+            logging.info("ssl epoch %d time dict: %s", epoch, sampler.stage_timer.time_dict())
         if knn_probe and (epoch + 1) % args.knn_eval_rate == 0:
             epoch_metrics["knn_acc"] = knn_probe(state)
             logging.info("ssl epoch %d knn@20 acc %.4f", epoch, epoch_metrics["knn_acc"])
@@ -414,6 +604,8 @@ def train_ssl(args, output_dir: str, device: Optional[torch.device] = None,
                 write_header=epoch == 0,
             )
     ckpt.close()
+    if sampler is not None:
+        sampler.close()
     return state
 
 
@@ -460,9 +652,11 @@ def _make_ssl_knn_probe(args, bundle, ds, device: torch.device):
 
 
 def main(argv=None, default_overrides=None, device: Optional[torch.device] = None):
-    """The JAX CLI's ``main`` up to its --ssl dispatch: the refusals, the run
-    log, the experiment ledger and output directory, then ``train_ssl``.
-    ``device`` None means the CUDA device, and raises where there is none."""
+    """The JAX CLI's ``main`` for --ssl and -ef: the refusals, the slide
+    table where the mode walks one (checked for formats this package
+    reads), the run log, the experiment ledger and output directory, then
+    ``train_ssl`` or ``extract_features_from_table``. ``device`` None means
+    the CUDA device, and raises where there is none."""
     from tpuwsi_torch.cli.args import parse_args
     from tpuwsi_torch.core.device import require_cuda
     from tpuwsi_torch.core.distributed import initialize_multihost
@@ -492,6 +686,13 @@ def main(argv=None, default_overrides=None, device: Optional[torch.device] = Non
         device = require_cuda()
     pindex, pcount = initialize_multihost()
     _resolve_input_geometry(args)
+    table = None
+    if args.ssl and not args.data_dir:
+        table = ssl_slide_table(args)
+        check_slides_readable(table, presaved_ok=True)
+    elif args.extract_features:
+        table = infer_slide_table(args)
+        check_slides_readable(table)
     start_log(args, to_file=bool(args.output), output_dir=args.output or None)
 
     ledger = ExperimentLedger(args.output or "runs")
@@ -507,7 +708,9 @@ def main(argv=None, default_overrides=None, device: Optional[torch.device] = Non
            "Weight Decay": args.weight_decay,
            "Desired Slide Magnification": args.mag},
     )
-    return train_ssl(args, exp["Location"], device, pindex, pcount)
+    if args.ssl:
+        return train_ssl(args, exp["Location"], device, pindex, pcount, table)
+    return extract_features_from_table(args, table, exp["Location"], device)
 
 
 if __name__ == "__main__":

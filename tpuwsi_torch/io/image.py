@@ -15,11 +15,14 @@ and the package where it does not.
 ``resize_bicubic`` is PIL's default ``Image.resize`` filter: the bicubic
 kernel with a = -0.5, antialiased when shrinking, 22-bit fixed-point
 coefficients, a horizontal pass rounded to uint8, then a vertical pass.
+``crop_resize`` does the same arithmetic in C (``csrc/crop_resize.c``) for a
+batch of tiles cut from slides, on threads of its own outside the lock.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -40,47 +43,52 @@ _CFLAGS = ("-O3", "-std=gnu11", "-shared", "-fPIC", "-pthread")
 _LIBS = ("-l:libz.so.1",)
 _ERR_LEN = 512
 _HEAD = 33  # the signature and the IHDR chunk
-_lib, _lib_lock = None, threading.Lock()
+_libs, _lib_lock = {}, threading.Lock()
 
 
 class PNGError(ValueError):
     """A PNG file this decoder does not take, or a damaged one."""
 
 
-def _png_lib() -> ctypes.CDLL:
-    """``csrc/png_decode.c``, compiled on first use with ``$CC`` (else ``cc``)
+def _host_lib(stem: str, libs: Sequence[str] = ()) -> ctypes.CDLL:
+    """``csrc/<stem>.c``, compiled on first use with ``$CC`` (else ``cc``)
     into ``build/tpuwsi_torch/`` at the repository root, keyed by a hash of
-    the source and the flags, and loaded once."""
-    global _lib
+    the source and the flags, and loaded once per process."""
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        source = _CSRC / "png_decode.c"
-        h = hashlib.sha256(" ".join(_CFLAGS + _LIBS).encode() + source.read_bytes())
-        out = _BUILD_DIR / f"libtpuwsi_png_{h.hexdigest()[:16]}.so"
+        if stem in _libs:
+            return _libs[stem]
+        source = _CSRC / f"{stem}.c"
+        flags = _CFLAGS + tuple(libs)
+        h = hashlib.sha256(" ".join(flags).encode() + source.read_bytes())
+        out = _BUILD_DIR / f"libtpuwsi_{stem}_{h.hexdigest()[:16]}.so"
         if not out.exists():
             cc = os.environ.get("CC") or shutil.which("cc") or shutil.which("gcc")
             if cc is None:
-                raise RuntimeError("no C compiler (set CC): the PNG decoder builds "
-                                   f"{source.name} on first use")
+                raise RuntimeError(f"no C compiler (set CC): {source.name} is built on first use")
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-            cmd = [cc, *_CFLAGS, "-o", str(tmp), str(source), *_LIBS]
+            cmd = [cc, *_CFLAGS, "-o", str(tmp), str(source), *libs]
             done = subprocess.run(cmd, capture_output=True, text=True)
             if done.returncode != 0:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(f"{' '.join(cmd)} failed ({done.returncode}):\n"
                                    f"{done.stderr}{done.stdout}")
             os.replace(tmp, out)  # atomic: a process loading concurrently sees a whole file
-        lib = ctypes.CDLL(str(out))
-        ptr, i32, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-        lib.tpuwsi_png_decode.argtypes = [ctypes.c_char_p, size, i32, ptr, i32, i32,
-                                          ctypes.c_char_p, size]
-        lib.tpuwsi_png_decode_files.argtypes = [ctypes.POINTER(ctypes.c_char_p), i32, i32,
-                                                ptr, i32, i32, i32, ctypes.POINTER(i32),
-                                                ctypes.c_char_p, size]
-        _lib = lib
-        return lib
+        _libs[stem] = ctypes.CDLL(str(out))
+        return _libs[stem]
+
+
+@functools.cache
+def _png_lib() -> ctypes.CDLL:
+    """``csrc/png_decode.c`` (linked to zlib), its entry points typed."""
+    lib = _host_lib("png_decode", _LIBS)
+    ptr, i32, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.tpuwsi_png_decode.argtypes = [ctypes.c_char_p, size, i32, ptr, i32, i32,
+                                      ctypes.c_char_p, size]
+    lib.tpuwsi_png_decode_files.argtypes = [ctypes.POINTER(ctypes.c_char_p), i32, i32,
+                                            ptr, i32, i32, i32, ctypes.POINTER(i32),
+                                            ctypes.c_char_p, size]
+    return lib
 
 
 def _png_size(path: str, head: bytes) -> tuple:
@@ -188,6 +196,59 @@ def resize_bicubic(img: np.ndarray, size: int) -> np.ndarray:
         out = _resample_axis(out, size, 1)
     if img.shape[0] != size:
         out = _resample_axis(out, size, 0)
+    return out
+
+
+@functools.cache
+def _crop_resize_lib() -> ctypes.CDLL:
+    lib = _host_lib("crop_resize")
+    ptr, i32, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.tpuwsi_crop_resize.argtypes = [i32, ptr, ptr, ptr, i32, ptr, i32, ctypes.c_char_p, size]
+    return lib
+
+
+def crop_resize(sources: Sequence[np.ndarray], boxes: np.ndarray, out_size: int,
+                threads: int = 1, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """Cut and resize a batch of RGB tiles in one call of ``csrc/crop_resize.c``
+    on ``threads`` threads, outside the interpreter lock.
+
+    Tile i comes from ``sources[i]`` (uint8 ``(H, W, 3)``, C-contiguous):
+    ``boxes[i] = (row, col, rows, cols, region)`` puts the ``rows`` x ``cols``
+    block at (row, col) at the top left of a ``region``² tile of zeros, which
+    becomes ``out_size``² by ``resize_bicubic``'s arithmetic (the same bytes;
+    a region of ``out_size`` is copied). → uint8 ``(n, out_size, out_size, 3)``,
+    written into ``out`` where given."""
+    boxes = np.ascontiguousarray(boxes, dtype=np.int32).reshape(-1, 5)
+    n = len(boxes)
+    if len(sources) != n:
+        raise ValueError(f"{len(sources)} sources for {n} boxes")
+    if out is None:
+        out = np.empty((n, out_size, out_size, 3), np.uint8)
+    if out.shape != (n, out_size, out_size, 3) or out.dtype != np.uint8 \
+            or not out.flags.c_contiguous:
+        raise ValueError(f"out must be C-contiguous uint8 {(n, out_size, out_size, 3)}")
+    for src in {id(src): src for src in sources}.values():
+        if (src.dtype != np.uint8 or src.ndim != 3 or src.shape[2] != 3
+                or not src.flags.c_contiguous):
+            raise ValueError("sources must be C-contiguous uint8 (H, W, 3) arrays")
+    h, w = np.asarray([src.shape[:2] for src in sources], np.int64).reshape(n, 2).T
+    row, col, rows, cols, region = boxes.T.astype(np.int64)
+    inside = ((0 <= rows) & (rows <= region) & (0 <= cols) & (cols <= region) & (region > 0)
+              & ((rows == 0) | ((0 <= row) & (row <= h - rows)))
+              & ((cols == 0) | ((0 <= col) & (col <= w - cols))))
+    if not inside.all():
+        i = int(np.argmin(inside))
+        raise ValueError(f"box {tuple(int(v) for v in boxes[i])} outside a {h[i]} x {w[i]} "
+                         "image")
+    if n == 0:
+        return out
+    ptrs = (ctypes.c_void_p * n)(*(src.ctypes.data for src in sources))
+    widths = np.asarray([src.shape[1] for src in sources], np.int64)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    if _crop_resize_lib().tpuwsi_crop_resize(n, ptrs, widths.ctypes.data, boxes.ctypes.data,
+                                             out_size, out.ctypes.data, max(int(threads), 1),
+                                             err, _ERR_LEN):
+        raise RuntimeError(f"crop_resize: {err.value.decode(errors='backslashreplace')}")
     return out
 
 

@@ -2,9 +2,8 @@
 
 An append-only ``run_data.jsonl`` under the runs directory (atomic appends,
 last record wins per experiment) with one ``Exp_<n>-<stem>-TestFold_<k>``
-directory per experiment, the same records as the reference writes. The
-reference's ``export_xlsx`` needs pandas; it raises here until the slide
-tables are ported (ROADMAP.md, M1).
+directory per experiment, the same records as the reference writes, and its
+``run_data.xlsx`` export.
 """
 
 from __future__ import annotations
@@ -120,7 +119,14 @@ class ExperimentLedger:
         return self._state()
 
     def export_xlsx(self, path: Optional[str] = None) -> str:
-        raise NotImplementedError(
-            "export_xlsx writes through pandas, which this package does not use; the xlsx "
-            "writer comes with the slide tables (ROADMAP.md, Queue 1, M1). The records are "
-            f"in {self.path}")
+        """run_data.xlsx-compatible export: a row per experiment in number
+        order, the columns in order of first appearance, blank where an
+        experiment lacks one."""
+        from tpuwsi_torch.utils.minixlsx import typed_column, write_xlsx
+
+        path = path or os.path.join(self.runs_dir, "run_data.xlsx")
+        state = self._state()
+        rows = [state[k] for k in sorted(state)]
+        names = list(dict.fromkeys(name for row in rows for name in row))
+        write_xlsx(path, {name: typed_column(row.get(name) for row in rows) for name in names})
+        return path

@@ -2,9 +2,9 @@
 """The DINO trainer's data loop on one card: where its time goes and how the
 ways of decoding compare.
 
-    python3 train_loop_ab.py [survey] [decode] [bare] [loop]
+    python3 train_loop_ab.py [survey] [decode] [bare] [loop] [wsi]
 
-Modes, in the order given (all four when none is named):
+Modes, in the order given (the first four when none is named):
 
 - ``survey``: which image decoders the machine has (Python packages and the
   shared libraries ``ldconfig -p`` lists, zlib's among them), and the C
@@ -29,7 +29,15 @@ Modes, in the order given (all four when none is named):
   recomputing, processes, one, one, processes, recomputing, threads: the
   median of the 18 gaps between the starts of an epoch's consecutive steps
   (``chip_smoke.loop_timing``), the share of them spent waiting on the data,
-  and the peak device memory.
+  and the peak device memory;
+- ``wsi``: the slide paths of ``chip_smoke.py`` (its ``[wsi_cohort]``,
+  ``[slice]`` and ``[wsi_ef]`` phases), then the bare step alone, beside
+  ``crop_resize`` cutting batches of 96 tiles 512² → 256² from a decoded
+  slide on 4 threads (C only, outside the interpreter lock), and beside a
+  ``WSITileSampler`` making WSI-mode batches (its Python draws and the same
+  C call), and WSI-mode ``main --ssl`` over the cohort's training fold for
+  2 epochs of 10 steps, twice: the median of the 18 step gaps, the wait on
+  the data and the first step's wait.
 
 Every line names the card and its power limit. The worker processes are
 spawned and import this script: its work stays under the ``__main__``
@@ -229,7 +237,8 @@ def loop(smi: str) -> None:
         if how == "processes":
             folder.ImageFolderDataset.batches = in_processes
         try:
-            run = cs.ssl_run(tag, extra)
+            run = cs.ssl_run(cs.SSL_RUNS / tag,
+                             cs.SSL_ARGV + ["--data-dir", str(cs.SSL_DIR)] + extra)
         finally:
             folder.ImageFolderDataset.batches = real_batches
         gaps, wait = cs.loop_timing(run)
@@ -245,6 +254,77 @@ def loop(smi: str) -> None:
     pool.shutdown()
     print(f"[loop] medians by way of decoding: {results}; the bare step "
           f"{cs.STEP_MS['tuned']:.2f} ms; on {smi}")
+
+
+def beside(smi: str, bundle, batch, arms: dict) -> dict:
+    """The bare step's median ms with each arm's work running on a thread
+    beside it (None: alone)."""
+    out = {}
+    for name, work in arms.items():
+        stop = threading.Event()
+        worker = None
+        if work is not None:
+            def run(work=work):
+                while not stop.is_set():
+                    work(stop)
+
+            worker = threading.Thread(target=run, daemon=True)
+            worker.start()
+            time.sleep(0.5)
+        rows = cs.run_steps(bundle, batch, cs.WARMUP_STEPS + cs.TIMED_STEPS)
+        out[name] = statistics.median(r["ms"] for r in rows[cs.WARMUP_STEPS:])
+        stop.set()
+        if worker is not None:
+            worker.join(timeout=60)
+    return out
+
+
+def wsi(smi: str) -> None:
+    from tpuwsi_torch.cli.train import ssl_slide_table
+    from tpuwsi_torch.io.wsi import WSITileSampler
+
+    cs.phase_slice(smi)
+    cs.phase_wsi_cohort(smi)
+    cs.phase_wsi_ef(smi)
+    args = cs.parse_args(cs.WSI_SSL_ARGV)
+    sampler = WSITileSampler(ssl_slide_table(args), n_tiles=cs.WSI_SSL_TILES, num_threads=4)
+    arr = image.decode_png(sampler.table.slide_path(0))
+    boxes = np.asarray([(r, c, 512, 512, 512) for r, c in np.random.default_rng(0).integers(
+        0, cs.WSI_SIZE - 512, (BATCH, 2))], np.int32)
+
+    def cut(stop):
+        image.crop_resize([arr] * BATCH, boxes, cs.WSI_TILE, threads=4)
+
+    def sample(stop):
+        for _ in sampler.batches(np.random.default_rng(0), BATCH):
+            if stop.is_set():
+                return
+
+    bundle, batch = cs.train_bundle(), cs.train_batch()
+    ms = beside(smi, bundle, batch, {"alone": None, "cut": cut, "sampler": sample,
+                                     "alone ": None})
+    cs.STEP_MS["tuned"] = ms["alone"]
+    print(f"[wsi] the bare step {ms['alone']:.2f} / {ms['alone ']:.2f} ms alone, "
+          f"{ms['cut']:.2f} ms beside crop_resize on 4 threads (96 tiles 512 -> 256 a call), "
+          f"{ms['sampler']:.2f} ms beside the WSITileSampler making batches of 96; on {smi}",
+          flush=True)
+    sampler.close()
+    del bundle, batch, arr
+    torch.cuda.empty_cache()
+    argv = list(cs.WSI_SSL_ARGV)
+    argv[argv.index("--epochs") + 1] = str(LOOP_EPOCHS)
+    for tag in ("w1", "w2"):
+        run = cs.ssl_run(cs.WSI_RUNS / tag, argv)
+        gaps, wait = cs.loop_timing(run, LOOP_EPOCHS, LOOP_STEPS)
+        print(f"[wsi] loop {tag}: median of {len(gaps)} step gaps {statistics.median(gaps):.2f} "
+              f"ms, each {[round(g, 2) for g in gaps]}; waiting on the data {100 * wait:.1f}%; "
+              f"the first step waited {run['rows'][0]['wait']:.2f} s; peak device memory "
+              f"{run['peak'] / 2**30:.2f} GiB; the bare step {ms['alone']:.2f} ms; on {smi}",
+              flush=True)
+        shutil.rmtree(cs.WSI_RUNS, ignore_errors=True)
+        del run
+        torch.cuda.empty_cache()
+    shutil.rmtree(cs.WSI_ROOT, ignore_errors=True)
 
 
 def main() -> None:
@@ -263,6 +343,10 @@ def main() -> None:
         cs.STEP_MS["tuned"] = bare(smi)
     if "loop" in modes:
         loop(smi)
+    if "wsi" in modes:
+        if "bare" not in modes and "loop" not in modes:
+            cs.phase_build()
+        wsi(smi)
 
 
 if __name__ == "__main__":

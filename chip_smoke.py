@@ -11,8 +11,9 @@ Phases, each printing its own lines:
      wgmma);
   3. each of the nineteen kernels against its plain PyTorch version on the
      card, at the shapes the paths give it (the four whole-sequence kernels
-     at 37-257 tokens and at every branch edge of the forward kernel from 1
-     to 511 tokens, the four tiled flash kernels at 512-1,024 tokens,
+     at 37-257 tokens, the training kernels also at the supervised step's
+     (256, 257), and at every branch edge of the forward kernel from 1 to
+     511 tokens, the four tiled flash kernels at 512-1,024 tokens,
      through strided views of a fused qkv and contiguous, and with key
      lengths; both flash pairs also at the edges of their tiles: Sq != Sk
      both ways, 1, 37 and 197 tokens through fused_attention (with a
@@ -84,6 +85,18 @@ Phases, each printing its own lines:
      finite losses, a checkpoint, the loop's ms per step beside the bare
      step's, its wait on the data, the first step's wait and peak device
      memory;
+  5d. supervised receptor-status training through the same entry point
+     (tpuwsi_torch.cli.train.main without --ssl): ViT-S/16 at 256 px (257
+     tokens), -b 256, the pcbnfrsc recipe at --mag 10, Nesterov SGD,
+     smoothed CE, --model-ema, over the 4 slides of fold 2 for 2 epochs of
+     3 steps, the 8 slides of test fold 1 evaluated after each: per step
+     K1a = K1b = 12 at 257 tokens and no other kernel, K2 = 12 per chunk of
+     the slide evaluation, finite losses, two checkpoints and summary.csv
+     with eval_auc; the same run with plain attention (every loss, the
+     final weights and EMA copies against the kernel run's, the EMA copy
+     against a float64 replay of its update); ms per step (the step's
+     stream time, CUDA events; and the gaps between step starts), tiles/s,
+     the wait on the data and peak device memory;
   6. the fused-MLP route (use_fused_mlp), full width and depth: the serving
      slice again (12 sub-block forwards per chunk) and the DINO step for
      2 + 6 steps (per step 14 sub-block forwards, 2 sub-block backwards, 22
@@ -113,7 +126,8 @@ Phases, each printing its own lines:
      launch counts asserted and held against plain attention;
   11. one step each of the tuned step, the fused-MLP step, the hybrid-dense
      step and the 448-px step under torch.profiler, for a breakdown by kernel
-     kind. They come last: once the profiler has run, the process launches
+     kind, then 5d's run under it for the device's busy time between step
+     starts. They come last: once the profiler has run, the process launches
      kernels more slowly.
 The line before the last but one is a JSON summary of the kernels, then the
 card's name and power limit once more, and the last line
@@ -127,6 +141,7 @@ from __future__ import annotations
 import csv
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -180,14 +195,19 @@ K2_SHAPES = [
     *FWD_EDGES,
 ]
 K2_TIMED = {(500, 257), (192, 197)}
-# the DINO step at 96 tiles: 2 global views of 197 tokens, 6 local of 37
+# the DINO step at 96 tiles: 2 global views of 197 tokens, 6 local of 37;
+# the supervised step: 256 tiles of 256 px, 257 tokens (the backward's
+# streamed form)
+SUP_SHAPE = (256, 257, 384, 6, 0)
 TRAIN_SHAPES = [
     (192, 197, 384, 6, 0),   # student and teacher, global views (timed)
     (576, 37, 384, 6, 0),    # student, local views as the step launches them (timed)
+    SUP_SHAPE,               # the supervised step (timed)
     (192, 111, 384, 6, 37),  # the same sequences packed three to a row
     (32, 197, 768, 12, 0),   # ViT-B/16
     *FWD_EDGES,
 ]
+TRAIN_TIMED = TRAIN_SHAPES[:3]
 # The backward kernels' branch edges (mha_qkv_bwd.cu): one token, one k16
 # step, the local views, the last length with three item slots a warpgroup
 # (48) and the first with two, one and two 64-row tiles, the last length where
@@ -340,6 +360,26 @@ WSI_SSL_ARGV = ["--ssl", "--dataset", "TCGA", "--data-root", str(WSI_ROOT), "--m
                 str(WSI_SSL_TILES), "--model", "vit_small_patch16_224_dino", "--dino-out-dim",
                 "65536", "--epochs", "1", "--warmup-epochs", "10", "--opt", "adamw",
                 "--lr-base", "0.0005", "--weight-decay", "0.04", "--log-interval", "1"]
+# supervised training over the cohort (scripts/train-supervised.sh's recipe):
+# fold 2's 4 slides, 240 tiles each at --mag 10, 3 steps of 256 an epoch;
+# test fold 1's 8 slides evaluated with 64 tiles each after every epoch
+SUP_RUNS = OUT / "train_sup"
+SUP_BATCH, SUP_EPOCHS, SUP_STEPS, SUP_TEST_TILES = 256, 2, 3, 64
+# the kernel run against the same run with plain attention, step for step:
+# the largest loss difference, and the distance between the two runs' final
+# weights (and EMA copies) over the distance each moved from the initial ones;
+# measured 1.3e-3, 2.6e-3 and 4.1e-3 on the H100 at learning rates to 1.7e-2
+SUP_LOSS_MAX_DIFF, SUP_PARAM_MAX_REL = 5e-3, 2e-2
+# the EMA copy against a float64 replay of its update (with the fp32
+# constants the device uses) over the plain run's steps: each element's gap
+# over fp32's rounding bound, eps x the sum over steps of |ema| + (1 - decay) |p|
+SUP_EMA_MAX_ROUNDING = 1.0
+SUP_ARGV = ["--dataset", "TCGA", "--data-root", str(WSI_ROOT), "--model",
+            "vit_small_patch16_224_dino", "--tile-size", str(WSI_TILE), "--mag", "10", "-b",
+            str(SUP_BATCH), "--transform_type", "pcbnfrsc", "--opt", "sgd", "--lr-base", "0.1",
+            "--smoothing", "0.1", "--model-ema", "--n_patches_train", str(WSI_SSL_TILES),
+            "--n_patches_test", str(SUP_TEST_TILES), "-tpi", str(SUP_TEST_TILES), "-tf", "1",
+            "--eval_rate", "1", "--seed", str(SEED)]
 # step times of the bare step, by tag, for the phases that read them beside theirs
 STEP_MS = {}
 # tiles/s of the serving slice on resident chunks, by tag, for the same
@@ -530,14 +570,15 @@ def phase_k2(smi: str) -> dict:
 
 
 def phase_train_kernels(smi: str) -> dict:
-    """K1a, K1b and K3 against their plain versions at the DINO step's shapes
-    and at the backward's branch edges (``BWD_EDGES``); the backward from
+    """K1a, K1b and K3 against their plain versions at the DINO step's shapes,
+    the supervised step's (256, 257) and at the backward's branch edges
+    (``BWD_EDGES``); the backward from
     saved probabilities is fed the p that the saving forward produced, and
     each backward launched twice must repeat its bits, at the edges also
     through autograd (which runs it on a thread of its own). Times at the
     student-global shape, K1a, K1b and K3 also at the local views as the step
-    launches them (single calls and back to back), and of the local views
-    packed."""
+    launches them and at the supervised step's (256, 257) (single calls and
+    back to back), and of the local views packed."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     names = ("mha_qkv_fwd_saved", "mha_qkv_bwd_saved", "mha_qkv_bwd")
     res = {name: {"max_abs_err": 0.0, "timed": []} for name in names}
@@ -590,7 +631,7 @@ def phase_train_kernels(smi: str) -> dict:
                  "mha_qkv_bwd": "bwd"}
         for name in names:
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], errs[name])
-            if shape in TRAIN_SHAPES[:2]:
+            if shape in TRAIN_TIMED:
                 r = {**timed_ab(*fns[name]), **attention_bound(kinds[name], b, n, d, h)}
                 r["b2b_ms"] = back_to_back_ms(fns[name][0])
                 r["library_b2b_ms"] = back_to_back_ms(fns[name][1])
@@ -1647,6 +1688,83 @@ def phase_profiles(smi: str) -> None:
         profile_step(tag, bundle, batch, ms, smi)
         del bundle
         torch.cuda.empty_cache()
+    profile_sup_loop(smi)
+
+
+def union_ms(intervals, lo: float, hi: float) -> float:
+    """Milliseconds of [lo, hi] (microseconds) covered by the sorted
+    ``(start, end)`` intervals."""
+    covered, reach = 0.0, lo
+    for a, b in intervals:
+        a, b = max(a, reach), min(b, hi)
+        if b > a:
+            covered += b - a
+            reach = b
+    return covered / 1e3
+
+
+def profile_sup_loop(smi: str) -> None:
+    """[profile] train_sup: ``cli.train.main`` (supervised) over the cohort
+    as [train_sup] runs it, under torch.profiler from the first step on,
+    each step marked: between consecutive step starts within an epoch (the
+    run's first step left out), the time the device ran a kernel or copy,
+    from the kernels' own trace events, beside [train_sup]'s unprofiled loop
+    period and stream time. The profiler slows the host's launches, so the
+    idle share it shows is an upper bound of the loop's without it. Deletes
+    the cohort."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    marker, real = "train_sup_step", cli_train.make_train_step
+    prof, calls = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]), []
+
+    def marked_step(*a, **kw):
+        step = real(*a, **kw)
+
+        def marked(state, batch, generator=None):
+            if not calls:
+                prof.start()
+            calls.append(None)
+            with record_function(marker):
+                return step(state, batch, generator)
+
+        return marked
+
+    argv = SUP_ARGV + ["--epochs", str(SUP_EPOCHS), "--max-steps-per-epoch", str(SUP_STEPS),
+                       "--output", str(SUP_RUNS / "profile")]
+    cli_train.make_train_step = marked_step
+    try:
+        cli_train.main(argv)
+    finally:
+        cli_train.make_train_step = real
+        if calls:
+            torch.cuda.synchronize()
+            prof.stop()
+    events = prof.events()
+    starts = sorted(e.time_range.start for e in events
+                    if e.name == marker and e.device_type == DeviceType.CPU)
+    device = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if e.device_type == DeviceType.CUDA and e.name != marker)
+    if len(starts) != SUP_EPOCHS * SUP_STEPS or not device:
+        raise RuntimeError(f"[profile] train_sup: {len(starts)} marked steps, {len(device)} "
+                           f"device events")
+    windows = [w for e in range(SUP_EPOCHS)
+               for w in zip(starts[e * SUP_STEPS:(e + 1) * SUP_STEPS],
+                            starts[e * SUP_STEPS + 1:(e + 1) * SUP_STEPS])][1:]
+    busy = [union_ms(device, a, b) for a, b in windows]
+    spans = [(b - a) / 1e3 for a, b in windows]
+    share = sum(busy) / sum(spans)
+    print(f"[profile] train_sup: the supervised loop under torch.profiler, {len(windows)} "
+          f"periods between step starts within an epoch, after the first step: "
+          f"{', '.join(f'{x:.2f}' for x in spans)} ms, the device busy (kernels and copies) "
+          f"{', '.join(f'{x:.2f}' for x in busy)} ms of them = {100 * share:.1f}% (idle "
+          f"{100 * (1 - share):.1f}%, an upper bound of the idle share without the profiler); "
+          f"busy {statistics.median(busy):.2f} ms a step against [train_sup]'s unprofiled loop "
+          f"period {STEP_MS['train_sup_loop']:.2f} ms and stream time "
+          f"{STEP_MS['train_sup_stream']:.2f} ms (medians); on {smi}")
+    shutil.rmtree(SUP_RUNS, ignore_errors=True)
+    shutil.rmtree(WSI_ROOT, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def profile_step(tag: str, bundle, batch, step_ms: float, smi: str) -> dict:
@@ -2389,7 +2507,203 @@ def phase_wsi_ssl(smi: str) -> dict:
     total = run["total"]
     del run["state"]
     shutil.rmtree(WSI_RUNS, ignore_errors=True)  # ~0.66 GB of checkpoint
-    shutil.rmtree(WSI_ROOT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total
+
+
+def sup_run(out: Path, argv: list, plain: bool = False) -> dict:
+    """``cli.train.main(argv)`` (supervised) on the card, writing under
+    ``out``, recording per step its launches, entry time, CUDA events around
+    it, its loss and the loop's wait on the Prefetcher so far; ``plain``
+    builds the model with plain attention and replays the EMA copy's update
+    in float64 beside the step (untimed). → state, rows, total launches,
+    peak memory, wall seconds, output dir, the initial weights, the replayed
+    EMA copy and its rounding bound."""
+    rows, feeds, init, ema_ref, ema_bound = [], [], [], [], []
+    real = (cli_train.make_train_step, cli_train.supervised_model, prefetch.Prefetcher)
+
+    def waited() -> float:
+        return sum(f.wait_s for f in feeds)
+
+    def recording_step(*a, **kw):
+        step = real[0](*a, **kw)
+        # the device reckons the update with fp32 constants
+        decay = float(torch.tensor(kw["ema_decay"], dtype=torch.float32))
+        rest = float(torch.tensor(1.0 - kw["ema_decay"], dtype=torch.float32))
+
+        def recorded(state, batch, generator=None):
+            if not init:
+                init.extend(p.detach().clone() for p in state.model.parameters())
+                if plain:
+                    ema_ref.extend(e.detach().double() for e in state.ema.parameters())
+                    ema_bound.extend(torch.zeros_like(r) for r in ema_ref)
+            before = all_launches()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t = time.perf_counter()
+            start.record()
+            state, metrics = step(state, batch, generator)
+            end.record()
+            rows.append({"t": t, "wait": waited(), "loss": metrics["loss"], "events": (start, end),
+                         "launches": {k: v - before[k] for k, v in all_launches().items()}})
+            if plain:
+                with torch.no_grad():
+                    for r, b, p in zip(ema_ref, ema_bound, state.model.parameters()):
+                        p = p.detach().double()
+                        b.add_(r.abs()).add_(p.abs(), alpha=rest)
+                        r.mul_(decay).add_(p, alpha=rest)
+            return state, metrics
+
+        return recorded
+
+    def plain_model(args, num_classes, on_cuda):
+        m = real[1](args, num_classes, on_cuda)
+        return type(m)(dataclasses.replace(m.config, use_kernel_attention=False)).eval()
+
+    class RecordedPrefetcher(real[2]):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            feeds.append(self)
+
+    cli_train.make_train_step, prefetch.Prefetcher = recording_step, RecordedPrefetcher
+    if plain:
+        cli_train.supervised_model = plain_model
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = cli_train.main(argv + ["--output", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = all_launches()
+    finally:
+        cli_train.make_train_step, cli_train.supervised_model, prefetch.Prefetcher = real
+    for r in rows:
+        r["loss"] = r["loss"].item()
+        r["ms"] = r["events"][0].elapsed_time(r["events"][1])
+        del r["events"]
+    return {"state": state, "rows": rows, "total": total, "wall": wall, "out": out,
+            "peak": torch.cuda.max_memory_allocated(), "init": init, "ema_ref": ema_ref,
+            "ema_bound": ema_bound}
+
+
+def global_norm(tensors) -> float:
+    return math.sqrt(sum(float(t.double().square().sum()) for t in tensors))
+
+
+def relative_distance(a, b, start) -> tuple:
+    """→ (|a - b|, |a - start|, their ratio) over sequences of tensors, in
+    float64."""
+    d = global_norm(x.double() - y.double() for x, y in zip(a, b))
+    moved = global_norm(x.double() - y.double() for x, y in zip(a, start))
+    return d, moved, d / moved
+
+
+def max_over_bound(got, want, bound) -> float:
+    """The largest |got - want| / (fp32's epsilon x bound) over sequences
+    of tensors, in float64; inf where the bound is 0 and the two differ."""
+    eps, worst = torch.finfo(torch.float32).eps, 0.0
+    for g, w, b in zip(got, want, bound):
+        gap = (g.double() - w).abs()
+        ratio = torch.where(b > 0, gap / (eps * b).clamp_min(1e-300),
+                            torch.where(gap > 0, torch.inf, 0.0))
+        worst = max(worst, float(ratio.max()))
+    return worst
+
+
+def phase_train_sup(smi: str) -> dict:
+    """[train_sup]: ``python -m tpuwsi_torch.cli.train`` (supervised, WSI
+    mode) over the cohort on the card: the recipe of
+    scripts/train-supervised.sh at full width, K1a and K1b at 257 tokens;
+    then the same run with plain attention; → launches."""
+    depth, n_steps = 12, SUP_EPOCHS * SUP_STEPS
+    argv = SUP_ARGV + ["--epochs", str(SUP_EPOCHS), "--max-steps-per-epoch", str(SUP_STEPS)]
+    run = sup_run(SUP_RUNS / "kernel", argv)
+    rows, none = run["rows"], dict.fromkeys(all_launches(), 0)
+    want = {**none, "mha_qkv_fwd_saved": depth, "mha_qkv_bwd_saved": depth}
+    for i, r in enumerate(rows):
+        print(f"[train_sup] step {i}: loss {r['loss']:.6f}, device {r['ms']:.2f} ms, "
+              f"launches {r['launches']}")
+        if not np.isfinite(r["loss"]) or r["launches"] != want:
+            raise RuntimeError(f"[train_sup] step {i}: loss {r['loss']}, launches "
+                               f"{r['launches']}, expected {want}")
+    if len(rows) != n_steps:
+        raise RuntimeError(f"[train_sup] {len(rows)} steps, expected {n_steps}")
+    evals = {k: v - sum(r["launches"][k] for r in rows) for k, v in run["total"].items()}
+    chunks = evals["mha_qkv_fwd"] // depth
+    if evals != {**none, "mha_qkv_fwd": depth * chunks} or chunks < SUP_EPOCHS:
+        raise RuntimeError(f"[train_sup] the slide evaluations launched {evals}")
+    exp = next(d for d in run["out"].iterdir() if d.name.startswith("Exp_"))
+    steps = sorted(int(d.name) for d in (exp / "checkpoints").iterdir() if d.name.isdigit())
+    with open(exp / "summary.csv") as f:
+        summary = list(csv.DictReader(f))
+    print(f"[train_sup] the slide evaluations: {evals} ({chunks} chunks of "
+          f"{SUP_TEST_TILES} tiles over {SUP_EPOCHS} evaluations); checkpoints at steps {steps}; "
+          f"summary.csv {summary}")
+    if steps != [SUP_STEPS * (e + 1) for e in range(SUP_EPOCHS)] or len(summary) != SUP_EPOCHS \
+            or not all(0.0 <= float(r["eval_auc"]) <= 1.0 for r in summary) \
+            or not all(np.isfinite(float(r["train_loss"])) for r in summary):
+        raise RuntimeError("[train_sup] checkpoints or summary.csv")
+
+    # the same run with plain attention: every loss, the final weights and
+    # EMA copies against each other, the EMA copy against its replay
+    plain = sup_run(SUP_RUNS / "plain", argv, plain=True)
+    if plain["total"] != none or len(plain["rows"]) != n_steps:
+        raise RuntimeError(f"[train_sup] plain attention: {len(plain['rows'])} steps, launches "
+                           f"{plain['total']}")
+    diff = max(abs(a["loss"] - b["loss"]) for a, b in zip(rows, plain["rows"]))
+    print(f"[train_sup] the {n_steps} losses against the same run with plain attention: "
+          f"{[r['loss'] for r in plain['rows']]}; largest difference {diff:.3e} "
+          f"(<= {SUP_LOSS_MAX_DIFF})")
+    k_state, p_state = run["state"], plain["state"]
+    for a, b in zip(run["init"], plain["init"]):
+        if not torch.equal(a, b):
+            raise RuntimeError("[train_sup] the two runs started from different weights")
+    param_gap = relative_distance(list(k_state.model.parameters()),
+                                  list(p_state.model.parameters()), run["init"])
+    ema_gap = relative_distance(list(k_state.ema.parameters()), list(p_state.ema.parameters()),
+                                run["init"])
+    ema_rounding = max_over_bound(p_state.ema.parameters(), plain["ema_ref"],
+                                  plain["ema_bound"])
+    print(f"[train_sup] final weights: norm {global_norm(k_state.model.parameters()):.6f} "
+          f"(kernel) / {global_norm(p_state.model.parameters()):.6f} (plain), moved "
+          f"{param_gap[1]:.6e} from the initial ones, {param_gap[0]:.6e} apart = "
+          f"{param_gap[2]:.3e} of the move (<= {SUP_PARAM_MAX_REL}); EMA copies: norm "
+          f"{global_norm(k_state.ema.parameters()):.6f} / "
+          f"{global_norm(p_state.ema.parameters()):.6f}, moved {ema_gap[1]:.6e}, "
+          f"{ema_gap[0]:.6e} apart = {ema_gap[2]:.3e} (<= {SUP_PARAM_MAX_REL}); the plain run's "
+          f"EMA copy against its float64 replay: at most {ema_rounding:.3f} of fp32's rounding "
+          f"bound (<= {SUP_EMA_MAX_ROUNDING})")
+    if not (diff <= SUP_LOSS_MAX_DIFF and param_gap[2] <= SUP_PARAM_MAX_REL
+            and ema_gap[2] <= SUP_PARAM_MAX_REL and ema_rounding <= SUP_EMA_MAX_ROUNDING):
+        raise RuntimeError("[train_sup] the kernel and plain-attention runs disagree, or the "
+                           "EMA copy its replay")
+
+    # the recipe alone on a batch as the step gets it
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tiles = torch.randint(0, 256, (SUP_BATCH, WSI_TILE, WSI_TILE, 3), generator=gen,
+                          device="cuda", dtype=torch.uint8)
+    recipe = make_recipe("pcbnfrsc", train=True)
+    recipe_ms = cuda_median_ms(lambda: recipe(tiles, gen), reps=10)
+    gaps, wait = loop_timing(run, SUP_EPOCHS, SUP_STEPS)
+    device_ms = [r["ms"] for r in rows[1:]]
+    med = statistics.median(device_ms)
+    STEP_MS["train_sup_loop"], STEP_MS["train_sup_stream"] = statistics.median(gaps), med
+    print(f"[train_sup] {n_steps} steps of {SUP_BATCH} tiles (4 slides x {WSI_SSL_TILES} at "
+          f"--mag 10, ViT-S/16 at 257 tokens, pcbnfrsc, Nesterov SGD, EMA), evaluations of "
+          f"8 slides x {SUP_TEST_TILES} tiles after each of {SUP_EPOCHS} epochs; main() took "
+          f"{run['wall']:.2f} s. The step's stream time (CUDA events around it) "
+          f"{', '.join(f'{m:.2f}' for m in device_ms)} ms after the first (median {med:.2f} = "
+          f"{SUP_BATCH / med * 1e3:.1f} tiles/s); the loop "
+          f"{', '.join(f'{g:.2f}' for g in gaps)} ms per step (gaps between step starts; median "
+          f"{statistics.median(gaps):.2f} = {SUP_BATCH / statistics.median(gaps) * 1e3:.1f} "
+          f"tiles/s), {100 * wait:.1f}% of it waiting on the Prefetcher, the first step "
+          f"{rows[0]['wait']:.2f} s; the pcbnfrsc recipe alone on {SUP_BATCH} uint8 tiles "
+          f"{recipe_ms:.2f} ms; peak device memory {run['peak'] / 2**30:.2f} GiB; on {smi}")
+    total = {k: run["total"][k] + plain["total"][k] for k in run["total"]}
+    del run["state"], plain["state"], k_state, p_state, tiles
+    # ~1 GB of checkpoints; the cohort stays for phase_profiles
+    shutil.rmtree(SUP_RUNS, ignore_errors=True)
     torch.cuda.empty_cache()
     return total
 
@@ -2763,6 +3077,7 @@ def main() -> None:
     phase_wsi_cohort(smi)
     paths["wsi_ef"] = phase_wsi_ef(smi)
     paths["wsi_ssl"] = phase_wsi_ssl(smi)
+    paths["train_sup"] = phase_train_sup(smi)
     paths["serving_fused_mlp"] = phase_slice(
         smi, kernels=("mha_qkv_fwd", "mlp_block_fwd"), tag="slice_fused_mlp",
         model_kw={"use_fused_mlp": True}, other_kw={}, other="default route")

@@ -39,7 +39,8 @@ Modes, in the order given:
   base, v1 .. vn, vn .. v1, base: the forward pair for flash_fwd.cu, K4b and
   K4b' for flash_bwd.cu;
 - ``mha_bwd``: K1b (``mha_qkv_bwd_saved``) and K3 (``mha_qkv_bwd``) at the DINO
-  step's shapes (192, 197) and (576, 37), D 384, 6 heads, in the order new,
+  step's shapes (192, 197) and (576, 37) and the supervised step's (256,
+  257: the streamed form), D 384, 6 heads, in the order new,
   old, old, new, timed as ``ab`` times the forward, beside SDPA's autograd
   backward and the bound from ``chip_smoke.attention_bound`` (the new kernels
   must repeat their bits in both arms); then the tuned 224-px DINO step and
@@ -140,7 +141,7 @@ ABLATE_SOURCES = {"flash_fwd.cu": ("flash_fwd", "flash_fwd_stats"),
                   "dense_sm90.cu": ("dense_bwd", "dense_bwd proj", "gemm_res_fwd",
                                     "gemm_res_bwd", "attn_block_bwd"),
                   "ln_gemm_sm90.cu": ("ln_gemm_fwd", "ln_gemm_fwd 128500", "ln_gemm_bwd")}
-MHA_SHAPES = [(192, 197, 384, 6), (576, 37, 384, 6)]  # (B, N, D, H)
+MHA_SHAPES = [(192, 197, 384, 6), (576, 37, 384, 6), (256, 257, 384, 6)]  # (B, N, D, H)
 SERVE_CHUNKS, STEP_TIMED = 8, 6
 # the fused-MLP kernels timed by ``mlp`` at D 384, F 1,536: rows -> kernels
 MLP_AB = {128500: ("mlp_block_fwd",),

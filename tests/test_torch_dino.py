@@ -123,7 +123,7 @@ def test_schedules_match_jax():
         np.testing.assert_allclose(tm(step), float(jm(step)), rtol=1e-6)
 
 
-@pytest.mark.parametrize("opt,what", [("sgd", "optimizer"), ("lamb", "optimizer")])
+@pytest.mark.parametrize("opt,what", [("rmsprop", "optimizer"), ("lamb", "optimizer")])
 def test_unported_optimizers_raise(opt, what):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_optimizer(OptimConfig(opt=opt), 96)

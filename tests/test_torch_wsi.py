@@ -392,7 +392,7 @@ def test_main_trains_wsi_mode_ssl_on_cpu(cohort_root, tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--resume", "x"], "M3"), (["--initial-checkpoint", "x"], "M3"),
+    (["--data-dir", "x"], "M3b"), (["--dataset", "TMA_HE_02_008"], "M1b"),
     (["--model-ema"], "M8"), (["--quantize", "int8"], "M8"),
 ])
 def test_extract_features_refusals(cohort_root, tmp_path, extra, item):

@@ -1,8 +1,16 @@
 """Training entry point: ``python -m tpuwsi_torch.cli.train ...``
 (``tpuwsi/cli/train.py``).
 
-``main`` takes the JAX CLI's arguments and runs two of its modes:
+``main`` takes the JAX CLI's arguments and runs three of its modes:
 
+- supervised tile classification (neither ``--ssl`` nor ``-ef``;
+  ``train_supervised``): over the slide table's training folds (WSI mode:
+  ``WSITileSampler``, the named recipes, slide evaluation of the test fold
+  every --eval_rate epochs) or over a folder of images (``--data-dir``:
+  top-1, top-5, mean CE and two-class AUC of the validation split), with
+  SGD, Nesterov SGD or AdamW, label smoothing, --model-ema, best-K and
+  recovery checkpoints, --resume, ``summary.csv``, ``metrics.jsonl`` and the
+  ledger;
 - ``--ssl``: the DINO SSL loop (``train_ssl``) over a folder of images
   (``--data-dir``) or over the slide table's tissue tiles (WSI mode): the
   step that ``ssl_step_bundle`` assembles, the shared per-epoch shuffle,
@@ -10,7 +18,8 @@
   and ``summary.csv``;
 - ``-ef``: per-tile features and head probabilities of the test fold's
   slides (``extract_features_from_table``), a model initialised from
-  ``--seed``.
+  ``--seed`` or loaded from a supervised checkpoint (--resume,
+  --initial-checkpoint, -tl).
 
 Every other mode, and every slide format this package cannot read, raises
 ``NotImplementedError`` naming its ROADMAP.md item before any file is
@@ -45,35 +54,39 @@ from tpuwsi_torch.infer.aggregate import SlideAggregator
 from tpuwsi_torch.infer.pipeline import eval_stream
 from tpuwsi_torch.infer.slide_walker import InferChunk
 from tpuwsi_torch.preprocess.recipes import make_recipe
-from tpuwsi_torch.train.supervised import make_eval_step
+from tpuwsi_torch.train.supervised import eval_module, make_eval_step, make_train_step
 
 
 def _prepare(model: nn.Module, params, device: torch.device) -> nn.Module:
-    model.load_state_dict(params)
+    """``model`` with ``params`` loaded (None: as it is), on ``device``, in
+    eval mode."""
+    if params is not None:
+        model.load_state_dict(params)
     return model.to(device).eval()
 
 
-def _images_on(device: torch.device):
+def _images_on(device: torch.device, images_of=lambda chunk: chunk.images):
     """chunk → its uint8 tiles on ``device`` (staged through pinned memory
     on a CUDA device, so the copy does not wait for queued work)."""
-    def images_of(chunk: InferChunk) -> torch.Tensor:
-        images = torch.from_numpy(chunk.images)
+    def on_device(chunk) -> torch.Tensor:
+        images = torch.from_numpy(images_of(chunk))
         if device.type == "cpu":
             return images
         return images.pin_memory().to(device, non_blocking=True)
 
-    return images_of
+    return on_device
 
 
 def _scored(chunks: Iterable[InferChunk], model: nn.Module, params, device: torch.device,
-            dispatch_ahead: int, norm_type: str):
+            dispatch_ahead: int, norm_type: str, images_of=lambda chunk: chunk.images):
     """→ ``(chunk, (logits, probs))`` on the host for each chunk."""
     model = _prepare(model, params, device)
     norm = make_recipe("none", train=False, tile_size=model.config.img_size,
                        norm_type=norm_type)
     eval_step = make_eval_step(model, preprocess_fn=norm)
     with torch.inference_mode():
-        yield from eval_stream(chunks, _images_on(device), eval_step, depth=dispatch_ahead)
+        yield from eval_stream(chunks, _images_on(device, images_of), eval_step,
+                               depth=dispatch_ahead)
 
 
 def evaluate_slides(chunks: Iterable[InferChunk], model: nn.Module, params,
@@ -94,7 +107,8 @@ def evaluate_slides(chunks: Iterable[InferChunk], model: nn.Module, params,
 def evaluate_slide_table(args, model: nn.Module, params, device: torch.device,
                          table=None):
     """Slide-level validation over the test fold's slides
-    (``tpuwsi/cli/train.py:1100``): ``--n_patches_test`` tiles a slide,
+    (``tpuwsi/cli/train.py:1100``; ``params`` None scores ``model`` as it
+    is, as the training loop does): ``--n_patches_test`` tiles a slide,
     mean softmax per slide, per-patch and per-slide AUC. A '+'-joined
     ``--target`` has one two-class head per target: an aggregator each,
     slides whose label for a head is -1 left out of it, and the mean of the
@@ -149,6 +163,47 @@ def _score_table(args, scored):
     metrics["auc"] = float(np.mean([metrics[f"auc_{n}"] for n in heads]))
     metrics["patch_auc"] = float(np.mean([metrics[f"patch_auc_{n}"] for n in heads]))
     return metrics, next(a for a in aggs if a.results)
+
+
+def evaluate_folder(val_ds, model: nn.Module, batch_size: int, device: torch.device,
+                    dispatch_ahead: int = 2, params=None) -> dict:
+    """Folder-mode validation (``tpuwsi/cli/train.py:1056``): top-1 and top-5
+    accuracy and mean cross-entropy over the validation set in its order,
+    and the AUC of class 1 when there are two classes; ``{}`` for an empty
+    set. The batches are decoded behind a ``Prefetcher`` of depth 2."""
+    from tpuwsi_torch.infer.aggregate import roc_auc
+    from tpuwsi_torch.io.prefetch import Prefetcher
+    from tpuwsi_torch.train.losses import cross_entropy
+    from tpuwsi_torch.train.metrics import accuracy_topk
+
+    n_correct1 = n_correct5 = n_total = 0
+    loss_sum = 0.0
+    all_scores, all_labels = [], []
+    feed = Prefetcher(val_ds.batches(batch_size, shuffle=False, drop_last=False), depth=2)
+    try:
+        for batch, (logits, probs) in _scored(feed, model, params, device, dispatch_ahead,
+                                              "Ron", images_of=lambda b: b["images"]):
+            labels = batch["labels"]
+            logits_t = torch.as_tensor(np.asarray(logits, dtype=np.float32))
+            labels_t = torch.as_tensor(labels)
+            n = len(labels)
+            k = min(5, logits_t.shape[-1])
+            n_correct1 += round(float(accuracy_topk(logits_t, labels_t, 1)) * n)
+            n_correct5 += round(float(accuracy_topk(logits_t, labels_t, k)) * n)
+            n_total += n
+            loss_sum += float(cross_entropy(logits_t, labels_t)) * n
+            if probs.shape[-1] == 2:
+                all_scores.extend(probs[:, 1].tolist())
+                all_labels.extend(labels.tolist())
+    finally:
+        feed.close()
+    if n_total == 0:
+        return {}
+    metrics = {"top1": n_correct1 / n_total, "top5": n_correct5 / n_total,
+               "loss": loss_sum / n_total}
+    if all_scores:
+        metrics["auc"] = roc_auc(all_scores, all_labels)
+    return metrics
 
 
 def extract_features(chunks: Iterable[InferChunk], model: nn.Module, params,
@@ -396,14 +451,11 @@ def _check_ssl_mode(args) -> None:
 
 
 def _check_extract_mode(args) -> None:
-    """-ef runs a model initialised from --seed over the slide table."""
+    """-ef runs a model initialised from --seed, or loaded from a supervised
+    checkpoint, over the slide table."""
     from tpuwsi_torch.io.wsi import refuse_tma
 
     refuse_tma(args.dataset)
-    if args.resume or args.initial_checkpoint:
-        raise NotImplementedError(
-            "-ef with --resume or --initial-checkpoint: the supervised checkpoint layout is "
-            "not ported yet (ROADMAP.md, Queue 1, M3)")
     if args.model_ema:
         raise NotImplementedError(
             "-ef with --model-ema (the two-forward route: probabilities from the EMA copy) "
@@ -414,8 +466,91 @@ def _check_extract_mode(args) -> None:
             "(ROADMAP.md, Queue 1, M8)")
     if args.data_dir:
         raise NotImplementedError(
-            "-ef with --data-dir: the folder-mode supervised setup is not ported yet "
-            "(ROADMAP.md, Queue 1, M3); -ef walks the slide table")
+            "-ef with --data-dir (features of a folder's images) is not ported yet "
+            "(ROADMAP.md, Queue 1, M3b); -ef walks the slide table")
+
+
+def _jax_cli_exits(args) -> None:
+    """The JAX CLI's own ``SystemExit`` refusals of the supervised setup, in
+    its order (``tpuwsi/cli/train.py:270-640``), raised here before any file
+    is written."""
+    folder_mode = bool(args.data_dir)
+    if args.aug_repeats and not folder_mode:
+        raise SystemExit("--aug-repeats is a folder-mode (timm loader) "
+                         "feature; WSI sampling has factor-based virtual "
+                         "epochs instead")
+    multi_target = "+" in args.target and not folder_mode
+    if multi_target:
+        if args.focal or args.bce_loss:
+            raise SystemExit(
+                "multi-target ('+') training uses the masked per-head CE "
+                "(train_instruct.txt:3-8 patched-gather semantics); drop "
+                "--focal/--bce-loss")
+        if args.mixup > 0 or args.cutmix > 0 or args.cutmix_minmax:
+            raise SystemExit(
+                "--mixup/--cutmix need single-label targets; not supported "
+                "with multi-target ('+') training")
+    if args.jsd_loss:
+        if args.aug_splits < 2:
+            raise SystemExit("--jsd-loss needs --aug-splits > 1 (timm "
+                             "asserts the same)")
+        if multi_target or args.focal or args.bce_loss:
+            raise SystemExit("--jsd-loss replaces the base loss; drop "
+                             "--focal/--bce-loss/multi-target")
+    if args.aug_splits:
+        if args.aug_splits < 2:
+            raise SystemExit("--aug-splits must be 0 or > 1 (timm asserts "
+                             "the same)")
+        if not (folder_mode and args.transform_type == "timm") or args.no_aug:
+            raise SystemExit(
+                "--aug-splits needs folder mode with the timm transform "
+                "stack (--transform_type timm), the reference's "
+                "timm_train.py loader surface; --no-aug conflicts")
+        if args.mixup > 0 or args.cutmix > 0 or args.cutmix_minmax:
+            raise SystemExit("--aug-splits with mixup/cutmix is not "
+                             "supported; drop one of them")
+        if not args.jsd_loss:
+            raise SystemExit("--aug-splits needs --jsd-loss (the split-BN "
+                             "variant is a documented non-goal)")
+
+
+def _m3b(what: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1, M3b)")
+
+
+def _check_supervised_mode(args) -> None:
+    """The supervised route the port runs: the named recipes, no batch
+    mixing, SGD / momentum / Nesterov / AdamW under the warm-up-cosine
+    schedule, global-norm clipping."""
+    from tpuwsi_torch.io.wsi import refuse_tma
+    from tpuwsi_torch.models.registry import _CNN_PREFIXES
+    from tpuwsi_torch.train.optim import make_optimizer
+
+    _jax_cli_exits(args)
+    if args.model.startswith(_CNN_PREFIXES):
+        raise NotImplementedError(
+            f"{args.model}: the CNN zoo is not ported yet (ROADMAP.md, Queue 1, M6)")
+    if args.model_parallel > 1:
+        raise NotImplementedError(
+            "--model-parallel is not ported yet (ROADMAP.md, Queue 1, M7)")
+    if not args.data_dir:
+        refuse_tma(args.dataset)
+    if args.transform_type == "timm":
+        raise _m3b("--transform_type timm (the timm transform stack, timm_aug.py)")
+    if args.mixup > 0 or args.cutmix > 0 or args.cutmix_minmax:
+        raise _m3b("--mixup / --cutmix / --cutmix-minmax (batch_aug.py)")
+    if args.aa:
+        raise _m3b(f"--aa {args.aa} (RandAugment, AutoAugment, AugMix: batch_aug.py)")
+    if args.aug_splits or args.jsd_loss or args.aug_repeats:
+        raise _m3b("--aug-splits, --jsd-loss and --aug-repeats")
+    if args.reprob > 0:
+        raise _m3b("--reprob (random erasing, batch_aug.py)")
+    # the optimizer and schedule refuse what they do not port (M3b)
+    make_optimizer(supervised_optim_config(args, 1), args.batch_size)
+    if args.images or args.save_images:
+        raise _m3b("-im and --save-images (batch image dumps)")
+    if args.log_wandb:
+        raise _m3b("--log-wandb")
 
 
 def _check_mode_ported(args) -> None:
@@ -429,9 +564,7 @@ def _check_mode_ported(args) -> None:
     elif args.extract_features:
         _check_extract_mode(args)
     else:
-        raise NotImplementedError(
-            "supervised training and slide evaluation are not ported yet "
-            "(ROADMAP.md, Queue 1, M3; the slide tables M1); --ssl runs")
+        _check_supervised_mode(args)
 
 
 def ssl_slide_table(args):
@@ -475,15 +608,24 @@ def check_slides_readable(table, presaved_ok: bool = False) -> None:
 def feature_model(args):
     """-ef's model and its weights: ``create_model(args.model)`` with
     --num-output, --num-classes or two classes a target, at --img-size (else
-    --tile-size), initialised from --seed (``init_dino_weights``). → (model,
-    its ``state_dict``)."""
+    --tile-size), with the parameters of a supervised checkpoint (--resume,
+    else --initial-checkpoint or -tl: the latest step under that directory)
+    or else initialised from --seed (``init_dino_weights``). → (model, its
+    ``state_dict``)."""
     from tpuwsi_torch.models.registry import create_model
+    from tpuwsi_torch.train.checkpoint import load_checkpoint
 
     n_targets = len(args.target.split("+")) if "+" in args.target else 1
     model = create_model(args.model,
                          num_classes=args.num_output or args.num_classes or 2 * n_targets,
                          img_size=args.img_size or args.tile_size)
-    init_dino_weights(model, args.seed)
+    source = args.resume or args.initial_checkpoint or args.transfer_learning
+    saved = load_checkpoint(source) if source else None
+    if saved is not None:
+        model.load_state_dict(saved["params"])
+        logging.info("-ef: parameters of step %d from %s", int(saved["step"]), source)
+    else:
+        init_dino_weights(model, args.seed)
     return model, model.state_dict()
 
 
@@ -510,9 +652,14 @@ def extract_features_from_table(args, table, output_dir: str, device: torch.devi
 
 def _pinned(batches):
     """The producer's side of the copy to the card: each batch's uint8 tiles
-    in pinned host memory, so the copy does not wait for queued work."""
+    and its labels in pinned host memory, so the copies do not wait for
+    queued work (a copy from pageable memory waits for the whole stream)."""
     for batch in batches:
-        yield {**batch, "images": torch.from_numpy(batch["images"]).pin_memory()}
+        out = {**batch, "images": torch.from_numpy(batch["images"]).pin_memory()}
+        if "labels" in batch:
+            out["labels"] = torch.from_numpy(
+                np.ascontiguousarray(batch["labels"], np.int64)).pin_memory()
+        yield out
 
 
 def train_ssl(args, output_dir: str, device: Optional[torch.device] = None,
@@ -609,6 +756,297 @@ def train_ssl(args, output_dir: str, device: Optional[torch.device] = None,
     return state
 
 
+def supervised_slide_table(args, reshuffle_rng=None):
+    """WSI mode's training table (``tpuwsi/cli/train.py:290-316``): the
+    training folds, REG, slides with at least --n_patches_train tissue
+    tiles; with --supervised the test fold's slides, 80% of them drawn from
+    --seed. ``reshuffle_rng``: --RAM_saver's new quarter of the slides
+    (every 100 epochs, ``:787-800``)."""
+    from tpuwsi_torch.io.metadata import load_slide_table, split_table
+
+    common = dict(tile_size=args.tile_size, target_kind=args.target,
+                  test_fold=args.test_fold, train_type="REG", n_tiles=args.n_patches_train,
+                  desired_magnification=args.mag, dx=args.dx, er_eq_pr=args.er_eq_pr,
+                  data_root=args.data_root)
+    if reshuffle_rng is not None:
+        return load_slide_table(args.dataset, train=True, ram_saver=True, rng=reshuffle_rng,
+                                **common)
+    table = load_slide_table(
+        args.dataset, train=not args.supervised,
+        infer_folds=[args.test_fold] if args.supervised else (None,),
+        ram_saver=args.RAM_saver, balanced_dataset=args.balanced_dataset,
+        slide_per_block=args.slide_per_block, **common)
+    if args.supervised:
+        table, _ = split_table(table, 0.8, np.random.default_rng(args.seed))
+    return table
+
+
+def supervised_model(args, num_classes: int, on_cuda: bool) -> nn.Module:
+    """The classifier ``main`` trains, built on the CPU; on the card its
+    attention forward saves the probabilities that its backward reads
+    (``tpuwsi/cli/train.py:320-337``)."""
+    from tpuwsi_torch.models.registry import create_model
+
+    return create_model(
+        args.model, num_classes=num_classes, drop_rate=args.drop,
+        drop_path_rate=args.drop_path or 0.0, img_size=args.img_size or args.tile_size,
+        grad_checkpointing=args.grad_checkpointing, bn_momentum=args.bn_momentum,
+        bn_eps=args.bn_eps, attn_save_probs=on_cuda)
+
+
+def supervised_optim_config(args, steps_per_epoch: int, offset: int = 0):
+    """``OptimConfig`` from the arguments (``tpuwsi/cli/train.py:356-396``):
+    the linear LR scaling rule for SGD, the square root for adaptive
+    optimizers; ``offset`` advances the schedule (--start-epoch on a fresh
+    run, --no-resume-opt)."""
+    from tpuwsi_torch.train.optim import OptimConfig
+
+    if not offset and args.start_epoch and not args.resume:
+        offset = args.start_epoch * steps_per_epoch
+    return OptimConfig(
+        opt=args.opt, lr=args.lr, base_lr=args.lr_base, lr_base_size=args.lr_base_size,
+        lr_base_scale=args.lr_base_scale
+        or ("sqrt" if any(o in args.opt for o in ("ada", "lamb")) else "linear"),
+        momentum=args.momentum, weight_decay=args.weight_decay, clip_grad=args.clip_grad,
+        clip_mode=args.clip_mode, sched=args.sched, epochs=args.epochs,
+        warmup_epochs=args.warmup_epochs, warmup_lr=args.warmup_lr, min_lr=args.min_lr,
+        cooldown_epochs=args.cooldown_epochs, steps_per_epoch=steps_per_epoch,
+        decay_epochs=args.decay_epochs, decay_rate=args.decay_rate,
+        decay_milestones=tuple(args.decay_milestones) if args.decay_milestones else None,
+        patience_epochs=args.patience_epochs, lr_cycle_mul=args.lr_cycle_mul,
+        lr_cycle_decay=args.lr_cycle_decay, lr_cycle_limit=args.lr_cycle_limit,
+        lr_k_decay=args.lr_k_decay, warmup_prefix=args.warmup_prefix,
+        lr_noise=tuple(args.lr_noise) if args.lr_noise else None,
+        lr_noise_pct=args.lr_noise_pct, lr_noise_std=args.lr_noise_std, seed=args.seed,
+        layer_decay=args.layer_decay, schedule_offset_steps=offset,
+        **_opt_extra_kwargs(args))
+
+
+def supervised_loss(args, multi_target: bool):
+    """``loss_fn(logits, labels)`` as ``main`` picks it
+    (``tpuwsi/cli/train.py:499-518``)."""
+    from tpuwsi_torch.train import losses
+
+    if multi_target:
+        return lambda l, y: losses.multi_target_cross_entropy(l, y, args.smoothing)
+    if args.focal:
+        return losses.focal_loss
+    if args.bce_loss:
+        return lambda l, y: losses.binary_cross_entropy(
+            l, y, args.smoothing, target_thresh=args.bce_target_thresh)
+    return lambda l, y: losses.cross_entropy(l, y, args.smoothing)
+
+
+def _supervised_state(args, model, spe: int, global_batch: int, device, offset: int = 0):
+    """→ (optimizer, schedule, state): --no-grad leaves the head alone to
+    train; the generator on ``device`` is seeded with --seed."""
+    from tpuwsi_torch.train.optim import freeze_non_head, make_optimizer
+    from tpuwsi_torch.train.state import create_train_state
+
+    optimizer, schedule = make_optimizer(supervised_optim_config(args, spe, offset),
+                                         global_batch)
+    if args.no_grad:
+        freeze_non_head(model)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    return optimizer, schedule, create_train_state(model, optimizer, ema=args.model_ema,
+                                                   generator=generator)
+
+
+def train_supervised(args, output_dir: str, ledger, exp: dict,
+                     device: Optional[torch.device] = None, pindex: int = 0, pcount: int = 1,
+                     table=None, eval_table=None):
+    """Supervised tile classification (``tpuwsi/cli/train.py:270-950``):
+    batches of --batch-size raw tiles from the ``WSITileSampler`` over
+    ``table`` (default ``supervised_slide_table(args)``) or from
+    --data-dir, the named recipe on the device, the step of
+    ``train.supervised.make_train_step``; per epoch one shuffle from ``seed
+    + epoch`` behind a ``Prefetcher``, the steps of each --steps-per-dispatch
+    chunk one after another, host reads of the step's metrics every
+    --dispatch-ahead and --log-interval steps, recovery checkpoints every
+    --recovery-interval steps, then every --eval_rate epochs (and the last)
+    the evaluation of the test fold's slides (``eval_table``, default
+    ``infer_slide_table(args)``) or of the folder's validation split, on
+    the EMA copy under --model-ema, a best-K checkpoint ranked by
+    --eval-metric, a row of ``summary.csv`` and the ledger. Ctrl-C ends the
+    loop and keeps what was saved. Returns the state."""
+    from tpuwsi_torch.core.device import require_cuda
+    from tpuwsi_torch.io.prefetch import Prefetcher
+    from tpuwsi_torch.io.wsi import WSITileSampler
+    from tpuwsi_torch.train.checkpoint import CheckpointManager, load_checkpoint
+    from tpuwsi_torch.utils.runlog import update_summary
+    from tpuwsi_torch.utils.tracking import Tracker
+
+    if device is None:
+        device = require_cuda()
+    on_cuda = device.type == "cuda"
+    folder_mode = bool(args.data_dir)
+    sampler = val_ds = None
+    if folder_mode:
+        from tpuwsi_torch.io.folder import load_folder_datasets
+
+        train_ds, val_ds = load_folder_datasets(
+            args.data_dir, image_size=args.img_size, train_split=args.train_split,
+            class_map=args.class_map or None, channels=args.in_chans)
+        if val_ds is None and args.val_split > 0 and len(train_ds) >= 10:
+            train_ds, val_ds = train_ds.split(1.0 - args.val_split,
+                                              np.random.default_rng(args.seed))
+        num_classes = args.num_output or args.num_classes or train_ds.num_classes
+        n_items = len(train_ds)
+    else:
+        sampler = WSITileSampler(
+            table or supervised_slide_table(args), n_tiles=args.n_patches_train, bag_size=1,
+            num_threads=args.workers, balanced_sampling=args.balanced_sampling,
+            loan=args.loan, print_timing=args.time)
+        n_targets = len(args.target.split("+")) if "+" in args.target else 1
+        num_classes = args.num_output or args.num_classes or 2 * n_targets
+        n_items = len(sampler)
+    # per-host steps: each host takes a 1/pcount strided slice
+    spe = max(n_items // (args.batch_size * pcount), 1)
+    global_batch = args.batch_size * pcount
+
+    model = supervised_model(args, num_classes, on_cuda)
+    init_dino_weights(model, args.seed)
+    model = model.to(device)
+    optimizer, schedule, state = _supervised_state(args, model, spe, global_batch, device)
+    ckpt = CheckpointManager(os.path.join(output_dir, "checkpoints"),
+                             max_history=args.checkpoint_hist, metric_name=args.eval_metric)
+    # recovery checkpoints keep the latest two: under the best-K manager
+    # they would rank worst and be collected first
+    ckpt_rec = (CheckpointManager(os.path.join(output_dir, "checkpoints", "recovery"),
+                                  max_history=2, rank_by_metric=False)
+                if args.recovery_interval else None)
+    sched_count_offset = 0  # the schedule's count = step - this
+    if args.resume:
+        saved = load_checkpoint(args.resume)
+        if saved is not None and args.no_resume_opt:
+            # weights, EMA, step and generator come back; the optimizer
+            # starts afresh on a schedule advanced to the saved step
+            sched_count_offset = int(saved["step"])
+            optimizer, schedule, state = _supervised_state(args, model, spe, global_batch,
+                                                           device, offset=sched_count_offset)
+            state.load_state_dict(saved, opt_state=False)
+        elif saved is not None:
+            state.load_state_dict(saved)
+        if saved is not None:
+            logging.info("resumed from %s at step %d", args.resume, state.step)
+    warm = args.initial_checkpoint or args.transfer_learning
+    if warm and not args.resume:
+        # params only; the EMA copy stays the initial one, as in the reference
+        donor = load_checkpoint(warm)
+        if donor is not None:
+            model.load_state_dict(donor["params"])
+            logging.info("warm-started params from %s", warm)
+
+    aug = make_recipe(args.transform_type, train=not args.no_aug,
+                      tile_size=args.img_size or args.tile_size, color_param=args.c_param,
+                      norm_type="Ron")
+    step_fn = make_train_step(model, optimizer, augment_fn=aug,
+                              loss_fn=supervised_loss(args, "+" in args.target and not folder_mode),
+                              ema_decay=args.model_ema_decay if args.model_ema else None)
+    eval_model = eval_module(state, args.model_ema)
+    if not folder_mode and eval_table is None:
+        eval_table = infer_slide_table(args)
+    tracker = Tracker(output_dir, use_wandb=args.log_wandb)
+    summary_path = os.path.join(output_dir, "summary.csv")
+    start_epoch = args.start_epoch
+    if start_epoch is None:
+        start_epoch = state.step // max(spe, 1)
+    spd = max(args.steps_per_dispatch, 1)
+    try:
+        for epoch in range(start_epoch, args.epochs):
+            # the same seed on every host: the strided slices come from one shuffle
+            epoch_rng = np.random.default_rng(args.seed + epoch)
+            if sampler is not None and args.RAM_saver and epoch > 0 and epoch % 100 == 0:
+                sampler.close()
+                sampler = WSITileSampler(
+                    supervised_slide_table(args, reshuffle_rng=epoch_rng),
+                    n_tiles=args.n_patches_train, bag_size=1, num_threads=args.workers,
+                    balanced_sampling=args.balanced_sampling)
+            if folder_mode:
+                batches = train_ds.batches(args.batch_size, rng=epoch_rng, process_index=pindex,
+                                           process_count=pcount, workers=args.workers)
+            else:
+                batches = sampler.batches(epoch_rng, args.batch_size, process_index=pindex,
+                                          process_count=pcount)
+            feed = Prefetcher(_pinned(batches) if on_cuda else batches, depth=3)
+            metrics, t0 = {}, time.perf_counter()
+            for i, chunk in _chunked_enumerate(feed, spd):
+                if args.max_steps_per_epoch:
+                    if i >= args.max_steps_per_epoch:
+                        break
+                    chunk = chunk[: args.max_steps_per_epoch - i]
+                j = i + len(chunk) - 1
+                for b in chunk:
+                    if on_cuda:
+                        images = b["images"].to(device, non_blocking=True)
+                        labels = b["labels"].to(device, non_blocking=True)
+                    else:
+                        images = torch.from_numpy(b["images"])
+                        labels = torch.from_numpy(np.asarray(b["labels"], np.int64))
+                    state, metrics = step_fn(state, {"images": images, "labels": labels},
+                                             state.generator)
+                if args.dispatch_ahead and _interval_hit(i, j, args.dispatch_ahead):
+                    float(metrics["loss"])  # bound device run-ahead
+                if args.log_interval and _interval_hit(i, j, args.log_interval):
+                    m = {k: float(v) for k, v in metrics.items()}
+                    rate = (j + 1) * args.batch_size / (time.perf_counter() - t0)
+                    logging.info("epoch %d step %d loss %.4f auc %.3f (%.1f tiles/s)",
+                                 epoch, j, m.get("loss", 0), m.get("auc", 0.5), rate)
+                    tracker.log({**m, "rate": rate}, step=state.step)
+                if ckpt_rec is not None and _interval_hit(max(i, 1), j,
+                                                          max(args.recovery_interval, 1)):
+                    ckpt_rec.save(state.step, state, {"recovery": 1.0})
+            loop_s = time.perf_counter() - t0
+            logging.info("epoch %d: loop %.3f s, waiting on the data %.3f s (%.1f%%)",
+                         epoch, loop_s, feed.wait_s, 100.0 * feed.wait_s / max(loop_s, 1e-9))
+            # in key order, as the reference's jitted step hands its dict back
+            train_metrics = {k: float(metrics[k]) for k in sorted(metrics)}
+            train_metrics["lr"] = float(schedule(state.step - sched_count_offset))
+            if args.time and sampler is not None:  # -time: the sampler's stage times
+                td = sampler.stage_timer.time_dict()
+                logging.info("epoch %d time dict: %s", epoch, td)
+                tracker.log({"extract_tile_sec": td["Average time to extract a tile"]},
+                            step=state.step)
+
+            eval_metrics = {}
+            if epoch % args.eval_rate == 0 or epoch == args.epochs - 1:
+                if folder_mode and val_ds is not None and len(val_ds) > 0:
+                    eval_metrics = evaluate_folder(
+                        val_ds, eval_model, args.validation_batch_size or args.batch_size,
+                        device, dispatch_ahead=args.dispatch_ahead)
+                    logging.info("epoch %d folder eval: %s", epoch, eval_metrics)
+                    tracker.log({f"eval_{k}": v for k, v in eval_metrics.items()},
+                                step=state.step)
+                elif not folder_mode:
+                    eval_metrics, agg = evaluate_slide_table(args, eval_model, None, device,
+                                                             table=eval_table)
+                    logging.info("epoch %d eval: %s", epoch, eval_metrics)
+                    if agg is not None and agg.results:
+                        tracker.log_roc_pr([r.slide_score for r in agg.results],
+                                           [r.label for r in agg.results],
+                                           prefix="eval_slide_", step=state.step)
+                        if args.bootstrap:
+                            bmean, bstd = agg.bootstrap_slide_auc()
+                            eval_metrics["auc_bootstrap_mean"] = bmean
+                            eval_metrics["auc_bootstrap_std"] = bstd
+                    tracker.log({f"eval_{k}": v for k, v in eval_metrics.items()},
+                                step=state.step)
+            ckpt.save(state.step, state, eval_metrics or {args.eval_metric: 0.0})
+            update_summary(epoch, train_metrics, eval_metrics, summary_path)
+            ledger.update(exp["Experiment"], **{"Last Epoch": epoch})
+            if eval_metrics.get("auc") is not None:
+                ledger.update(exp["Experiment"], **{"TestSet Mean AUC": eval_metrics["auc"]})
+    except KeyboardInterrupt:
+        logging.info("KeyboardInterrupt — finishing gracefully")
+    ckpt.close()
+    if ckpt_rec is not None:
+        ckpt_rec.close()
+    tracker.finish()
+    if sampler is not None:
+        sampler.close()
+    return state
+
+
 def _make_ssl_knn_probe(args, bundle, ds, device: torch.device):
     """kNN probe (k = 20) over the teacher backbone's cls features
     (``tpuwsi/cli/train.py:1801``): every fifth image is a query, the rest
@@ -652,11 +1090,12 @@ def _make_ssl_knn_probe(args, bundle, ds, device: torch.device):
 
 
 def main(argv=None, default_overrides=None, device: Optional[torch.device] = None):
-    """The JAX CLI's ``main`` for --ssl and -ef: the refusals, the slide
-    table where the mode walks one (checked for formats this package
-    reads), the run log, the experiment ledger and output directory, then
-    ``train_ssl`` or ``extract_features_from_table``. ``device`` None means
-    the CUDA device, and raises where there is none."""
+    """The JAX CLI's ``main`` for supervised training, --ssl and -ef: the
+    refusals, the slide tables where the mode walks them (checked for
+    formats this package reads), the run log, the experiment ledger and
+    output directory, then ``train_supervised``, ``train_ssl`` or
+    ``extract_features_from_table``. ``device`` None means the CUDA device,
+    and raises where there is none."""
     from tpuwsi_torch.cli.args import parse_args
     from tpuwsi_torch.core.device import require_cuda
     from tpuwsi_torch.core.distributed import initialize_multihost
@@ -686,13 +1125,17 @@ def main(argv=None, default_overrides=None, device: Optional[torch.device] = Non
         device = require_cuda()
     pindex, pcount = initialize_multihost()
     _resolve_input_geometry(args)
-    table = None
+    table = eval_table = None
     if args.ssl and not args.data_dir:
         table = ssl_slide_table(args)
         check_slides_readable(table, presaved_ok=True)
     elif args.extract_features:
         table = infer_slide_table(args)
         check_slides_readable(table)
+    elif not args.ssl and not args.data_dir:
+        table, eval_table = supervised_slide_table(args), infer_slide_table(args)
+        check_slides_readable(table, presaved_ok=True)
+        check_slides_readable(eval_table)
     start_log(args, to_file=bool(args.output), output_dir=args.output or None)
 
     ledger = ExperimentLedger(args.output or "runs")
@@ -710,7 +1153,10 @@ def main(argv=None, default_overrides=None, device: Optional[torch.device] = Non
     )
     if args.ssl:
         return train_ssl(args, exp["Location"], device, pindex, pcount, table)
-    return extract_features_from_table(args, table, exp["Location"], device)
+    if args.extract_features:
+        return extract_features_from_table(args, table, exp["Location"], device)
+    return train_supervised(args, exp["Location"], ledger, exp, device, pindex, pcount, table,
+                            eval_table)
 
 
 if __name__ == "__main__":

@@ -65,8 +65,8 @@
 // memory, so the next item's p (or q and k) loads only once step 3 is done,
 // and loads and arithmetic add up more than they overlap.
 //
-// Beyond 208 tokens (no path of the models reaches it) no item fits, and the
-// kernel streams: each warpgroup runs its own items as the three steps over
+// Beyond 208 tokens no item fits (the supervised step's ViT-S/16 at 256 px,
+// 257 tokens, runs here), and the kernel streams: each warpgroup runs its own items as the three steps over
 // 64-row boxes through a ring of stages and two slots of the owned tile, and
 // step 3 rebuilds dS from dP (and the scores) a third time, as the statistics
 // of step 1 allow. Every length 1 <= N <= 511 reaches one of the two forms.

@@ -1,16 +1,21 @@
-"""On-device augmentation primitives (``tpuwsi/preprocess/augment.py``), the
-subset that DINO multi-crop calls.
+"""On-device augmentation primitives (``tpuwsi/preprocess/augment.py``): the
+ops that DINO multi-crop and the train recipes call.
 
 Every op works on a batch ``(B, H, W, 3)`` of float images in [0, 1] at once
-(or on one ``(H, W, 3)`` image) and takes its random parameter as an
-argument: a tensor with one value per image, or a scalar. Resampling and
-blur are matrix products with small per-image operators, as in the
-reference; in bf16 they take bf16 operands and round the fp32 sums back.
+(or on one ``(H, W, 3)`` image). The colour adjustments take their random
+parameter as an argument: a tensor with one value per image, or a scalar.
+The random ops draw theirs from an explicit ``torch.Generator``, one value
+per image, unless the caller passes them in (so that tests can feed two
+packages the same draws). Resampling and blur are matrix products with
+small per-image operators, as in the reference; in bf16 they take bf16
+operands and round the fp32 sums back.
 """
 
 from __future__ import annotations
 
 import torch
+
+from tpuwsi_torch.preprocess.normalize import MEAN_PIXEL, constant
 
 
 def _per_image(value, img: torch.Tensor) -> torch.Tensor:
@@ -199,3 +204,114 @@ def resample(img, ys, xs, method: str = "bilinear"):
     else:
         raise ValueError(f"unknown interpolation {method!r}")
     return _apply_separable(img, my, mx)
+
+
+def _mask(value, img: torch.Tensor) -> torch.Tensor:
+    """A per-image bool (scalar or (B,)) shaped to broadcast over ``img``'s pixels."""
+    value = torch.as_tensor(value, dtype=torch.bool, device=img.device)
+    return value.reshape(value.shape + (1,) * (img.dim() - value.dim()))
+
+
+def _bernoulli(img, p: float, generator) -> torch.Tensor:
+    return torch.rand(img.shape[:-3], generator=generator, device=img.device) < p
+
+
+def _randint(img, high: int, generator) -> torch.Tensor:
+    return torch.randint(0, high, img.shape[:-3], generator=generator, device=img.device)
+
+
+def gaussian_blur3(img, sigma_range=(1e-7, 1e-1), generator=None, sigma=None):
+    """3×3 separable Gaussian blur with a per-image σ ~ U[range] (or the
+    ``sigma`` given), edges padded by replication, rows then columns."""
+    if sigma is None:
+        sigma = uniform(img.shape[:-3], sigma_range[0], sigma_range[1], generator, img.device)
+    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=img.device)[..., None]
+    x = torch.arange(-1, 2, dtype=torch.float32, device=img.device)
+    w = torch.exp(-0.5 * (x / sigma) ** 2)
+    w = (w / w.sum(dim=-1, keepdim=True)).to(img.dtype)
+    w0, w1, w2 = (_per_image(w[..., i], img) for i in range(3))
+    pad = torch.cat([img[..., :1, :, :], img, img[..., -1:, :, :]], dim=-3)
+    img = pad[..., :-2, :, :] * w0 + pad[..., 1:-1, :, :] * w1 + pad[..., 2:, :, :] * w2
+    pad = torch.cat([img[..., :1, :], img, img[..., -1:, :]], dim=-2)
+    return pad[..., :-2, :] * w0 + pad[..., 1:-1, :] * w1 + pad[..., 2:, :] * w2
+
+
+def gaussian_noise(img, sigma_range=(0.0, 0.05), generator=None, stdev=None, noise=None):
+    """img + σ · N(0, 1) with a per-image σ ~ U[range] (drawn first, then the
+    noise field; or both given), clipped to [0, 1] and put back on the uint8
+    grid (floor(x · 255) / 255), as skimage's random_noise and a uint8 round
+    trip do."""
+    if stdev is None:
+        stdev = uniform(img.shape[:-3], sigma_range[0], sigma_range[1], generator, img.device)
+    if noise is None:
+        noise = torch.randn(img.shape, generator=generator, device=img.device, dtype=img.dtype)
+    noisy = torch.clamp(img + _per_image(stdev, img) * noise, 0.0, 1.0)
+    return torch.floor(noisy * 255.0) / 255.0
+
+
+def random_vflip(img, p: float = 0.5, generator=None, flip=None):
+    """Each image upside down with probability ``p`` (or where ``flip`` holds)."""
+    if flip is None:
+        flip = _bernoulli(img, p, generator)
+    return torch.where(_mask(flip, img), img.flip(-3), img)
+
+
+def random_hflip(img, p: float = 0.5, generator=None, flip=None):
+    """Each image mirrored left to right with probability ``p`` (or where ``flip`` holds)."""
+    if flip is None:
+        flip = _bernoulli(img, p, generator)
+    return torch.where(_mask(flip, img), img.flip(-2), img)
+
+
+def random_rot90(img, generator=None, k=None):
+    """Each square image turned by k · 90° anticlockwise (``np.rot90``), k
+    uniform in {0, 1, 2, 3} or given: k = 1 mirrors the columns then
+    transposes, k = 2 mirrors both axes, k = 3 mirrors the rows then
+    transposes."""
+    if img.shape[-3] != img.shape[-2]:
+        raise ValueError(f"random_rot90 turns square images, got {tuple(img.shape[-3:-1])}")
+    if k is None:
+        k = _randint(img, 4, generator)
+    k = torch.as_tensor(k, device=img.device)
+    rows, cols, turn = (k == 2) | (k == 3), (k == 1) | (k == 2), (k == 1) | (k == 3)
+    img = torch.where(_mask(rows, img), img.flip(-3), img)
+    img = torch.where(_mask(cols, img), img.flip(-2), img)
+    return torch.where(_mask(turn, img), img.transpose(-3, -2), img)
+
+
+def random_zoom(img, scale_range=(1.0, 1.2), generator=None, scale=None):
+    """RandomAffine(degrees=0, scale=s): a zoom by a per-image s ~ U[range]
+    (or ``scale``) about the centre, bilinear."""
+    if scale is None:
+        scale = uniform(img.shape[:-3], scale_range[0], scale_range[1], generator, img.device)
+    s = torch.as_tensor(scale, dtype=torch.float32, device=img.device)[..., None]
+    h, w = img.shape[-3], img.shape[-2]
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    ys = (torch.arange(h, dtype=torch.float32, device=img.device) - cy) / s + cy
+    xs = (torch.arange(w, dtype=torch.float32, device=img.device) - cx) / s + cx
+    return resample(img, ys, xs, "bilinear")
+
+
+def cutout(img, length: int = 100, fill: float = 0.0, generator=None, centre=None):
+    """Set one ``length``² square of each image to ``fill``, clipped to the image,
+    around a centre (y, x) uniform over the pixels (y drawn first) or given
+    as two per-image integer tensors."""
+    h, w = img.shape[-3], img.shape[-2]
+    if centre is None:
+        centre = (_randint(img, h, generator), _randint(img, w, generator))
+    y, x = (torch.as_tensor(c, device=img.device)[..., None] for c in centre)
+    rows = torch.arange(h, device=img.device)
+    cols = torch.arange(w, device=img.device)
+    row_in = (rows >= y - length // 2) & (rows < y + length // 2)
+    col_in = (cols >= x - length // 2) & (cols < x + length // 2)
+    hole = (row_in[..., :, None] & col_in[..., None, :])[..., None]
+    return torch.where(hole, torch.full_like(img, fill), img)
+
+
+def mean_pixel_regularization(img, p: float = 0.75, generator=None, replace=None):
+    """Each image replaced whole by the mean pixel with probability ``p`` (or
+    where ``replace`` holds)."""
+    if replace is None:
+        replace = _bernoulli(img, p, generator)
+    pix = constant(MEAN_PIXEL, img.dtype, img.device)
+    return torch.where(_mask(replace, img), pix.expand_as(img), img)

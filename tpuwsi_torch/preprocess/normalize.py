@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -30,9 +31,20 @@ STD = {
     "Amir": (0.0787, 0.1751, 0.1125),
 }
 
+# the mean pixel that MyMeanPixelRegularization paints (augment.mean_pixel_regularization)
+MEAN_PIXEL = (0.87316266, 0.79902739, 0.84941472)
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, made once: building a tensor from
+    Python numbers on a CUDA device is a blocking copy, which waits for all
+    the work queued before it."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
 
 def normalize(x: torch.Tensor, norm_type: str = "Ron") -> torch.Tensor:
     """(..., H, W, 3) float in [0,1] → standardized."""
-    mean = torch.tensor(MEAN[norm_type], dtype=x.dtype, device=x.device)
-    std = torch.tensor(STD[norm_type], dtype=x.dtype, device=x.device)
+    mean = constant(MEAN[norm_type], x.dtype, x.device)
+    std = constant(STD[norm_type], x.dtype, x.device)
     return (x - mean) / std

@@ -25,6 +25,7 @@ from torch import nn
 from tpuwsi_torch.models.dino_head import DINOHead
 from tpuwsi_torch.models.vit import VisionTransformer
 from tpuwsi_torch.train.ema import cosine_momentum_schedule, ema_update
+from tpuwsi_torch.train.optim import load_opt_state, opt_state_dict
 
 
 class DINOModel(nn.Module):
@@ -75,8 +76,7 @@ class DINOState:
         The tensors are the state's own (``torch.save`` copies them)."""
         out = {"step": int(self.step), "student": self.student.state_dict(),
                "teacher": self.teacher.state_dict(),
-               "opt_state": {"count": int(self.opt_state.count),
-                             "mu": list(self.opt_state.mu), "nu": list(self.opt_state.nu)},
+               "opt_state": opt_state_dict(self.opt_state),
                "center": self.center}
         if self.generator is not None:
             out["generator"] = self.generator.get_state()
@@ -89,18 +89,10 @@ class DINOState:
         them stay valid)."""
         self.student.load_state_dict(sd["student"])
         self.teacher.load_state_dict(sd["teacher"])
-        opt = sd["opt_state"]
-        for dst, key in ((self.opt_state.mu, "mu"), (self.opt_state.nu, "nu")):
-            if len(dst) != len(opt[key]):
-                raise ValueError(f"{key}: {len(opt[key])} tensors saved, {len(dst)} here")
-            for d, s in zip(dst, opt[key]):
-                if d.shape != s.shape:
-                    raise ValueError(f"{key}: a saved {tuple(s.shape)} for {tuple(d.shape)}")
-                d.copy_(s)
         if self.center.shape != sd["center"].shape:
             raise ValueError(f"center: saved {tuple(sd['center'].shape)}, "
                              f"here {tuple(self.center.shape)}")
-        self.opt_state.count = int(opt["count"])
+        load_opt_state(self.opt_state, sd["opt_state"])
         self.center.copy_(sd["center"])
         self.step = int(sd["step"])
         if "generator" in sd:

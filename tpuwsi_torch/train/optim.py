@@ -1,13 +1,17 @@
-"""Optimizer and LR schedule of the DINO step (``tpuwsi/train/optim.py``).
+"""Optimizers and LR schedule of the DINO and supervised steps
+(``tpuwsi/train/optim.py``).
 
-Only what ``ssl_step_bundle`` uses is ported: AdamW with no weight decay on
-1-D parameters, clipping by global norm, the warm-up-cosine schedule and the
-batch-size LR scaling rule. The conventions are optax's, which differ from
-``torch.optim`` in two places that show in a trajectory: the clip scales by
-``max_norm / norm`` only when ``norm >= max_norm`` (no epsilon), and the
-schedule is read at the optimizer's own count, 0 at the first step. The
-other optimizers, schedules, clip modes, layer decay and the cosine
-weight-decay schedule raise ``NotImplementedError`` (ROADMAP.md, M3).
+Ported: AdamW, and SGD with momentum (``momentum``) or Nesterov momentum
+(``sgd``, ``nesterov``), each with no weight decay on 1-D parameters;
+clipping by global norm; the warm-up-cosine schedule with an optional offset
+of its count; the batch-size LR scaling rule; and ``freeze_non_head`` for
+--no-grad. The conventions are optax's, which differ from ``torch.optim``
+in places that show in a trajectory: the clip scales by ``max_norm / norm``
+only when ``norm >= max_norm`` (no epsilon); the schedule is read at the
+optimizer's own count, 0 at the first step; SGD adds the decayed weights to
+the gradient before the momentum trace. The other optimizers, schedules,
+clip modes, layer decay and the cosine weight-decay schedule raise
+``NotImplementedError`` (ROADMAP.md, M3b).
 """
 
 from __future__ import annotations
@@ -68,20 +72,22 @@ class OptimConfig:
 
 
 def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1, M3)")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1, M3b)")
 
 
 def make_schedule(cfg: OptimConfig, peak_lr: float) -> Callable[[int], float]:
     """count → learning rate: linear warm-up from ``warmup_lr`` to the peak,
     then a cosine to ``min_lr`` that ends at the last step
-    (``optax.warmup_cosine_decay_schedule``)."""
+    (``optax.warmup_cosine_decay_schedule``), read at count +
+    ``schedule_offset_steps`` (--start-epoch, --no-resume-opt)."""
     if cfg.sched != "cosine":
         raise _not_ported(f"schedule {cfg.sched!r}")
     if (cfg.lr_cycle_mul != 1.0 or cfg.lr_cycle_decay != 0.5 or cfg.lr_cycle_limit != 1
             or cfg.lr_k_decay != 1.0 or cfg.warmup_prefix):
         raise _not_ported("cosine restarts, k-decay and warm-up prefix")
-    if cfg.lr_noise or cfg.schedule_offset_steps:
-        raise _not_ported("LR noise and a schedule offset")
+    if cfg.lr_noise:
+        raise _not_ported("LR noise")
+    offset = cfg.schedule_offset_steps
     warmup_steps = cfg.warmup_epochs * cfg.steps_per_epoch
     total_steps = cfg.epochs * cfg.steps_per_epoch
     decay_total = max(total_steps - cfg.cooldown_epochs * cfg.steps_per_epoch,
@@ -90,6 +96,7 @@ def make_schedule(cfg: OptimConfig, peak_lr: float) -> Callable[[int], float]:
     alpha = cfg.min_lr / peak_lr if peak_lr else 0.0
 
     def schedule(count: int) -> float:
+        count += offset
         if count < warmup_steps:
             return cfg.warmup_lr + (peak_lr - cfg.warmup_lr) * count / warmup_steps
         frac = min(count - warmup_steps, decay_steps) / decay_steps
@@ -161,10 +168,94 @@ class AdamW:
         return norm
 
 
+@dataclasses.dataclass
+class SGDState:
+    count: int
+    trace: List[torch.Tensor]
+
+
+class SGD:
+    """``optax.chain(add_decayed_weights(weight_decay, p.ndim > 1),
+    sgd(schedule, momentum, nesterov))`` behind an optional global-norm clip,
+    updating the parameters in place: g += weight_decay * p where p.ndim > 1;
+    trace = g + momentum * trace; the direction is g + momentum * trace
+    (Nesterov) or the trace; p -= schedule(count) * direction."""
+
+    def __init__(self, schedule: Callable[[int], float], momentum: float, nesterov: bool,
+                 weight_decay: float, clip_grad: Optional[float]):
+        self.schedule = schedule
+        self.momentum, self.nesterov = momentum, nesterov
+        self.weight_decay = weight_decay
+        self.clip_grad = clip_grad
+
+    def init(self, params: Sequence[torch.Tensor]) -> SGDState:
+        return SGDState(0, [torch.zeros_like(p) for p in params])
+
+    @torch.no_grad()
+    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+             state: SGDState) -> Optional[torch.Tensor]:
+        """One update of ``params`` and ``state`` in place (``grads`` is
+        scratch). Returns the gradients' global norm before clipping when the
+        clip is on."""
+        params, grads = list(params), list(grads)
+        norm = None
+        if self.clip_grad is not None:
+            norm = clip_by_global_norm(grads, self.clip_grad)
+        decayed = [(g, p) for g, p in zip(grads, params) if p.ndim > 1]
+        if self.weight_decay and decayed:
+            torch._foreach_add_([g for g, _ in decayed], [p for _, p in decayed],
+                                alpha=self.weight_decay)
+        lr = self.schedule(state.count)
+        state.count += 1
+        torch._foreach_mul_(state.trace, self.momentum)
+        torch._foreach_add_(state.trace, grads)
+        if self.nesterov:
+            update = torch._foreach_add(grads, state.trace, alpha=self.momentum)
+        else:
+            update = state.trace
+        torch._foreach_add_(params, update, alpha=-lr)
+        return norm
+
+
+def opt_state_dict(state) -> dict:
+    """An optimizer state (``AdamWState``, ``SGDState``) as a dict of its
+    count and its tensor lists (the state's own tensors)."""
+    out = {}
+    for f in dataclasses.fields(state):
+        value = getattr(state, f.name)
+        out[f.name] = int(value) if f.name == "count" else list(value)
+    return out
+
+
+@torch.no_grad()
+def load_opt_state(state, sd: dict) -> None:
+    """Copy an ``opt_state_dict`` into ``state`` in place."""
+    for f in dataclasses.fields(state):
+        if f.name == "count":
+            state.count = int(sd["count"])
+            continue
+        dst, src = getattr(state, f.name), sd[f.name]
+        if len(dst) != len(src):
+            raise ValueError(f"{f.name}: {len(src)} tensors saved, {len(dst)} here")
+        for d, s in zip(dst, src):
+            if d.shape != s.shape:
+                raise ValueError(f"{f.name}: a saved {tuple(s.shape)} for {tuple(d.shape)}")
+            d.copy_(s)
+
+
+def freeze_non_head(model: torch.nn.Module, head_key: str = "head") -> None:
+    """--no-grad: every parameter whose name does not hold ``head_key`` stops
+    taking gradients, so it stays bit for bit what it was (the reference
+    masks those updates to zero)."""
+    for name, p in model.named_parameters():
+        p.requires_grad_(head_key in name)
+
+
 def make_optimizer(cfg: OptimConfig, global_batch_size: int):
     """→ ``(optimizer, schedule)`` for ``cfg``; the peak LR follows the
     batch-size scaling rule."""
-    if cfg.opt.lower() != "adamw":
+    name = cfg.opt.lower()
+    if name not in ("adamw", "sgd", "momentum", "nesterov"):
         raise _not_ported(f"optimizer {cfg.opt!r}")
     if cfg.weight_decay_end is not None:
         raise _not_ported("the cosine weight-decay schedule")
@@ -173,5 +264,8 @@ def make_optimizer(cfg: OptimConfig, global_batch_size: int):
     if cfg.clip_grad is not None and cfg.clip_mode != "norm":
         raise _not_ported(f"clip mode {cfg.clip_mode!r}")
     schedule = make_schedule(cfg, cfg.resolved_lr(global_batch_size))
-    return AdamW(schedule, cfg.betas[0], cfg.betas[1], cfg.eps, cfg.weight_decay,
-                 cfg.clip_grad), schedule
+    if name == "adamw":
+        return AdamW(schedule, cfg.betas[0], cfg.betas[1], cfg.eps, cfg.weight_decay,
+                     cfg.clip_grad), schedule
+    return SGD(schedule, cfg.momentum, name != "momentum", cfg.weight_decay,
+               cfg.clip_grad), schedule

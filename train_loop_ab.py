@@ -2,7 +2,7 @@
 """The DINO trainer's data loop on one card: where its time goes and how the
 ways of decoding compare.
 
-    python3 train_loop_ab.py [survey] [decode] [bare] [loop] [wsi]
+    python3 train_loop_ab.py [survey] [decode] [bare] [loop] [wsi] [sup]
 
 Modes, in the order given (the first four when none is named):
 
@@ -37,7 +37,12 @@ Modes, in the order given (the first four when none is named):
   ``WSITileSampler`` making WSI-mode batches (its Python draws and the same
   C call), and WSI-mode ``main --ssl`` over the cohort's training fold for
   2 epochs of 10 steps, twice: the median of the 18 step gaps, the wait on
-  the data and the first step's wait.
+  the data and the first step's wait;
+- ``sup``: ``chip_smoke.py``'s ``[wsi_cohort]``, then supervised ``main``
+  with ``[train_sup]``'s arguments for 3 epochs of 3 steps of 256 tiles,
+  with ``-j 4``, ``-j 8`` and ``-j 4`` again: the step's device time (CUDA
+  events around it), the gaps between step starts, the wait on the data and
+  the peak device memory.
 
 Every line names the card and its power limit. The worker processes are
 spawned and import this script: its work stays under the ``__main__``
@@ -327,6 +332,24 @@ def wsi(smi: str) -> None:
     shutil.rmtree(cs.WSI_ROOT, ignore_errors=True)
 
 
+def sup(smi: str) -> None:
+    cs.phase_wsi_cohort(smi)
+    for workers in ("4", "8", "4"):
+        argv = cs.SUP_ARGV + ["--epochs", "3", "-j", workers]
+        run = cs.sup_run(cs.SUP_RUNS / f"j{workers}", argv)
+        gaps, wait = cs.loop_timing(run, 3, 3)
+        dev = [r["ms"] for r in run["rows"][1:]]
+        print(f"[sup] -j {workers}: the step's stream time {[round(d, 2) for d in dev]} ms "
+              f"(median {statistics.median(dev):.2f}); gaps {[round(g, 2) for g in gaps]} ms "
+              f"(median {statistics.median(gaps):.2f}, epochs 2-3 "
+              f"{statistics.median(gaps[2:]):.2f}); waiting {100 * wait:.1f}%; peak "
+              f"{run['peak'] / 2**30:.2f} GiB; main() {run['wall']:.2f} s; on {smi}", flush=True)
+        del run
+        shutil.rmtree(cs.SUP_RUNS, ignore_errors=True)
+        torch.cuda.empty_cache()
+    shutil.rmtree(cs.WSI_ROOT, ignore_errors=True)
+
+
 def main() -> None:
     modes = sys.argv[1:] or ["survey", "decode", "bare", "loop"]
     smi = cs.phase_device()
@@ -343,10 +366,13 @@ def main() -> None:
         cs.STEP_MS["tuned"] = bare(smi)
     if "loop" in modes:
         loop(smi)
-    if "wsi" in modes:
+    if "wsi" in modes or "sup" in modes:
         if "bare" not in modes and "loop" not in modes:
             cs.phase_build()
+    if "wsi" in modes:
         wsi(smi)
+    if "sup" in modes:
+        sup(smi)
 
 
 if __name__ == "__main__":

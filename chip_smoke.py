@@ -80,7 +80,18 @@ Phases, each printing its own lines:
      main() and over the walk, the host's seconds a slide (decode, walk,
      pinned copy), the wait on the Prefetcher and the card's idle share
      (CUDA events around each chunk's copy and forward), and an arm with the
-     slides decoded in turn; then main --ssl over the 4 slides of fold 2 at
+     slides decoded in turn; then [wsi_formats]: the committed fixtures
+     (tests/data/torch_m1b) read by the port's C readers against their
+     committed digests, a JPEG tile's host decode time, and main -ef over
+     Deflate-tiled TIFFs of two of those slides (features equal the PNG
+     run's bit for bit), 12 JPEG SVS slides of 8192 px assembled from the
+     fixture's tile payloads, 8 MIRAX slides of ~8192 px assembled from the
+     MIRAX fixture's camera payloads (overlapping cameras, a region of each
+     at levels 0 and 1 held against a numpy stitch of its tiles; --mag 20
+     and 10) and a TMA cohort of JPEG cores (the Amir bank), each with K2 =
+     12 per chunk and its first chunk held against plain attention, and
+     supervised main over the SVS slides at --mag 10 (K1a = K1b = 12 a
+     step, finite losses); then main --ssl over the 4 slides of fold 2 at
      --mag 10 (10 steps of 96 tiles): K1a = K1b = 24 and K2 = 12 per step,
      finite losses, a checkpoint, the loop's ms per step beside the bare
      step's, its wait on the data, the first step's wait and peak device
@@ -384,6 +395,23 @@ SUP_ARGV = ["--dataset", "TCGA", "--data-root", str(WSI_ROOT), "--model",
 STEP_MS = {}
 # tiles/s of the serving slice on resident chunks, by tag, for the same
 SERVING_TILES_S = {}
+# [wsi_ef]'s run at --mag 20: tiles/s, and each slide's (locations, features)
+WSI_EF_PNG = {}
+# [wsi_formats]: (a) the test fold's PNG slides as Deflate-tiled pyramidal
+# TIFFs; (b) 12 JPEG SVS slides of WSI_SIZE px (folds as WSI_FOLDS) assembled
+# from the committed YCbCr 4:2:0 fixture's tile payloads and JPEGTables (no
+# JPEG encoder needed); (c) MIRAX slides assembled from the committed MIRAX
+# slide's camera payloads, and copies of the committed JPEG core as a TMA
+# cohort (the 'Amir' bank); supervised training
+# over (b) at --mag 10 (level 1), one epoch of FORMATS_SUP_STEPS steps
+FORMATS_ROOT = OUT / "wsi_formats"
+FIXTURES = Path(__file__).resolve().parent / "tests" / "data" / "torch_m1b"
+FORMATS_COPIES, FORMATS_SUP_TILES, FORMATS_SUP_STEPS, FORMATS_DECODES = 4, 200, 3, 200
+FORMATS_TIFFS = 2  # of [wsi_cohort]'s test-fold slides, as Deflate TIFFs
+# (c)'s MIRAX slides: MIRAX_CAMS² cameras of 2 x 2 tiles of MIRAX_TILE px (the
+# fixture's payloads), overlapping by MIRAX_OVERLAP px, MIRAX_LEVELS zoom levels:
+# 34 * 240 + 16 px a side, and the jitter (8,184 px for seed 3), near WSI_SIZE
+MIRAX_SLIDES, MIRAX_CAMS, MIRAX_TILE, MIRAX_OVERLAP, MIRAX_LEVELS = 8, 34, 128, 16, 3
 
 
 def all_launches() -> dict:
@@ -2331,8 +2359,8 @@ def phase_wsi_cohort(smi: str) -> None:
           f"on 4 = {ms[1][1] / TRAIN_BATCH:.3f} ms a tile on one thread (host CPU, beside {smi})")
 
 
-def wsi_ef_run(mag: int, open_ahead=None) -> dict:
-    """``main(-ef --mag mag)`` on the card, recording the walker, the
+def wsi_ef_run(mag: int, open_ahead=None, argv=WSI_EF_ARGV, tag="ef") -> dict:
+    """``main(argv + -ef --mag mag)`` on the card, recording the walker, the
     Prefetcher, each chunk's host copy time and a CUDA event before its copy
     and after its forward; ``open_ahead`` overrides the walker's."""
     from tpuwsi_torch.infer import slide_walker
@@ -2373,14 +2401,14 @@ def wsi_ef_run(mag: int, open_ahead=None) -> dict:
 
         return real[2](chunks, timed_images_of, timed_call, depth)
 
-    out = WSI_RUNS / f"ef{mag}_{open_ahead}"
+    out = WSI_RUNS / f"{tag}{mag}_{open_ahead}"
     slide_walker.SlideWalker, prefetch.Prefetcher, cli_train.eval_stream = (
         RecordedWalker, RecordedPrefetcher, recorded_stream)
     try:
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
-        agg = cli_train.main(WSI_EF_ARGV + ["--mag", str(mag), "--output", str(out)])
+        agg = cli_train.main(argv + ["--mag", str(mag), "--output", str(out)])
         torch.cuda.synchronize()
         rec["wall"] = time.perf_counter() - t0
         rec["launches"] = all_launches()
@@ -2391,33 +2419,38 @@ def wsi_ef_run(mag: int, open_ahead=None) -> dict:
     return rec
 
 
-def check_wsi_ef(mag: int, rec: dict, smi: str) -> dict:
+def check_wsi_ef(mag: int, rec: dict, smi: str, argv=WSI_EF_ARGV, tag="wsi_ef",
+                 slides=WSI_FOLDS.count(1)) -> dict:
+    """The run's launches (K2 12 a chunk, nothing else), feature files and
+    features, its first chunk through the kernel and through plain attention
+    (the dataset's normalization bank), and its timing. → launches."""
     agg, walker, feed = rec["agg"], rec["walkers"][0], rec["feeds"][0]
     n_slides, n_chunks = len(walker.table), len(rec["spans"])
     n_tiles = sum(len(r.tile_locations) for r in agg.results)
     want = {**dict.fromkeys(rec["launches"], 0), "mha_qkv_fwd": 12 * n_chunks}
-    print(f"[wsi_ef] --mag {mag}: {n_slides} slides, {n_tiles} tiles in {n_chunks} chunks "
+    print(f"[{tag}] --mag {mag}: {n_slides} slides, {n_tiles} tiles in {n_chunks} chunks "
           f"(the walker's count {len(walker)}); launches {rec['launches']}")
-    if n_chunks != len(walker) or n_slides != WSI_FOLDS.count(1):
-        raise RuntimeError(f"[wsi_ef] {n_chunks} chunks of {n_slides} slides")
+    if n_chunks != len(walker) or n_slides != slides:
+        raise RuntimeError(f"[{tag}] {n_chunks} chunks of {n_slides} slides")
     if rec["launches"] != want:
-        raise RuntimeError(f"[wsi_ef] launches {rec['launches']}, expected {want}")
+        raise RuntimeError(f"[{tag}] launches {rec['launches']}, expected {want}")
     exp = next(d for d in rec["out"].iterdir() if d.name.startswith("Exp_"))
     written = sorted(os.listdir(exp / "features"))
     if written != sorted([f"{Path(n).stem}_features.pt" for n in walker.table.file_names]
                          + ["inference.data"]):
-        raise RuntimeError(f"[wsi_ef] feature files: {written}")
+        raise RuntimeError(f"[{tag}] feature files: {written}")
     feats = np.concatenate([r.features for r in agg.results])
     if feats.shape != (n_tiles, 384) or not np.isfinite(feats).all():
-        raise RuntimeError(f"[wsi_ef] features: {feats.shape}, finite {np.isfinite(feats).all()}")
+        raise RuntimeError(f"[{tag}] features: {feats.shape}, finite {np.isfinite(feats).all()}")
 
     # the first chunk again, through the same weights with and without the kernel
     dev = torch.device("cuda")
-    args = parse_args(WSI_EF_ARGV + ["--mag", str(mag)])
+    args = parse_args(argv + ["--mag", str(mag)])
     model, params = cli_train.feature_model(args)
     plain = create_model(args.model, num_classes=2, img_size=WSI_TILE,
                          use_kernel_attention=False)
-    norm = make_recipe("none", train=False, tile_size=WSI_TILE, norm_type="Ron")
+    norm = make_recipe("none", train=False, tile_size=WSI_TILE,
+                       norm_type=cli_train.norm_bank(args))
     images, k, name = rec["first"]
     outs = []
     for m in (model, plain):
@@ -2431,21 +2464,22 @@ def check_wsi_ef(mag: int, rec: dict, smi: str) -> dict:
     cos = lambda a, b: ((a * b).sum(1) / (np.linalg.norm(a, axis=1)  # noqa: E731
                                           * np.linalg.norm(b, axis=1))).min()
     dprob = float(np.abs(pk - pp).max())
-    print(f"[wsi_ef] --mag {mag}, first chunk ({k} tiles of {name}): kernel against plain "
-          f"attention min per-tile feature cosine {cos(fk, fp):.6f} (>= {FEAT_COSINE_MIN}), max "
-          f"probs diff {dprob:.3e} (<= {PROBS_MAX_DIFF}); main()'s saved features against "
-          f"the kernel model's {cos(main_feats, fk):.6f}")
+    print(f"[{tag}] --mag {mag}, first chunk ({k} tiles of {name}; the "
+          f"{cli_train.norm_bank(args)} bank): kernel against plain attention min per-tile feature cosine {cos(fk, fp):.6f} (>= "
+          f"{FEAT_COSINE_MIN}), max probs diff {dprob:.3e} (<= {PROBS_MAX_DIFF}); main()'s "
+          f"saved features against the kernel model's {cos(main_feats, fk):.6f}")
     if cos(fk, fp) < FEAT_COSINE_MIN or dprob > PROBS_MAX_DIFF or \
             cos(main_feats, fk) < FEAT_COSINE_MIN:
-        raise RuntimeError("[wsi_ef] the kernel path, plain attention and main() disagree")
+        raise RuntimeError(f"[{tag}] the kernel path, plain attention and main() disagree")
 
     walk_s = walker.seconds["open"] + walker.seconds["walk"]
     idle = 1.0 - rec["busy_ms"] / (rec["wall"] * 1e3)
-    print(f"[wsi_ef] --mag {mag}: main() {rec['wall']:.2f} s = {n_tiles / rec['wall']:.1f} "
+    rec["tiles_s"], rec["idle"] = n_tiles / rec["wall"], idle
+    print(f"[{tag}] --mag {mag}: main() {rec['wall']:.2f} s = {n_tiles / rec['wall']:.1f} "
           f"tiles/s; the walk alone (decode + draws + C cuts, summed over its threads) "
           f"{walk_s:.2f} s = {n_tiles / walk_s:.1f} tiles/s; [slice] on resident chunks "
           f"{SERVING_TILES_S['slice'][0]:.1f} / {SERVING_TILES_S['slice'][1]:.1f} tiles/s. Host "
-          f"seconds a slide: PNG decode {walker.seconds['open'] / n_slides:.3f} (on "
+          f"seconds a slide: opening it {walker.seconds['open'] / n_slides:.3f} (on "
           f"{walker.open_ahead} threads ahead), walk {walker.seconds['walk'] / n_slides:.3f}, "
           f"pinned copy {rec['pin_s'] / n_slides:.3f}; waiting on the Prefetcher "
           f"{feed.wait_s:.2f} s ({100 * feed.wait_s / rec['wall']:.1f}% of main()); the card "
@@ -2463,6 +2497,10 @@ def phase_wsi_ef(smi: str) -> dict:
         rec = wsi_ef_run(mag)
         counts = check_wsi_ef(mag, rec, smi)
         total = {k: total[k] + counts[k] for k in total}
+        if mag == 20:  # for [wsi_formats]: the same slides as TIFFs give the same features
+            WSI_EF_PNG.update(tiles_s=rec["tiles_s"], features={
+                Path(r.slide_name).stem: (r.tile_locations, r.features)
+                for r in rec["agg"].results})
     # the walker opening each slide in turn, as the JAX package's does
     turn = wsi_ef_run(WSI_MAGS[-1], open_ahead=0)
     n_tiles = sum(len(r.tile_locations) for r in turn["agg"].results)
@@ -2471,6 +2509,464 @@ def phase_wsi_ef(smi: str) -> dict:
           f"{n_tiles / rec['wall']:.1f} with {rec['walkers'][0].open_ahead} slides decoding "
           f"ahead; waiting on the Prefetcher {turn['feeds'][0].wait_s:.2f} s; on {smi}")
     shutil.rmtree(WSI_RUNS, ignore_errors=True)
+    return total
+
+
+def tiff_pages(path: Path):
+    """A little-endian classic TIFF's bytes and its directories (tag → list of
+    values; other types than BYTE, SHORT and LONG as bytes): enough to take the
+    committed fixture apart."""
+    data = path.read_bytes()
+    if data[:4] != b"II*\x00":
+        raise RuntimeError(f"[wsi_formats] {path}: not a little-endian classic TIFF")
+    size = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8}
+    fmt = {1: "B", 3: "H", 4: "I"}
+    pages, at = [], struct.unpack_from("<I", data, 4)[0]
+    while at:
+        n, tags = struct.unpack_from("<H", data, at)[0], {}
+        for i in range(n):
+            tag, typ, count, value = struct.unpack_from("<HHI4s", data, at + 2 + 12 * i)
+            nbytes = size[typ] * count
+            off = struct.unpack("<I", value)[0]
+            raw = value[:nbytes] if nbytes <= 4 else data[off:off + nbytes]
+            tags[tag] = list(struct.unpack(f"<{count}{fmt[typ]}", raw)) if typ in fmt else raw
+        pages.append(tags)
+        at = struct.unpack_from("<I", data, at + 2 + 12 * n)[0]
+    return data, pages
+
+
+def write_tiled_tiff(path: Path, levels, compression: int, photometric: int,
+                     tables: bytes = b"", predictor: int = 1) -> None:
+    """A classic little-endian TIFF, one tiled directory a level (those after
+    the first marked reduced): ``levels`` = [(width, height, tile payloads in
+    row-major order)], WSI_TILE² tiles, RGB (photometric 2) or YCbCr 4:2:0
+    JPEG (6) with ``tables`` as JPEGTables, ``predictor`` 2 for horizontal
+    differencing."""
+    out = bytearray(b"II*\x00\x00\x00\x00\x00")
+    link = 4  # where the next directory's offset goes
+
+    def block(raw: bytes) -> int:
+        at = len(out)
+        out.extend(raw + b"\x00" * (len(raw) & 1))
+        return at
+
+    for i, (w, h, payloads) in enumerate(levels):
+        offsets = [block(p) for p in payloads]
+        entries = [(254, 4, [1 if i else 0]), (256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]),
+                   (259, 3, [compression]), (262, 3, [photometric]), (277, 3, [3]),
+                   (284, 3, [1]), (317, 3, [predictor]), (322, 4, [WSI_TILE]),
+                   (323, 4, [WSI_TILE]), (324, 4, offsets), (325, 4, [len(p) for p in payloads])]
+        if tables:
+            entries.append((347, 7, tables))
+        if photometric == 6:
+            entries.append((530, 3, [2, 2]))
+        packed = []
+        for tag, typ, values in entries:
+            raw = values if typ == 7 else struct.pack(f"<{len(values)}{'H' if typ == 3 else 'I'}",
+                                                      *values)
+            value = raw.ljust(4, b"\x00") if len(raw) <= 4 else struct.pack("<I", block(raw))
+            packed.append(struct.pack("<HHI", tag, typ, len(values)) + value)
+        at = block(struct.pack("<H", len(packed)) + b"".join(packed) + b"\x00" * 4)
+        struct.pack_into("<I", out, link, at)
+        link = at + 2 + 12 * len(packed)
+    path.write_bytes(bytes(out))
+
+
+def deflate_tiff(png: Path, tif: Path) -> None:
+    """[wsi_cohort]'s PNG slide as a Deflate-tiled TIFF with the horizontal
+    predictor: level 0 its pixels, level 1 every other pixel of them (zlib
+    level 1, on the caller's thread)."""
+    img = decode_png(str(png))
+    levels = []
+    for level in (img, img[::2, ::2]):
+        h, w = level.shape[:2]
+        rows = level.reshape(h, w * 3)
+        diff = rows.copy()
+        diff[:, 3:] -= rows[:, :-3]  # each sample less the one before it (mod 256)
+        diff = diff.reshape(h, w, 3)
+        diff[:, ::WSI_TILE] = level[:, ::WSI_TILE]  # a tile's rows start afresh
+        levels.append((w, h, [zlib.compress(diff[y:y + WSI_TILE, x:x + WSI_TILE].tobytes(), 1)
+                              for y in range(0, h, WSI_TILE) for x in range(0, w, WSI_TILE)]))
+    write_tiled_tiff(tif, levels, compression=8, photometric=2, predictor=2)
+
+
+def jpeg_svs(index: int, pool, tables: bytes, path: Path) -> None:
+    """Slide ``index`` of (b): WSI_SIZE² at level 0, with levels 1 and 2, each
+    tile a payload of the fixture's level of the same downsample."""
+    levels = []
+    for ds, payloads in zip((1, 2, 4), pool):
+        side = WSI_SIZE // ds // WSI_TILE
+        levels.append((WSI_SIZE // ds, WSI_SIZE // ds,
+                       [payloads[(5 * r + 3 * c + index) % len(payloads)]
+                        for r in range(side) for c in range(side)]))
+    write_tiled_tiff(path, levels, compression=7, photometric=6, tables=tables)
+
+
+def mirax_payloads(slide_dir: Path) -> list:
+    """The tile payloads of each zoom level of a MIRAX slide whose Index.dat
+    gives each level one page in Data0000.dat (the committed fixture), in
+    the page's order."""
+    ini = (slide_dir / "Slidedat.ini").read_text()
+    slide_id = re.search(r"SLIDE_ID = (\S+)", ini).group(1)
+    levels = int(re.search(r"HIER_0_COUNT = (\d+)", ini).group(1))
+    idx, data = (slide_dir / "Index.dat").read_bytes(), (slide_dir / "Data0000.dat").read_bytes()
+    root = struct.unpack_from("<i", idx, 5 + len(slide_id))[0]
+    pools = []
+    for z in range(levels):
+        page = struct.unpack_from("<i", idx, root + 4 * z)[0]
+        entries = [struct.unpack_from("<iiii", idx, page + 8 + 16 * i)
+                   for i in range(struct.unpack_from("<i", idx, page)[0])]
+        pools.append([data[off:off + length] for _, off, length, _ in entries])
+    return pools
+
+
+def mirax_tiles(index: int, pools) -> tuple:
+    """Slide ``index`` of the MIRAX cohort: MIRAX_CAMS² cameras of 2 x 2
+    tiles of MIRAX_TILE px, spaced by 2 * MIRAX_TILE - MIRAX_OVERLAP and each
+    moved by up to 4 px either way, as a scanner's stitching places them. →
+    (the cameras' level-0 origins row by row, each zoom level's tiles as
+    (image number, level-0 x, y, payload)): level z one tile a 2^z x 2^z
+    block of the grid of tiles at its top-left tile's origin, a payload of
+    the fixture's level min(z, 1)."""
+    rng = np.random.default_rng(SEED + index)
+    step, side = 2 * MIRAX_TILE - MIRAX_OVERLAP, 2 * MIRAX_CAMS
+    jitter = rng.integers(-4, 5, (MIRAX_CAMS, MIRAX_CAMS, 2))
+    cams = [[(cx * step + int(jitter[cy, cx, 0]), cy * step + int(jitter[cy, cx, 1]))
+             for cx in range(MIRAX_CAMS)] for cy in range(MIRAX_CAMS)]
+    levels = []
+    for z in range(MIRAX_LEVELS):
+        pool, block = pools[min(z, len(pools) - 1)], 1 << z
+        levels.append([(gy * side + gx, cams[gy // 2][gx // 2][0] + gx % 2 * MIRAX_TILE,
+                        cams[gy // 2][gx // 2][1] + gy % 2 * MIRAX_TILE,
+                        pool[(5 * gy + 3 * gx + index) % len(pool)])
+                       for gy in range(0, side, block) for gx in range(0, side, block)])
+    return cams, levels
+
+
+def write_mirax_slide(index: int, pools, path: Path) -> None:
+    """Slide ``index`` (``mirax_tiles``) as a MIRAX slide: the stub ``path``
+    and beside it a directory of Slidedat.ini, Index.dat (each level's
+    entries in chained pages of 1,024) and two data files: level 0's tiles
+    in Data0000.dat, the zoomed levels' and the cameras' positions
+    (zlib-compressed StitchingIntensityLayer) in Data0001.dat."""
+    cams, levels = mirax_tiles(index, pools)
+    slide_id = f"SMOKE-{index:08d}"
+    data, records = [bytearray(), bytearray()], []
+    for z, tiles in enumerate(levels):
+        f = min(z, 1)
+        records.append([])
+        for image, _, _, payload in tiles:
+            records[-1].append((image, len(data[f]), len(payload), f))
+            data[f] += payload
+    pos = zlib.compress(b"".join(struct.pack("<Bii", 1, x, y) for row in cams for x, y in row))
+    pos_at = len(data[1])
+    data[1] += pos
+    idx = bytearray(b"01.02" + slide_id.encode())
+    roots = len(idx)
+    idx += bytes(8)
+    hier = len(idx)
+    idx += bytes(4 * len(records))
+    nonhier = len(idx)
+    idx += bytes(4)
+    for z, entries in enumerate(records):
+        link = hier + 4 * z
+        for at in range(0, len(entries), 1024):
+            page = entries[at:at + 1024]
+            struct.pack_into("<i", idx, link, len(idx))
+            link = len(idx) + 4
+            idx += struct.pack("<ii", len(page), 0)
+            idx += b"".join(struct.pack("<iiii", *e) for e in page)
+    struct.pack_into("<i", idx, nonhier, len(idx))
+    idx += struct.pack("<iiiiii", 1, 0, 0, pos_at, len(pos), 1)
+    struct.pack_into("<ii", idx, roots, hier, nonhier)
+    ini = ["[GENERAL]", "SLIDE_VERSION = 2.2", f"SLIDE_ID = {slide_id}",
+           f"IMAGENUMBER_X = {MIRAX_CAMS}", f"IMAGENUMBER_Y = {MIRAX_CAMS}",
+           "CameraImageDivisionsPerSide = 2", f"OBJECTIVE_MAGNIFICATION = {WSI_OBJECTIVE}",
+           "[HIERARCHICAL]", "HIER_COUNT = 1", "NONHIER_COUNT = 1", "INDEXFILE = Index.dat",
+           "HIER_0_NAME = Slide zoom level", f"HIER_0_COUNT = {MIRAX_LEVELS}"]
+    for z in range(MIRAX_LEVELS):
+        ini += [f"HIER_0_VAL_{z} = ZoomLevel_{z}",
+                f"HIER_0_VAL_{z}_SECTION = LAYER_0_LEVEL_{z}_SECTION"]
+    ini += ["NONHIER_0_NAME = StitchingIntensityLayer", "NONHIER_0_COUNT = 1",
+            "NONHIER_0_VAL_0 = StitchingIntensityLevel"]
+    for z in range(MIRAX_LEVELS):
+        ini += [f"[LAYER_0_LEVEL_{z}_SECTION]", f"DIGITIZER_WIDTH = {MIRAX_TILE}",
+                f"DIGITIZER_HEIGHT = {MIRAX_TILE}", f"OVERLAP_X = {float(MIRAX_OVERLAP)}",
+                f"OVERLAP_Y = {float(MIRAX_OVERLAP)}", "IMAGE_FORMAT = JPEG"]
+    ini += ["[DATAFILE]", "FILE_COUNT = 2", "FILE_0 = Data0000.dat", "FILE_1 = Data0001.dat"]
+    d = path.with_suffix("")
+    d.mkdir()
+    (d / "Slidedat.ini").write_text("\n".join(ini) + "\n")
+    (d / "Index.dat").write_bytes(bytes(idx))
+    for i, blob in enumerate(data):
+        (d / f"Data{i:04d}.dat").write_bytes(bytes(blob))
+    path.write_text("MIRAX stub\n")
+
+
+def mirax_stitch(tiles, level: int, origin, box, dims) -> np.ndarray:
+    """A region of zoom level ``level`` painted from its tiles as MIRAX
+    defines it, apart from the C reader: each tile decoded and placed at
+    (its origin - ``origin``, level 0's top-left) / 2^level, later over
+    earlier in the order of (y, x), cut to the level's ``dims``; zeros
+    elsewhere. ``box`` = (x0, y0, w, h) in the level's pixels."""
+    from tpuwsi_torch.io.image import decode_jpeg
+
+    x0, y0, w, h = box
+    out = np.zeros((h, w, 3), np.uint8)
+    for _, px, py, payload in sorted(tiles, key=lambda t: (t[2], t[1])):
+        tx, ty = (px - origin[0]) >> level, (py - origin[1]) >> level
+        ax0, ay0 = max(tx, x0), max(ty, y0)
+        ax1 = min(tx + MIRAX_TILE, x0 + w, dims[0])
+        ay1 = min(ty + MIRAX_TILE, y0 + h, dims[1])
+        if ax0 < ax1 and ay0 < ay1:
+            rgb = decode_jpeg("tile", payload)
+            out[ay0 - y0:ay1 - y0, ax0 - x0:ax1 - x0] = rgb[ay0 - ty:ay1 - ty, ax0 - tx:ax1 - tx]
+    return out
+
+
+def write_formats_cohort(root: Path, dataset: str, files, write, folds, grids=None) -> list:
+    """A cohort of ``files`` under ``root``: each written by ``write(i, path)``
+    on threads, its grids for WSI_MAGS from the port's ``build_tissue_grid``
+    over the port's reader (or ``grids(i, name, mag)``), and its tables.
+    → tissue tiles by slide at each magnification."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpuwsi_torch.io import grids as t_grids
+    from tpuwsi_torch.io.cohorts import get_datasets_dir_dict
+    from tpuwsi_torch.io.slide_readers import open_slide
+    from tpuwsi_torch.utils.minixlsx import write_xlsx
+
+    cohort = Path(get_datasets_dir_dict(dataset, data_root=str(root))[dataset])
+    cohort.mkdir(parents=True)
+
+    def one(i: int) -> dict:
+        write(i, cohort / files[i])
+        reader = open_slide(str(cohort / files[i]))
+        sizes = {}
+        for mag in WSI_MAGS:
+            grid = grids(i, files[i], mag) if grids else t_grids.build_tissue_grid(
+                reader, WSI_TILE * WSI_OBJECTIVE // mag, preview_downsample=16)
+            t_grids.save_grid_pickle(t_grids.grid_file_path(str(cohort), files[i], mag,
+                                                            WSI_TILE), grid)
+            sizes[mag] = len(grid)
+        reader.close()
+        return sizes
+
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        sizes = list(pool.map(one, range(len(files))))
+    for mag in WSI_MAGS:
+        total, legit = t_grids.grid_data_columns(WSI_TILE, mag)
+        write_xlsx(str(cohort / f"Grids_{mag}" / "Grid_data.xlsx"), {
+            "file": files, total: [s[mag] for s in sizes], legit: [s[mag] for s in sizes]})
+    write_xlsx(str(cohort / f"slides_data_{dataset}.xlsx"), {
+        "file": files, "id": [dataset] * len(files),
+        "patient barcode": [f"{dataset}-{i:02d}" for i in range(len(files))],
+        "ER status": ["Positive", "Negative"] * (len(files) // 2),
+        "PR status": ["Negative", "Positive"] * (len(files) // 2),
+        "test fold idx": folds, "Manipulated Objective Power": [WSI_OBJECTIVE] * len(files),
+        "DX": [True] * len(files)})
+    return sizes
+
+
+def formats_ef_argv(dataset: str, root: Path) -> list:
+    return ["-ef", "--dataset", dataset, "--data-root", str(root), "--model", MODEL,
+            "--tile-size", str(WSI_TILE), "-nt", str(WSI_EF_TILES), "-tpi", str(WSI_EF_TILES)]
+
+
+def phase_wsi_formats(smi: str) -> dict:
+    """[wsi_formats]: the committed fixtures' digests through the port's C
+    readers built here; the host's JPEG tile decode; ``main -ef`` over
+    Deflate TIFFs of [wsi_cohort]'s slides (the PNG run's features bit for
+    bit), over JPEG SVS slides, MIRAX slides and a TMA cohort; supervised
+    ``main`` over the SVS slides at --mag 10. → launches per kernel."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpuwsi_torch.io import grids as t_grids
+    from tpuwsi_torch.io.image import decode_jpeg
+    from tpuwsi_torch.io.ingest import CTileReader, read_regions
+    from tpuwsi_torch.io.levels import get_optimal_slide_level
+    from tpuwsi_torch.io.slide_readers import check_readable, open_slide
+    from tpuwsi_torch.io.wsi import tma_core
+
+    shutil.rmtree(FORMATS_ROOT, ignore_errors=True)
+    total = dict.fromkeys(all_launches(), 0)
+    phase_t0 = time.perf_counter()
+
+    # the committed fixtures, read by the port's C as this machine's compiler built it
+    digests = json.loads((FIXTURES / "digests.json").read_text())
+    sha = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()  # noqa: E731
+    checked = 0
+    for name, want in digests.items():
+        reader = open_slide(str(FIXTURES / name))
+        dims = getattr(reader, "_level_dims", [reader.dimensions])
+        got = [sha(reader.read_region((0, 0), level, d)) for level, d in enumerate(dims)]
+        extra = {k: sha(tma_core(str(FIXTURES / name), int(k.rsplit("_", 1)[1])))
+                 for k in want if k.startswith("tma_core_")}
+        if got != want["sha256"] or any(extra[k] != want[k] for k in extra):
+            raise RuntimeError(f"[wsi_formats] {name}: digests {got} {extra}, committed {want}")
+        checked += len(got) + len(extra)
+    print(f"[wsi_formats] the committed fixtures ({', '.join(digests)}) read by the port's C "
+          f"readers give the JAX package's / PIL's bytes: {checked} SHA-256 digests of whole "
+          f"levels and the TMA core's resize")
+
+    # (b): JPEG SVS slides from the fixture's payloads; the host's tile decode on them
+    data, pages = tiff_pages(FIXTURES / "tissue_ycbcr420.svs")
+    pool = [[data[o:o + n] for o, n in zip(p[324], p[325])] for p in pages]
+    tables = pages[0][347]
+    root_b = FORMATS_ROOT / "svs"
+    files_b = [f"svs_{i:02d}.svs" for i in range(len(WSI_FOLDS))]
+    t0 = time.perf_counter()
+    sizes_b = write_formats_cohort(root_b, "TCGA", files_b,
+                                   lambda i, path: jpeg_svs(i, pool, tables, path), WSI_FOLDS)
+    write_b_s = time.perf_counter() - t0
+    standalone = pool[0][0][:2] + tables[2:-2] + pool[0][0][2:]  # SOI, the tables, the tile
+    decode_jpeg("tile", standalone)
+    t = time.perf_counter()
+    for _ in range(FORMATS_DECODES):
+        decode_jpeg("tile", standalone)
+    decode_ms = (time.perf_counter() - t) * 1e3 / FORMATS_DECODES
+    cohort_b = root_b / "Breast" / "TCGA"
+    t = time.perf_counter()
+    for name in files_b:  # the CLI's check before any file is written
+        check_readable(str(cohort_b / name))
+    check_ms = (time.perf_counter() - t) * 1e3 / len(files_b)
+    side = WSI_SIZE // WSI_TILE
+    region_ms = {}
+    for threads, name in ((1, files_b[0]), (4, files_b[1])):  # tiles not decoded before
+        reader = CTileReader(str(cohort_b / name))
+        requests = [(reader, c * WSI_TILE, r * WSI_TILE, 0, WSI_TILE, WSI_TILE)
+                    for r in range(side) for c in range(side)]
+        t = time.perf_counter()
+        _, failed = read_regions(requests, threads)
+        region_ms[threads] = (time.perf_counter() - t) * 1e3 / len(requests)
+        if failed:
+            raise RuntimeError(f"[wsi_formats] {name}: {failed[:3]}")
+        reader.close()
+    print(f"[wsi_formats] (b) {len(files_b)} JPEG SVS slides of {WSI_SIZE}² (YCbCr 4:2:0 "
+          f"tiles of {WSI_TILE}², JPEGTables, levels 1 and 2) from the fixture's "
+          f"{sum(map(len, pool))} tile payloads in {write_b_s:.2f} s with their grids; tissue "
+          f"tiles at --mag 20/10: {', '.join(f'{s[20]}/{s[10]}' for s in sizes_b)}. Host JPEG "
+          f"decode of one {WSI_TILE}² tile (YCbCr 4:2:0, q80): {decode_ms:.3f} ms (decode_jpeg "
+          f"on 1 thread, the mean of {FORMATS_DECODES}); through read_regions ({side ** 2} tiles "
+          f"of a slide not read before, pread + decode + copy; the file in the page cache, "
+          f"written just before): {region_ms[1]:.3f} ms a tile on 1 thread, {region_ms[4]:.3f} "
+          f"ms on 4 (--workers' default); check_readable (the CLI's start-up check, the "
+          f"TIFF's directories alone) {check_ms:.3f} ms a slide; host CPU, beside {smi}")
+
+    # (a): the test fold's PNG slides as Deflate-tiled TIFFs, the PNG run's grids
+    root_a = FORMATS_ROOT / "tif"
+    pngs = [f"slide_{i:02d}" for i, f in enumerate(WSI_FOLDS) if f == 1][:FORMATS_TIFFS]
+    t0 = time.perf_counter()
+    write_formats_cohort(
+        root_a, "TCGA", [f"{p}.tif" for p in pngs],
+        lambda i, path: deflate_tiff(WSI_COHORT / f"{pngs[i]}.png", path), [1] * len(pngs),
+        grids=lambda i, name, mag: t_grids.load_grid_pickle(t_grids.grid_file_path(
+            str(WSI_COHORT), f"{pngs[i]}.png", mag, WSI_TILE)))
+    mib = sum(f.stat().st_size for f in (root_a / "Breast" / "TCGA").glob("*.tif")) / 2**20
+    print(f"[wsi_formats] (a) {len(pngs)} of [wsi_cohort]'s PNG slides as Deflate-tiled "
+          f"pyramidal TIFFs with the predictor ({mib:.0f} MiB) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    runs = {}
+    for key, root, dataset, slides in (("a", root_a, "TCGA", len(pngs)),
+                                       ("b", root_b, "TCGA", WSI_FOLDS.count(1))):
+        argv = formats_ef_argv(dataset, root)
+        runs[key] = rec = wsi_ef_run(20, argv=argv, tag=f"formats_{key}")
+        counts = check_wsi_ef(20, rec, smi, argv=argv, tag=f"wsi_formats] [{key}", slides=slides)
+        total = {k: total[k] + counts[k] for k in total}
+    same = [Path(r.slide_name).stem for r in runs["a"]["agg"].results
+            if (r.tile_locations, r.features.tobytes()) == (
+                WSI_EF_PNG["features"][Path(r.slide_name).stem][0],
+                WSI_EF_PNG["features"][Path(r.slide_name).stem][1].tobytes())]
+    print(f"[wsi_formats] (a) -ef --mag 20 over the Deflate TIFFs against [wsi_ef]'s over the "
+          f"same slides as PNG: the same locations and features bit for bit on {len(same)} of "
+          f"{len(pngs)} slides")
+    if len(same) != len(pngs):
+        raise RuntimeError("[wsi_formats] the TIFF cohort's features differ from the PNG's")
+
+    # (c): MIRAX slides at slide scale from the fixture's camera payloads, then a
+    # TMA cohort of copies of the JPEG core
+    pools = mirax_payloads(FIXTURES / "mirax" / "slide")
+    root_m = FORMATS_ROOT / "mirax"
+    files_m = [f"mirax_{i}.mrxs" for i in range(MIRAX_SLIDES)]
+    t0 = time.perf_counter()
+    sizes_m = write_formats_cohort(root_m, "TCGA", files_m,
+                                   lambda i, path: write_mirax_slide(i, pools, path),
+                                   [1] * MIRAX_SLIDES)
+    write_m_s = time.perf_counter() - t0
+    cohort_m, held = root_m / "Breast" / "TCGA", 0
+    for i, name in enumerate(files_m):  # a region across cameras at levels 0 and 1
+        reader = CTileReader(str(cohort_m / name))
+        _, levels = mirax_tiles(i, pools)
+        origin = (min(t[1] for t in levels[0]), min(t[2] for t in levels[0]))
+        for level in (0, 1):
+            box = (1000 + 37 * i, 900 + 53 * i, 512, 512)
+            got = reader.read_region((box[0] << level, box[1] << level), level, box[2:])
+            if not np.array_equal(got, mirax_stitch(levels[level], level, origin, box,
+                                                    reader._level_dims[level])):
+                raise RuntimeError(f"[wsi_formats] {name}: level {level} at {box} differs "
+                                   "from the stitch of its tiles")
+            held += 1
+        dims = reader._level_dims
+        reader.close()
+    print(f"[wsi_formats] (c) {MIRAX_SLIDES} MIRAX slides of {dims[0][0]} x {dims[0][1]} "
+          f"(levels {dims[1:]}; {MIRAX_CAMS}² cameras of 2 x 2 JPEG tiles of {MIRAX_TILE}², "
+          f"overlapping by {MIRAX_OVERLAP} px at jittered positions in a zlib "
+          f"StitchingIntensityLayer, two data files, chained index pages) from the fixture's "
+          f"{sum(map(len, pools))} payloads in {write_m_s:.2f} s with their grids; tissue tiles "
+          f"at --mag 20/10: {', '.join(f'{s[20]}/{s[10]}' for s in sizes_m)}; {held} regions "
+          f"of 512² at levels 0 and 1 equal a numpy stitch of their tiles")
+    for mag in WSI_MAGS:
+        argv = formats_ef_argv("TCGA", root_m)
+        runs[f"mirax{mag}"] = rec = wsi_ef_run(mag, argv=argv, tag="formats_mirax")
+        counts = check_wsi_ef(mag, rec, smi, argv=argv, tag="wsi_formats] [mirax",
+                              slides=MIRAX_SLIDES)
+        total = {k: total[k] + counts[k] for k in total}
+    root = FORMATS_ROOT / "tma"
+    files = [f"tma_{i}.jpg" for i in range(FORMATS_COPIES)]
+    write_formats_cohort(root, "TMA_HE_02_008", files,
+                         lambda i, path: shutil.copyfile(FIXTURES / "core.jpg", path),
+                         [1] * FORMATS_COPIES)
+    argv = formats_ef_argv("TMA_HE_02_008", root)
+    runs["tma"] = rec = wsi_ef_run(20, argv=argv, tag="formats_tma")
+    counts = check_wsi_ef(20, rec, smi, argv=argv, tag="wsi_formats] [tma",
+                          slides=FORMATS_COPIES)
+    total = {k: total[k] + counts[k] for k in total}
+
+    # supervised training over (b) at --mag 10: level 1 of each slide
+    reader = CTileReader(str(cohort_b / files_b[-1]))
+    level = get_optimal_slide_level(reader.level_downsamples, WSI_OBJECTIVE, 10, WSI_TILE)
+    reader.close()
+    argv = ["--dataset", "TCGA", "--data-root", str(root_b), "--model",
+            "vit_small_patch16_224_dino", "--tile-size", str(WSI_TILE), "--mag", "10", "-b",
+            str(SUP_BATCH), "--transform_type", "pcbnfrsc", "--opt", "sgd", "--lr-base", "0.1",
+            "--smoothing", "0.1", "--model-ema", "--n_patches_train", str(FORMATS_SUP_TILES),
+            "--n_patches_test", str(SUP_TEST_TILES), "-tpi", str(SUP_TEST_TILES), "-tf", "1",
+            "--eval_rate", "1", "--seed", str(SEED), "--epochs", "1", "--max-steps-per-epoch",
+            str(FORMATS_SUP_STEPS)]
+    run = sup_run(FORMATS_ROOT / "sup", argv)
+    want = {**dict.fromkeys(all_launches(), 0), "mha_qkv_fwd_saved": 12,
+            "mha_qkv_bwd_saved": 12}
+    losses = [r["loss"] for r in run["rows"]]
+    print(f"[wsi_formats] supervised main() over (b) at --mag 10 (level {level[0]}, "
+          f"{level[1]}² regions): {len(losses)} steps of {SUP_BATCH}, losses {losses}, "
+          f"launches a step {[r['launches'] for r in run['rows']]}; main() {run['wall']:.2f} s")
+    if level[0] != 1 or len(losses) != FORMATS_SUP_STEPS or not np.isfinite(losses).all() \
+            or any(r["launches"] != want for r in run["rows"]):
+        raise RuntimeError("[wsi_formats] supervised training over the JPEG SVS slides")
+    total = {k: total[k] + run["total"][k] for k in total}
+    del run
+    print(f"[wsi_formats] -ef --mag 20 tiles/s: PNG {WSI_EF_PNG['tiles_s']:.1f} ([wsi_ef], "
+          f"{WSI_FOLDS.count(1)} slides), JPEG SVS {runs['b']['tiles_s']:.1f} (as many), "
+          f"MIRAX {runs['mirax20']['tiles_s']:.1f} ({MIRAX_SLIDES} slides; "
+          f"{runs['mirax10']['tiles_s']:.1f} at --mag 10), Deflate TIFF "
+          f"{runs['a']['tiles_s']:.1f} ({FORMATS_TIFFS} slides), TMA "
+          f"{runs['tma']['tiles_s']:.1f} ({FORMATS_COPIES} cores); the card idle "
+          + ", ".join(f"{k} {100 * r['idle']:.1f}%" for k, r in runs.items())
+          + f" of main(); the phase took {time.perf_counter() - phase_t0:.1f} s; on {smi}")
+    shutil.rmtree(FORMATS_ROOT, ignore_errors=True)
+    shutil.rmtree(WSI_RUNS, ignore_errors=True)
+    torch.cuda.empty_cache()
     return total
 
 
@@ -3076,6 +3572,7 @@ def main() -> None:
     paths["train_ssl"] = phase_train_ssl(smi)
     phase_wsi_cohort(smi)
     paths["wsi_ef"] = phase_wsi_ef(smi)
+    paths["wsi_formats"] = phase_wsi_formats(smi)
     paths["wsi_ssl"] = phase_wsi_ssl(smi)
     paths["train_sup"] = phase_train_sup(smi)
     paths["serving_fused_mlp"] = phase_slice(

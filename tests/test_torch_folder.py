@@ -23,7 +23,7 @@ from PIL import Image
 
 from tpuwsi.io import folder as jfolder
 from tpuwsi_torch.io import folder as tfolder
-from tpuwsi_torch.io.image import (PNGError, decode_png, decode_png_files, load_image,
+from tpuwsi_torch.io.image import (PNGError, decode_image_files, decode_png, load_image,
                                    load_images, resize_bicubic)
 from tpuwsi_torch.io.prefetch import Prefetcher
 
@@ -263,7 +263,7 @@ def test_batch_decoding_names_the_file_that_fails(tmp_path):
     for i in range(6):
         paths.append(str(tmp_path / f"{i}.png"))
         Image.fromarray(rng.integers(0, 256, (9, 8, 3), dtype=np.uint8)).save(paths[-1])
-    np.testing.assert_array_equal(decode_png_files(paths, threads=4),
+    np.testing.assert_array_equal(decode_image_files(paths, threads=4),
                                   np.stack([np.asarray(Image.open(p)) for p in paths]))
     Image.fromarray(np.zeros((9, 9, 3), np.uint8)).save(tmp_path / "wide.png")
     data = bytearray((tmp_path / "0.png").read_bytes())
@@ -276,7 +276,7 @@ def test_batch_decoding_names_the_file_that_fails(tmp_path):
         # the first of two failing files is named, whichever thread meets it first
         batch = paths[:3] + [str(tmp_path / name)] + paths[3:] + [str(tmp_path / "gone2.png")]
         with pytest.raises(error, match=what):
-            decode_png_files(batch, threads=3)
+            decode_image_files(batch, threads=3)
     with pytest.raises(ValueError):  # as np.stack refuses tiles of two sizes
         load_images(paths + [str(tmp_path / "wide.png")])
     mixed = paths + [str(tmp_path / "wide.png")]

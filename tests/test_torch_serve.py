@@ -247,6 +247,14 @@ chunk = InferChunk(images, np.array([True, False]), np.array([1]), 0, "s.svs", "
 with tempfile.TemporaryDirectory() as out:
     agg = extract_features([chunk], model, model.state_dict(), out, torch.device("cpu"))
 assert agg.results[0].features.shape == (1, 192)
+import hashlib, json
+from tpuwsi_torch.io.slide_readers import open_slide
+fixtures = os.path.join("tests", "data", "torch_m1b")  # SVS, MIRAX and a JPEG core
+for name, want in json.load(open(os.path.join(fixtures, "digests.json"))).items():
+    reader = open_slide(os.path.join(fixtures, name))
+    dims = getattr(reader, "_level_dims", [reader.dimensions])
+    assert [hashlib.sha256(reader.read_region((0, 0), level, size).tobytes()).hexdigest()
+            for level, size in enumerate(dims)] == want["sha256"], name
 fused = create_model("vit_tiny_patch8_224", num_classes=2, img_size=16, dtype=torch.float32,
                      use_fused_mlp=True)
 with tempfile.TemporaryDirectory() as out:

@@ -388,9 +388,7 @@ def test_refusals_match_the_jax_cli(argv, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--ssl", "--dataset", "TMA_HE_02_008"], "M1"),  # M1b: the TMA cohorts' JPEG cores
     (["--mixup", "0.2"], "M3b"),
-    (["-ef", "--dataset", "TMA_HE_01_011"], "M1"),
     (["--target", "Survival_Time"], "M5"),
     (["--ssl", "--data-dir", "x", "--model-parallel", "2"], "M7"),
 ])

@@ -224,12 +224,6 @@ def test_sampler_batches_match_jax(cohort_root, case, tmp_path):
             os.remove(os.path.join(d, "slide_0-labels.png"))
 
 
-def test_sampler_refuses_tma_tables(cohort_root):
-    _, tt = _tables(cohort_root)
-    with pytest.raises(NotImplementedError, match="M1b"):
-        WSITileSampler(dataclasses.replace(tt, dataset="TMA_HE_02_008"))
-
-
 # -- -ef and slide evaluation against the JAX package ------------------------------
 
 NAME, DEPTH = "vit_small_patch8_224", 2
@@ -392,7 +386,7 @@ def test_main_trains_wsi_mode_ssl_on_cpu(cohort_root, tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--data-dir", "x"], "M3b"), (["--dataset", "TMA_HE_02_008"], "M1b"),
+    (["--data-dir", "x"], "M3b"),
     (["--model-ema"], "M8"), (["--quantize", "int8"], "M8"),
 ])
 def test_extract_features_refusals(cohort_root, tmp_path, extra, item):
@@ -405,22 +399,26 @@ def test_extract_features_refusals(cohort_root, tmp_path, extra, item):
 
 
 def test_unreadable_slide_formats_are_refused_before_any_file(cohort_root, tmp_path):
+    """Slides in JPEG 2000 (M1c) are refused when the table is checked."""
+    from jp2k_fixture import write_jp2k_svs
+
     from tpuwsi_torch.cli.train import main
+    from tpuwsi_torch.utils.minixlsx import read_xlsx
 
     root = str(tmp_path / "svs")
     cohort = write_cohort(root)
     path = os.path.join(cohort, "slides_data_TCGA.xlsx")
-    from tpuwsi_torch.utils.minixlsx import read_xlsx
-
     table = read_xlsx(path)
     table["file"] = [f.replace(".png", ".svs") for f in table["file"]]
     write_xlsx(path, table)
+    for name in table["file"]:
+        write_jp2k_svs(os.path.join(cohort, name), _slide(0)[:64, :64], tile=64)
     for mag in (20, 10):
         grid = read_xlsx(os.path.join(cohort, f"Grids_{mag}", "Grid_data.xlsx"))
         grid["file"] = table["file"]
         write_xlsx(os.path.join(cohort, f"Grids_{mag}", "Grid_data.xlsx"), grid)
     for argv in (EF_ARGV, SSL_ARGV):
         out = tmp_path / "runs"
-        with pytest.raises(NotImplementedError, match="M1b"):
+        with pytest.raises(NotImplementedError, match="M1c"):
             main(argv + ["--data-root", root, "--output", str(out)], device=CPU)
         assert not out.exists()

@@ -124,7 +124,7 @@ def evaluate_slide_table(args, model: nn.Module, params, device: torch.device,
     feed = Prefetcher(walker.walk(), depth=2)
     try:
         return _score_table(args, _scored(feed, model, params, device, args.dispatch_ahead,
-                                          norm_type="Ron"))
+                                          norm_type=norm_bank(args)))
     finally:
         feed.close()
 
@@ -166,7 +166,7 @@ def _score_table(args, scored):
 
 
 def evaluate_folder(val_ds, model: nn.Module, batch_size: int, device: torch.device,
-                    dispatch_ahead: int = 2, params=None) -> dict:
+                    dispatch_ahead: int = 2, params=None, norm_type: str = "Ron") -> dict:
     """Folder-mode validation (``tpuwsi/cli/train.py:1056``): top-1 and top-5
     accuracy and mean cross-entropy over the validation set in its order,
     and the AUC of class 1 when there are two classes; ``{}`` for an empty
@@ -182,7 +182,7 @@ def evaluate_folder(val_ds, model: nn.Module, batch_size: int, device: torch.dev
     feed = Prefetcher(val_ds.batches(batch_size, shuffle=False, drop_last=False), depth=2)
     try:
         for batch, (logits, probs) in _scored(feed, model, params, device, dispatch_ahead,
-                                              "Ron", images_of=lambda b: b["images"]):
+                                              norm_type, images_of=lambda b: b["images"]):
             labels = batch["labels"]
             logits_t = torch.as_tensor(np.asarray(logits, dtype=np.float32))
             labels_t = torch.as_tensor(labels)
@@ -436,15 +436,11 @@ def _interval_hit(i: int, j: int, n: int) -> bool:
 
 def _check_ssl_mode(args) -> None:
     """The SSL modes the port runs: folder mode and WSI mode."""
-    from tpuwsi_torch.io.wsi import refuse_tma
-
     if args.knn_eval_rate and not args.data_dir:
         raise SystemExit(
             "--knn-eval-rate needs folder-mode labels (--data-dir); "
             "the WSI SSL stream is unlabeled"
         )
-    if not args.data_dir:
-        refuse_tma(args.dataset)
     if args.model_parallel > 1:
         raise NotImplementedError(
             "--model-parallel is not ported yet (ROADMAP.md, Queue 1, M7)")
@@ -453,9 +449,6 @@ def _check_ssl_mode(args) -> None:
 def _check_extract_mode(args) -> None:
     """-ef runs a model initialised from --seed, or loaded from a supervised
     checkpoint, over the slide table."""
-    from tpuwsi_torch.io.wsi import refuse_tma
-
-    refuse_tma(args.dataset)
     if args.model_ema:
         raise NotImplementedError(
             "-ef with --model-ema (the two-forward route: probabilities from the EMA copy) "
@@ -522,7 +515,6 @@ def _check_supervised_mode(args) -> None:
     """The supervised route the port runs: the named recipes, no batch
     mixing, SGD / momentum / Nesterov / AdamW under the warm-up-cosine
     schedule, global-norm clipping."""
-    from tpuwsi_torch.io.wsi import refuse_tma
     from tpuwsi_torch.models.registry import _CNN_PREFIXES
     from tpuwsi_torch.train.optim import make_optimizer
 
@@ -533,8 +525,6 @@ def _check_supervised_mode(args) -> None:
     if args.model_parallel > 1:
         raise NotImplementedError(
             "--model-parallel is not ported yet (ROADMAP.md, Queue 1, M7)")
-    if not args.data_dir:
-        refuse_tma(args.dataset)
     if args.transform_type == "timm":
         raise _m3b("--transform_type timm (the timm transform stack, timm_aug.py)")
     if args.mixup > 0 or args.cutmix > 0 or args.cutmix_minmax:
@@ -580,6 +570,14 @@ def ssl_slide_table(args):
     )
 
 
+def norm_bank(args) -> str:
+    """The normalization bank of the recipes, the slide and folder
+    evaluations and -ef: 'Amir' (BGR order, for the TMA cohorts' cores read
+    as cv2 reads them) for a TMA dataset, else 'Ron'
+    (``tpuwsi/cli/train.py:548``, ``:577``, ``:740``, ``:1209``)."""
+    return "Amir" if args.dataset.startswith("TMA") else "Ron"
+
+
 def infer_slide_table(args):
     """The serving table: the test fold's slides (``tpuwsi/cli/train.py:1186-1196``)."""
     from tpuwsi_torch.io.metadata import load_slide_table
@@ -593,13 +591,12 @@ def infer_slide_table(args):
 
 
 def check_slides_readable(table, presaved_ok: bool = False) -> None:
-    """Raise, naming ROADMAP.md's item, for a table this package cannot read:
-    a TMA cohort or a slide format of M1b. ``presaved_ok``: the
-    ABCTB_TILES cohort's slides are read as presaved tiles."""
+    """Raise, before any file is written, for a slide this package cannot
+    read: an unknown extension, or JPEG 2000 tiles (M1c, found by opening the
+    slide). ``presaved_ok``: the ABCTB_TILES cohort's slides are read as
+    presaved tiles."""
     from tpuwsi_torch.io.slide_readers import check_readable
-    from tpuwsi_torch.io.wsi import refuse_tma
 
-    refuse_tma(table.dataset)
     for i in range(len(table)):
         if not (presaved_ok and table.cohort_ids[i] == "ABCTB_TILES"):
             check_readable(table.slide_path(i))
@@ -645,7 +642,7 @@ def extract_features_from_table(args, table, output_dir: str, device: torch.devi
     feed = Prefetcher(walker.walk(), depth=2)
     try:
         return extract_features(feed, model, params, output_dir, device,
-                                dispatch_ahead=args.dispatch_ahead)
+                                dispatch_ahead=args.dispatch_ahead, norm_type=norm_bank(args))
     finally:
         feed.close()
 
@@ -939,7 +936,7 @@ def train_supervised(args, output_dir: str, ledger, exp: dict,
 
     aug = make_recipe(args.transform_type, train=not args.no_aug,
                       tile_size=args.img_size or args.tile_size, color_param=args.c_param,
-                      norm_type="Ron")
+                      norm_type=norm_bank(args))
     step_fn = make_train_step(model, optimizer, augment_fn=aug,
                               loss_fn=supervised_loss(args, "+" in args.target and not folder_mode),
                               ema_decay=args.model_ema_decay if args.model_ema else None)
@@ -1013,7 +1010,7 @@ def train_supervised(args, output_dir: str, ledger, exp: dict,
                 if folder_mode and val_ds is not None and len(val_ds) > 0:
                     eval_metrics = evaluate_folder(
                         val_ds, eval_model, args.validation_batch_size or args.batch_size,
-                        device, dispatch_ahead=args.dispatch_ahead)
+                        device, dispatch_ahead=args.dispatch_ahead, norm_type=norm_bank(args))
                     logging.info("epoch %d folder eval: %s", epoch, eval_metrics)
                     tracker.log({f"eval_{k}": v for k, v in eval_metrics.items()},
                                 step=state.step)

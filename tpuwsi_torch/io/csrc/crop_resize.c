@@ -17,6 +17,10 @@
  * well (GCC's target_clones), the CPU choosing at load time. The tiles are shared out among `threads`
  * pthreads; the output is the same for any number of them.
  *
+ * tpuwsi_resize_bilinear: one image (h x w x 3) -> out (size x size x 3), the
+ *                     same arithmetic in plain loops with PIL's bilinear
+ *                     (triangle) kernel (a TMA core, once a slide); returns
+ *                     0, or 1 with a message in err.
  * tpuwsi_crop_resize: n tiles -> out (n, out_size, out_size, 3); returns 0,
  *                     or 1 with a message in err.
  */
@@ -39,6 +43,18 @@ static double bicubic_filter(double x) {
   return 0.0;
 }
 
+static double bilinear_filter(double x) {
+  if (x < 0.0) x = -x;
+  return x < 1.0 ? 1.0 - x : 0.0;
+}
+
+typedef struct {
+  double (*fn)(double);
+  double support;
+} Filter;
+
+static const Filter kBicubic = {bicubic_filter, 2.0}, kBilinear = {bilinear_filter, 1.0};
+
 /* One axis's taps: first input index, tap count and int coefficients per
  * output pixel (PIL's precompute_coeffs and normalize_coeffs_8bpc). */
 typedef struct {
@@ -54,10 +70,10 @@ static void coeffs_free(Coeffs *c) {
   memset(c, 0, sizeof *c);
 }
 
-static int coeffs_make(Coeffs *c, int in_size, int out_size) {
+static int coeffs_make(Coeffs *c, const Filter *f, int in_size, int out_size) {
   double scale = (double)in_size / out_size;
   double filterscale = scale < 1.0 ? 1.0 : scale;
-  double support = 2.0 * filterscale;
+  double support = f->support * filterscale;
   int ksize = (int)ceil(support) * 2 + 1;
   double *w = malloc(sizeof(double) * ksize);
   c->in_size = in_size;
@@ -80,7 +96,7 @@ static int coeffs_make(Coeffs *c, int in_size, int out_size) {
     if (xmax > in_size) xmax = in_size;
     xmax -= xmin;
     for (int x = 0; x < xmax; ++x) {
-      w[x] = bicubic_filter((x + xmin - center + 0.5) * ss);
+      w[x] = f->fn((x + xmin - center + 0.5) * ss);
       ww += w[x];
     }
     int32_t *k = c->k + (size_t)xx * ksize;
@@ -183,7 +199,7 @@ static void *worker(void *arg) {
     }
     if (c.in_size != size) {
       coeffs_free(&c);
-      if (coeffs_make(&c, size, out_size)) {
+      if (coeffs_make(&c, &kBicubic, size, out_size)) {
         fail(job);
         break;
       }
@@ -248,6 +264,45 @@ int tpuwsi_crop_resize(int n, const uint8_t *const *srcs, const int64_t *widths,
   pthread_mutex_destroy(&job.lock);
   if (job.status) {
     snprintf(err, errlen, "out of memory resizing %d tiles to %d px", n, out_size);
+    return 1;
+  }
+  return 0;
+}
+
+int tpuwsi_resize_bilinear(const uint8_t *src, int h, int w, int size, uint8_t *out,
+                           char *err, size_t errlen) {
+  const int out_h = size, out_w = size;
+  Coeffs cx = {0}, cy = {0};
+  uint8_t *mid = malloc((size_t)h * out_w * 3 + 1);
+  int fail_mem = mid == NULL || coeffs_make(&cx, &kBilinear, w, out_w) ||
+                 coeffs_make(&cy, &kBilinear, h, out_h);
+  if (!fail_mem) {
+    /* horizontal pass (PIL's ImagingResampleHorizontal_8bpc), then vertical */
+    for (int y = 0; y < h; ++y)
+      for (int xx = 0; xx < out_w; ++xx) {
+        const int32_t *k = cx.k + (size_t)xx * cx.ksize;
+        const uint8_t *in = src + ((size_t)y * w + cx.first[xx]) * 3;
+        for (int ch = 0; ch < 3; ++ch) {
+          int32_t acc = 1 << (PRECISION_BITS - 1);
+          for (int j = 0; j < cx.count[xx]; ++j) acc += in[3 * j + ch] * k[j];
+          mid[((size_t)y * out_w + xx) * 3 + ch] = clip8(acc);
+        }
+      }
+    for (int yy = 0; yy < out_h; ++yy) {
+      const int32_t *k = cy.k + (size_t)yy * cy.ksize;
+      for (size_t i = 0; i < (size_t)out_w * 3; ++i) {
+        int32_t acc = 1 << (PRECISION_BITS - 1);
+        for (int j = 0; j < cy.count[yy]; ++j)
+          acc += mid[((size_t)(cy.first[yy] + j) * out_w) * 3 + i] * k[j];
+        out[(size_t)yy * out_w * 3 + i] = clip8(acc);
+      }
+    }
+  }
+  coeffs_free(&cx);
+  coeffs_free(&cy);
+  free(mid);
+  if (fail_mem) {
+    snprintf(err, errlen, "out of memory resizing %d x %d to %d x %d", w, h, out_w, out_h);
     return 1;
   }
   return 0;

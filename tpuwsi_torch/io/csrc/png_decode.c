@@ -1,17 +1,18 @@
-/* PNG decoding for the image-folder data loop: host code, built with the
- * system's C compiler by tpuwsi_torch/io/image.py and called through ctypes,
- * which releases the interpreter lock for the whole call.
+/* PNG decoding for the image-folder data loop and MIRAX's PNG tiles: host
+ * code, built with the system's C compiler by tpuwsi_torch/io/image.py
+ * together with the other codecs (codecs.h) and called through ctypes, which
+ * releases the interpreter lock for the whole call.
  *
  * Takes bit depth 8, no interlacing, colour types gray, gray + alpha, RGB,
  * RGBA and palette, and gives RGB or L as PIL's Image.convert does (alpha
  * dropped, no compositing; L from RGB by ITU-R 601-2 luma with PIL's integer
  * rounding; palette indices past the palette's end read as black). Anything
- * else fails with a message. zlib does the inflating and the CRCs; its two
- * functions are declared here, so no zlib header is needed, only libz.so.1.
+ * else fails with a message. zlib does the inflating and the CRCs.
  *
- * tpuwsi_png_decode:       one file's bytes → out (height, width, channels)
- * tpuwsi_png_decode_files: n files, all of one size, read and decoded on
- *                          `threads` threads → out (n, height, width, channels)
+ * tpuwsi_png_decode:   one file's bytes → out (height, width, channels)
+ * tpuwsi_decode_files: n PNG or JPEG files (told apart by their first bytes),
+ *                      all of one size, read and decoded on `threads`
+ *                      threads → out (n, height, width, channels)
  */
 #include <errno.h>
 #include <pthread.h>
@@ -22,12 +23,7 @@
 #include <stdlib.h>
 #include <string.h>
 
-/* zlib (zlib.h: uLong = unsigned long, uInt = unsigned int, Bytef = unsigned char) */
-extern int uncompress(unsigned char *dest, unsigned long *dest_len, const unsigned char *source,
-                      unsigned long source_len);
-extern unsigned long crc32(unsigned long crc, const unsigned char *buf, unsigned int len);
-
-enum { kOk = 0, kPngError = 1, kOsError = 2 };
+#include "codecs.h"
 
 static const char *colour_name(int colour) {
   switch (colour) {
@@ -38,14 +34,6 @@ static const char *colour_name(int colour) {
     case 6: return "RGBA";
   }
   return "?";
-}
-
-static int fail(char *err, size_t errlen, const char *fmt, ...) {
-  va_list ap;
-  va_start(ap, fmt);
-  vsnprintf(err, errlen, fmt, ap);
-  va_end(ap);
-  return kPngError;
 }
 
 static uint32_t be32(const uint8_t *p) {
@@ -119,7 +107,7 @@ int tpuwsi_png_decode(const uint8_t *data, size_t len, int channels, uint8_t *ou
                       int want_w, char *err, size_t errlen) {
   static const uint8_t signature[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1a, '\n'};
   if (len < 8 || memcmp(data, signature, 8) != 0)
-    return fail(err, errlen, "not a PNG file (bad signature)");
+    return tpuwsi_fail(err, errlen, "not a PNG file (bad signature)");
   uint8_t palette[256 * 3] = {0};
   int have_header = 0, have_palette = 0, have_end = 0;
   uint32_t width = 0, height = 0;
@@ -131,11 +119,11 @@ int tpuwsi_png_decode(const uint8_t *data, size_t len, int channels, uint8_t *ou
     const uint8_t *kind = data + pos + 4, *body = data + pos + 8;
     if (length > len - pos - 8 || len - pos - 8 - length < 4) {
       free(idat);
-      return fail(err, errlen, "truncated '%.4s' chunk", (const char *)kind);
+      return tpuwsi_fail(err, errlen, "truncated '%.4s' chunk", (const char *)kind);
     }
     if (crc32(crc32(0, kind, 4), body, length) != be32(body + length)) {
       free(idat);
-      return fail(err, errlen, "CRC mismatch in the %.4s chunk", (const char *)kind);
+      return tpuwsi_fail(err, errlen, "CRC mismatch in the %.4s chunk", (const char *)kind);
     }
     if (!memcmp(kind, "IHDR", 4) && length == 13) {
       width = be32(body), height = be32(body + 4);
@@ -149,7 +137,7 @@ int tpuwsi_png_decode(const uint8_t *data, size_t len, int channels, uint8_t *ou
       uint8_t *grown = realloc(idat, idat_len + length + 1);
       if (grown == NULL) {
         free(idat);
-        return fail(err, errlen, "no memory for the image data");
+        return tpuwsi_fail(err, errlen, "no memory for the image data");
       }
       idat = grown;
       memcpy(idat + idat_len, body, length);
@@ -163,23 +151,23 @@ int tpuwsi_png_decode(const uint8_t *data, size_t len, int channels, uint8_t *ou
   int status = kOk;
   int bpp = colour == 0 || colour == 3 ? 1 : colour == 4 ? 2 : colour == 2 ? 3 : 4;
   if (!have_end)
-    status = fail(err, errlen, "no IEND chunk");
+    status = tpuwsi_fail(err, errlen, "no IEND chunk");
   else if (!have_header)
-    status = fail(err, errlen, "no IHDR chunk");
+    status = tpuwsi_fail(err, errlen, "no IHDR chunk");
   else if (colour != 0 && colour != 2 && colour != 3 && colour != 4 && colour != 6)
-    status = fail(err, errlen, "unknown colour type %d", colour);
+    status = tpuwsi_fail(err, errlen, "unknown colour type %d", colour);
   else if (depth != 8)
-    status = fail(err, errlen, "bit depth %d (%s) is not supported; this decoder takes 8-bit "
+    status = tpuwsi_fail(err, errlen, "bit depth %d (%s) is not supported; this decoder takes 8-bit "
                   "samples only", depth, colour_name(colour));
   else if (interlace)
-    status = fail(err, errlen, "Adam7 interlacing is not supported; this decoder takes "
+    status = tpuwsi_fail(err, errlen, "Adam7 interlacing is not supported; this decoder takes "
                   "non-interlaced files only");
   else if (compression || filter_method)
-    status = fail(err, errlen, "unknown compression or filter method");
+    status = tpuwsi_fail(err, errlen, "unknown compression or filter method");
   else if (colour == 3 && !have_palette)
-    status = fail(err, errlen, "palette image without a PLTE chunk");
+    status = tpuwsi_fail(err, errlen, "palette image without a PLTE chunk");
   else if ((int64_t)height != want_h || (int64_t)width != want_w)
-    status = fail(err, errlen, "%u x %u pixels, not the %d x %d of the others", width, height,
+    status = tpuwsi_fail(err, errlen, "%u x %u pixels, not the %d x %d of the others", width, height,
                   want_w, want_h);
   if (status != kOk) {
     free(idat);
@@ -190,18 +178,18 @@ int tpuwsi_png_decode(const uint8_t *data, size_t len, int channels, uint8_t *ou
           *zeros = calloc(stride + 1, 1);
   unsigned long got = raw_len + 1; /* one spare byte: a longer stream shows */
   if (raw == NULL || px == NULL || zeros == NULL) {
-    status = fail(err, errlen, "no memory for %u x %u pixels", width, height);
+    status = tpuwsi_fail(err, errlen, "no memory for %u x %u pixels", width, height);
   } else {
     int z = uncompress(raw, &got, idat ? idat : zeros, idat_len);
     if (z != 0 && !(z == -5 && got == raw_len + 1)) /* Z_BUF_ERROR: too long or cut */
-      status = fail(err, errlen, "damaged image data (zlib error %d)", z);
+      status = tpuwsi_fail(err, errlen, "damaged image data (zlib error %d)", z);
     else if (got != raw_len)
-      status = fail(err, errlen, "image data holds %s%lu bytes, expected %zu",
+      status = tpuwsi_fail(err, errlen, "image data holds %s%lu bytes, expected %zu",
                     got > raw_len ? "more than " : "", got > raw_len ? raw_len : got, raw_len);
     else {
       int bad = unfilter(raw, px, zeros, (int)height, (int)stride, bpp);
       if (bad)
-        status = fail(err, errlen, "unknown scanline filter type %d",
+        status = tpuwsi_fail(err, errlen, "unknown scanline filter type %d",
                       raw[(size_t)(bad - 1) * (stride + 1)]);
       else
         convert(px, out, (size_t)width * height, colour, bpp, palette, channels);
@@ -234,9 +222,10 @@ static void *decode_files_worker(void *arg) {
     if (f != NULL && fseek(f, 0, SEEK_END) == 0 && (len = ftell(f)) >= 0 &&
         fseek(f, 0, SEEK_SET) == 0 && (data = malloc((size_t)len + 1)) != NULL &&
         fread(data, 1, (size_t)len, f) == (size_t)len) {
-      job->status[i] = tpuwsi_png_decode(data, (size_t)len, job->channels,
-                                         job->out + per_file * i, job->height, job->width, msg,
-                                         kMessage);
+      int jpeg = len >= 2 && data[0] == 0xFF && data[1] == 0xD8;
+      job->status[i] = (jpeg ? tpuwsi_jpeg_decode : tpuwsi_png_decode)(
+          data, (size_t)len, job->channels, job->out + per_file * i, job->height, job->width,
+          msg, kMessage);
     } else {
       job->status[i] = kOsError;
       snprintf(msg, kMessage, "%d", errno ? errno : EIO);
@@ -246,9 +235,9 @@ static void *decode_files_worker(void *arg) {
   }
 }
 
-/* Returns -1, or the index of the first file that failed, with kPngError or
+/* Returns -1, or the index of the first file that failed, with kFormatError or
  * kOsError in *status and its message (for kOsError the errno) in err. */
-int tpuwsi_png_decode_files(const char *const *paths, int n, int channels, uint8_t *out,
+int tpuwsi_decode_files(const char *const *paths, int n, int channels, uint8_t *out,
                             int height, int width, int threads, int *status, char *err,
                             size_t errlen) {
   struct files_job job = {paths, n, channels, height, width, out, 0, NULL, NULL};

@@ -2,14 +2,18 @@
 (``tpuwsi/io/slide_readers.py``).
 
 - ``ImageSlideReader`` — a whole image held in memory, one pyramid level:
-  PNG slides through the port's own decoder (``io/image.decode_png``, the
-  bytes PIL's ``convert("RGB")`` gives), or an array.
+  PNG slides and JPEG cores through the port's own decoders
+  (``io/image.decode_png`` and ``decode_jpeg``, the bytes PIL's
+  ``convert("RGB")`` gives), or an array.
+- ``CTileReader`` (``io/ingest.py``) — pyramidal TIFF, SVS, NDPI and MIRAX,
+  read by the port's own C.
 - ``SyntheticSlideReader`` — deterministic procedural slide for tests/bench.
 
-``open_slide`` takes ``.png``. Pyramidal TIFF, SVS, NDPI and MIRAX slides
-and JPEG cores need a reader that runs on the card's machine, which has
-neither libtiff nor libjpeg (ROADMAP.md, Queue 1, M1b): ``open_slide`` refuses
-them by name, never reading page 0 of a pyramid and never falling back.
+``open_slide`` sends ``.tif/.tiff/.svs/.ndpi/.mrxs`` to ``CTileReader`` and
+``.png/.jpg/.jpeg`` to ``ImageSlideReader``: a multi-page TIFF is read as its
+pyramid, never as page 0, and a ``.mrxs`` never as an image. A file its
+reader cannot parse raises, naming the file and what it lacks; nothing falls
+back to another reader. JPEG 2000 tiles raise ``NotImplementedError`` (M1c).
 
 All readers return HWC uint8 RGB numpy arrays. A reader that holds a level
 in memory hands it out through ``level_array``, so that the tile code cuts a
@@ -23,7 +27,10 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-M1B_EXTENSIONS = (".svs", ".tif", ".tiff", ".ndpi", ".mrxs", ".jpg", ".jpeg")
+from tpuwsi_torch.io.image import DECODED as IMAGE_EXTENSIONS
+from tpuwsi_torch.io.image import decode_jpeg, decode_png
+
+PYRAMID_EXTENSIONS = (".tif", ".tiff", ".svs", ".ndpi", ".mrxs")
 
 
 class SlideReader:
@@ -51,15 +58,18 @@ class SlideReader:
 class ImageSlideReader(SlideReader):
     """Whole image held in memory; single pyramid level."""
 
-    def __init__(self, path_or_array):
+    def __init__(self, path_or_array, mirror_bgr: bool = False):
         if isinstance(path_or_array, np.ndarray):
             arr = path_or_array
             self.path = "<array>"
         else:
-            from tpuwsi_torch.io.image import decode_png
-
-            arr = decode_png(str(path_or_array))
             self.path = str(path_or_array)
+            png = self.path.lower().endswith(".png")
+            arr = (decode_png if png else decode_jpeg)(self.path)
+        if mirror_bgr:
+            # cv2.imread's channel order (BGR), which the TMA cohorts' 'Amir'
+            # normalization bank (the channel-reversed 'Ron' bank) expects
+            arr = arr[..., ::-1]
         self._arr = np.ascontiguousarray(arr, dtype=np.uint8)
         h, w = self._arr.shape[:2]
         self.dimensions = (w, h)
@@ -103,23 +113,31 @@ class SyntheticSlideReader(SlideReader):
 
 
 def check_readable(path: str) -> None:
-    """Raise as ``open_slide`` would for a format it does not read, without
-    reading the file."""
+    """Raise as ``open_slide`` would for a format it does not read: an
+    unknown extension, or a TIFF pyramid in JPEG 2000 (M1c), found from the
+    TIFF's directories without reading its tile tables."""
     ext = os.path.splitext(path)[1].lower()
-    if ext == ".png":
+    if ext in IMAGE_EXTENSIONS:
         return
-    if ext in M1B_EXTENSIONS:
-        raise NotImplementedError(
-            f"cannot read {path}: {ext} slides (pyramidal TIFF/SVS/NDPI, MIRAX, JPEG cores) "
-            "need a reader that runs on the card's machine, which has no libtiff or "
-            "libjpeg (ROADMAP.md, Queue 1, M1b); this package reads .png slides")
+    if ext in PYRAMID_EXTENSIONS:
+        from tpuwsi_torch.io.ingest import check_pyramid
+
+        check_pyramid(path)
+        return
     raise ValueError(f"cannot read {path}: no slide reader for {ext or 'files without an '
-                     'extension'}; this package reads .png slides")
+                     'extension'}; this package reads {', '.join(PYRAMID_EXTENSIONS)} and "
+                     f"{', '.join(IMAGE_EXTENSIONS)} slides")
 
 
 def open_slide(path: str) -> SlideReader:
-    """The reader for a slide file: ``.png`` → ``ImageSlideReader``. The
-    formats of M1b raise ``NotImplementedError``, any other extension
-    ``ValueError``."""
-    check_readable(path)
+    """The reader for a slide file: ``.tif/.tiff/.svs/.ndpi/.mrxs`` →
+    ``io.ingest.CTileReader``, ``.png/.jpg/.jpeg`` → ``ImageSlideReader``; any
+    other extension raises ``ValueError``."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in PYRAMID_EXTENSIONS:
+        from tpuwsi_torch.io.ingest import CTileReader
+
+        return CTileReader(path)
+    if ext not in IMAGE_EXTENSIONS:
+        check_readable(path)
     return ImageSlideReader(path)

@@ -139,11 +139,15 @@ def read_tiles(
     """Every request's tiles → uint8 (N, output, output, 3), in order, from one
     ``crop_resize`` call on ``threads`` threads. A reader that holds its level
     in memory gives its tiles as boxes of that array (``read_region``'s
-    bounds, worked out for all such tiles at once); any other reader's
-    regions are read one by one. A failed read is a blank tile, logged and
-    counted in ``stats``."""
+    bounds, worked out for all such tiles at once); the regions of pyramidal
+    slides (``io/ingest.CTileReader``) are read before, all in one C call on
+    ``threads`` threads; any other reader's regions are read one by one. A
+    failed read is a blank tile, logged and counted in ``stats``."""
+    from tpuwsi_torch.io.ingest import CTileReader, read_regions
+
     blank = np.zeros((1, 1, 3), np.uint8)
     sources, boxes, failed, held, where, owners = [], [], [], [], [], []
+    pyramid, pyramid_at = [], []
     for req in requests:
         level = req.reader.level_array(req.level)
         for top, left in req.origins:
@@ -152,6 +156,12 @@ def read_tiles(
                 held.append((top, left, req.region, *level.shape[:2]))
                 owners.append(req.reader)
                 sources.append(level)
+                boxes.append((0, 0, 0, 0, req.region))
+                continue
+            if isinstance(req.reader, CTileReader):
+                pyramid_at.append(len(sources))
+                pyramid.append((req.reader, left, top, req.level, req.region, req.region))
+                sources.append(blank)
                 boxes.append((0, 0, 0, 0, req.region))
                 continue
             try:
@@ -163,6 +173,16 @@ def read_tiles(
                 sources.append(blank)
                 boxes.append((0, 0, 0, 0, req.region))
                 failed.append((top, left, req.reader))
+    if pyramid:
+        tiles, lost = read_regions(pyramid, threads)
+        for i, tile in zip(pyramid_at, tiles):
+            sources[i] = tile
+            boxes[i] = (0, 0, tile.shape[0], tile.shape[1], boxes[i][4])
+        for j, _ in lost:
+            reader, left, top = pyramid[j][:3]
+            sources[pyramid_at[j]] = blank
+            boxes[pyramid_at[j]] = (0, 0, 0, 0, boxes[pyramid_at[j]][4])
+            failed.append((top, left, reader))
     boxes = np.asarray(boxes, np.int64).reshape(-1, 5)
     if held:
         where = np.asarray(where)

@@ -12,8 +12,11 @@ the batch's slides not yet open are read and decoded on the sampler's pool
 (each slide once, several at a time); Python then draws every sample's grid
 locations and shifts in order; and one C call cuts and resizes all of the
 batch's tiles on ``num_threads`` threads outside the interpreter lock
-(``io/tiles.read_tiles``). Every slide's reader stays open, as in the JAX
-package: a PNG slide holds its whole decoded image.
+(``io/tiles.read_tiles``, after one C call that reads the batch's regions of
+pyramidal slides, ``io/ingest.read_regions``). Every slide's reader stays
+open, as in the JAX package: a PNG slide holds its whole decoded image, a
+pyramidal one its directory and a file descriptor, its tiles read lazily. A
+TMA cohort's sample is its whole core (``tma_core``), repeated.
 """
 
 from __future__ import annotations
@@ -28,18 +31,26 @@ import numpy as np
 from tpuwsi_torch.io.grids import grid_file_path, load_grid_pickle
 from tpuwsi_torch.io.levels import get_optimal_slide_level
 from tpuwsi_torch.io.metadata import SlideTable
-from tpuwsi_torch.io.slide_readers import SlideReader, open_slide
+from tpuwsi_torch.io.image import resize_bilinear
+from tpuwsi_torch.io.slide_readers import ImageSlideReader, SlideReader, open_slide
 from tpuwsi_torch.io.tiles import TileStats, choose_locations, plan_tiles, read_tiles
 from tpuwsi_torch.utils.profiling import StageTimer
 
 _TILE_TIME = "Average time to extract a tile"
+_TMA_WIDTH = 1440
 
 
-def refuse_tma(dataset: str) -> None:
-    if dataset.startswith("TMA"):
-        raise NotImplementedError(
-            f"{dataset}: the TMA cohorts' JPEG cores need a JPEG reader that runs on the "
-            "card's machine (ROADMAP.md, Queue 1, M1b)")
+def tma_core(path: str, tile_size: int) -> np.ndarray:
+    """A TMA core as the sampler takes it (``tpuwsi/io/wsi.py:97-115``,
+    datasets.py:471-478): the whole JPEG in BGR order (``mirror_bgr``, for
+    the 'Amir' bank), the width beyond 1,440 px cut off evenly, and PIL's
+    bilinear resize to ``tile_size``² → uint8 ``(tile_size, tile_size, 3)``."""
+    reader = ImageSlideReader(path, mirror_bgr=True)
+    arr = reader.read_region((0, 0), 0, reader.dimensions)
+    margin = (arr.shape[1] - _TMA_WIDTH) // 2
+    if margin > 0:
+        arr = np.ascontiguousarray(arr[:, margin:-margin])
+    return resize_bilinear(arr, tile_size)
 
 
 class WSITileSampler:
@@ -57,8 +68,8 @@ class WSITileSampler:
         loan: bool = False,
         print_timing: bool = False,
     ):
-        refuse_tma(table.dataset)
         self.table = table
+        self._tma = table.dataset.startswith("TMA")
         self.n_tiles = n_tiles
         self.bag_size = bag_size
         self.random_shift = random_shift
@@ -74,6 +85,7 @@ class WSITileSampler:
         self._grids: Dict[int, list] = {}
         self._loans: Dict[int, object] = {}
         self._level_cache: Dict[int, tuple] = {}
+        self._cores: Dict[int, np.ndarray] = {}
         self._opening: Dict[int, threading.Lock] = {}
         self._pool = ThreadPoolExecutor(max_workers=self.num_threads)
         # RLock: _loan() holds the lock and opens the reader via _reader()
@@ -132,6 +144,10 @@ class WSITileSampler:
     def _presaved(self, idx: int) -> bool:
         return self.table.cohort_ids[idx] == "ABCTB_TILES"
 
+    def _whole(self, idx: int) -> bool:
+        """A sample not cut from a grid: presaved tiles, or a TMA core."""
+        return self._tma or self._presaved(idx)
+
     def _open(self, idx: int) -> None:
         """Everything a slide's draws need: reader, grid, levels, mask."""
         self._reader(idx)
@@ -141,7 +157,15 @@ class WSITileSampler:
             self._loan(idx)
 
     # -- sampling --------------------------------------------------------------
-    def _sample_presaved(self, idx: int, rng: np.random.Generator, n: int) -> np.ndarray:
+    def _sample_whole(self, idx: int, rng: np.random.Generator, n: int) -> np.ndarray:
+        if self._tma:  # the core, decoded and resized once a slide (no draws)
+            with self._lock:
+                core = self._cores.get(idx)
+            if core is None:
+                core = tma_core(self.table.slide_path(idx), self.table.tile_size)
+                with self._lock:
+                    core = self._cores.setdefault(idx, core)
+            return np.repeat(core[None], n, axis=0)
         # presaved-tile cohort (datasets.py:452-467)
         from tpuwsi_torch.io.presaved import sample_presaved_tiles, tiles_dir_for_slide
 
@@ -166,8 +190,8 @@ class WSITileSampler:
     def sample_slide(self, idx: int, rng: np.random.Generator, n: int):
         """``n`` tiles of slide ``idx`` drawn with ``rng`` (with ``loan``:
         (tiles, labels))."""
-        if self._presaved(idx):
-            return self._sample_presaved(idx, rng, n)
+        if self._whole(idx):
+            return self._sample_whole(idx, rng, n)
         self._open(idx)
         request, labels = self._plan(idx, rng, n)
         t0 = time.perf_counter()
@@ -225,21 +249,21 @@ class WSITileSampler:
         rngs = [np.random.default_rng(int(s)) for s in seeds]
         slides = [int(i) for i in chunk]
         unopened = [i for i in dict.fromkeys(slides)
-                    if not self._presaved(i) and i not in self._level_cache]
+                    if not self._whole(i) and i not in self._level_cache]
         if unopened:
             list(self._pool.map(self._open, unopened))
-        presaved = {k: self._pool.submit(self._sample_presaved, i, rngs[k], bs)
-                    for k, i in enumerate(slides) if self._presaved(i)}
+        whole = {k: self._pool.submit(self._sample_whole, i, rngs[k], bs)
+                 for k, i in enumerate(slides) if self._whole(i)}
         plans = {k: self._plan(i, rngs[k], bs) for k, i in enumerate(slides)
-                 if k not in presaved}
+                 if k not in whole}
         tiles = np.empty((len(slides) * bs, ts, ts, 3), np.uint8)
         t0 = time.perf_counter()
         requests = [plans[k][0] for k in sorted(plans)]
-        if presaved:
+        if whole:
             cut = read_tiles(requests, ts, self.stats, self.num_threads)
             for j, k in enumerate(sorted(plans)):
                 tiles[k * bs:(k + 1) * bs] = cut[j * bs:(j + 1) * bs]
-            for k, future in presaved.items():
+            for k, future in whole.items():
                 tiles[k * bs:(k + 1) * bs] = future.result()
         else:  # the cuts straight into the batch
             read_tiles(requests, ts, self.stats, self.num_threads, out=tiles)

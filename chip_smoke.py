@@ -91,7 +91,15 @@ Phases, each printing its own lines:
      and 10) and a TMA cohort of JPEG cores (the Amir bank), each with K2 =
      12 per chunk and its first chunk held against plain attention, and
      supervised main over the SVS slides at --mag 10 (K1a = K1b = 12 a
-     step, finite losses); then main --ssl over the 4 slides of fold 2 at
+     step, finite losses); then [mil]: tpuwsi_torch.cli.mil_train.main on
+     the card over -ef's features (fold 2's 4 slides at --mag 20 train, K2 =
+     12 a chunk; [wsi_ef]'s 8 fold-1 slides evaluate), over a cohort of 400 +
+     100 slides of up to 500 tiles x 384 written from the seed as -ef's
+     pickle (both held against the same runs on the CPU: the final
+     evaluation and slide_scores.xlsx's cells), and in the paired
+     Receptor+is_Tumor mode at 768 through the feature registry; ms per
+     epoch and the card's idle share; the MIL head launches no kernel; then
+     main --ssl over the 4 slides of fold 2 at
      --mag 10 (10 steps of 96 tiles): K1a = K1b = 24 and K2 = 12 per step,
      finite losses, a checkpoint, the loop's ms per step beside the bare
      step's, its wait on the data, the first step's wait and peak device
@@ -108,6 +116,16 @@ Phases, each printing its own lines:
      against a float64 replay of its update); ms per step (the step's
      stream time, CUDA events; and the gaps between step starts), tiles/s,
      the wait on the data and peak device memory;
+  5e. survival training through the same entry point (-tar Survival_Time,
+     then Survival_Binary) over the same slides listed as an ABCTB cohort
+     with the four survival columns (censored slides, an excluded one,
+     unknown 5-year statuses): ViT-S/16 at 257 tokens, -b 256, 2 epochs of 2
+     steps, the 7 valid slides of test fold 1 evaluated after each: K1a =
+     K1b = 12 a step, K2 = 12 a chunk of the evaluations, finite losses, two
+     checkpoints and summary.csv with eval_c_index; the same run with plain
+     attention (losses and weights to [train_sup]'s bounds); one epoch of
+     Survival_Binary, its masked loss and AUC against the host's from the
+     step's own logits;
   6. the fused-MLP route (use_fused_mlp), full width and depth: the serving
      slice again (12 sub-block forwards per chunk) and the DINO step for
      2 + 6 steps (per step 14 sub-block forwards, 2 sub-block backwards, 22
@@ -140,7 +158,8 @@ Phases, each printing its own lines:
      kind, then 5d's run under it for the device's busy time between step
      starts. They come last: once the profiler has run, the process launches
      kernels more slowly.
-The line before the last but one is a JSON summary of the kernels, then the
+A line "[time]" gives each phase's wall seconds. The line before the last
+but one is a JSON summary of the kernels, then the
 card's name and power limit once more, and the last line
 {"ok": true, "device": {...}}. Any failure raises: the script then exits
 non-zero without that line. Without a CUDA device it fails at once.
@@ -363,6 +382,7 @@ WSI_SIZE, WSI_OBJECTIVE, WSI_TILE, WSI_MAGS, WSI_BAND = 8192, 20, 256, (20, 10),
 WSI_FOLDS = [1] * 8 + [2] * 4
 WSI_TISSUE_CELLS, WSI_TISSUE_OFFSET = 16, {1: 0.5, 2: 2.0}
 WSI_EF_TILES, WSI_SSL_TILES = 500, 240
+WSI_TURN_SLIDES = 4  # [wsi_ef]'s arm that decodes each slide in turn walks this many
 WSI_EF_ARGV = ["-ef", "--dataset", "TCGA", "--data-root", str(WSI_ROOT), "--model", MODEL,
                "--tile-size", str(WSI_TILE), "-nt", str(WSI_EF_TILES), "-tpi",
                str(WSI_EF_TILES)]
@@ -373,7 +393,8 @@ WSI_SSL_ARGV = ["--ssl", "--dataset", "TCGA", "--data-root", str(WSI_ROOT), "--m
                 "--lr-base", "0.0005", "--weight-decay", "0.04", "--log-interval", "1"]
 # supervised training over the cohort (scripts/train-supervised.sh's recipe):
 # fold 2's 4 slides, 240 tiles each at --mag 10, 3 steps of 256 an epoch;
-# test fold 1's 8 slides evaluated with 64 tiles each after every epoch
+# test fold 1's 8 slides evaluated with 64 tiles each after every epoch; -j 8:
+# the 8 slides of an evaluation decode at once
 SUP_RUNS = OUT / "train_sup"
 SUP_BATCH, SUP_EPOCHS, SUP_STEPS, SUP_TEST_TILES = 256, 2, 3, 64
 # the kernel run against the same run with plain attention, step for step:
@@ -390,7 +411,49 @@ SUP_ARGV = ["--dataset", "TCGA", "--data-root", str(WSI_ROOT), "--model",
             str(SUP_BATCH), "--transform_type", "pcbnfrsc", "--opt", "sgd", "--lr-base", "0.1",
             "--smoothing", "0.1", "--model-ema", "--n_patches_train", str(WSI_SSL_TILES),
             "--n_patches_test", str(SUP_TEST_TILES), "-tpi", str(SUP_TEST_TILES), "-tf", "1",
-            "--eval_rate", "1", "--seed", str(SEED)]
+            "--eval_rate", "1", "--seed", str(SEED), "--workers", "8"]
+# survival training over [wsi_cohort]'s slides, listed as an ABCTB cohort whose
+# slides_data holds the four survival columns: fold 2's 4 slides train (one
+# censored, one of unknown 5-year status), fold 1's evaluate (one excluded, so
+# 7; two censored, one unknown); 2 epochs of 2 steps of 256 at --mag 10, each
+# evaluated (-j 8: the 7 slides decode at once), then the same with plain
+# attention, then Survival_Binary's epoch
+SURV_ROOT, SURV_RUNS = OUT / "survival", OUT / "train_survival"
+SURV_EPOCHS, SURV_STEPS, SURV_EVAL_SLIDES = 2, 2, 7
+SURVIVAL_CELLS = {
+    "Censored": [False, True, False, False, True, False, False, False,
+                 False, True, False, False],
+    "Follow-up Months Since Diagnosis": [10.0, 60.0, 25.0, 40.0, 70.0, 15.0, 33.0, 5.0,
+                                         20.0, 35.0, 50.0, 12.0],
+    "survival status": ["Negative", "Positive", "Negative", "Positive", "Positive", None,
+                        "Negative", "Negative", "Negative", "Positive", None, "Negative"],
+    "Exclude for time prediction?": [None] * 7 + ["Exclude"] + [None] * 4,
+}
+SURV_ARGV = ["--dataset", "ABCTB", "--data-root", str(SURV_ROOT), "--model",
+             "vit_small_patch16_224_dino", "--tile-size", str(WSI_TILE), "--mag", "10", "-b",
+             str(SUP_BATCH), "--transform_type", "pcbnfrsc", "--opt", "sgd", "--lr-base", "0.1",
+             "--n_patches_train", str(WSI_SSL_TILES), "--n_patches_test", str(SUP_TEST_TILES),
+             "-tpi", str(SUP_TEST_TILES), "-tf", "1", "--eval_rate", "1", "--seed", str(SEED),
+             "--log-interval", "1", "--workers", "8"]
+# the binary step's loss and AUC against the host's reckoning from its logits
+SURV_BINARY_LOSS_REL = 1e-5
+# MIL over feature bags: (a) -ef over fold 2 (4 slides at --mag 20) trains the
+# head, [wsi_ef]'s fold-1 inference.data evaluates it; (b) a cohort of
+# MIL_SLIDES + MIL_TEST_SLIDES slides of up to MIL_TILES tiles x 384 fp32,
+# written from SEED as -ef's pickle; (c) the paired Receptor+is_Tumor mode over
+# two such sets through the registry, 768 wide. (a) and (b) also run on the CPU
+# from the same weights and bag draws.
+MIL_ROOT = OUT / "mil"
+MIL_SLIDES, MIL_TEST_SLIDES, MIL_TILES, MIL_DIM, MIL_EPOCHS = 400, 100, 500, 384, 10
+MIL_PAIRED_SLIDES, MIL_PAIRED_TEST = 200, 50
+MIL_ARGV = ["--bag-size", "100", "-b", "16", "--hidden-dim", "128", "--seed", str(SEED),
+            "--export-xlsx"]
+# the card's run against the CPU's: fp32 on both (TF32 off), different
+# summation orders. Probabilities, tile scores, attention after the softmax and
+# before it less each run's att_w.bias (whose gradient is zero in exact
+# arithmetic, so Adam moves it by rounding noise) within MIL_CELL_TOL; the AUC
+# within one swapped pair, the accuracy within one slide
+MIL_CELL_TOL = 1e-4
 # step times of the bare step, by tag, for the phases that read them beside theirs
 STEP_MS = {}
 # tiles/s of the serving slice on resident chunks, by tag, for the same
@@ -587,11 +650,15 @@ def phase_k2(smi: str) -> dict:
                 lambda: sdpa_forward(qkv, h),
                 lambda: attention._mha_reference(qkv, h, scale, block_len))
             t.update(attention_bound("fwd", b, n, d, h))
+            t["b2b_ms"] = back_to_back_ms(lambda: attention.mha_from_qkv(qkv, h,
+                                                                         block_len=block_len))
+            t["library_b2b_ms"] = back_to_back_ms(lambda: sdpa_forward(qkv, h))
             timed.append({"shape": [b, n, d, h], **t})
             print(f"[mha_qkv_fwd] ({b}, {n}, {d}, {h}), medians of 20 in the order kernel, "
                   f"library, library, kernel: kernel {t['ms_runs']} ms, library (SDPA) "
                   f"{t['library_ms_runs']} ms, plain {t['plain_ms']:.4f} ms, bound "
-                  f"{t['bound_ms']:.4f} ms by {t['bound_by']}; on {smi}")
+                  f"{t['bound_ms']:.4f} ms by {t['bound_by']}; 50 back to back: kernel "
+                  f"{t['b2b_ms']:.4f} ms, SDPA {t['library_b2b_ms']:.4f} ms; on {smi}")
         del qkv, out, ref
     main = {k: v for k, v in timed[0].items() if k != "shape"}  # the serving shape
     return {"max_abs_err": max_err, **main, "timed": timed}
@@ -2279,9 +2346,11 @@ def write_wsi_slide(index: int) -> dict:
 
 def phase_wsi_cohort(smi: str) -> None:
     """[wsi_cohort]: the TCGA-layout cohort under WSI_ROOT, written with the
-    port's writers on threads (numpy and zlib let go of the interpreter
-    lock), then the C crop-and-resize held against ``resize_bicubic``."""
-    from concurrent.futures import ThreadPoolExecutor
+    port's writers, a process a slide (threads held each other up on the
+    interpreter lock between numpy's calls), then the C crop-and-resize held
+    against ``resize_bicubic``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
 
     from tpuwsi_torch.io.grids import grid_data_columns
     from tpuwsi_torch.io.image import crop_resize, resize_bicubic
@@ -2290,7 +2359,9 @@ def phase_wsi_cohort(smi: str) -> None:
     shutil.rmtree(WSI_ROOT, ignore_errors=True)
     WSI_COHORT.mkdir(parents=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+    # spawned, not forked: this process holds a CUDA context and torch's thread pools
+    with ProcessPoolExecutor(len(WSI_FOLDS),
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
         slides = list(pool.map(write_wsi_slide, range(len(WSI_FOLDS))))
     counts = sum(s["counts"] for s in slides)
     share = ", ".join(f"{name} {100 * n / counts.sum():.1f}%" for name, n in
@@ -2312,7 +2383,8 @@ def phase_wsi_cohort(smi: str) -> None:
         "DX": [True] * len(files)})
     print(f"[wsi_cohort] wrote {len(files)} PNG slides of {WSI_SIZE} x {WSI_SIZE} px "
           f"(objective {WSI_OBJECTIVE}; test folds {WSI_FOLDS}) to {WSI_COHORT} in "
-          f"{time.perf_counter() - t0:.1f} s on {min(8, os.cpu_count() or 1)} threads "
+          f"{time.perf_counter() - t0:.1f} s in {len(WSI_FOLDS)} processes on "
+          f"{os.cpu_count()} cores "
           f"({statistics.median(s['seconds'] for s in slides):.1f} s a slide, "
           f"{sum(s['bytes'] for s in slides) / 2**20:.0f} MiB); scanline filters {share}; "
           f"tissue tiles at --mag 20 (of {cells}) / 10 (of {cells // 4}): "
@@ -2488,6 +2560,13 @@ def check_wsi_ef(mag: int, rec: dict, smi: str, argv=WSI_EF_ARGV, tag="wsi_ef",
     return rec["launches"]
 
 
+def first_slides(table, n: int):
+    """The first ``n`` slides of a ``SlideTable``."""
+    per_slide = ("file_names", "path_names", "cohort_ids", "tissue_tiles", "targets",
+                 "magnifications", "patient_barcodes")
+    return dataclasses.replace(table, **{f: getattr(table, f)[:n] for f in per_slide})
+
+
 def phase_wsi_ef(smi: str) -> dict:
     """[wsi_ef]: ``python -m tpuwsi_torch.cli.train -ef`` over the cohort's
     test fold on the card, at --mag 20 (crops) and 10 (512² regions resized
@@ -2501,12 +2580,24 @@ def phase_wsi_ef(smi: str) -> dict:
             WSI_EF_PNG.update(tiles_s=rec["tiles_s"], features={
                 Path(r.slide_name).stem: (r.tile_locations, r.features)
                 for r in rec["agg"].results})
-    # the walker opening each slide in turn, as the JAX package's does
-    turn = wsi_ef_run(WSI_MAGS[-1], open_ahead=0)
+            # [mil]'s held-out bags
+            MIL_ROOT.mkdir(parents=True, exist_ok=True)
+            exp = next(d for d in rec["out"].iterdir() if d.name.startswith("Exp_"))
+            shutil.copy(exp / "features" / "inference.data", MIL_ROOT / "fold1.data")
+    # the walker opening each slide in turn, as the JAX package's does, over
+    # the first WSI_TURN_SLIDES of the fold (a rate per tile; half the run's time)
+    real_table = cli_train.infer_slide_table
+    cli_train.infer_slide_table = lambda args: first_slides(real_table(args), WSI_TURN_SLIDES)
+    try:
+        turn = wsi_ef_run(WSI_MAGS[-1], open_ahead=0)
+    finally:
+        cli_train.infer_slide_table = real_table
     n_tiles = sum(len(r.tile_locations) for r in turn["agg"].results)
-    print(f"[wsi_ef] --mag {WSI_MAGS[-1]} with each slide decoded in turn (open_ahead 0): "
-          f"main() {turn['wall']:.2f} s = {n_tiles / turn['wall']:.1f} tiles/s against "
-          f"{n_tiles / rec['wall']:.1f} with {rec['walkers'][0].open_ahead} slides decoding "
+    ahead_tiles = sum(len(r.tile_locations) for r in rec["agg"].results)
+    print(f"[wsi_ef] --mag {WSI_MAGS[-1]} with each slide decoded in turn (open_ahead 0), "
+          f"the first {len(turn['agg'].results)} slides: main() {turn['wall']:.2f} s = "
+          f"{n_tiles / turn['wall']:.1f} tiles/s against {ahead_tiles / rec['wall']:.1f} over "
+          f"all {len(rec['agg'].results)} with {rec['walkers'][0].open_ahead} slides decoding "
           f"ahead; waiting on the Prefetcher {turn['feeds'][0].wait_s:.2f} s; on {smi}")
     shutil.rmtree(WSI_RUNS, ignore_errors=True)
     return total
@@ -2575,7 +2666,9 @@ def write_tiled_tiff(path: Path, levels, compression: int, photometric: int,
 def deflate_tiff(png: Path, tif: Path) -> None:
     """[wsi_cohort]'s PNG slide as a Deflate-tiled TIFF with the horizontal
     predictor: level 0 its pixels, level 1 every other pixel of them (zlib
-    level 1, on the caller's thread)."""
+    level 1, the tiles on 4 threads: zlib lets go of the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     img = decode_png(str(png))
     levels = []
     for level in (img, img[::2, ::2]):
@@ -2585,8 +2678,11 @@ def deflate_tiff(png: Path, tif: Path) -> None:
         diff[:, 3:] -= rows[:, :-3]  # each sample less the one before it (mod 256)
         diff = diff.reshape(h, w, 3)
         diff[:, ::WSI_TILE] = level[:, ::WSI_TILE]  # a tile's rows start afresh
-        levels.append((w, h, [zlib.compress(diff[y:y + WSI_TILE, x:x + WSI_TILE].tobytes(), 1)
-                              for y in range(0, h, WSI_TILE) for x in range(0, w, WSI_TILE)]))
+        corners = [(y, x) for y in range(0, h, WSI_TILE) for x in range(0, w, WSI_TILE)]
+        with ThreadPoolExecutor(4) as pool:
+            tiles = list(pool.map(lambda yx: zlib.compress(
+                diff[yx[0]:yx[0] + WSI_TILE, yx[1]:yx[1] + WSI_TILE].tobytes(), 1), corners))
+        levels.append((w, h, tiles))
     write_tiled_tiff(tif, levels, compression=8, photometric=2, predictor=2)
 
 
@@ -2970,6 +3066,213 @@ def phase_wsi_formats(smi: str) -> dict:
     return total
 
 
+def write_mil_set(path: Path, n: int, seed: int, like=None, shift=0.3):
+    """``n`` slides of 100 to MIL_TILES tiles x MIL_DIM fp32 features, NaN past
+    each slide's tiles, as -ef's 8-tuple pickle: class-1 slides (every other
+    one) shifted by ``shift`` in their first 32 dimensions. ``like``: another
+    set's (names, tile locations, tile counts), for its is_Tumor twin. → this
+    set's."""
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((n, 1, MIL_TILES, MIL_DIM), dtype=np.float32)
+    labels = np.arange(n) % 2
+    feats[labels == 1, :, :, :32] += shift
+    if like is None:
+        like = ([f"slide_{seed}_{i:04d}.svs" for i in range(n)],
+                rng.integers(0, 40000, (n, MIL_TILES, 2)).astype(np.float32),
+                rng.integers(100, MIL_TILES + 1, n))
+    names, locations, counts = like
+    for i, c in enumerate(counts):
+        feats[i, :, c:] = np.nan
+    scores = np.full((n, MIL_TILES), np.nan, np.float32)
+    with open(path, "wb") as f:
+        pickle.dump((labels, labels, labels.astype(float), scores, names, feats, 0, locations),
+                    f, protocol=pickle.HIGHEST_PROTOCOL)
+    return like
+
+
+def mil_run(argv: list, device: str) -> dict:
+    """``cli.mil_train.main(argv)`` on ``device``, recording the steps' CUDA
+    events on the card and the training loop's wall time. → model, state,
+    final metrics, steps, wall and busy ms, the launches, the xlsx's cells."""
+    from tpuwsi_torch.cli import mil_train
+    from tpuwsi_torch.mil import train as mil_train_mod
+    from tpuwsi_torch.utils.minixlsx import read_xlsx
+
+    rec = {"events": [], "loop_s": 0.0}
+    real = (mil_train_mod.make_mil_train_step, mil_train_mod.train_mil_head)
+
+    def recording_step(*a, **kw):
+        step = real[0](*a, **kw)
+        if device == "cpu":
+            return step
+
+        def recorded(state, batch):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = step(state, batch)
+            end.record()
+            rec["events"].append((start, end))
+            return out
+
+        return recorded
+
+    def timed_head(*a, **kw):
+        t0 = time.perf_counter()
+        out = real[1](*a, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        rec["loop_s"] = time.perf_counter() - t0
+        return out
+
+    out = Path(argv[argv.index("--output") + 1])
+    mil_train_mod.make_mil_train_step, mil_train_mod.train_mil_head = recording_step, timed_head
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        model, state, final = mil_train.main(argv, device=torch.device(device))
+        rec["wall"] = time.perf_counter() - t0
+        rec["launches"] = all_launches()
+    finally:
+        mil_train_mod.make_mil_train_step, mil_train_mod.train_mil_head = real
+    rec["busy_ms"] = sum(a.elapsed_time(b) for a, b in rec["events"])
+    rec.update(model=model, state=state, final=final, steps=state.step,
+               cells=read_xlsx(str(out / "slide_scores.xlsx")),
+               bias=float(model.att_w.bias.detach()))
+    return rec
+
+
+def check_mil_against_cpu(tag: str, card: dict, cpu: dict, n_eval: int) -> None:
+    """The card's final metrics and slide_scores.xlsx against the CPU run's
+    (MIL_CELL_TOL and its reasons)."""
+    fc, fp = card["final"], cpu["final"]
+    worst = {}
+    for name in cpu["cells"]:
+        shift = (card["bias"], cpu["bias"]) if name.startswith("attn_before") else (0.0, 0.0)
+        for g, w in zip(card["cells"][name], cpu["cells"][name]):
+            if isinstance(w, str):
+                if g != w:
+                    raise RuntimeError(f"[mil] {tag}: {name} {g!r} against {w!r}")
+            elif isinstance(w, float) and not math.isnan(w):
+                group = name.rsplit("_", 1)[0] if name[-1].isdigit() else name
+                worst[group] = max(worst.get(group, 0.0), abs((g - shift[0]) - (w - shift[1])))
+    pos = sum(1 for t in cpu["cells"]["target"] if t == 1)
+    auc_tol = 1.0 / max(pos * (n_eval - pos), 1)
+    print(f"[mil] {tag}: the card's run against the CPU's from the same weights and bag "
+          f"draws: eval_auc {fc.get('eval_auc')} / {fp.get('eval_auc')} (within {auc_tol:.2e}), "
+          f"eval_acc {fc['eval_acc']} / {fp['eval_acc']} (within {1 / n_eval:.3f}); "
+          f"slide_scores.xlsx's largest differences by column group "
+          f"{ {k: f'{v:.2e}' for k, v in worst.items()} } (<= {MIL_CELL_TOL}; attn_before less "
+          f"each run's att_w.bias, {card['bias']:.3e} / {cpu['bias']:.3e})")
+    if not fc["eval_n_slides"] == fp["eval_n_slides"] == n_eval or card["steps"] != cpu["steps"] \
+            or abs(fc.get("eval_auc", 0.5) - fp.get("eval_auc", 0.5)) > auc_tol \
+            or abs(fc["eval_acc"] - fp["eval_acc"]) > 1 / n_eval + 1e-12 \
+            or max(worst.values()) > MIL_CELL_TOL:
+        raise RuntimeError(f"[mil] {tag}: the card and the CPU disagree")
+
+
+def print_mil_timing(tag: str, rec: dict, epochs: int, smi: str) -> None:
+    idle = 1.0 - rec["busy_ms"] / (rec["loop_s"] * 1e3)
+    print(f"[mil] {tag}: {rec['steps']} steps over {epochs} epochs in "
+          f"{rec['loop_s']:.2f} s = {rec['loop_s'] * 1e3 / epochs:.1f} ms per epoch (each "
+          f"epoch's evaluation included), main() {rec['wall']:.2f} s; the steps' device time "
+          f"{rec['busy_ms']:.1f} ms (CUDA events around each step), so the card idles "
+          f"{100 * idle:.1f}% of the loop; on {smi}")
+
+
+def phase_mil(smi: str) -> dict:
+    """[mil]: ``python -m tpuwsi_torch.cli.mil_train`` on the card, over (a)
+    the port's own -ef features (fold 2's slides train, [wsi_ef]'s fold 1
+    evaluates), (b) a cohort-scale set written from SEED, both held against
+    the same runs on the CPU, and (c) the paired Receptor+is_Tumor mode at
+    768 through the registry. → launches (K2 of (a)'s -ef, 12 a chunk; the
+    MIL head runs no kernel)."""
+    none = dict.fromkeys(all_launches(), 0)
+    MIL_ROOT.mkdir(parents=True, exist_ok=True)
+    # (a) -ef over fold 2 (the training bags), then the head
+    reset_launches()
+    agg = cli_train.main(WSI_EF_ARGV + ["--mag", "20", "-tf", "2", "--output",
+                                        str(MIL_ROOT / "ef")])
+    ef = all_launches()
+    n_tiles = sum(len(r.tile_locations) for r in agg.results)
+    chunks = sum(-(-len(r.tile_locations) // WSI_EF_TILES) for r in agg.results)
+    exp = next(d for d in (MIL_ROOT / "ef").iterdir() if d.name.startswith("Exp_"))
+    train_data = exp / "features" / "inference.data"
+    print(f"[mil] -ef over fold 2: {len(agg.results)} slides, {n_tiles} tiles in {chunks} "
+          f"chunks, launches {ef}")
+    if ef != {**none, "mha_qkv_fwd": 12 * chunks} or len(agg.results) != 4:
+        raise RuntimeError(f"[mil] -ef launched {ef}")
+    argv = MIL_ARGV + ["--features", str(train_data), "--test-features",
+                       str(MIL_ROOT / "fold1.data"), "--epochs", str(MIL_EPOCHS)]
+    runs = {d: mil_run(argv + ["--output", str(MIL_ROOT / f"ef_{d}")], d)
+            for d in ("cuda", "cpu")}
+    if runs["cuda"]["launches"] != none:
+        raise RuntimeError(f"[mil] the MIL head launched {runs['cuda']['launches']}")
+    print(f"[mil] over -ef's features (4 fold-2 slides train, [wsi_ef]'s 8 fold-1 slides "
+          f"evaluate, 384 wide): final {runs['cuda']['final']}")
+    check_mil_against_cpu("-ef features", runs["cuda"], runs["cpu"], 8)
+    print_mil_timing("-ef features", runs["cuda"], MIL_EPOCHS, smi)
+
+    # (b) a cohort: MIL_SLIDES training and MIL_TEST_SLIDES held-out slides
+    t0 = time.perf_counter()
+    write_mil_set(MIL_ROOT / "train.data", MIL_SLIDES, SEED)
+    write_mil_set(MIL_ROOT / "test.data", MIL_TEST_SLIDES, SEED + 1)
+    size = sum((MIL_ROOT / f).stat().st_size for f in ("train.data", "test.data"))
+    print(f"[mil] wrote {MIL_SLIDES} + {MIL_TEST_SLIDES} slides of 100-{MIL_TILES} tiles x "
+          f"{MIL_DIM} fp32 as -ef's pickle ({size / 2**20:.0f} MiB) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    argv = MIL_ARGV + ["--features", str(MIL_ROOT / "train.data"), "--test-features",
+                       str(MIL_ROOT / "test.data"), "--epochs", str(MIL_EPOCHS)]
+    runs = {d: mil_run(argv + ["--output", str(MIL_ROOT / f"cohort_{d}")], d)
+            for d in ("cuda", "cpu")}
+    final = runs["cuda"]["final"]
+    print(f"[mil] cohort: final {final}")
+    if runs["cuda"]["launches"] != none or not 0.5 < final.get("eval_auc", 0.0) <= 1.0:
+        raise RuntimeError(f"[mil] cohort: launches {runs['cuda']['launches']}, final {final}")
+    check_mil_against_cpu("cohort", runs["cuda"], runs["cpu"], MIL_TEST_SLIDES)
+    print_mil_timing("cohort", runs["cuda"], MIL_EPOCHS, smi)
+    print_mil_timing("cohort on the CPU", {**runs["cpu"], "busy_ms": 0.0}, MIL_EPOCHS,
+                     f"{os.cpu_count()} host cores")
+
+    # (c) the paired Receptor+is_Tumor mode through the registry, 384 + 384
+    registry = {}
+    for split, n, seed in (("train", MIL_PAIRED_SLIDES, SEED + 2),
+                           ("test", MIL_PAIRED_TEST, SEED + 3)):
+        like = write_mil_set(MIL_ROOT / f"receptor_{split}.data", n, seed)
+        write_mil_set(MIL_ROOT / f"tumor_{split}.data", n, seed + 10, like, shift=0.0)
+        registry[split] = (str(MIL_ROOT / f"receptor_{split}.data"),
+                           str(MIL_ROOT / f"tumor_{split}.data"))
+    (MIL_ROOT / "registry.json").write_text(json.dumps({"CAT": {"ER": {"1": {
+        "TrainSet Location": {k: v[0] for k, v in registry.items()},
+        "is_Tumor": {"TrainSet Location": {k: v[1] for k, v in registry.items()}}}}}}))
+    os.environ["TPUWSI_FEATURE_REGISTRY"] = str(MIL_ROOT / "registry.json")
+    try:
+        paired = mil_run(MIL_ARGV + ["--dataset", "CAT", "-tar", "ER", "-tf", "1",
+                                     "--paired-is-tumor", "--epochs", "5", "--output",
+                                     str(MIL_ROOT / "paired")], "cuda")
+    finally:
+        del os.environ["TPUWSI_FEATURE_REGISTRY"]
+    from tpuwsi_torch.mil.features import load_inference_file
+
+    weight = paired["model"].classifier.weight.detach().cpu().numpy()
+    feats = load_inference_file(registry["test"][0])[5]
+    nan = np.isnan(feats[0, 0, :, 0])
+    n0 = int(nan.argmax()) if nan.any() else MIL_TILES
+    want = feats[0, 0, :n0] @ (weight[1] - weight[0])[:MIL_DIM]
+    got = np.asarray([paired["cells"][f"tile_score_{j}"][0] for j in range(n0)])
+    err = float(np.abs(got - want).max())
+    print(f"[mil] paired Receptor+is_Tumor ({MIL_PAIRED_SLIDES} + {MIL_PAIRED_TEST} slides, "
+          f"{2 * MIL_DIM} wide; the classifier {tuple(weight.shape)}): final {paired['final']}; "
+          f"the first slide's {n0} tile scores against the receptor half's readout: max "
+          f"difference {err:.2e}")
+    if weight.shape != (2, 2 * MIL_DIM) or err > 1e-4 or paired["launches"] != none:
+        raise RuntimeError("[mil] paired: the head, the tile scores or the launches")
+    print_mil_timing("paired", paired, 5, smi)
+    shutil.rmtree(MIL_ROOT, ignore_errors=True)
+    return ef
+
+
 def phase_wsi_ssl(smi: str) -> dict:
     """[wsi_ssl]: ``python -m tpuwsi_torch.cli.train --ssl`` over the cohort's
     training fold on the card (WSITileSampler at --mag 10): [train_ssl]'s
@@ -3202,6 +3505,200 @@ def phase_train_sup(smi: str) -> dict:
     shutil.rmtree(SUP_RUNS, ignore_errors=True)
     torch.cuda.empty_cache()
     return total
+
+
+def write_survival_cohort() -> None:
+    """[wsi_cohort]'s slides as the ABCTB cohort under SURV_ROOT: links to its
+    PNG files and Grids_10, and a slides_data_ABCTB.xlsx with the four
+    survival columns."""
+    from tpuwsi_torch.io.cohorts import get_datasets_dir_dict
+    from tpuwsi_torch.utils.minixlsx import read_xlsx, write_xlsx
+
+    cohort = Path(get_datasets_dir_dict("ABCTB", data_root=str(SURV_ROOT))["ABCTB"])
+    shutil.rmtree(SURV_ROOT, ignore_errors=True)
+    cohort.mkdir(parents=True)
+    slides = read_xlsx(str(WSI_COHORT / "slides_data_TCGA.xlsx"))
+    for name in slides["file"]:
+        (cohort / name).symlink_to(WSI_COHORT / name)
+    (cohort / "Grids_10").symlink_to(WSI_COHORT / "Grids_10", target_is_directory=True)
+    n = len(slides["file"])
+    write_xlsx(str(cohort / "slides_data_ABCTB.xlsx"), {
+        "file": slides["file"], "id": ["ABCTB"] * n,
+        "patient barcode": slides["patient barcode"], **SURVIVAL_CELLS,
+        "test fold idx": slides["test fold idx"],
+        "Manipulated Objective Power": slides["Manipulated Objective Power"]})
+
+
+def survival_run(out: Path, argv: list, plain: bool = False) -> dict:
+    """``cli.train.main(argv)`` (-tar Survival_*) on the card, writing under
+    ``out``, recording per step its launches, entry time, CUDA events around
+    it, its metrics, its 5-year labels and the model's output in the step;
+    ``plain`` builds the model with plain attention. → state, rows, total
+    launches, peak memory, wall seconds, output dir and the initial weights."""
+    from tpuwsi_torch.train import survival as t_survival
+
+    rows, init, outputs = [], [], []
+    real = (t_survival.make_survival_train_step, cli_train.supervised_model)
+
+    def recording_step(*a, **kw):
+        step = real[0](*a, **kw)
+
+        def recorded(state, batch, generator=None):
+            if not init:
+                init.extend(p.detach().clone() for p in state.model.parameters())
+            before = all_launches()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t = time.perf_counter()
+            start.record()
+            state, metrics = step(state, batch, generator)
+            end.record()
+            rows.append({"t": t, "metrics": metrics, "events": (start, end),
+                         "labels": batch["binary_targets"], "out": outputs.pop(),
+                         "launches": {k: v - before[k] for k, v in all_launches().items()}})
+            return state, metrics
+
+        return recorded
+
+    def recorded_model(args, num_classes, on_cuda):
+        m = real[1](args, num_classes, on_cuda)
+        if plain:
+            m = type(m)(dataclasses.replace(m.config, use_kernel_attention=False)).eval()
+        # the step's output (the evaluation runs without gradients)
+        m.register_forward_hook(
+            lambda mod, inp, o: outputs.append(o.detach()) if torch.is_grad_enabled() else None)
+        return m
+
+    t_survival.make_survival_train_step = recording_step
+    cli_train.supervised_model = recorded_model
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = cli_train.main(argv + ["--output", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        total = all_launches()
+    finally:
+        t_survival.make_survival_train_step, cli_train.supervised_model = real
+    for r in rows:
+        r["metrics"] = {k: v.item() for k, v in r["metrics"].items()}
+        r["loss"] = r["metrics"]["loss"]
+        r["ms"] = r["events"][0].elapsed_time(r["events"][1])
+        r["labels"], r["out"] = r["labels"].cpu().numpy(), r["out"].float().cpu().numpy()
+        del r["events"]
+    return {"state": state, "rows": rows, "total": total, "wall": wall, "out": out,
+            "peak": torch.cuda.max_memory_allocated(), "init": init}
+
+
+def check_survival_run(tag: str, run: dict, epochs: int, steps: int, metric: str) -> dict:
+    """Launches per step (K1a = K1b = 12 at 257 tokens, nothing else), the
+    evaluations' (K2 only, 12 a chunk of the 7 slides), finite losses, the
+    checkpoints and summary.csv. → the evaluations' launches."""
+    depth, rows = 12, run["rows"]
+    none = dict.fromkeys(all_launches(), 0)
+    want = {**none, "mha_qkv_fwd_saved": depth, "mha_qkv_bwd_saved": depth}
+    for i, r in enumerate(rows):
+        print(f"[train_survival] {tag} step {i}: {r['metrics']}, device {r['ms']:.2f} ms, "
+              f"launches {r['launches']}")
+        if not np.isfinite(r["loss"]) or r["launches"] != want:
+            raise RuntimeError(f"[train_survival] {tag} step {i}: loss {r['loss']}, launches "
+                               f"{r['launches']}, expected {want}")
+    if len(rows) != epochs * steps:
+        raise RuntimeError(f"[train_survival] {tag}: {len(rows)} steps")
+    evals = {k: v - sum(r["launches"][k] for r in rows) for k, v in run["total"].items()}
+    if evals != {**none, "mha_qkv_fwd": depth * SURV_EVAL_SLIDES * epochs}:
+        raise RuntimeError(f"[train_survival] {tag}: the slide evaluations launched {evals}, "
+                           f"expected K2 = {depth} x {SURV_EVAL_SLIDES} chunks x {epochs}")
+    exp = next(d for d in run["out"].iterdir() if d.name.startswith("Exp_"))
+    steps_saved = sorted(int(d.name) for d in (exp / "checkpoints").iterdir()
+                         if d.name.isdigit())
+    with open(exp / "summary.csv") as f:
+        summary = list(csv.DictReader(f))
+    print(f"[train_survival] {tag}: the slide evaluations {evals}; checkpoints at steps "
+          f"{steps_saved}; summary.csv {summary}")
+    if steps_saved != [steps * (e + 1) for e in range(epochs)] or len(summary) != epochs \
+            or not all(0.0 <= float(r["eval_c_index"]) <= 1.0 for r in summary) \
+            or not all(np.isfinite(float(r["train_loss"])) and f"train_{metric}" in r
+                       for r in summary):
+        raise RuntimeError(f"[train_survival] {tag}: checkpoints or summary.csv")
+    return evals
+
+
+def phase_train_survival(smi: str) -> dict:
+    """[train_survival]: ``python -m tpuwsi_torch.cli.train -tar
+    Survival_Time`` over the cohort on the card at full width (ViT-S/16 at
+    257 tokens, -b 256), K1a and K1b 12 a step and K2 in the slide
+    evaluations; the same with plain attention, held to [train_sup]'s
+    bounds; then one epoch of -tar Survival_Binary, its masked loss and AUC
+    held against the host's from the step's own logits; → launches."""
+    from tpuwsi_torch.infer.aggregate import roc_auc
+
+    write_survival_cohort()
+    argv = SURV_ARGV + ["--epochs", str(SURV_EPOCHS), "--max-steps-per-epoch", str(SURV_STEPS)]
+    cox = argv + ["-tar", "Survival_Time"]
+    run = survival_run(SURV_RUNS / "kernel", cox)
+    total = check_survival_run("Cox", run, SURV_EPOCHS, SURV_STEPS, "c_index")
+    total = {k: sum(r["launches"][k] for r in run["rows"]) + total[k] for k in total}
+    plain = survival_run(SURV_RUNS / "plain", cox, plain=True)
+    if any(plain["total"].values()) or len(plain["rows"]) != len(run["rows"]):
+        raise RuntimeError(f"[train_survival] plain attention: {len(plain['rows'])} steps, "
+                           f"launches {plain['total']}")
+    for a, b in zip(run["init"], plain["init"]):
+        if not torch.equal(a, b):
+            raise RuntimeError("[train_survival] the two runs started from different weights")
+    diff = max(abs(a["loss"] - b["loss"]) for a, b in zip(run["rows"], plain["rows"]))
+    gap = relative_distance(list(run["state"].model.parameters()),
+                            list(plain["state"].model.parameters()), run["init"])
+    device_ms = [r["ms"] for r in run["rows"][1:]]
+    gaps = [(b["t"] - a["t"]) * 1e3 for e in range(SURV_EPOCHS)
+            for a, b in zip(run["rows"][e * SURV_STEPS:(e + 1) * SURV_STEPS],
+                            run["rows"][e * SURV_STEPS + 1:(e + 1) * SURV_STEPS])]
+    print(f"[train_survival] Cox: {len(run['rows'])} steps of {SUP_BATCH} tiles (4 slides x "
+          f"{WSI_SSL_TILES} at --mag 10, ViT-S/16 at 257 tokens, pcbnfrsc, Nesterov SGD), "
+          f"evaluations of {SURV_EVAL_SLIDES} slides x {SUP_TEST_TILES} tiles after each of "
+          f"{SURV_EPOCHS} epochs; main() took {run['wall']:.2f} s; the step's stream time "
+          f"{', '.join(f'{m:.2f}' for m in device_ms)} ms after the first (median "
+          f"{statistics.median(device_ms):.2f}); the loop "
+          f"{', '.join(f'{g:.2f}' for g in gaps)} ms per step (gaps between step starts); "
+          f"peak device memory {run['peak'] / 2**30:.2f} GiB. Against plain attention: losses "
+          f"{[r['loss'] for r in plain['rows']]}, largest difference {diff:.3e} (<= "
+          f"{SUP_LOSS_MAX_DIFF}); final weights {gap[0]:.6e} apart, moved {gap[1]:.6e} = "
+          f"{gap[2]:.3e} of the move (<= {SUP_PARAM_MAX_REL}); on {smi}")
+    if not (diff <= SUP_LOSS_MAX_DIFF and gap[2] <= SUP_PARAM_MAX_REL):
+        raise RuntimeError("[train_survival] the kernel and plain-attention runs disagree")
+    STEP_MS["train_survival_stream"] = statistics.median(device_ms)
+    del run["state"], plain["state"]
+
+    binary = survival_run(SURV_RUNS / "binary", SURV_ARGV + [
+        "--epochs", "1", "--max-steps-per-epoch", str(SURV_STEPS), "-tar", "Survival_Binary"])
+    evals = check_survival_run("binary", binary, 1, SURV_STEPS, "auc")
+    unknown = 0
+    for i, r in enumerate(binary["rows"]):
+        labels, logits = r["labels"], r["out"].astype(np.float64)
+        mask = labels >= 0
+        logits = logits - logits.max(-1, keepdims=True)
+        logp = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+        loss = -logp[np.arange(len(labels)), np.maximum(labels, 0)][mask].sum() / max(mask.sum(), 1)
+        probs = np.exp(logp[:, 1])
+        auc = roc_auc(probs[mask], labels[mask])
+        unknown += int((~mask).sum())
+        print(f"[train_survival] binary step {i}: {int((~mask).sum())} of {len(labels)} tiles "
+              f"of unknown status; the step's loss {r['loss']:.6f} against the host's masked "
+              f"CE {loss:.6f} from its logits, AUC {r['metrics']['auc']:.6f} against "
+              f"{auc:.6f}")
+        if abs(r["loss"] - loss) > SURV_BINARY_LOSS_REL * abs(loss) \
+                or abs(r["metrics"]["auc"] - auc) > 1e-6:
+            raise RuntimeError("[train_survival] binary: the masked loss or AUC is off")
+    if unknown == 0:
+        raise RuntimeError("[train_survival] binary: no tile of unknown status in the batches")
+    print(f"[train_survival] binary: main() {binary['wall']:.2f} s; on {smi}")
+    total = {k: total[k] + sum(r["launches"][k] for r in binary["rows"]) + evals[k]
+             for k in total}
+    del binary["state"]
+    shutil.rmtree(SURV_RUNS, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {k: total[k] + plain["total"][k] for k in total}
 
 
 def summed_launches(rows) -> dict:
@@ -3560,32 +4057,55 @@ def phase_train_448(smi: str) -> dict:
     return total
 
 
+PHASE_S = {}  # wall seconds of each phase, in order
+
+
+def timed(phase: str, fn, *a, **kw):
+    """``fn(*a, **kw)``, its wall time kept under ``phase`` in PHASE_S."""
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    PHASE_S[phase] = time.perf_counter() - t0
+    return out
+
+
 def main() -> None:
+    t0 = time.perf_counter()
     torch.manual_seed(SEED)
     shutil.rmtree(OUT, ignore_errors=True)
     smi = phase_device()
-    phase_build()
-    kernels = {"mha_qkv_fwd": phase_k2(smi), **phase_train_kernels(smi),
-               **phase_flash_kernels(smi), **phase_mlp_kernels(smi),
-               **phase_dense_kernels(smi), **phase_attn_block_kernels(smi)}
-    paths = {"serving": phase_slice(smi), "training": phase_train(smi)}
-    paths["train_ssl"] = phase_train_ssl(smi)
-    phase_wsi_cohort(smi)
-    paths["wsi_ef"] = phase_wsi_ef(smi)
-    paths["wsi_formats"] = phase_wsi_formats(smi)
-    paths["wsi_ssl"] = phase_wsi_ssl(smi)
-    paths["train_sup"] = phase_train_sup(smi)
-    paths["serving_fused_mlp"] = phase_slice(
-        smi, kernels=("mha_qkv_fwd", "mlp_block_fwd"), tag="slice_fused_mlp",
-        model_kw={"use_fused_mlp": True}, other_kw={}, other="default route")
-    paths["training_fused_mlp"], paths["training_mlp_pallas_bwd"] = phase_train_fused_mlp(smi)
-    paths["training_dense"] = phase_train_dense(smi)
-    paths["ln_gemm_path"] = phase_ln_gemm_path(smi)
-    paths["serving_attn_block"] = phase_attn_block_serving(smi)
-    paths["serving_448"] = phase_slice(smi, MODEL_448, TILE_448, TILES_PER_ITER_448, VALID_448,
-                                       kernels=("flash_fwd",), tag="slice448")
-    paths["training_448"] = phase_train_448(smi)
-    phase_profiles(smi)
+    timed("build", phase_build)
+    kernels = {"mha_qkv_fwd": timed("k2", phase_k2, smi),
+               **timed("train_kernels", phase_train_kernels, smi),
+               **timed("flash_kernels", phase_flash_kernels, smi),
+               **timed("mlp_kernels", phase_mlp_kernels, smi),
+               **timed("dense_kernels", phase_dense_kernels, smi),
+               **timed("attn_block_kernels", phase_attn_block_kernels, smi)}
+    paths = {"serving": timed("slice", phase_slice, smi),
+             "training": timed("train", phase_train, smi)}
+    paths["train_ssl"] = timed("train_ssl", phase_train_ssl, smi)
+    timed("wsi_cohort", phase_wsi_cohort, smi)
+    paths["wsi_ef"] = timed("wsi_ef", phase_wsi_ef, smi)
+    paths["wsi_formats"] = timed("wsi_formats", phase_wsi_formats, smi)
+    paths["mil"] = timed("mil", phase_mil, smi)
+    paths["wsi_ssl"] = timed("wsi_ssl", phase_wsi_ssl, smi)
+    paths["train_sup"] = timed("train_sup", phase_train_sup, smi)
+    paths["train_survival"] = timed("train_survival", phase_train_survival, smi)
+    paths["serving_fused_mlp"] = timed(
+        "slice_fused_mlp", phase_slice, smi, kernels=("mha_qkv_fwd", "mlp_block_fwd"),
+        tag="slice_fused_mlp", model_kw={"use_fused_mlp": True}, other_kw={},
+        other="default route")
+    paths["training_fused_mlp"], paths["training_mlp_pallas_bwd"] = timed(
+        "train_fused_mlp", phase_train_fused_mlp, smi)
+    paths["training_dense"] = timed("train_dense", phase_train_dense, smi)
+    paths["ln_gemm_path"] = timed("ln_gemm_path", phase_ln_gemm_path, smi)
+    paths["serving_attn_block"] = timed("attn_block_serving", phase_attn_block_serving, smi)
+    paths["serving_448"] = timed("slice448", phase_slice, smi, MODEL_448, TILE_448,
+                                 TILES_PER_ITER_448, VALID_448, kernels=("flash_fwd",),
+                                 tag="slice448")
+    paths["training_448"] = timed("train448", phase_train_448, smi)
+    timed("profiles", phase_profiles, smi)
+    print(f"[time] wall seconds by phase: {json.dumps({k: round(v, 1) for k, v in PHASE_S.items()})}"
+          f"; {time.perf_counter() - t0:.1f} s in all")
     meta = {
         "mha_qkv_fwd": ("mha_qkv_fwd.cu", "tpuwsi/ops/attention.py:633"),
         "mha_qkv_fwd_saved": ("mha_qkv_fwd.cu", "tpuwsi/ops/attention.py:852"),

@@ -20,6 +20,16 @@ from tpuwsi_torch.ops import attention as tattn
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these CPU runs are tiny, and the test runner's
+    other workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize(
     "b,n,heads,hd,block_len",
     [

@@ -26,6 +26,16 @@ from tpuwsi_torch.ops.attention import fused_attention_block, mha_from_qkv
 NAMES = ("x", "ln_scale", "ln_bias", "wqkv", "bqkv", "wproj", "bproj")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these CPU runs are tiny, and the test runner's
+    other workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _operands(b, n, d, seed):
     """x ~ N(0, 1); the weights' std is 0.1 up to width 128 and shrinks as
     1 / sqrt(D) beyond, so that qkv, the scores and y keep the magnitudes of
@@ -53,9 +63,10 @@ def test_fused_attention_block_matches_jax(b, n, d, h):
     """Values at 1e-5 and all seven gradients of sum(y ** 2) at 1e-4."""
     args = _operands(b, n, d, seed=n)
     jargs = tuple(map(jnp.asarray, args))
-    want = jattn.fused_attention_block(*jargs, h, interpret=True)
-    want_grads = jax.grad(
-        lambda a: jnp.sum(jattn.fused_attention_block(*a, h, interpret=True) ** 2))(jargs)
+    # jitted: interpret-mode kernels run op by op otherwise
+    want = jax.jit(lambda a: jattn.fused_attention_block(*a, h, interpret=True))(jargs)
+    want_grads = jax.jit(jax.grad(
+        lambda a: jnp.sum(jattn.fused_attention_block(*a, h, interpret=True) ** 2)))(jargs)
     targs = [torch.from_numpy(a).requires_grad_() for a in args]
     got = fused_attention_block(*targs, h)
     assert got.shape == want.shape and got.dtype == torch.float32

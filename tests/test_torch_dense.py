@@ -37,6 +37,16 @@ D, F = 64, 192
 LEADS = pytest.mark.parametrize("lead", [(2, 100), (37,)], ids=["2x100", "37"])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these CPU runs are tiny, and the test runner's
+    other workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _normal(rng, shape, std=1.0):
     return (std * rng.standard_normal(shape)).astype(np.float32)
 
@@ -52,8 +62,9 @@ def _compare(jop, top, args, cot):
         return [next(it) if p else None for p in present]
 
     jsome = tuple(map(jnp.asarray, some))
-    want = jop(*fill(jsome))
-    want_grads = jax.grad(lambda a: jnp.sum(jop(*fill(a)) * cot))(jsome)
+    # jitted: interpret-mode kernels run op by op otherwise
+    want = jax.jit(lambda a: jop(*fill(a)))(jsome)
+    want_grads = jax.jit(jax.grad(lambda a: jnp.sum(jop(*fill(a)) * cot)))(jsome)
     tsome = [torch.from_numpy(a).requires_grad_() for a in some]
     got = top(*fill(tsome))
     assert got.shape == want.shape and got.dtype == torch.float32
@@ -229,7 +240,8 @@ def test_vit_matches_flax(flags, training, shared_drop_path, dense_calls):
     on = dict.fromkeys(flags, True)
     jmodel = JViT(JViTConfig(dtype=jnp.float32, use_pallas_attention=True, pallas_interpret=True,
                              **GEOM, **on))
-    variables = jax.device_get(jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3))))
+    variables = jax.device_get(jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                                    jnp.zeros((1, 32, 32, 3))))
     rng = np.random.default_rng(1)  # non-trivial LayerNorm affine and biases
     variables = jax.tree_util.tree_map(
         lambda v: v + 0.1 * rng.standard_normal(v.shape).astype(np.float32), variables)
@@ -243,7 +255,7 @@ def test_vit_matches_flax(flags, training, shared_drop_path, dense_calls):
                            rngs={"droppath": jax.random.PRNGKey(0)})
         return jnp.sum(out * cot), out
 
-    (_, want), want_grads = jax.value_and_grad(jloss, has_aux=True)(variables)
+    (_, want), want_grads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(variables)
     out = model(torch.from_numpy(x), deterministic=not training,
                 generator=torch.Generator().manual_seed(0))
     assert dense_calls == [192, 64] * 2  # qkv and proj of each block
@@ -268,7 +280,8 @@ def test_flag_keeps_the_parameter_tree_and_the_eval_output():
     assert {k: v.shape for k, v in plain.state_dict().items()} == {
         k: v.shape for k, v in hybrid.state_dict().items()}
     jmodel = JViT(JViTConfig(dtype=jnp.float32, dense_pallas_bwd=True, **GEOM))
-    variables = jax.device_get(jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3))))
+    variables = jax.device_get(jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                                    jnp.zeros((1, 32, 32, 3))))
     state = params_from_flax(variables)
     plain.load_state_dict(state)
     hybrid.load_state_dict(state)
@@ -350,7 +363,7 @@ def test_dense_step_bundle_trajectory_matches_jax(shared_drop_path, dense_calls)
                                  drop_path_rate=0.1, use_pallas_attention=True,
                                  pallas_interpret=True, dense_pallas_bwd=True, **geom)),
         head=JDINOHead(out_dim=96, gelu_approx=True))
-    jparams = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
     jcfg = jdino.DINOConfig(**dataclasses.asdict(b.dcfg))
     tx, _ = jmake_optimizer(JOptimConfig(**dataclasses.asdict(b.ocfg)), jparams, batch)
     jstate = jdino.create_dino_state(jparams, tx, jcfg)

@@ -34,6 +34,16 @@ BENCH_ARGV = ["--ssl", "--model", "vit_small_patch16_224_dino", "--epochs", "300
 HEAD = dict(out_dim=96, hidden_dim=48, bottleneck_dim=16, gelu_approx=True)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these CPU runs are tiny, and the test runner's
+    other workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
 
@@ -157,7 +167,8 @@ def test_dino_trajectory_matches_jax(lr, warmup_lr, clip_grad, clip_bites):
         backbone=JViT(JViTConfig(dtype=jnp.float32, use_pallas_attention=True,
                                  pallas_interpret=True, attn_save_probs=True, **_TINY)),
         head=JDINOHead(**HEAD))
-    jparams = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
+    # jitted: interpret-mode kernels run op by op otherwise
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
     tx, _ = jmake_optimizer(JOptimConfig(**okw), jparams, batch)
     jcfg = jdino.DINOConfig(**dkw)
     jstate = jdino.create_dino_state(jparams, tx, jcfg)
@@ -303,7 +314,7 @@ def test_long_sequence_step_bundle_trajectory_matches_jax():
         backbone=JViT(JViTConfig(dtype=jnp.float32, img_size=92, gelu_approx=True,
                                  use_pallas_attention=True, **geom)),
         head=JDINOHead(out_dim=96, gelu_approx=True))
-    jparams = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 92, 92, 3)))
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.zeros((1, 92, 92, 3)))
     jcfg = jdino.DINOConfig(**dataclasses.asdict(b.dcfg))
     tx, _ = jmake_optimizer(JOptimConfig(**dataclasses.asdict(b.ocfg)), jparams, batch)
     jstate = jdino.create_dino_state(jparams, tx, jcfg)

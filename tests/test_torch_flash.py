@@ -23,6 +23,16 @@ GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 TILE = 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these CPU runs are tiny, and the test runner's
+    other workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _qkv(seed, b, h, s, hd, n=3):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal((b, h, s, hd), dtype=np.float32) for _ in range(n)]

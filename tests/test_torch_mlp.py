@@ -38,6 +38,16 @@ OPS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these CPU runs are tiny, and the test runner's
+    other workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _operands(name, lead, seed=0):
     """x, [gamma, beta,] w1, b1, w2, b2 and a cotangent, as float32 numpy."""
     rng = np.random.default_rng(seed)
@@ -61,9 +71,10 @@ def test_op_matches_jax(name, approx, lead):
     jop, top = OPS[name]
     args, cot = _operands(name, lead)
     jargs = tuple(map(jnp.asarray, args))
-    want = jop(*jargs, approx=approx, interpret=True)
-    want_grads = jax.grad(
-        lambda a: jnp.sum(jop(*a, approx=approx, interpret=True) * cot))(jargs)
+    # jitted: interpret-mode kernels run op by op otherwise
+    want = jax.jit(lambda a: jop(*a, approx=approx, interpret=True))(jargs)
+    want_grads = jax.jit(jax.grad(
+        lambda a: jnp.sum(jop(*a, approx=approx, interpret=True) * cot)))(jargs)
     targs = [torch.from_numpy(a).requires_grad_() for a in args]
     got = top(*targs, approx=approx)
     assert got.shape == want.shape and got.dtype == torch.float32
@@ -177,7 +188,8 @@ def _vit_pair(flag):
     jcfg = JViTConfig(dtype=jnp.float32, use_pallas_attention=True, pallas_interpret=True,
                       **GEOM, **{flag: True})
     jmodel = JViT(jcfg)
-    variables = jax.device_get(jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3))))
+    variables = jax.device_get(jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                                    jnp.zeros((1, 32, 32, 3))))
     rng = np.random.default_rng(1)  # non-trivial LayerNorm affine and biases
     variables = jax.tree_util.tree_map(
         lambda v: v + 0.1 * rng.standard_normal(v.shape).astype(np.float32), variables)
@@ -208,7 +220,7 @@ def test_vit_matches_flax(flag, training, shared_drop_path, op_calls):
                            rngs={"droppath": jax.random.PRNGKey(0)})
         return jnp.sum(out * cot), out
 
-    (_, want), want_grads = jax.value_and_grad(jloss, has_aux=True)(variables)
+    (_, want), want_grads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(variables)
     out = model(torch.from_numpy(x), deterministic=not training,
                 generator=torch.Generator().manual_seed(0))
     if flag == "mlp_pallas_bwd":
@@ -279,7 +291,7 @@ def test_fused_mlp_step_bundle_trajectory_matches_jax(shared_drop_path, op_calls
                                  drop_path_rate=0.1, use_pallas_attention=True,
                                  pallas_interpret=True, use_fused_mlp=True, **geom)),
         head=JDINOHead(out_dim=96, gelu_approx=True))
-    jparams = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
+    jparams = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
     jcfg = jdino.DINOConfig(**dataclasses.asdict(b.dcfg))
     tx, _ = jmake_optimizer(JOptimConfig(**dataclasses.asdict(b.ocfg)), jparams, batch)
     jstate = jdino.create_dino_state(jparams, tx, jcfg)

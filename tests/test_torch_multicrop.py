@@ -28,6 +28,16 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 B, S = 5, 24
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these CPU runs are tiny, and the test runner's
+    other workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def images():
     rng = np.random.default_rng(0)

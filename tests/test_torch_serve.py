@@ -272,6 +272,14 @@ for mag in ("20", "10"):  # crops, then 32-px regions resized to 16
                 "vit_tiny_patch8_224", "--tile-size", "16", "-nt", "6", "-tpi", "4", "--mag", mag,
                 "--output", os.path.join(root, "ef" + mag)], device=torch.device("cpu"))
     assert [r.features.shape for r in agg.results] == [(6, 192)] * 2
+import tpuwsi_torch.infer.survival_walker, tpuwsi_torch.io.survival, tpuwsi_torch.train.survival
+from tpuwsi_torch.cli.mil_train import main as mil_main
+data = os.path.join(root, "ef10", next(d for d in os.listdir(os.path.join(root, "ef10"))
+                                       if d.startswith("Exp_")), "features", "inference.data")
+_, state, final = mil_main(["--features", data, "--test-features", data, "--minimum-tiles", "1",
+                            "--bag-size", "4", "--epochs", "1", "-b", "2", "--export-xlsx",
+                            "--output", os.path.join(root, "mil")], device=torch.device("cpu"))
+assert state.step == 1 and final["eval_n_slides"] == 2
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 assert not bad, bad
 """ % (_BANNED,)

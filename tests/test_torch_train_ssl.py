@@ -21,6 +21,7 @@
 
 import csv
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -49,6 +50,16 @@ BENCH_ARGV = ["--ssl", "--model", "vit_small_patch16_224_dino", "--epochs", "3",
               "--weight-decay", "0.04", "--dino-out-dim", "64", "--dino-global-size", "32",
               "--dino-local-size", "16", "--dino-local-crops", "2"]
 TINY_VIT = dict(patch_size=8, embed_dim=64, depth=2, num_heads=2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these CPU runs are tiny, and the test runner's
+    other workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -268,7 +279,9 @@ def _flax_pair(remat=False, **kw):
     cfg = jvit.ViTConfig(**GEOM, dtype=jnp.float32, use_pallas_attention=True,
                          pallas_interpret=True, remat_blocks=remat, **kw)
     model = jvit.VisionTransformer(cfg)
-    variables = jax.device_get(model.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3))))
+    # jitted: the interpret-mode kernels run op by op in Python otherwise
+    variables = jax.device_get(jax.jit(model.init)(jax.random.PRNGKey(0),
+                                                   jnp.zeros((1, 32, 32, 3))))
     rng = np.random.default_rng(1)
     variables = jax.tree_util.tree_map(
         lambda v: v + 0.1 * rng.standard_normal(v.shape).astype(np.float32), variables)
@@ -286,7 +299,7 @@ def test_remat_gradients_match_jax(num_classes):
     def loss(params):
         return jnp.sum(model.apply({"params": params}, jnp.asarray(x), deterministic=False) ** 2)
 
-    want = jax.device_get(jax.grad(loss)(variables["params"]))
+    want = jax.device_get(jax.jit(jax.grad(loss))(variables["params"]))
     out = port(torch.from_numpy(x), deterministic=False, generator=torch.Generator())
     names = [n for n, _ in port.named_parameters()]
     grads = torch.autograd.grad(out.square().sum(), list(port.parameters()))
@@ -304,13 +317,13 @@ def test_attention_map_and_intermediate_layers_match_jax(depth_back):
     model, variables, port = _flax_pair()
     x = np.random.default_rng(3).standard_normal((3, 32, 32, 3)).astype(np.float32)
     xj, xt = jnp.asarray(x), torch.from_numpy(x)
-    want = model.apply(variables, xj, return_last_attention=True)
+    want = jax.jit(functools.partial(model.apply, return_last_attention=True))(variables, xj)
     with torch.no_grad():
         got = port(xt, return_last_attention=True)
     assert got.shape == (3, 2, 17, 17) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, atol=1e-5)
-    want = model.apply(variables, xj, intermediate_layers=depth_back)
+    want = jax.jit(functools.partial(model.apply, intermediate_layers=depth_back))(variables, xj)
     with torch.no_grad():
         got = port(xt, intermediate_layers=depth_back)
     assert len(got) == len(want) == depth_back
@@ -345,9 +358,13 @@ def _run_dir(out):
     return [os.path.join(out, e) for e in os.listdir(out) if e.startswith("Exp_")][0]
 
 
-def test_main_trains_and_probes_on_cpu(patch_folder, tmp_path):
+def test_main_trains_and_probes_on_cpu(patch_folder, tmp_path, monkeypatch):
+    from tpuwsi_torch.cli import train as ttrain
     from tpuwsi_torch.cli.train import main
 
+    real = ttrain.ssl_backbone_config  # depth 2: the loop, the probe and the files are tested
+    monkeypatch.setattr(ttrain, "ssl_backbone_config",
+                        lambda a, f: dataclasses.replace(real(a, f), depth=2))
     out = str(tmp_path / "runs_knn")
     state = main(TINY_ARGV + ["--data-dir", patch_folder, "--epochs", "1",
                               "--max-steps-per-epoch", "1", "--knn-eval-rate", "1",
@@ -389,7 +406,6 @@ def test_refusals_match_the_jax_cli(argv, tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--mixup", "0.2"], "M3b"),
-    (["--target", "Survival_Time"], "M5"),
     (["--ssl", "--data-dir", "x", "--model-parallel", "2"], "M7"),
 ])
 def test_unported_modes_raise_by_name(argv, item, tmp_path):
@@ -504,6 +520,7 @@ def test_loop_matches_jax_main(patch_folder, tmp_path, monkeypatch):
 _NO_JAX_LOOP = r"""
 import os, struct, sys, tempfile, zlib
 import numpy as np, torch
+torch.set_num_threads(1)  # a tiny run; the test runner's other workers share the cores
 
 def png(img):
     h, w, _ = img.shape

@@ -30,6 +30,16 @@ TOL = dict(atol=1e-4, rtol=1e-4)
 LONG_GEOM = dict(GEOM, img_size=92, patch_size=4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread: these CPU runs are tiny, and the test runner's
+    other workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _flax(num_classes=0, gelu_approx=False, scan_blocks=False, geom=GEOM, interpret=True):
     cfg = jvit.ViTConfig(
         **geom, num_classes=num_classes, dtype=jnp.float32,
@@ -37,7 +47,8 @@ def _flax(num_classes=0, gelu_approx=False, scan_blocks=False, geom=GEOM, interp
         gelu_approx=gelu_approx, scan_blocks=scan_blocks)
     model = jvit.VisionTransformer(cfg)
     x0 = jnp.zeros((1, geom["img_size"], geom["img_size"], 3), jnp.float32)
-    variables = jax.device_get(model.init(jax.random.PRNGKey(0), x0))
+    # jitted, as every JAX call here: interpret-mode kernels run op by op otherwise
+    variables = jax.device_get(jax.jit(model.init)(jax.random.PRNGKey(0), x0))
     # non-trivial LayerNorm affine and biases (init leaves them 1 and 0)
     rng = np.random.default_rng(1)
     variables = jax.tree_util.tree_map(
@@ -180,8 +191,9 @@ def test_attn_drop_rate_matches_flax_with_a_shared_mask(monkeypatch):
                            rngs={"dropout": jax.random.PRNGKey(0)})
         return jnp.sum(out ** 2), out
 
-    (_, ref), ref_dx = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(x), False)
-    (_, ref_eval), _ = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(x), True)
+    jvg = jax.jit(jax.value_and_grad(jloss, has_aux=True), static_argnums=1)
+    (_, ref), ref_dx = jvg(jnp.asarray(x), False)
+    (_, ref_eval), _ = jvg(jnp.asarray(x), True)
 
     draws = []
 

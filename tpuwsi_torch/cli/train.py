@@ -1,7 +1,7 @@
 """Training entry point: ``python -m tpuwsi_torch.cli.train ...``
 (``tpuwsi/cli/train.py``).
 
-``main`` takes the JAX CLI's arguments and runs three of its modes:
+``main`` takes the JAX CLI's arguments and runs four of its modes:
 
 - supervised tile classification (neither ``--ssl`` nor ``-ef``;
   ``train_supervised``): over the slide table's training folds (WSI mode:
@@ -16,6 +16,10 @@
   step that ``ssl_step_bundle`` assembles, the shared per-epoch shuffle,
   checkpoints, the kNN probe (folder mode), ``log.txt``, ``run_data.jsonl``
   and ``summary.csv``;
+- ``-tar Survival_Time`` / ``Survival_Binary``: survival training
+  (``train_survival``) over the survival slide table's training folds, Cox
+  risk regression or the masked 5-year status, with the slide C-index (and
+  the binary AUC) of the test fold every --eval_rate epochs;
 - ``-ef``: per-tile features and head probabilities of the test fold's
   slides (``extract_features_from_table``), a model initialised from
   ``--seed`` or loaded from a supervised checkpoint (--resume,
@@ -55,6 +59,8 @@ from tpuwsi_torch.infer.pipeline import eval_stream
 from tpuwsi_torch.infer.slide_walker import InferChunk
 from tpuwsi_torch.preprocess.recipes import make_recipe
 from tpuwsi_torch.train.supervised import eval_module, make_eval_step, make_train_step
+
+SURVIVAL_TARGETS = ("Survival_Time", "Survival_Binary")
 
 
 def _prepare(model: nn.Module, params, device: torch.device) -> nn.Module:
@@ -393,8 +399,7 @@ def _resolve_input_geometry(args):
     if args.in_chans is None:
         args.in_chans = 3
     if args.in_chans != 3:
-        survival = args.target in ("Survival_Time", "Survival_Binary")
-        if args.ssl or survival or not args.data_dir:
+        if args.ssl or args.target in SURVIVAL_TARGETS or not args.data_dir:
             raise SystemExit(
                 "--in-chans != 3 only applies to folder-mode supervised "
                 "training (WSI tiles and the DINO multi-crop are RGB)"
@@ -547,10 +552,8 @@ def _check_mode_ported(args) -> None:
     """Raise for every mode of the JAX CLI that the port does not run yet."""
     if args.ssl:
         _check_ssl_mode(args)
-    elif args.target in ("Survival_Time", "Survival_Binary"):
-        raise NotImplementedError(
-            f"--target {args.target} (survival training) is not ported yet "
-            "(ROADMAP.md, Queue 1, M5)")
+    elif args.target in SURVIVAL_TARGETS:
+        _check_survival_mode(args)
     elif args.extract_features:
         _check_extract_mode(args)
     else:
@@ -647,16 +650,28 @@ def extract_features_from_table(args, table, output_dir: str, device: torch.devi
         feed.close()
 
 
-def _pinned(batches):
-    """The producer's side of the copy to the card: each batch's uint8 tiles
-    and its labels in pinned host memory, so the copies do not wait for
-    queued work (a copy from pageable memory waits for the whole stream)."""
+def _host_tensor(batch, key) -> torch.Tensor:
+    """A batch's array under ``key`` as a contiguous CPU tensor, labels as
+    int64."""
+    return torch.from_numpy(
+        np.ascontiguousarray(batch[key], np.int64 if key == "labels" else None))
+
+
+def _pinned(batches, keys=("images", "labels")):
+    """The producer's side of the copy to the card: each batch's arrays under
+    ``keys`` (uint8 tiles, int64 labels, targets) in pinned host memory, so
+    the copies do not wait for queued work (a copy from pageable memory waits
+    for the whole stream)."""
     for batch in batches:
-        out = {**batch, "images": torch.from_numpy(batch["images"]).pin_memory()}
-        if "labels" in batch:
-            out["labels"] = torch.from_numpy(
-                np.ascontiguousarray(batch["labels"], np.int64)).pin_memory()
-        yield out
+        yield {**batch, **{k: _host_tensor(batch, k).pin_memory() for k in keys if k in batch}}
+
+
+def _on_device(batch, keys, device: torch.device) -> dict:
+    """The batch's arrays under ``keys`` as tensors on ``device`` (from
+    ``_pinned``'s pinned tensors on a CUDA device)."""
+    if device.type == "cuda":
+        return {k: batch[k].to(device, non_blocking=True) for k in keys}
+    return {k: _host_tensor(batch, k) for k in keys}
 
 
 def train_ssl(args, output_dir: str, device: Optional[torch.device] = None,
@@ -722,9 +737,8 @@ def train_ssl(args, output_dir: str, device: Optional[torch.device] = None,
                 chunk = chunk[: args.max_steps_per_epoch - i]
             j = i + len(chunk) - 1
             for b in chunk:
-                images = (b["images"].to(device, non_blocking=True) if on_cuda
-                          else torch.from_numpy(b["images"]))
-                state, metrics = bundle.raw_step(state, {"images": images}, bundle.generator)
+                state, metrics = bundle.raw_step(state, _on_device(b, ("images",), device),
+                                                 bundle.generator)
             if args.dispatch_ahead and _interval_hit(i, j, args.dispatch_ahead):
                 float(metrics["loss"])  # bound device run-ahead
             if args.log_interval and _interval_hit(i, j, args.log_interval):
@@ -974,13 +988,7 @@ def train_supervised(args, output_dir: str, ledger, exp: dict,
                     chunk = chunk[: args.max_steps_per_epoch - i]
                 j = i + len(chunk) - 1
                 for b in chunk:
-                    if on_cuda:
-                        images = b["images"].to(device, non_blocking=True)
-                        labels = b["labels"].to(device, non_blocking=True)
-                    else:
-                        images = torch.from_numpy(b["images"])
-                        labels = torch.from_numpy(np.asarray(b["labels"], np.int64))
-                    state, metrics = step_fn(state, {"images": images, "labels": labels},
+                    state, metrics = step_fn(state, _on_device(b, ("images", "labels"), device),
                                              state.generator)
                 if args.dispatch_ahead and _interval_hit(i, j, args.dispatch_ahead):
                     float(metrics["loss"])  # bound device run-ahead
@@ -1044,6 +1052,193 @@ def train_supervised(args, output_dir: str, ledger, exp: dict,
     return state
 
 
+def survival_slide_tables(args):
+    """Survival training's two tables (``tpuwsi/cli/train.py:1368-1377``,
+    ``:1468-1473``): the training folds (REG, slides with at least
+    --n_patches_train tissue tiles, censor-balanced under
+    --balanced_dataset) and the test fold's slides. → (train, eval)."""
+    from tpuwsi_torch.io.survival import load_survival_slide_table
+
+    common = dict(tile_size=args.tile_size, test_fold=args.test_fold,
+                  desired_magnification=args.mag, data_root=args.data_root)
+    train = load_survival_slide_table(args.dataset, train=True, train_type="REG",
+                                      n_tiles=args.n_patches_train,
+                                      censor_balance=args.balanced_dataset, **common)
+    infer = load_survival_slide_table(args.dataset, train=False, train_type="Infer",
+                                      infer_folds=[args.test_fold], bag_size=0, **common)
+    return train, infer
+
+
+def survival_optim_config(args, steps_per_epoch: int):
+    """The ``OptimConfig`` of survival training (``tpuwsi/cli/train.py:
+    1408-1420``): the fields the JAX loop passes, the linear LR scaling rule
+    for every optimizer."""
+    from tpuwsi_torch.train.optim import OptimConfig
+
+    return OptimConfig(
+        opt=args.opt, lr=args.lr, base_lr=args.lr_base, lr_base_size=args.lr_base_size,
+        momentum=args.momentum, weight_decay=args.weight_decay, clip_grad=args.clip_grad,
+        clip_mode=args.clip_mode, sched=args.sched, epochs=args.epochs,
+        warmup_epochs=args.warmup_epochs, warmup_lr=args.warmup_lr, min_lr=args.min_lr,
+        steps_per_epoch=steps_per_epoch, decay_epochs=args.decay_epochs,
+        decay_rate=args.decay_rate, layer_decay=args.layer_decay, **_opt_extra_kwargs(args))
+
+
+def _check_survival_mode(args) -> None:
+    """The survival route the port runs: a ViT, the named recipes, SGD /
+    momentum / Nesterov / AdamW under the warm-up-cosine schedule,
+    global-norm clipping. The options the JAX loop does not read (mixing,
+    --model-ema, --log-wandb, ...) are ignored, as there."""
+    import copy
+
+    from tpuwsi_torch.models.registry import _CNN_PREFIXES
+    from tpuwsi_torch.train.optim import make_optimizer
+
+    _resolve_input_geometry(copy.copy(args))  # the JAX CLI's own exits come first
+    if args.model.startswith(_CNN_PREFIXES):
+        raise NotImplementedError(
+            f"{args.model}: the CNN zoo is not ported yet (ROADMAP.md, Queue 1, M6)")
+    if args.model_parallel > 1:
+        raise NotImplementedError(
+            "--model-parallel is not ported yet (ROADMAP.md, Queue 1, M7)")
+    if args.transform_type == "timm":
+        raise _m3b("--transform_type timm (the timm transform stack, timm_aug.py)")
+    # the optimizer and schedule refuse what they do not port (M3b)
+    make_optimizer(survival_optim_config(args, 1), args.batch_size)
+
+
+def train_survival(args, output_dir: str, ledger, exp: dict,
+                   device: Optional[torch.device] = None, pindex: int = 0, pcount: int = 1,
+                   table=None, eval_table=None):
+    """Survival training (``tpuwsi/cli/train.py:1329``): ``-tar
+    Survival_Time`` trains Cox risk regression on a one-output head,
+    ``Survival_Binary`` the masked cross-entropy of the 5-year status on a
+    two-output head (``train.survival.make_survival_train_step``), over
+    batches of --batch-size raw tiles of ``table`` (default: the training
+    folds of ``survival_slide_tables``) with the recipe on the device and the
+    "Ron" bank. Per epoch one shuffle from ``seed + epoch`` behind a
+    ``Prefetcher``, the steps of each --steps-per-dispatch chunk one after
+    another, host reads every --dispatch-ahead and --log-interval steps,
+    recovery checkpoints every --recovery-interval steps; every --eval_rate
+    epochs (and the last) the test fold's slides (``eval_table``) are walked
+    by ``SurvivalSlideWalker`` and scored (the risk is the Cox output, or
+    the margin of logit 0 over logit 1), giving the slide C-index and the
+    binary AUC; then a best-K checkpoint ranked by ``c_index`` (Cox) or
+    ``auc`` (binary), a row of ``summary.csv`` and the ledger's "Last Epoch".
+    The epochs run from 0 also after --resume, as in the JAX loop. Returns
+    the state."""
+    from tpuwsi_torch.core.device import require_cuda
+    from tpuwsi_torch.infer.survival_walker import SurvivalAggregator, SurvivalSlideWalker
+    from tpuwsi_torch.io.prefetch import Prefetcher
+    from tpuwsi_torch.io.survival import survival_batches
+    from tpuwsi_torch.io.wsi import WSITileSampler
+    from tpuwsi_torch.train.checkpoint import CheckpointManager, load_checkpoint
+    from tpuwsi_torch.train.optim import freeze_non_head, make_optimizer
+    from tpuwsi_torch.train.state import create_train_state
+    from tpuwsi_torch.train.survival import make_survival_train_step
+    from tpuwsi_torch.utils.runlog import update_summary
+
+    if device is None:
+        device = require_cuda()
+    on_cuda = device.type == "cuda"
+    mode = "cox" if args.target == "Survival_Time" else "binary"
+    if table is None or eval_table is None:
+        table, eval_table = survival_slide_tables(args)
+    sampler = WSITileSampler(table, n_tiles=args.n_patches_train, bag_size=1,
+                             num_threads=args.workers, print_timing=args.time)
+    spe = max(len(sampler) // (args.batch_size * pcount), 1)
+    img_size = args.img_size or args.tile_size
+
+    model = supervised_model(args, 1 if mode == "cox" else 2, on_cuda)
+    init_dino_weights(model, args.seed)
+    model = model.to(device)
+    optimizer, _ = make_optimizer(survival_optim_config(args, spe), args.batch_size * pcount)
+    if args.no_grad:
+        freeze_non_head(model)
+    state = create_train_state(model, optimizer,
+                               generator=torch.Generator(device=device).manual_seed(args.seed))
+    metric_name = "c_index" if mode == "cox" else "auc"
+    ckpt = CheckpointManager(os.path.join(output_dir, "checkpoints"),
+                             max_history=args.checkpoint_hist, metric_name=metric_name)
+    ckpt_rec = (CheckpointManager(os.path.join(output_dir, "checkpoints", "recovery"),
+                                  max_history=2, rank_by_metric=False)
+                if args.recovery_interval else None)
+    if args.resume:
+        saved = load_checkpoint(args.resume)
+        if saved is not None:
+            state.load_state_dict(saved)
+            logging.info("resumed from %s at step %d", args.resume, state.step)
+
+    aug = make_recipe(args.transform_type, train=True, tile_size=img_size,
+                      color_param=args.c_param, norm_type="Ron")
+    step_fn = make_survival_train_step(model, optimizer, mode=mode, augment_fn=aug)
+    eval_norm = make_recipe(args.transform_type, train=False, tile_size=img_size,
+                            norm_type="Ron")
+
+    def risk_fn(images):
+        out = model(eval_norm(images))
+        if mode == "cox":
+            return out[:, 0] if out.dim() > 1 else out
+        return out[:, 0] - out[:, 1]  # the margin toward "not survived"
+
+    walker = SurvivalSlideWalker(eval_table, tiles_per_iter=args.tiles_per_iter,
+                                 num_tiles=args.n_patches_test, threads=args.workers)
+    summary_path = os.path.join(output_dir, "summary.csv")
+    keys = ("images", "binary_targets", "time_targets", "censored")
+    spd = max(args.steps_per_dispatch, 1)
+    for epoch in range(args.epochs):
+        epoch_rng = np.random.default_rng(args.seed + epoch)
+        batches = survival_batches(sampler, epoch_rng, args.batch_size,
+                                   process_index=pindex, process_count=pcount)
+        feed = Prefetcher(_pinned(batches, keys) if on_cuda else batches, depth=3)
+        metrics, t0 = {}, time.perf_counter()
+        for i, chunk in _chunked_enumerate(feed, spd):
+            if args.max_steps_per_epoch:
+                if i >= args.max_steps_per_epoch:
+                    break
+                chunk = chunk[: args.max_steps_per_epoch - i]
+            j = i + len(chunk) - 1
+            for b in chunk:
+                state, metrics = step_fn(state, _on_device(b, keys, device), state.generator)
+            if args.dispatch_ahead and _interval_hit(i, j, args.dispatch_ahead):
+                float(metrics["loss"])  # bound device run-ahead
+            if args.log_interval and _interval_hit(i, j, args.log_interval):
+                m = {k: float(v) for k, v in metrics.items()}
+                logging.info("survival(%s) epoch %d step %d loss %.4f %s %.3f", mode, epoch, j,
+                             m.get("loss", 0.0), metric_name, m.get(metric_name, 0.5))
+            if ckpt_rec is not None and _interval_hit(max(i, 1), j,
+                                                      max(args.recovery_interval, 1)):
+                ckpt_rec.save(state.step, state, {"recovery": 1.0})
+        loop_s = time.perf_counter() - t0
+        logging.info("survival epoch %d: loop %.3f s, waiting on the data %.3f s (%.1f%%)",
+                     epoch, loop_s, feed.wait_s, 100.0 * feed.wait_s / max(loop_s, 1e-9))
+        # in key order, as the reference's jitted step hands its dict back
+        train_metrics = {k: float(metrics[k]) for k in sorted(metrics)}
+
+        eval_metrics = {}
+        if epoch % args.eval_rate == 0 or epoch == args.epochs - 1:
+            agg = SurvivalAggregator()
+            walk = Prefetcher(walker.walk(), depth=2)
+            try:
+                with torch.inference_mode():
+                    for chunk, risks in eval_stream(walk, _images_on(device), risk_fn,
+                                                    depth=args.dispatch_ahead):
+                        agg.add_chunk(chunk, risks)
+            finally:
+                walk.close()
+            if agg.results:
+                eval_metrics = {"c_index": agg.slide_c_index(), "auc": agg.slide_binary_auc()}
+                logging.info("survival epoch %d eval: %s", epoch, eval_metrics)
+        ckpt.save(state.step, state, eval_metrics or {metric_name: 0.0})
+        update_summary(epoch, train_metrics, eval_metrics, summary_path)
+        ledger.update(exp["Experiment"], **{"Last Epoch": epoch})
+    ckpt.close()
+    if ckpt_rec is not None:
+        ckpt_rec.close()
+    sampler.close()
+    return state
+
+
 def _make_ssl_knn_probe(args, bundle, ds, device: torch.device):
     """kNN probe (k = 20) over the teacher backbone's cls features
     (``tpuwsi/cli/train.py:1801``): every fifth image is a query, the rest
@@ -1087,11 +1282,11 @@ def _make_ssl_knn_probe(args, bundle, ds, device: torch.device):
 
 
 def main(argv=None, default_overrides=None, device: Optional[torch.device] = None):
-    """The JAX CLI's ``main`` for supervised training, --ssl and -ef: the
-    refusals, the slide tables where the mode walks them (checked for
-    formats this package reads), the run log, the experiment ledger and
-    output directory, then ``train_supervised``, ``train_ssl`` or
-    ``extract_features_from_table``. ``device`` None means the CUDA device,
+    """The JAX CLI's ``main`` for supervised training, --ssl, survival and
+    -ef: the refusals, the slide tables where the mode walks them (checked
+    for formats this package reads), the run log, the experiment ledger and
+    output directory, then ``train_supervised``, ``train_ssl``,
+    ``train_survival`` or ``extract_features_from_table``. ``device`` None means the CUDA device,
     and raises where there is none."""
     from tpuwsi_torch.cli.args import parse_args
     from tpuwsi_torch.core.device import require_cuda
@@ -1126,6 +1321,10 @@ def main(argv=None, default_overrides=None, device: Optional[torch.device] = Non
     if args.ssl and not args.data_dir:
         table = ssl_slide_table(args)
         check_slides_readable(table, presaved_ok=True)
+    elif not args.ssl and args.target in SURVIVAL_TARGETS:
+        table, eval_table = survival_slide_tables(args)
+        check_slides_readable(table, presaved_ok=True)
+        check_slides_readable(eval_table)
     elif args.extract_features:
         table = infer_slide_table(args)
         check_slides_readable(table)
@@ -1150,6 +1349,9 @@ def main(argv=None, default_overrides=None, device: Optional[torch.device] = Non
     )
     if args.ssl:
         return train_ssl(args, exp["Location"], device, pindex, pcount, table)
+    if args.target in SURVIVAL_TARGETS:
+        return train_survival(args, exp["Location"], ledger, exp, device, pindex, pcount, table,
+                              eval_table)
     if args.extract_features:
         return extract_features_from_table(args, table, exp["Location"], device)
     return train_supervised(args, exp["Location"], ledger, exp, device, pindex, pcount, table,

@@ -134,17 +134,19 @@ def _not_equal(a: list, b: list) -> List[int]:
             if is_null(x) or is_null(y) or bool(x != y)]
 
 
-def _merge_inner(left: Table, right: Table, on: str, suffix: str = "_grid") -> Table:
-    """``pd.merge(left, right, on=on, how="inner", suffixes=("", suffix))``:
+def _merge_inner(left: Table, right: Table, on: str, suffixes=("", "_grid")) -> Table:
+    """``pd.merge(left, right, on=on, how="inner", suffixes=suffixes)``:
     each left row in order, with every matching right row in order; blank
     keys match blank keys."""
     pairs = [(i, j) for i, key in enumerate(left[on])
              for j, other in enumerate(right[on]) if _same(key, other)]
-    out = {name: [col[i] for i, _ in pairs] for name, col in left.items()}
+    both = {name for name in left if name in right and name != on}
+    out = {name + suffixes[0] if name in both else name: [col[i] for i, _ in pairs]
+           for name, col in left.items()}
     for name, col in right.items():
         if name == on:
             continue
-        out[name + suffix if name in left else name] = [col[j] for _, j in pairs]
+        out[name + suffixes[1] if name in both else name] = [col[j] for _, j in pairs]
     return out
 
 

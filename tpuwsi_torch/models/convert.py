@@ -1,9 +1,10 @@
 """JAX-package parameters ↔ the port's ``state_dict``.
 
 The mapping of ``tpuwsi/models/convert.py:311 flax_vit_to_torch``, in numpy
-only, for the ViT and for the ``DINOModel`` tree (``backbone`` + ``head``).
-The port keeps timm/DINO key names and torch layouts, so a timm DINO
-``state_dict`` loads into it as it is.
+only, for the ViT and for the ``DINOModel`` tree (``backbone`` + ``head``),
+and of the MIL heads (``mil_params_from_flax``). The port keeps timm/DINO
+key names and torch layouts, so a timm DINO ``state_dict`` loads into it as
+it is.
 """
 
 from __future__ import annotations
@@ -155,3 +156,26 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             head.setdefault(layer, {})["kernel" if suffix == "weight" else "bias"] = (
                 v.T if suffix == "weight" else v)
     return {"params": {"backbone": vit_tree("backbone."), "head": head}}
+
+
+def mil_params_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A MIL head's flax tree (``GatedAttentionMIL``, ``MeanPoolMIL``; with or
+    without the top ``"params"`` level) → the port's ``state_dict``: each
+    Dense ``kernel`` (in, out) becomes ``<layer>.weight`` (out, in)."""
+    sd = {}
+    for (layer, leaf), v in _flatten(tree.get("params", tree)).items():
+        sd[f"{layer}.weight" if leaf == "kernel" else f"{layer}.bias"] = (
+            v.T if leaf == "kernel" else v)
+    return {k: torch.from_numpy(np.array(v, order="C")) for k, v in sd.items()}
+
+
+def mil_params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of ``mil_params_from_flax``: → ``{"params": {layer:
+    {"kernel", "bias"}}}`` of fp32 numpy arrays."""
+    out: Dict = {}
+    for key, v in state_dict.items():
+        layer, leaf = key.split(".")
+        v = v.detach().cpu().float().numpy()
+        out.setdefault(layer, {})["kernel" if leaf == "weight" else "bias"] = (
+            v.T if leaf == "weight" else v)
+    return {"params": out}

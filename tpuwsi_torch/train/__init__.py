@@ -1,2 +1,2 @@
-"""Optimizer, EMA, checkpoints and the eval step (the supervised train step is not
-ported yet)."""
+"""Training: optimizers and schedule, losses, step metrics, the train state,
+EMA, checkpoints, and the supervised and survival steps."""

@@ -1,10 +1,12 @@
-"""The losses of the supervised route without mixing (``tpuwsi/train/losses.py``).
+"""The losses of the supervised route without mixing and of survival
+training (``tpuwsi/train/losses.py``).
 
 ``main`` picks one of these (``tpuwsi/cli/train.py:499-518``): smoothed
 cross-entropy, sigmoid BCE on one-hot targets (``--bce-loss``), the focal
 loss (``--focal``) and the masked per-head cross-entropy of '+'-joined
-targets. The soft-target, JSD and Cox losses come with mixing (M3b) and
-survival (M5). All take fp32 logits and return a scalar tensor.
+targets; ``-tar Survival_Time`` trains on the Cox partial likelihood. The
+soft-target and JSD losses come with mixing (M3b). All return a scalar
+tensor.
 """
 
 from __future__ import annotations
@@ -68,3 +70,18 @@ def multi_target_cross_entropy(logits, labels, smoothing: float = 0.0):
     targets = _smoothed(_one_hot(torch.clamp(labels, min=0), 2), smoothing)
     ce = _softmax_cross_entropy(logits.reshape(b, t, 2), targets)
     return (ce * mask).sum() / torch.clamp(mask.sum(), min=1)
+
+
+def cox_partial_likelihood(risk_scores, times, events):
+    """Negative Cox partial likelihood of the batch, Breslow ties: the risk
+    set of subject i is {j : t_j >= t_i}, tied event times included, taken
+    through the explicit (B, B) mask so that no sort order decides it; the
+    masked logsumexp in fp32, the sum over events divided by max(events, 1)."""
+    risk = risk_scores.reshape(-1).to(torch.float32)
+    times = times.reshape(-1)
+    ev = events.reshape(-1).to(torch.float32)
+    in_risk_set = times[None, :] >= times[:, None]  # row i: the risk set of i
+    log_denom = torch.logsumexp(
+        torch.where(in_risk_set, risk[None, :], torch.full_like(risk[None, :], -torch.inf)),
+        dim=1)
+    return -((risk - log_denom) * ev).sum() / torch.clamp(ev.sum(), min=1.0)

@@ -1,8 +1,9 @@
-"""Optimizers and LR schedule of the DINO and supervised steps
-(``tpuwsi/train/optim.py``).
+"""Optimizers and LR schedule of the DINO, supervised, survival and MIL
+steps (``tpuwsi/train/optim.py``).
 
 Ported: AdamW, and SGD with momentum (``momentum``) or Nesterov momentum
-(``sgd``, ``nesterov``), each with no weight decay on 1-D parameters;
+(``sgd``, ``nesterov``), each with no weight decay on 1-D parameters (AdamW
+also with decay on every parameter, as the MIL head's ``optax.adamw``);
 clipping by global norm; the warm-up-cosine schedule with an optional offset
 of its count; the batch-size LR scaling rule; and ``freeze_non_head`` for
 --no-grad. The conventions are optax's, which differ from ``torch.optim``
@@ -126,14 +127,16 @@ class AdamWState:
 class AdamW:
     """``optax.adamw`` behind an optional global-norm clip, updating the
     parameters in place: the Adam direction, plus ``weight_decay * p`` where
-    ``p.ndim > 1``, times ``-schedule(count)``."""
+    ``p.ndim > 1`` (on every parameter with ``decay_1d``, optax's default
+    without a mask), times ``-schedule(count)``."""
 
     def __init__(self, schedule: Callable[[int], float], b1: float, b2: float, eps: float,
-                 weight_decay: float, clip_grad: Optional[float]):
+                 weight_decay: float, clip_grad: Optional[float], decay_1d: bool = False):
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.clip_grad = clip_grad
+        self.decay_1d = decay_1d
 
     def init(self, params: Sequence[torch.Tensor]) -> AdamWState:
         return AdamWState(0, [torch.zeros_like(p) for p in params],
@@ -160,7 +163,7 @@ class AdamW:
         torch._foreach_add_(denom, self.eps)
         update = torch._foreach_div(state.mu, 1.0 - self.b1 ** state.count)
         torch._foreach_div_(update, denom)
-        decayed = [(u, p) for u, p in zip(update, params) if p.ndim > 1]
+        decayed = [(u, p) for u, p in zip(update, params) if self.decay_1d or p.ndim > 1]
         if self.weight_decay and decayed:
             torch._foreach_add_([u for u, _ in decayed], [p for _, p in decayed],
                                 alpha=self.weight_decay)
